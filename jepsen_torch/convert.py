@@ -1,0 +1,35 @@
+"""Carry state across from another encoder.
+
+``batch_from_arrays`` builds this package's ``EncodedBatch`` from any
+object that holds an encoded batch as numpy arrays under the reference
+encoder's attribute names (duck-typed: nothing is imported from the
+producer). It lets one encoding feed both packages, and lets a caller
+hand a batch encoded elsewhere to the CUDA kernel. Frontier carries
+cross over through ``ops.linearize.import_frontier``/``export_frontier``,
+which keep the reference's journal format.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .ops.encode import EncodedBatch
+
+
+def batch_from_arrays(src) -> EncodedBatch:
+    """An ``EncodedBatch`` from ``src.ev_type, ev_slot, ev_slots,
+    ev_opidx, target, V, W, shared_target, w_live`` (and ``indices`` when
+    present). The arrays are copied; ``spaces`` stays empty, since state
+    spaces are the producer's objects — decode such a batch's frontiers
+    with the producer's spaces, or re-encode here."""
+    B = int(np.asarray(src.ev_type).shape[0])
+    indices = getattr(src, "indices", None)
+    return EncodedBatch(
+        ev_type=np.array(src.ev_type, np.int8),
+        ev_slot=np.array(src.ev_slot, np.int8),
+        ev_slots=np.array(src.ev_slots),
+        ev_opidx=np.array(src.ev_opidx, np.int32),
+        target=np.array(src.target, np.int32),
+        V=int(src.V), W=int(src.W),
+        indices=list(indices) if indices is not None else list(range(B)),
+        failures=[], spaces=None,
+        shared_target=bool(src.shared_target), w_live=int(src.w_live))

@@ -1,0 +1,698 @@
+"""Packed-frontier WGL linearizability check on torch tensors.
+
+The WGL configuration set (see jepsen_torch.checkers.linearizable for the
+algorithm spec; the reference delegates the same search to Knossos at
+jepsen/src/jepsen/checker.clj:82-107) is a *state-packed* boolean
+frontier: config (state s, linearized-pending-set m) is bit ``s % 32`` of
+word ``F[s // 32][m]``, one int32 bit pattern per (word, mask), with
+``m`` ranging over all 2^W subsets of the W pending-op slots. The host
+encoder (ops.encode) reduces a history to ok-completion events, each
+carrying a snapshot of the pending-slot table, and the device walks the
+events in order:
+
+  * close F under application of pending ops: for each occupied slot i,
+    (s, m without i) → (target[s], m | i), to fixpoint;
+  * keep exactly the configs whose mask holds the completing slot's bit,
+    cleared. An empty survivor set means the completed op cannot be
+    linearized: the history is invalid, the event index is recorded, and
+    the pre-completion closure is latched so the host can decode a
+    Knossos-style counterexample config sample.
+
+Two implementations of that step exist, and ``get_kernel`` picks by the
+device of the tensors it is given: on a CUDA tensor the hand-written
+kernel (ops.cuda_wgl, ``csrc/wgl_frontier.cu``) launches or raises; on a
+CPU tensor ``plain_wgl``, the plain PyTorch version, runs. Both take and
+return the same carry ``(F, Fb, valid, bad)``, so one entry serves the
+one-shot check, the event-chunked walk and carried frontiers.
+
+Packed words are int32 bit patterns throughout (torch has no CPU shifts
+on uint32); they are viewed as uint32 only at the numpy boundary, which
+keeps frontiers and the journal format identical to the reference's.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..checkers.linearizable import prepare_history, wgl_check
+from ..history.core import index as index_history
+from ..history.ops import Op
+from ..models.core import Model
+from . import cuda_wgl
+from .cuda_wgl import n_state_words
+from .encode import (EV_CLOSE, EV_FUSED, EV_OK, EncodedBatch, bucket_encode,
+                     slot_ops_at_event)
+
+INT32_MAX = np.int32(2**31 - 1)
+
+# Widest state space the packed kernel accepts: two 32-state words.
+MAX_PACKED_STATES = cuda_wgl.MAX_STATES
+
+# Frontier-words budget per device launch: B * words(V) * 2^W int32.
+MAX_FRONTIER_ELEMENTS = 1 << 26
+
+# Pending-window width of the main route ("data1"); one card hosts
+# SINGLE_DEVICE_EXTRA_SLOTS more ("data1wide", frontier in device memory
+# instead of shared memory). Wider windows raise WindowOverflow and their
+# rows go to the host engine.
+DATA_MAX_SLOTS = 16
+SINGLE_DEVICE_EXTRA_SLOTS = 2
+
+# (route, V, W, B) per bucket dispatch; tests assert the route taken.
+DISPATCH_LOG: "deque" = deque(maxlen=256)
+
+
+class WindowOverflow(Exception):
+    """A cost bucket's pending window exceeds what one card can host; the
+    rows belong on the host engine."""
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card; the CPU only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch version on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _w_live(W: int, w_live: Optional[int]) -> int:
+    return W if w_live is None else max(1, min(int(w_live), W))
+
+
+# ------------------------------------------------------ the plain version
+
+def _bit_table(device) -> torch.Tensor:
+    """int32 bit patterns of 1 << s for s in 0..31."""
+    return torch.tensor([1 << s for s in range(31)] + [-(1 << 31)],
+                        dtype=torch.int32, device=device)
+
+
+def pack_rows(target: torch.Tensor, V: int) -> torch.Tensor:
+    """Lower a transition table to packed one-hot target rows.
+
+    target: [..., K1, V] int32 (-1 = inconsistent; final row = empty-slot
+    sentinel, all -1). Returns [words(V), ..., K1, V] int32: entry
+    [w, ..., k, s] has bit (target[k, s] - 32w) set when the target state
+    lands in word w, else 0.
+    """
+    bits = _bit_table(target.device)
+    out = []
+    for w in range(n_state_words(V)):
+        t = target - 32 * w
+        in_word = (t >= 0) & (t < 32)
+        out.append(torch.where(in_word, bits[t.clamp(0, 31).long()],
+                               torch.zeros((), dtype=torch.int32,
+                                           device=target.device)))
+    return torch.stack(out)
+
+
+def _unpack_states(words: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, NW, P] packed words → [B, P, V] float 0/1 of states 0..V-1."""
+    s = torch.arange(V, device=words.device)
+    bits = (words[:, s >> 5, :] >> (s & 31)[None, :, None]) & 1
+    return bits.transpose(1, 2).to(torch.float32)
+
+
+def _pack_states(bits: torch.Tensor, NW: int) -> torch.Tensor:
+    """[B, P, NW*32] bool → [B, NW, P] int32 packed words."""
+    B, P = bits.shape[:2]
+    x = bits.reshape(B, P, NW, 32).to(torch.int64)
+    val = (x << torch.arange(32, device=bits.device)).sum(-1)
+    val = torch.where(val >= 2**31, val - 2**32, val).to(torch.int32)
+    return val.permute(0, 2, 1)
+
+
+def _apply_slot(F: torch.Tensor, i: int, rowbits: torch.Tensor,
+                V: int) -> torch.Tensor:
+    """Close F one step under the op in slot ``i``: every config without
+    bit i spawns (target-state, mask | bit i). ``rowbits`` [B, V, NW*32]
+    holds each source state's packed target row, unpacked; the OR over
+    source states is a 0/1 matrix product (counts <= 64 are exact in
+    any float format the card might use)."""
+    B, NW, M = F.shape
+    hi, lo = M >> (i + 1), 1 << i
+    Fr = F.reshape(B, NW, hi, 2, lo)
+    src = Fr[:, :, :, 0, :].reshape(B, NW, hi * lo)
+    new = torch.bmm(_unpack_states(src, V), rowbits) > 0
+    spawned = _pack_states(new, NW).reshape(B, NW, hi, lo)
+    out = Fr.clone()
+    out[:, :, :, 1, :] |= spawned
+    return out.reshape(B, NW, M)
+
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits per row of an int32 [B, ...] tensor, as int64 [B]."""
+    table = torch.tensor([bin(v).count("1") for v in range(256)],
+                         dtype=torch.int64, device=x.device)
+    octets = x.reshape(x.shape[0], -1).contiguous().view(torch.uint8)
+    return table[octets.long()].sum(1)
+
+
+def _complete_slot(F: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """OK-completion of the op in each row's slot: keep configs whose
+    mask has the slot bit set, with the bit cleared."""
+    B, NW, M = F.shape
+    m = torch.arange(M, device=F.device)
+    bit = torch.ones_like(slot) << slot
+    src = (m[None, :] | bit[:, None])[:, None, :].expand(B, NW, M)
+    kept = torch.gather(F, 2, src)
+    has_bit = ((m[None, :] & bit[:, None]) != 0)[:, None, :]
+    return torch.where(has_bit, torch.zeros_like(kept), kept)
+
+
+def plain_wgl(ev_type: torch.Tensor, ev_slot: torch.Tensor,
+              ev_slots: torch.Tensor, target: torch.Tensor, idx0: int,
+              F: torch.Tensor, Fb: torch.Tensor, valid: torch.Tensor,
+              bad: torch.Tensor, *, V: int, W: int,
+              w_live: Optional[int] = None,
+              iters: Optional[torch.Tensor] = None,
+              ops: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of the WGL step, the twin of the
+    reference's ``make_kernel`` (``check_resume`` form): the same carry
+    contract as ``cuda_wgl.wgl_frontier`` and bit-identical outputs.
+
+    Vectorised over [B, words, 2^W]; Python loops over events, closure
+    sweeps (until no row changes — re-sweeping a converged row is a
+    no-op) and slots. ``iters`` ([B] int64, optional) accumulates each
+    row's closure sweeps on its non-pad events: the measured input to
+    ``vpu_op_model``. ``ops`` ([B] int64, optional) accumulates the
+    32-bit integer operations the step needs on the row's data: on each
+    non-pad event, every configuration of the closure expanded once under
+    each slot whose transition row reaches a state (one OR per state
+    word), and on an OK completion one word test per kept mask; a row
+    already invalid needs none."""
+    if V > MAX_PACKED_STATES:
+        raise ValueError(f"V={V} exceeds the packed kernel's "
+                         f"{MAX_PACKED_STATES} states")
+    B, N = ev_type.shape
+    NW = n_state_words(V)
+    WL = _w_live(W, w_live)
+    K1 = target.shape[-2]
+    dev = ev_type.device
+    rows = pack_rows(target, V)             # [NW, (B,) K1, V]
+    shifts = torch.arange(32, device=dev)
+    typ_all = ev_type.to(torch.int64)
+    slot_all = ev_slot.to(torch.int64).clamp(0, WL - 1)
+    kinds_all = ev_slots[:, :, :WL].to(torch.int64)
+    kinds_all = torch.where(kinds_all < 0, kinds_all + K1,
+                            kinds_all).clamp(0, K1 - 1)
+    ar = torch.arange(B, device=dev)[:, None]
+    F, Fb, valid, bad = F.clone(), Fb.clone(), valid.clone(), bad.clone()
+    for e in range(N):
+        typ = typ_all[:, e]
+        is_ok = (typ == EV_OK) | (typ == EV_FUSED)
+        is_close = typ == EV_CLOSE
+        k = kinds_all[:, e]                                  # [B, WL]
+        r = rows[:, k] if target.dim() == 2 else rows[:, ar, k]
+        # [NW, B, WL, V] → [B, WL, V, NW*32] unpacked target bits
+        rb = ((r[..., None] >> shifts) & 1).permute(1, 2, 3, 0, 4)
+        rb = rb.reshape(B, WL, V, NW * 32).to(torch.float32)
+        live_ev = is_ok | is_close
+        Fc = F
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+        while True:
+            F0 = Fc
+            for i in range(WL):
+                Fc = _apply_slot(Fc, i, rb[:, i], V)
+            changed = (Fc != F0).reshape(B, -1).any(1)
+            if iters is not None:
+                iters += (active & live_ev).to(iters.dtype)
+            active &= changed
+            if not bool(changed.any()):
+                break
+        if ops is not None:
+            M = Fc.shape[2]
+            reach = (r != 0).any(0).any(-1)                  # [B, WL]
+            need = is_ok.to(torch.int64) * (NW * (M >> 1))
+            for i in range(WL):
+                src = Fc.reshape(B, NW, M >> (i + 1), 2, 1 << i)[:, :, :, 0]
+                need += reach[:, i] * NW * _popcount(src)
+            ops += torch.where(live_ev & valid, need,
+                               torch.zeros_like(need))
+        F_ok = _complete_slot(Fc, slot_all[:, e])
+        empty = is_ok & ~(F_ok != 0).reshape(B, -1).any(1)
+        first = empty & valid
+        F = torch.where(is_ok[:, None, None], F_ok,
+                        torch.where(is_close[:, None, None], Fc, F))
+        Fb = torch.where(first[:, None, None], Fc, Fb)
+        valid = valid & ~empty
+        bad = torch.minimum(bad, torch.where(
+            empty, torch.full_like(bad, idx0 + e),
+            torch.full_like(bad, int(INT32_MAX))))
+    return valid, bad, F, Fb
+
+
+def initial_carry(B: int, V: int, W: int, device) -> tuple:
+    """(F, Fb, valid, bad) of B fresh rows: the initial config (state 0,
+    empty mask) present, verdict valid, no bad event."""
+    NW, M = n_state_words(V), 1 << W
+    F = torch.zeros((B, NW, M), dtype=torch.int32, device=device)
+    F[:, 0, 0] = 1
+    return (F, torch.zeros_like(F),
+            torch.ones(B, dtype=torch.bool, device=device),
+            torch.full((B,), int(INT32_MAX), dtype=torch.int32,
+                       device=device))
+
+
+def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
+               resume: bool = False):
+    """The WGL step for static bounds (V, W), dispatching by the device
+    of the tensors it is called with: a CUDA tensor launches the CUDA
+    kernel (which raises on anything it does not take), a CPU tensor
+    runs ``plain_wgl``.
+
+    ``resume=False`` returns ``check(ev_type, ev_slot, ev_slots, target)
+    -> (valid, bad, frontier)``, frontier being the final config set of
+    a valid row and the latched pre-failure closure of an invalid one.
+    ``resume=True`` returns ``check(ev_type, ev_slot, ev_slots, target,
+    idx0, F, Fb, valid, bad) -> (valid, bad, F, Fb)``. ``target`` is
+    [K1, V] when every row shares it, else [B, K1, V]."""
+    if V > MAX_PACKED_STATES:
+        raise ValueError(f"V={V} exceeds the packed kernel's "
+                         f"{MAX_PACKED_STATES} states; use the host engine")
+    WL = _w_live(W, w_live)
+
+    def step(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid, bad):
+        if ev_type.device.type == "cuda":
+            fn = cuda_wgl.wgl_frontier
+        elif ev_type.device.type == "cpu":
+            fn = plain_wgl
+        else:
+            raise ValueError(f"no WGL kernel for device {ev_type.device}")
+        return fn(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid,
+                  bad, V=V, W=W, w_live=WL)
+
+    if resume:
+        return step
+
+    def check(ev_type, ev_slot, ev_slots, target):
+        carry = initial_carry(ev_type.shape[0], V, W, ev_type.device)
+        valid, bad, F, Fb = step(ev_type, ev_slot, ev_slots, target, 0,
+                                 *carry)
+        return valid, bad, torch.where(valid[:, None, None], F, Fb)
+
+    return check
+
+
+# ------------------------------------------------------------- dispatch
+
+def _on(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _launch(batch: EncodedBatch, return_frontier: bool, device) -> list:
+    """Queue one bucket on the device, batch-chunked so the in-flight
+    frontier words stay inside MAX_FRONTIER_ELEMENTS (wide windows get
+    proportionally smaller chunks). Returns [(valid, bad, frontier|None)]
+    device tensors per chunk; raises WindowOverflow past one card's
+    window."""
+    if batch.batch == 0:
+        NW, M = n_state_words(batch.V), 1 << batch.W
+        return [(torch.zeros(0, dtype=torch.bool),
+                 torch.zeros(0, dtype=torch.int32),
+                 torch.zeros((0, NW, M), dtype=torch.int32)
+                 if return_frontier else None)]
+    if batch.W > DATA_MAX_SLOTS + SINGLE_DEVICE_EXTRA_SLOTS:
+        raise WindowOverflow(
+            f"window W={batch.W} needs "
+            f"{1 << (batch.W - DATA_MAX_SLOTS)} frontier devices")
+    label = "data1wide" if batch.W > DATA_MAX_SLOTS else "data1"
+    kern = get_kernel(batch.V, batch.W, w_live=batch.eff_w_live)
+    per_hist = n_state_words(batch.V) << batch.W
+    chunk = max(1, MAX_FRONTIER_ELEMENTS // per_hist)
+    DISPATCH_LOG.append((label, batch.V, batch.W, batch.batch))
+    shared_tgt = (_on(batch.target[0], device) if batch.shared_target
+                  else None)
+    pending = []
+    for lo in range(0, batch.batch, chunk):
+        hi = min(lo + chunk, batch.batch)
+        valid, bad, front = kern(
+            _on(batch.ev_type[lo:hi], device),
+            _on(batch.ev_slot[lo:hi], device),
+            _on(batch.ev_slots[lo:hi], device),
+            shared_tgt if shared_tgt is not None
+            else _on(batch.target[lo:hi], device))
+        pending.append((valid, bad, front if return_frontier else None))
+    return pending
+
+
+def _collect(pending: list, return_frontier: bool):
+    valid = np.concatenate([v.cpu().numpy() for v, _, _ in pending])
+    bad = np.concatenate([b.cpu().numpy() for _, b, _ in pending])
+    frontier = None
+    if return_frontier:
+        frontier = np.concatenate(
+            [f.cpu().numpy().view(np.uint32) for _, _, f in pending])
+    return valid, bad, frontier
+
+
+def run_encoded_batch(batch: EncodedBatch, return_frontier: bool = False,
+                      *, device=None):
+    """Check one cost bucket on one device. W <= DATA_MAX_SLOTS takes
+    the "data1" route; up to SINGLE_DEVICE_EXTRA_SLOTS more take
+    "data1wide" (the kernel keeps such frontiers in device memory);
+    wider windows raise WindowOverflow. Returns numpy (valid [B] bool,
+    bad [B] int32, frontier [B, words(V), 2^W] uint32 or None)."""
+    return _collect(_launch(batch, return_frontier, resolve_device(device)),
+                    return_frontier)
+
+
+def run_buckets(batches: Sequence[EncodedBatch], *, device=None,
+                return_frontier: bool = False):
+    """Run many cost buckets and yield (batch, (valid, bad, frontier) |
+    WindowOverflow) in submission order. Launches are asynchronous, so
+    bucket k+1 is queued on the card before bucket k's results are
+    copied back: the host's per-bucket decode overlaps the device's next
+    bucket, with at most two buckets' frontiers in flight."""
+    device = resolve_device(device)
+    queued: "deque" = deque()
+
+    def launch(b):
+        try:
+            return _launch(b, return_frontier, device)
+        except WindowOverflow as e:
+            return e
+
+    def finish(b, p):
+        if isinstance(p, WindowOverflow):
+            return b, p
+        return b, _collect(p, return_frontier)
+
+    for b in batches:
+        queued.append((b, launch(b)))
+        if len(queued) > 1:
+            yield finish(*queued.popleft())
+    while queued:
+        yield finish(*queued.popleft())
+
+
+def run_event_chunked(batch: EncodedBatch, events_per_chunk: int,
+                      return_frontier: bool = False, *, device=None):
+    """One-device check with the EVENT axis chunked: the packed carry
+    ([words, 2^W] per row) flows between launches, so a 100k-op history
+    never needs one 100k-event launch. Each chunk launches at its own
+    length. Same (valid, bad, frontier) contract as
+    run_encoded_batch."""
+    if batch.W > DATA_MAX_SLOTS + SINGLE_DEVICE_EXTRA_SLOTS:
+        raise WindowOverflow(f"window W={batch.W} exceeds one device")
+    device = resolve_device(device)
+    B, N = batch.batch, batch.n_events
+    NW, M = n_state_words(batch.V), 1 << batch.W
+    if B == 0:
+        return (np.zeros((0,), bool), np.zeros((0,), np.int32),
+                np.zeros((0, NW, M), np.uint32) if return_frontier
+                else None)
+    kern = get_kernel(batch.V, batch.W, w_live=batch.eff_w_live,
+                      resume=True)
+    C = max(8, int(events_per_chunk))
+    tgt = _on(batch.target[0] if batch.shared_target else batch.target,
+              device)
+    F, Fb, valid, bad = initial_carry(B, batch.V, batch.W, device)
+    for lo in range(0, N, C):
+        valid, bad, F, Fb = kern(_on(batch.ev_type[:, lo:lo + C], device),
+                                 _on(batch.ev_slot[:, lo:lo + C], device),
+                                 _on(batch.ev_slots[:, lo:lo + C], device),
+                                 tgt, lo, F, Fb, valid, bad)
+    frontier = None
+    if return_frontier:
+        frontier = torch.where(valid[:, None, None], F, Fb)
+        frontier = frontier.cpu().numpy().view(np.uint32)
+    return valid.cpu().numpy(), bad.cpu().numpy(), frontier
+
+
+# ------------------------------------------------ carried-frontier seam
+#
+# The resume form of the step carries (F, Fb, valid, bad) out of one
+# launch and into the next. run_event_chunked uses the carry within one
+# call; these helpers hold it ACROSS calls — and across processes, via
+# export/import (zlib+b64, the reference's journal frontier-checkpoint
+# row format, unchanged).
+
+def frontier_carry_init(V: int, W: int) -> dict:
+    """A fresh single-row carry: the initial config (state 0, empty
+    mask) present, verdict valid, no bad event."""
+    NW, M = n_state_words(V), 1 << W
+    F = np.zeros((1, NW, M), np.uint32)
+    F[0, 0, 0] = 1
+    return {"valid": np.ones(1, bool),
+            "bad": np.full(1, INT32_MAX, np.int32),
+            "F": F,
+            "Fb": np.zeros((1, NW, M), np.uint32)}
+
+
+def run_carried_events(V: int, W: int, target: np.ndarray,
+                       ev_type: np.ndarray, ev_slot: np.ndarray,
+                       ev_slots: np.ndarray, idx0: int,
+                       carry: dict, *, device=None) -> dict:
+    """Advance a carried frontier over ``N`` new events (single row,
+    shared target) in one launch and return the new carry as numpy
+    arrays. ``bad`` in the carry is a GLOBAL event ordinal (``idx0``
+    continues the event numbering across calls)."""
+    device = resolve_device(device)
+    if int(ev_type.shape[0]) == 0:
+        return {k: np.array(v) for k, v in carry.items()}
+    kern = get_kernel(V, W, resume=True)
+    tgt = _on(target, device)
+    valid = _on(carry["valid"], device)
+    bad = _on(carry["bad"], device)
+    F = _on(carry["F"].view(np.int32), device)
+    Fb = _on(carry["Fb"].view(np.int32), device)
+    valid, bad, F, Fb = kern(
+        _on(np.asarray(ev_type, np.int8)[None], device),
+        _on(np.asarray(ev_slot, np.int8)[None], device),
+        _on(np.asarray(ev_slots, np.int32)[None], device),
+        tgt, idx0, F, Fb, valid, bad)
+    return {"valid": valid.cpu().numpy(), "bad": bad.cpu().numpy(),
+            "F": F.cpu().numpy().view(np.uint32),
+            "Fb": Fb.cpu().numpy().view(np.uint32)}
+
+
+def export_frontier(carry: dict) -> dict:
+    """Serialize a carry for the journal frontier-checkpoint row. The
+    packed bitsets compress hard (config sets are sparse), so the row
+    stays journal-sized."""
+    import base64
+    import zlib
+
+    def pack(a):
+        return base64.b64encode(
+            zlib.compress(np.ascontiguousarray(a).tobytes())).decode()
+
+    return {"v": 1, "shape": list(carry["F"].shape),
+            "valid": bool(carry["valid"][0]),
+            "bad": int(carry["bad"][0]),
+            "F": pack(carry["F"]), "Fb": pack(carry["Fb"])}
+
+
+def import_frontier(d: dict, V: int, W: int) -> Optional[dict]:
+    """Deserialize an exported carry; None on any mismatch (a stale or
+    foreign checkpoint is a cache miss, never a failure mode)."""
+    import base64
+    import binascii
+    import zlib
+    try:
+        if d.get("v") != 1:
+            return None
+        shape = tuple(d["shape"])
+        if shape != (1, n_state_words(V), 1 << W):
+            return None
+
+        def unpack(s):
+            a = np.frombuffer(zlib.decompress(base64.b64decode(s)),
+                              np.uint32)
+            return a.reshape(shape).copy()
+
+        return {"valid": np.array([bool(d["valid"])]),
+                "bad": np.array([int(d["bad"])], np.int32),
+                "F": unpack(d["F"]), "Fb": unpack(d["Fb"])}
+    except (AttributeError, KeyError, TypeError, ValueError,
+            binascii.Error, zlib.error):
+        return None
+
+
+def grow_frontier_states(carry: dict, old_words: int,
+                         new_words: int) -> dict:
+    """Widen a carry's state axis (an appended vocabulary reached new
+    states past the current word pad): new states' bits start 0 in every
+    config, which is exactly right — no existing config holds them. The
+    mask axis (2^W) is untouched."""
+    if new_words == old_words:
+        return carry
+    if new_words < old_words:
+        raise ValueError("a carry's state axis only grows")
+    out = dict(carry)
+    for k in ("F", "Fb"):
+        a = carry[k]
+        wide = np.zeros((a.shape[0], new_words, a.shape[2]), np.uint32)
+        wide[:, :old_words] = a
+        out[k] = wide
+    return out
+
+
+def fused_bad_rows(batch: EncodedBatch, valid, bad) -> np.ndarray:
+    """Row positions (within ``batch``) whose first impossible completion
+    landed on an EV_FUSED step: the device only knows such a run's FIRST
+    member, so their exact bad op is re-derived on the host. This
+    package's encoder does not fuse yet, so ``check_batch`` has no such
+    rows; the scheduler slice, which fuses, routes them."""
+    v = np.asarray(valid)
+    b = np.asarray(bad)
+    inv = np.nonzero(~v)[0]
+    return inv[batch.ev_type[inv, b[inv]] == EV_FUSED]
+
+
+def vpu_op_model(V: int, W: int, w_live: Optional[int] = None) -> dict:
+    """Analytic 32-bit integer lane-op counts of the reference's dense
+    formulation of the packed step, which tests every state bit of every
+    mask on every sweep. It is not the kernel's bound: the CUDA kernel
+    skips empty masks and walks only set bits, and the bound counts the
+    operations the data needs (``plain_wgl(ops=...)``).
+
+    Per closure ITERATION (one sweep over the slots): each of the
+    ``w_live`` slot applications walks V states, paying 2 lane-ops to
+    extract the state bit and, per packed word, a multiply + OR over
+    the M/2 spawned-mask lanes, plus the OR-merge back into the mask
+    halves; the convergence check compares + reduces every frontier
+    word. Per EVENT on top: the completion shift-half, the emptiness
+    union/any, and the three latch selects, all over full [NW, M]
+    words. The measured input (sweeps per row) comes from
+    ``plain_wgl(iters=...)``."""
+    NW = n_state_words(V)
+    M = 1 << W
+    WL = _w_live(W, w_live)
+    per_apply = (M // 2) * (V * (2 + 2 * NW) + NW)
+    per_iteration = WL * per_apply + 2 * NW * M
+    per_event = 5 * NW * M
+    return {"per_iteration": per_iteration, "per_event": per_event,
+            "words": NW, "masks": M, "w_live": WL}
+
+
+# ---------------------------------------------------------- host decode
+
+def decode_frontier(frontier: np.ndarray, space, slot_to_op: Dict[int, int],
+                    n: int = 10) -> List[dict]:
+    """Decode a packed [words, M] frontier into a bounded, deterministic
+    config sample matching the host engine's shape
+    (checkers.linearizable._sample_configs): ``{"model": repr(state),
+    "pending": sorted linearized op indices}``, sorted, truncated to n —
+    the reference's truncate-to-10 discipline (checker.clj:104-107)."""
+    words, masks = np.nonzero(np.asarray(frontier))
+    configs = []
+    for w, m in zip(words.tolist(), masks.tolist()):
+        bits = int(frontier[w, m])
+        s = 0
+        while bits:
+            if bits & 1:
+                state = 32 * w + s
+                if state < len(space.states):
+                    pend = sorted(slot_to_op[i] for i in range(32)
+                                  if (m >> i) & 1 and i in slot_to_op)
+                    configs.append({"model": repr(space.states[state]),
+                                    "pending": pend})
+            bits >>= 1
+            s += 1
+    configs.sort(key=lambda c: (c["model"], c["pending"]))
+    return configs[:n]
+
+
+def _decode_result(space, ops: List[Op], valid: bool,
+                   op_index: int, frontier_row,
+                   predropped: bool = False) -> dict:
+    """Host-shaped result dict from a kernel verdict: {"valid"} plus, on
+    failure, the impossible op and a decoded config sample."""
+    if valid:
+        out = {"valid": True}
+        if space is not None:
+            table = slot_ops_at_event(space, ops, None,
+                                      predropped=predropped)
+            out["configs"] = decode_frontier(frontier_row, space, table)
+        return out
+    op = next((o for o in ops if o.index == op_index), None)
+    out = {"valid": False,
+           "op": op.to_dict() if op is not None else {"index": op_index}}
+    if space is not None:
+        # Locate the pending table by the bad op's history index, the
+        # coordinate that stays stable whatever the event axis holds.
+        table = slot_ops_at_event(space, ops, None, predropped=predropped,
+                                  op_index=op_index)
+        out["configs"] = decode_frontier(frontier_row, space, table)
+    return out
+
+
+def _result_for(row: int, batch: EncodedBatch, valid: np.ndarray,
+                bad: np.ndarray, frontier: np.ndarray, model: Model,
+                prepared: List[Op]) -> dict:
+    space = batch.spaces[row] if batch.spaces else None
+    ev = int(bad[row])
+    op_index = int(batch.ev_opidx[row, ev]) if not bool(valid[row]) else -1
+    return _decode_result(space, prepared, bool(valid[row]), op_index,
+                          frontier[row])
+
+
+# ---------------------------------------------------------- entry points
+
+def check_batch(model: Model, histories: Sequence[List[Op]], *,
+                device=None, max_slots: int = 16,
+                max_states: int = MAX_PACKED_STATES,
+                host_fallback=None) -> List[dict]:
+    """Check many raw histories on the device; per-history result dicts
+    (``valid``, on failure ``op``, and a ``configs`` sample).
+
+    ``device=None`` means the CUDA card and raises when there is none;
+    ``device="cpu"`` runs the plain version. Histories the encoder cannot
+    bound (state-space explosion, a pending window past one card) are
+    decided by ``host_fallback(model, history)`` (default: the exact host
+    engine) and carry a ``fallback`` key naming why. Buckets run one
+    kernel per exact (V, W) class, in the reference's exact-W order."""
+    device = resolve_device(device)
+    if host_fallback is None:
+        _cache: dict = {}
+
+        def host_fallback(m, h):
+            return wgl_check(m, h, space_cache=_cache)
+
+    for h in histories:
+        if any(op.index is None for op in h):
+            index_history(h)
+    prepared = [prepare_history(h) for h in histories]
+    eff_slots = max_slots + (SINGLE_DEVICE_EXTRA_SLOTS
+                             if max_slots >= DATA_MAX_SLOTS else 0)
+    buckets = bucket_encode(model, prepared,
+                            max_states=min(max_states, MAX_PACKED_STATES),
+                            max_slots=eff_slots)
+
+    results: List[Optional[dict]] = [None] * len(histories)
+
+    def fallback(i, why):
+        r = host_fallback(model, histories[i])
+        r.setdefault("fallback", why)
+        results[i] = r
+
+    device_batches = []
+    for batch in buckets:
+        if batch.batch:
+            device_batches.append(batch)
+        for i, reason in batch.failures:
+            fallback(i, reason)
+    for batch, out in run_buckets(device_batches, device=device,
+                                  return_frontier=True):
+        if isinstance(out, WindowOverflow):
+            for i in batch.indices:
+                fallback(i, str(out))
+            continue
+        valid, bad, front = out
+        for row, i in enumerate(batch.indices):
+            results[i] = _result_for(row, batch, valid, bad, front,
+                                     model, prepared[i])
+    return results
+
+
+def check_one(model: Model, history: List[Op], **kw) -> dict:
+    """Single-history device check (the Checker-protocol CUDA backend)."""
+    return check_batch(model, [history], **kw)[0]

@@ -1,0 +1,107 @@
+"""Seeded synthetic CAS-register histories.
+
+Simulates a *real* linearizable system executing a register workload —
+operations linearize at their completion point against a true register —
+then optionally corrupts reads to produce invalid histories. One seed ↦
+one history, so a seed range yields the deterministic batch the checker
+consumes (one workload × N nemesis seeds). The generator is the same
+code as the reference package's, so one seed gives the same history in
+both packages.
+"""
+from __future__ import annotations
+
+import random
+from typing import List, Optional
+
+from ..history.core import index
+from ..history.ops import Op, invoke_op, ok_op, fail_op, info_op
+
+
+def seed_stream(seed0: int, n: int) -> List[int]:
+    """The per-history seed sequence every batch entry point shares:
+    ``seed0 .. seed0 + n - 1``."""
+    return [seed0 + i for i in range(n)]
+
+
+def seeded_rngs(seed0: int, n: int):
+    """(seed, random.Random) pairs down ``seed_stream``."""
+    return [(s, random.Random(s)) for s in seed_stream(seed0, n)]
+
+
+def synth_cas_history(seed: int, *, n_procs: int = 5, n_ops: int = 40,
+                      n_values: int = 5, corrupt: float = 0.0,
+                      p_info: float = 0.0,
+                      rng: Optional[random.Random] = None) -> List[Op]:
+    """One simulated CAS-register history (read/write/cas over n_values).
+
+    corrupt — probability the history is made invalid by perturbing one
+              observed read.
+    p_info  — probability a completion is indeterminate (timeout), the op
+              possibly (50%) having taken effect; these ops stay pending
+              to the end of the history, the hard case for checkers.
+    rng     — pre-seeded generator state (seeded_rngs); default derives
+              it from ``seed``.
+    """
+    rng = rng if rng is not None else random.Random(seed)
+    reg: Optional[int] = None
+    h: List[Op] = []
+    live = {}
+    free = list(range(n_procs))
+    started = 0
+    while started < n_ops or live:
+        if free and started < n_ops and (not live or rng.random() < 0.6):
+            p = free.pop(rng.randrange(len(free)))
+            f = rng.choice(("read", "write", "cas"))
+            if f == "read":
+                h.append(invoke_op(p, "read", None))
+                live[p] = ("read", None)
+            elif f == "write":
+                v = rng.randrange(n_values)
+                h.append(invoke_op(p, "write", v))
+                live[p] = ("write", v)
+            else:
+                v = [rng.randrange(n_values), rng.randrange(n_values)]
+                h.append(invoke_op(p, "cas", v))
+                live[p] = ("cas", v)
+            started += 1
+        else:
+            p = rng.choice(sorted(live.keys()))
+            f, v = live.pop(p)
+            r = rng.random()
+            if f == "read":
+                if r < p_info:
+                    h.append(info_op(p, "read", None, error="timeout"))
+                else:
+                    h.append(ok_op(p, "read", reg))
+            elif f == "write":
+                if r < p_info:
+                    if rng.random() < 0.5:
+                        reg = v
+                    h.append(info_op(p, "write", v, error="timeout"))
+                else:
+                    reg = v
+                    h.append(ok_op(p, "write", v))
+            else:  # cas
+                if r < p_info:
+                    if rng.random() < 0.5 and reg == v[0]:
+                        reg = v[1]
+                    h.append(info_op(p, "cas", v, error="timeout"))
+                elif reg == v[0]:
+                    reg = v[1]
+                    h.append(ok_op(p, "cas", v))
+                else:
+                    h.append(fail_op(p, "cas", v, error="mismatch"))
+            free.append(p)
+    if rng.random() < corrupt:
+        reads = [i for i, op in enumerate(h)
+                 if op.type == "ok" and op.f == "read"]
+        if reads:
+            i = rng.choice(reads)
+            h[i].value = (h[i].value or 0) + rng.randrange(1, n_values)
+    return index(h)
+
+
+def synth_cas_batch(n: int, seed0: int = 0, **kw) -> List[List[Op]]:
+    """n seeded histories down the shared ``seed_stream``."""
+    return [synth_cas_history(s, rng=rng, **kw)
+            for s, rng in seeded_rngs(seed0, n)]

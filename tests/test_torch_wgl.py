@@ -1,0 +1,243 @@
+"""The port's WGL step (jepsen_torch.ops.linearize) against the reference.
+
+The same inputs — buckets from the reference encoder over seeded
+corpora, and seeded random event tables — go through
+``jax.vmap(jepsen_tpu.ops.linearize.make_kernel(V, W))`` and through the
+port's plain PyTorch version on the CPU (the CUDA kernel's yardstick;
+the kernel itself is held against it on the card by chip_smoke.py).
+Tolerance: none — valid, bad and the packed frontier viewed as uint32
+must be bit-identical.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from jepsen_tpu.checkers.linearizable import prepare_history
+from jepsen_tpu.models.core import cas_register
+from jepsen_tpu.ops import linearize as ref
+from jepsen_tpu.ops import pallas_wgl
+from jepsen_tpu.ops.encode import bucket_encode
+from jepsen_tpu.workloads.synth import synth_cas_batch
+
+from jepsen_torch.convert import batch_from_arrays
+from jepsen_torch.ops import cuda_wgl
+from jepsen_torch.ops import linearize as L
+
+CPU = torch.device("cpu")
+
+
+def ref_kernel(V, W, shared, w_live=None, resume=False):
+    kern = ref.make_kernel(V, W, w_live=w_live, resume=resume)
+    t_ax = None if shared else 0
+    if resume:
+        return jax.jit(jax.vmap(kern, in_axes=(0, 0, 0, t_ax,
+                                               None, 0, 0, 0, 0)))
+    return jax.jit(jax.vmap(kern, in_axes=(0, 0, 0, t_ax)))
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def port_check(ev_type, ev_slot, ev_slots, target, V, W, w_live=None):
+    v, b, f = L.get_kernel(V, W, w_live=w_live)(
+        t(ev_type), t(ev_slot), t(ev_slots), t(target))
+    return v.numpy(), b.numpy(), f.numpy().view(np.uint32)
+
+
+def assert_same(got, want):
+    for g, w in zip(got, want, strict=True):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def ref_buckets(n, seed0, **kw):
+    hists = synth_cas_batch(n, seed0=seed0, **kw)
+    return [b for b in bucket_encode(cas_register(),
+                                     [prepare_history(h) for h in hists],
+                                     max_states=64, max_slots=16)
+            if b.batch]
+
+
+CORPORA = {
+    # test_linearize_tpu.py::test_random_parity_sweep's corpus
+    "sweep": dict(n=60, seed0=7, n_procs=4, n_ops=18, n_values=3,
+                  corrupt=0.2, p_info=0.12),
+    # two state words: V = 40 (not a multiple of 32)
+    "two_words": dict(n=4, seed0=5, n_procs=4, n_ops=200, n_values=48,
+                      corrupt=0.25),
+    # info-heavy: wider pending windows, pinned slots
+    "info": dict(n=12, seed0=31, n_procs=6, n_ops=24, n_values=4,
+                 corrupt=0.3, p_info=0.3),
+}
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
+def test_plain_matches_make_kernel_on_encoded_buckets(corpus):
+    buckets = ref_buckets(**CORPORA[corpus])
+    invalid = 0
+    for b in buckets:
+        want = ref_kernel(b.V, b.W, False)(b.ev_type, b.ev_slot,
+                                          b.ev_slots, b.target)
+        got = port_check(b.ev_type, b.ev_slot, b.ev_slots, b.target,
+                         b.V, b.W)
+        assert_same(got, want)
+        invalid += int((~got[0]).sum())
+    assert invalid >= 1, "corpus must exercise the failure latch"
+    if corpus == "two_words":
+        assert any(b.V > 32 for b in buckets)
+
+
+def random_inputs(seed, *, B, N, V, W, K1, shared, n_pad=0, wild=False):
+    """Seeded random event tables: every event type (pad, ok, close,
+    fused), random slot tables over the whole kind vocabulary (the
+    sentinel row included), random transition tables, and a ragged
+    tail of ``n_pad`` pad events. ``wild`` draws slot and kind indices
+    one past each end (the reference clamps slots like ``lax.switch``
+    and wraps, then clamps, kinds like a JAX gather), with a real kind
+    in each completing slot so that rows both fail and survive."""
+    rng = np.random.default_rng(seed)
+    ev_type = rng.choice(np.array([0, 2, 2, 2, 3, 4], np.int8), (B, N))
+    ev_type[:, N - n_pad:] = 0
+    lo = -1 if wild else 0
+    ev_slot = rng.integers(lo, W + (1 if wild else 0), (B, N)).astype(
+        np.int8)
+    ev_slots = rng.integers(lo, K1 + (1 if wild else 0), (B, N, W))
+    if wild:
+        q = np.clip(ev_slot, 0, W - 1).astype(np.int64)
+        ev_slots[np.arange(B)[:, None], np.arange(N)[None], q] = \
+            rng.integers(0, K1 - 1, (B, N))
+    ev_slots = ev_slots.astype(np.int8)
+    shape = (K1, V) if shared else (B, K1, V)
+    target = rng.integers(-1, V, shape, dtype=np.int32)
+    # sparse tables keep frontiers from saturating
+    target[rng.random(shape) < 0.6] = -1
+    target[..., K1 - 1, :] = -1
+    return ev_type, ev_slot, ev_slots, target
+
+
+RANDOM_CASES = {
+    "shared_target": dict(B=6, N=24, V=8, W=5, K1=7, shared=True),
+    "per_row_target": dict(B=6, N=24, V=8, W=5, K1=7, shared=False),
+    "w_live_below_W": dict(B=5, N=20, V=8, W=6, K1=6, shared=True,
+                           w_live=4),
+    "ragged_events": dict(B=4, N=21, V=8, W=4, K1=5, shared=False,
+                          n_pad=6),
+    "two_words_bit31": dict(B=4, N=16, V=48, W=4, K1=9, shared=True),
+    "one_full_word": dict(B=4, N=16, V=32, W=3, K1=6, shared=False),
+    "indices_out_of_range": dict(B=8, N=24, V=8, W=5, K1=7, shared=False,
+                                 wild=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANDOM_CASES))
+def test_plain_matches_make_kernel_on_random_inputs(case):
+    kw = dict(RANDOM_CASES[case])
+    w_live = kw.pop("w_live", None)
+    V, W, shared = kw["V"], kw["W"], kw["shared"]
+    args = random_inputs(11, **kw)
+    want = ref_kernel(V, W, shared, w_live=w_live)(*args)
+    got = port_check(*args, V, W, w_live=w_live)
+    assert_same(got, want)
+    # the random tables must reach both outcomes
+    assert got[0].any() or (~got[0]).any()
+    assert np.asarray(got[2]).any()
+
+
+def test_resume_form_matches_make_kernel_resume():
+    """Carry (F, Fb, valid, bad) through three event chunks in both
+    packages; every intermediate carry agrees."""
+    V, W, K1, B = 8, 5, 6, 5
+    ev_type, ev_slot, ev_slots, target = random_inputs(
+        3, B=B, N=30, V=V, W=W, K1=K1, shared=True)
+    rk = ref_kernel(V, W, True, resume=True)
+    pk = L.get_kernel(V, W, resume=True)
+    F, Fb, valid, bad = L.initial_carry(B, V, W, CPU)
+    rcarry = (valid.numpy(), bad.numpy(), F.numpy().view(np.uint32),
+              Fb.numpy().view(np.uint32))
+    pcarry = (valid, bad, F, Fb)
+    for lo in (0, 10, 20):
+        sl = slice(lo, lo + 10)
+        rv, rb, rF, rFb = rk(ev_type[:, sl], ev_slot[:, sl],
+                             ev_slots[:, sl], target, np.int32(lo),
+                             rcarry[2], rcarry[3], rcarry[0], rcarry[1])
+        rcarry = tuple(np.asarray(a) for a in (rv, rb, rF, rFb))
+        v, b, F, Fb = pk(t(ev_type[:, sl]), t(ev_slot[:, sl]),
+                         t(ev_slots[:, sl]), t(target), lo, pcarry[2],
+                         pcarry[3], pcarry[0], pcarry[1])
+        pcarry = (v, b, F, Fb)
+        assert_same((v.numpy(), b.numpy(), F.numpy().view(np.uint32),
+                     Fb.numpy().view(np.uint32)), rcarry)
+    assert not rcarry[0].all(), "chunks must cross a failure latch"
+
+
+@pytest.mark.parametrize("chunk", [8, 13])
+def test_event_chunked_matches_one_shot(chunk):
+    for b in ref_buckets(**CORPORA["sweep"]):
+        pb = batch_from_arrays(b)
+        one = L.run_encoded_batch(pb, True, device="cpu")
+        chunked = L.run_event_chunked(pb, chunk, True, device="cpu")
+        assert_same(chunked, one)
+        want = ref_kernel(b.V, b.W, False)(b.ev_type, b.ev_slot,
+                                          b.ev_slots, b.target)
+        assert_same(one, want)
+
+
+def test_plain_matches_pallas_interpret_mode():
+    """One small case against the Pallas kernel itself, in interpret
+    mode as tests/test_pallas.py runs it (a ragged event axis)."""
+    args = pallas_wgl.make_probe_batch(V=4, W=4, rows=4, events=70)
+    pk = pallas_wgl.make_pallas_kernel(4, 4, shared_target=True,
+                                       interpret=True)
+    want = pk(*args)
+    ev_type, ev_slot, ev_slots, target = args
+    got = port_check(ev_type, ev_slot, ev_slots, target, 4, 4)
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("V,W,resident", [
+    (8, 15, True), (8, 16, False), (8, 18, False),
+    (48, 14, True), (48, 15, False), (64, 4, True)])
+def test_smem_plan_places_the_frontier(V, W, resident):
+    plan = cuda_wgl.smem_plan(V, W)
+    assert plan["frontier_in_smem"] is resident
+    assert plan["smem_bytes"] <= plan["limit_bytes"]
+    assert plan["frontier_bytes"] == L.n_state_words(V) * 4 << W
+    assert 32 <= plan["threads"] <= 512
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    args = [t(a) for a in random_inputs(1, B=2, N=8, V=8, W=4, K1=4,
+                                        shared=True)]
+    carry = L.initial_carry(2, 8, 4, CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wgl.wgl_frontier(*args, 0, *carry, V=8, W=4)
+    with pytest.raises(ValueError, match="states"):
+        cuda_wgl.wgl_frontier(*args, 0, *carry, V=72, W=4)
+    with pytest.raises(ValueError, match="host engine"):
+        L.get_kernel(72, 4)
+    with pytest.raises(ValueError, match="W=19"):
+        cuda_wgl.wgl_frontier(*args, 0, *carry, V=8, W=19)
+
+
+def test_plain_counts_the_operations_the_step_needs():
+    """The op count behind the kernel's bound, by hand: V = 2, W = 1;
+    kind 0 sends state 0 to state 1, kind 1 (the sentinel) reaches no
+    state. Events: close, pad, ok, ok on the sentinel (fails)."""
+    target = t(np.array([[1, -1], [-1, -1]], np.int32))
+    ev_type = t(np.array([[3, 0, 2, 2]], np.int8))
+    ev_slot = t(np.zeros((1, 4), np.int8))
+    ev_slots = t(np.array([[[0], [0], [0], [1]]], np.int8))
+    iters = torch.zeros(1, dtype=torch.int64)
+    ops = torch.zeros(1, dtype=torch.int64)
+    valid, bad, _, _ = L.plain_wgl(ev_type, ev_slot, ev_slots, target, 0,
+                                   *L.initial_carry(1, 2, 1, CPU), V=2, W=1,
+                                   iters=iters, ops=ops)
+    assert not valid[0] and int(bad[0]) == 3
+    # close: expand (0, {}) once; pad: nothing; ok: the same expansion
+    # plus one kept-mask test; ok on the sentinel: the test alone.
+    assert int(ops[0]) == 1 + 0 + 2 + 1
+    # close takes two sweeps (one to converge, one to see it), each ok one
+    assert int(iters[0]) == 2 + 1 + 1
