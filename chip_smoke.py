@@ -2,15 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA WGL kernel from the checkout's sources, holds it bit for
-bit against its plain PyTorch version on the card (frontiers in shared
-and in device memory, two state words, the event-chunked resume entry),
-then drives the port's main path — ``check_batch`` on 10,000 seeded
-CAS-register histories of 1,000 invocations each — and checks its
-verdicts against the host oracle on sampled rows. Each phase prints one
-JSON line; a failed check raises and the script exits non-zero. The
-last three lines are the kernels line, the card's name and power limit
-as nvidia-smi reports them, and the result line.
+Builds both CUDA kernels from the checkout's sources (one nvcc each, in
+parallel) and holds each bit for bit against its plain PyTorch version
+on the card: the WGL frontier kernel (frontiers in shared and in device
+memory, two state words, the event-chunked resume entry) and the history
+generators (CAS/register cases over processes, values, op counts, keys,
+faults and row slices; the wide family). Then it drives the port's two
+paths, each with the launch counts set to 0 just before and read just
+after:
+
+  * the Op-list path, ``check_batch`` on seeded CAS-register histories
+    of 1,000 invocations each (2,000 of them: cut in count, never in
+    length, to keep the run short), with the host oracle on sampled rows;
+  * the columnar main path, ``check_synth`` on the north-star spec:
+    10,000 histories of 1,000 ops generated on the card, encoded by the
+    columnar walk and checked by the frontier kernel, with its layer
+    split, the host oracle on sampled rows, ``details=True`` against
+    ``check_batch`` on a 256-row slice, and two wide W = 17 specs.
+
+Each phase prints one JSON line; a failed check raises and the script
+exits non-zero. The last three lines are the kernels line, the card's
+name and power limit as nvidia-smi reports them, and the result line.
 
 Exits 2 without a result when no CUDA device is available.
 """
@@ -31,9 +43,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
-NS_HISTORIES = 10_000     # north-star batch: 10k histories ...
-NS_OPS = 1_000            # ... of 1,000 invocations each
+# The north-star batch: 10,000 CAS-register histories of 1,000 ops.
+NS_SPEC = dict(family="cas", n=10_000, seed=0, n_procs=5, n_ops=1_000,
+               n_values=5, corrupt=0.25)
+OPLIST_HISTORIES = 2_000  # the Op-list path's count (its length is uncut)
 ORACLE_ROWS = 64
+DETAIL_ROWS = 256
+WIDE_ROWS = 256
+
+# Integer operations of one splitmix32 draw (fold_in): the counter add,
+# the stride multiply and key add, then mix's three shift-xor-multiply
+# rounds (the last without the multiply).
+FOLD_IN_OPS = 11
 
 
 def emit(obj) -> None:
@@ -54,7 +75,7 @@ def nvidia_smi() -> str:
 
 
 def on(a: np.ndarray, dev) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(dev)
 
 
 def bucket_args(b, dev):
@@ -181,55 +202,83 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_main_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
-    from jepsen_torch.ops.encode import take_rows
-    t0 = time.perf_counter()
-    hists = synth(NS_HISTORIES, seed0=0, n_procs=5, n_ops=NS_OPS,
-                  n_values=5, corrupt=0.25, p_info=0.0)
-    synth_s = time.perf_counter() - t0
+def outputs_err(a: dict, b: dict) -> int:
+    """Largest absolute difference over every output of two result
+    dicts (integer and bool tensors of equal shapes)."""
+    return max((int((a[n].to(torch.int64) - b[n].to(torch.int64))
+                    .abs().max()) if a[n].numel() else 0) for n in b)
 
-    L.cuda_wgl.LAUNCHES = 0
+
+def synth_case(S, cuda_synth, spec, dev, rows=None, key_meta=True):
+    """The generator kernel and its plain version on the same inputs on
+    the card: (kernel outputs, plain outputs)."""
+    if spec.family == "wide":
+        vk = S.wide_inputs(spec, rows=rows, device=dev)
+        st = dict(width=spec.width, n_values=spec.n_values,
+                  invalid=spec.invalid)
+        return cuda_synth.synth_wide(vk, **st), S.plain_wide_core(vk, **st)
+    args = S.cas_inputs(spec, rows=rows, device=dev)
+    st = S.cas_static(spec, key_meta)
+    return (cuda_synth.synth_cas(*args, **st),
+            S.plain_cas_core(*args, **st))
+
+
+def phase_synth_parity(dev, S, cuda_synth):
+    spec = S.SynthSpec
+    ns = spec(**NS_SPEC)
+    cases = [("north_star_rows_0_256", ns, (0, 256)),
+             ("keyed_all_faults",
+              spec(n=64, seed=3, n_procs=4, n_ops=18, n_values=3, n_keys=3,
+                   p_info=0.1, crash_lo=4, crash_hi=12, p_crash=0.5,
+                   corrupt=0.4), None)]
+    cases += [(f"n_procs_{p}", spec(n=128, seed=5, n_procs=p, n_ops=300,
+                                    n_values=5, corrupt=0.5, p_info=0.1),
+               None) for p in (1, 2, 5, 12)]
+    cases += [(f"n_values_{v}", spec(n=128, seed=6, n_procs=5, n_ops=300,
+                                     n_values=v, n_keys=2, corrupt=0.5),
+               None) for v in (1, 2, 48)]
+    cases += [(f"n_ops_{n}", spec(n=64, seed=7, n_procs=5, n_ops=n,
+                                  n_values=3, corrupt=0.5, p_info=0.2,
+                                  crash_lo=0, crash_hi=500, p_crash=0.2),
+               None) for n in (1, 2, 1000)]
+    cases += [(f"wide_{w}_{'invalid' if inv else 'valid'}",
+               spec(family="wide", n=WIDE_ROWS, seed=2, width=w,
+                    n_values=2, invalid=inv), None)
+              for w in (6, 17) for inv in (False, True)]
+    out = {"phase": "synth_vs_plain", "cases": []}
+    err = 0
+    for label, sp, rows in cases:
+        k, p = synth_case(S, cuda_synth, sp, dev, rows)
+        torch.cuda.synchronize()
+        require(set(k) == set(p), f"{label}: outputs {sorted(k)} != "
+                                  f"{sorted(p)}")
+        equal = all(torch.equal(k[n], p[n]) for n in p)
+        err = max(err, outputs_err(k, p))
+        out["cases"].append({"case": label, "outputs": sorted(p),
+                             "rows": int(p["type"].shape[0]),
+                             "lines": int(p["type"].shape[1]),
+                             "equal": equal})
+        require(equal, f"synth kernel != plain on {label}")
+    # A rows=(lo, hi) slice equals the same rows of the full batch.
+    sp = spec(n=300, seed=9, n_procs=5, n_ops=100, n_values=3, n_keys=4,
+              corrupt=0.5, p_info=0.1)
+    full, _ = synth_case(S, cuda_synth, sp, dev)
+    part, plain = synth_case(S, cuda_synth, sp, dev, rows=(100, 250))
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = L.check_batch(cas(), hists)
-    e2e_s = time.perf_counter() - t0
-    launches = L.cuda_wgl.LAUNCHES
-    require(launches > 0, "check_batch did not launch the kernel")
-    require(len(results) == NS_HISTORIES, "missing verdicts")
-    require(not any("fallback" in r for r in results),
-            "north-star rows fell back to the host")
+    sliced = all(torch.equal(full[n][100:250], part[n])
+                 and torch.equal(part[n], plain[n]) for n in plain)
+    require(sliced, "a row slice differs from the full batch")
+    out["row_slice_equal"] = sliced
+    out["max_abs_err"] = err
+    emit(out)
+    return err
 
-    # Field parity with the host oracle on sampled rows, invalid ones
-    # included.
-    invalid = [i for i, r in enumerate(results) if r["valid"] is False]
-    valid = [i for i, r in enumerate(results) if r["valid"] is True]
-    sample = invalid[:ORACLE_ROWS // 2] + valid[:ORACLE_ROWS // 2]
-    require(len(sample) >= ORACLE_ROWS and invalid, "sample too small")
-    for i in sample:
-        want = wgl_check(cas(), hists[i])
-        got = results[i]
-        require(got["valid"] == want["valid"], f"verdict differs at {i}")
-        if want["valid"] is False:
-            require(got["op"]["index"] == want["op"]["index"],
-                    f"bad op differs at {i}")
-        require(got.get("configs") == want.get("configs"),
-                f"configs differ at {i}")
 
-    # The same batch again, layer by layer: host prepare, host encode,
-    # host-to-device copy, the kernel, and the plain version.
-    t0 = time.perf_counter()
-    prepared = [prep(h) for h in hists]
-    prepare_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    buckets = [b for b in bucket_encode(cas(), prepared, max_states=64,
-                                        max_slots=18) if b.batch]
-    encode_s = time.perf_counter() - t0
-    big = max(buckets, key=lambda b: b.batch)
-    head = take_rows(big, range(min(256, big.batch)))
-    eq, err, _ = kernel_vs_plain(bucket_args(head, dev), head.V, head.W,
-                                 head.eff_w_live, dev, L)
-    require(eq, "kernel != plain on the north-star slice")
-
+def wgl_measure(dev, L, buckets):
+    """The frontier kernel over a path's buckets: upload, kernel time (CUDA
+    events, 5 runs after a warm-up), the plain version's time, and the
+    bound from the operations this batch's data needs and the bytes it
+    must move."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     argsets = [(b, bucket_args(b, dev)) for b in buckets]
@@ -241,11 +290,8 @@ def phase_main_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
         for k, (_, a) in zip(kerns, argsets):
             k(*a)
 
-    saved = L.cuda_wgl.LAUNCHES
     kernel_ms = time_cuda(run_kernel, reps=5)
-    L.cuda_wgl.LAUNCHES = saved
 
-    # Plain version on the same inputs, timed.
     def run_plain(**counters):
         for j, (b, a) in enumerate(argsets):
             L.plain_wgl(*a, 0, *L.initial_carry(b.batch, b.V, b.W, dev),
@@ -266,7 +312,6 @@ def phase_main_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
     needed = [torch.zeros(b.batch, dtype=torch.int64, device=dev)
               for b, _ in argsets]
     run_plain(iters=sweeps, ops=needed)
-
     ops = sum(int(nd.sum()) for nd in needed)
     dense = nbytes = 0
     for (b, a), it in zip(argsets, sweeps):
@@ -282,10 +327,110 @@ def phase_main_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
             + b.batch * (1 + 4 + 4 * model["words"] * model["masks"])
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
-    emit({"phase": "main_path", "histories": NS_HISTORIES,
-          "ops_per_history": NS_OPS, "synth_s": synth_s,
+    return {"upload_ms": upload_ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "closure_sweeps": sum(int(it.sum()) for it in sweeps),
+            "needed_ops": ops, "dense_model_lane_ops": dense,
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def synth_bound(spec) -> dict:
+    """Least time of the CAS generator on ``spec``'s whole batch: the
+    bytes it must move (per-row keys and crash window read once; type,
+    process, kind, the key column when keyed, and peak_w written once)
+    and the integer operations of its random draws alone (every other
+    operation of the kernel comes on top), whichever is larger."""
+    B, n = spec.n, spec.n_ops
+    nbytes = B * (4 * 4 + 2 * 4) + B * 4 \
+        + B * 2 * n * (1 + 2 + 4 + (4 if spec.n_keys > 1 else 0))
+    corrupt = spec.corrupt > 0 and spec.n_values > 1
+    draws = B * n * (2 + int(spec.p_info > 0 or spec.p_crash > 0)
+                     + int(corrupt)) + B * int(corrupt)
+    ops = draws * FOLD_IN_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "draw_ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def wide_bound(spec) -> dict:
+    """As ``synth_bound``, for the wide generator: keys read once; type,
+    process, kind and peak_w written once; one draw per write."""
+    B, N = spec.n, spec.width + 1
+    nbytes = B * 4 + B * N * (1 + 2 + 4) + B * 4
+    ops = B * (spec.width - 1) * FOLD_IN_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "draw_ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_oplist_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
+    """check_batch on Op lists: the first slice's path, at 2,000 rows."""
+    from jepsen_torch.ops.encode import take_rows
+    t0 = time.perf_counter()
+    hists = synth(OPLIST_HISTORIES, seed0=0, n_procs=5,
+                  n_ops=NS_SPEC["n_ops"], n_values=5, corrupt=0.25,
+                  p_info=0.0)
+    synth_s = time.perf_counter() - t0
+
+    L.cuda_wgl.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = L.check_batch(cas(), hists)
+    e2e_s = time.perf_counter() - t0
+    launches = L.cuda_wgl.LAUNCHES
+    require(launches > 0, "check_batch did not launch the kernel")
+    require(len(results) == OPLIST_HISTORIES, "missing verdicts")
+    require(not any("fallback" in r for r in results),
+            "Op-list rows fell back to the host")
+
+    # Field parity with the host oracle on sampled rows, invalid ones
+    # included.
+    invalid = [i for i, r in enumerate(results) if r["valid"] is False]
+    valid = [i for i, r in enumerate(results) if r["valid"] is True]
+    sample = invalid[:ORACLE_ROWS // 2] + valid[:ORACLE_ROWS // 2]
+    require(len(sample) >= ORACLE_ROWS and invalid, "sample too small")
+    for i in sample:
+        want = wgl_check(cas(), hists[i])
+        got = results[i]
+        require(got["valid"] == want["valid"], f"verdict differs at {i}")
+        if want["valid"] is False:
+            require(got["op"]["index"] == want["op"]["index"],
+                    f"bad op differs at {i}")
+        require(got.get("configs") == want.get("configs"),
+                f"configs differ at {i}")
+
+    # The same batch again, layer by layer: host prepare, host encode,
+    # host-to-device copy and the kernel.
+    t0 = time.perf_counter()
+    prepared = [prep(h) for h in hists]
+    prepare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buckets = [b for b in bucket_encode(cas(), prepared, max_states=64,
+                                        max_slots=18) if b.batch]
+    encode_s = time.perf_counter() - t0
+    big = max(buckets, key=lambda b: b.batch)
+    head = take_rows(big, range(min(256, big.batch)))
+    eq, err, _ = kernel_vs_plain(bucket_args(head, dev), head.V, head.W,
+                                 head.eff_w_live, dev, L)
+    require(eq, "kernel != plain on an Op-list slice")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    argsets = [bucket_args(b, dev) for b in buckets]
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    kerns = [L.get_kernel(b.V, b.W, w_live=b.eff_w_live) for b in buckets]
+    kernel_ms = time_cuda(lambda: [k(*a) for k, a in zip(kerns, argsets)],
+                          reps=5)
+    emit({"phase": "oplist_path", "histories": OPLIST_HISTORIES,
+          "ops_per_history": NS_SPEC["n_ops"], "synth_s": synth_s,
           "check_batch_s": e2e_s,
-          "histories_per_s": NS_HISTORIES / e2e_s,
+          "histories_per_s": OPLIST_HISTORIES / e2e_s,
           "invalid": len(invalid), "oracle_rows": len(sample),
           "prepare_s": prepare_s, "encode_s": encode_s,
           "upload_ms": upload_ms, "kernel_ms": kernel_ms,
@@ -293,13 +438,179 @@ def phase_main_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
           - (upload_ms + kernel_ms) / 1e3,
           "buckets": [{"V": b.V, "W": b.W, "rows": b.batch,
                        "events": b.n_events} for b in buckets],
-          "launches": launches, "plain_ms": plain_ms,
-          "closure_sweeps": sum(int(it.sum()) for it in sweeps),
-          "needed_ops": ops, "dense_model_lane_ops": dense,
-          "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms})
-    return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+          "wgl_launches": launches})
+    return {"launches": launches, "max_abs_err": err}
+
+
+def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
+    """check_synth on the north-star spec, then its layers one by one."""
+    from jepsen_torch.history.columnar import ColumnarOps, columnar_to_ops
+    from jepsen_torch.ops.encode import encode_columnar, take_rows
+    from jepsen_torch.ops.statespace import enumerate_statespace
+    from jepsen_torch.workloads.synth import cas_kind_vocabulary
+    spec = S.SynthSpec(**NS_SPEC)
+    B = spec.n
+
+    cuda_synth.LAUNCHES = 0
+    L.cuda_wgl.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split: dict = {}
+    valid, bad = L.check_synth(cas(), spec, timings=split)
+    e2e_s = time.perf_counter() - t0
+    launches = {"synth_device": cuda_synth.LAUNCHES,
+                "wgl_frontier": L.cuda_wgl.LAUNCHES}
+    require(all(v > 0 for v in launches.values()),
+            f"check_synth missed a kernel: {launches}")
+    require(valid.shape == (B,) and bad.shape == (B,), "verdict shapes")
+
+    # The same batch again, layer by layer.
+    t0 = time.perf_counter()
+    args = S.cas_inputs(spec, device=dev)
+    keys_s = time.perf_counter() - t0
+    st = S.cas_static(spec, key_meta=False)
+    synth_ms = time_cuda(lambda: cuda_synth.synth_cas(*args, **st), reps=5)
+    out = cuda_synth.synth_cas(*args, **st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = S.plain_cas_core(*args, **st)
+    torch.cuda.synchronize()
+    synth_plain_ms = (time.perf_counter() - t0) * 1e3
+    require(all(torch.equal(out[n], plain[n]) for n in plain),
+            "synth kernel != plain on the north-star batch")
+    synth_err = outputs_err(out, plain)
+    del plain
+    cols = ColumnarOps(type=host["type"], process=host["process"],
+                       kind=host["kind"],
+                       kinds=cas_kind_vocabulary(spec.n_values))
+    t0 = time.perf_counter()
+    space = enumerate_statespace(cas(), cols.kinds, 64)
+    buckets, failures = encode_columnar(space, cols, max_slots=18)
+    encode_s = time.perf_counter() - t0
+    big = max(buckets, key=lambda b: b.batch)
+    head = take_rows(big, range(min(256, big.batch)))
+    eq, wgl_err, _ = kernel_vs_plain(bucket_args(head, dev), head.V, head.W,
+                                     head.eff_w_live, dev, L)
+    require(eq, "kernel != plain on the north-star slice")
+    wgl = wgl_measure(dev, L, buckets)
+    reasons: dict = {}
+    for _, why in failures:
+        reasons[why] = reasons.get(why, 0) + 1
+
+    # Verdicts and bad ops against the host oracle on sampled rows, half
+    # of them invalid.
+    invalid = np.flatnonzero(~valid)
+    sample = (invalid[:ORACLE_ROWS // 2].tolist()
+              + np.flatnonzero(valid)[:ORACLE_ROWS // 2].tolist())
+    require(len(sample) >= ORACLE_ROWS and len(invalid) >= ORACLE_ROWS // 2,
+            "oracle sample too small")
+    t0 = time.perf_counter()
+    for i in sample:
+        want = wgl_check(cas(), columnar_to_ops(cols, i))
+        require(bool(valid[i]) == (want["valid"] is True),
+                f"verdict differs at {i}")
+        if want["valid"] is False:
+            require(int(bad[i]) == want["op"]["index"],
+                    f"bad op differs at {i}")
+    oracle_s = time.perf_counter() - t0
+
+    # details=True on a slice against check_batch on the same rows.
+    sub, _ = S.synth_cas_device(spec, rows=(0, DETAIL_ROWS), key_meta=False)
+    got = L.check_columnar(cas(), sub, details=True)
+    want = L.check_batch(cas(), [columnar_to_ops(sub, r)
+                                 for r in range(DETAIL_ROWS)])
+    for r, (g, w) in enumerate(zip(got, want)):
+        require(g["valid"] == w["valid"] and g["valid"] == bool(valid[r]),
+                f"details verdict differs at {r}")
+        require(g.get("op", {}).get("index") == w.get("op", {}).get("index"),
+                f"details bad op differs at {r}")
+        require(g.get("configs") == w.get("configs"),
+                f"details configs differ at {r}")
+
+    # Two wide specs at W = 17: the frontier in device memory.
+    wide = []
+    for inv in (False, True):
+        ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2,
+                         invalid=inv)
+        cuda_synth.LAUNCHES = 0
+        L.cuda_wgl.LAUNCHES = 0
+        t0 = time.perf_counter()
+        wv, _ = L.check_synth(cas(), ws)
+        wide_s = time.perf_counter() - t0
+        counts = {"synth_device": cuda_synth.LAUNCHES,
+                  "wgl_frontier": L.cuda_wgl.LAUNCHES}
+        require(all(v > 0 for v in counts.values()),
+                f"a wide check_synth missed a kernel: {counts}")
+        require(bool((wv == (not inv)).all()),
+                f"wide W=17 invalid={inv}: rows not as built")
+        wide.append({"invalid": inv, "rows": WIDE_ROWS, "s": wide_s,
+                     "valid_rows": int(wv.sum()), "launches": counts,
+                     "route": L.DISPATCH_LOG[-1][0]})
+    # The wide generator alone at that shape.
+    vk = S.wide_inputs(ws, device=dev)
+    st = dict(width=ws.width, n_values=ws.n_values, invalid=ws.invalid)
+    wide_ms = time_cuda(lambda: cuda_synth.synth_wide(vk, **st), reps=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S.plain_wide_core(vk, **st)
+    torch.cuda.synchronize()
+    wide_gen = {"ms": wide_ms,
+                "plain_ms": (time.perf_counter() - t0) * 1e3,
+                **wide_bound(ws)}
+
+    emit({"phase": "columnar_main_path", "spec": NS_SPEC,
+          "check_synth_s": e2e_s, "histories_per_s": B / e2e_s,
+          "invalid": int((~valid).sum()), "launches": launches,
+          # host clock, inside the check_synth run
+          "split_s": split,
+          "rest_s": e2e_s - sum(split.values()),
+          # the same layers again, one by one
+          "keys_s": keys_s, "synth_kernel_ms": synth_ms,
+          "copy_back_ms": copy_ms, "synth_plain_ms": synth_plain_ms,
+          "encode_columnar_s": encode_s,
+          "wgl_upload_ms": wgl["upload_ms"],
+          "wgl_kernel_ms": wgl["kernel_ms"],
+          "decode_s": split["device_s"]
+          - (wgl["upload_ms"] + wgl["kernel_ms"]) / 1e3,
+          "buckets": [{"V": b.V, "W": b.W, "rows": b.batch,
+                       "events": b.n_events} for b in buckets],
+          "host_rows": reasons, "oracle_rows": len(sample),
+          "oracle_s": oracle_s, "details_rows": DETAIL_ROWS,
+          "wide": wide, "wide_generator": wide_gen, "wgl": wgl,
+          "synth_bound": synth_bound(spec)})
+    sb = synth_bound(spec)
+    return {
+        "wgl_frontier": {"launches": launches["wgl_frontier"],
+                         "max_abs_err": wgl_err, "ms": wgl["kernel_ms"],
+                         "plain_ms": wgl["plain_ms"],
+                         "bound_ms": wgl["bound_ms"],
+                         "bound_by": wgl["bound_by"]},
+        "synth_device": {"launches": launches["synth_device"],
+                         "max_abs_err": synth_err, "ms": synth_ms,
+                         "plain_ms": synth_plain_ms,
+                         "bound_ms": sb["bound_ms"],
+                         "bound_by": sb["bound_by"]}}
+
+
+def build_kernels(L, cuda_synth):
+    """Build both kernel libraries at once (one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jepsen_torch.ops import _build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(L.cuda_wgl.build),
+                  pool.submit(cuda_synth.build)]:
+            f.result()
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "smem" in ln]
+             for name, log in _build.BUILD_LOGS.items()}
+    return build_s, ptxas
 
 
 def main() -> int:
@@ -308,35 +619,52 @@ def main() -> int:
         return 2
     from jepsen_torch.checkers.linearizable import prepare_history, wgl_check
     from jepsen_torch.models.core import cas_register
+    from jepsen_torch.ops import cuda_synth
     from jepsen_torch.ops import linearize as L
+    from jepsen_torch.ops import synth_device as S
     from jepsen_torch.ops.encode import bucket_encode
     from jepsen_torch.workloads.synth import synth_cas_batch
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    L.cuda_wgl.build()
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in L.cuda_wgl.BUILD_LOG.splitlines()
-             if "registers" in ln or "smem" in ln]
+    build_s, ptxas = build_kernels(L, cuda_synth)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas})
 
-    parity_err = phase_kernel_parity(dev, L, synth_cas_batch, cas_register,
-                                     prepare_history, bucket_encode)
-    main_k = phase_main_path(dev, L, synth_cas_batch, cas_register,
-                             prepare_history, bucket_encode, wgl_check)
+    wgl_err = phase_kernel_parity(dev, L, synth_cas_batch, cas_register,
+                                  prepare_history, bucket_encode)
+    synth_err = phase_synth_parity(dev, S, cuda_synth)
+    oplist = phase_oplist_path(dev, L, synth_cas_batch, cas_register,
+                               prepare_history, bucket_encode, wgl_check)
+    main_k = phase_columnar_path(dev, L, S, cuda_synth, cas_register,
+                                 wgl_check)
+    emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
+
+    wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
     emit({"kernels": [{
         "name": "wgl_frontier", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
         "replaces": "jepsen_tpu/ops/pallas_wgl.py:190",
-        "launches": main_k["launches"], "parity": True,
-        "max_abs_err": max(parity_err, main_k["max_abs_err"]),
-        "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
-        "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
+        "launches": wk["launches"],
+        "launches_by_path": {"check_batch": oplist["launches"],
+                             "check_synth": wk["launches"]},
+        "parity": True,
+        "max_abs_err": max(wgl_err, oplist["max_abs_err"],
+                           wk["max_abs_err"]),
+        "ms": wk["ms"], "plain_ms": wk["plain_ms"],
+        "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
+        "library_ms": None}, {
+        "name": "synth_device", "route": "cuda",
+        "source": "jepsen_torch/ops/csrc/synth_device.cu",
+        "replaces": "jepsen_tpu/ops/synth_device.py:361,735",
+        "launches": sk["launches"], "parity": True,
+        "max_abs_err": max(synth_err, sk["max_abs_err"]),
+        "ms": sk["ms"], "plain_ms": sk["plain_ms"],
+        "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,14 +4,19 @@
 object that holds an encoded batch as numpy arrays under the reference
 encoder's attribute names (duck-typed: nothing is imported from the
 producer). It lets one encoding feed both packages, and lets a caller
-hand a batch encoded elsewhere to the CUDA kernel. Frontier carries
-cross over through ``ops.linearize.import_frontier``/``export_frontier``,
-which keep the reference's journal format.
+hand a batch encoded elsewhere to the CUDA kernel. ``cols_from_arrays``
+does the same for a columnar batch of histories (history.columnar).
+Frontier carries cross over through
+``ops.linearize.import_frontier``/``export_frontier``, which keep the
+reference's journal format. A synthetic batch crosses by its spec: a
+``SynthSpec`` with the same fields names the same batch in both
+packages.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .history.columnar import ColumnarOps
 from .ops.encode import EncodedBatch
 
 
@@ -33,3 +38,19 @@ def batch_from_arrays(src) -> EncodedBatch:
         indices=list(indices) if indices is not None else list(range(B)),
         failures=[], spaces=None,
         shared_target=bool(src.shared_target), w_live=int(src.w_live))
+
+
+def cols_from_arrays(src) -> ColumnarOps:
+    """A ``ColumnarOps`` from ``src.type, process, kind, kinds`` and, when
+    present and not None, ``index`` and ``key``. The arrays are copied
+    at the columnar contract's dtypes; generator metadata stays behind
+    (it is advisory)."""
+    def opt(name):
+        a = getattr(src, name, None)
+        return None if a is None else np.array(a, np.int32)
+
+    return ColumnarOps(type=np.array(src.type, np.int8),
+                       process=np.array(src.process, np.int16),
+                       kind=np.array(src.kind, np.int32),
+                       kinds=[tuple(k) for k in src.kinds],
+                       index=opt("index"), key=opt("key"))

@@ -10,27 +10,21 @@ wrapper: it checks device, dtype, shape and contiguity, raises on
 anything the kernel does not take, and counts its launches in
 ``LAUNCHES``.
 
-The library is built at first use into ``build/jepsen_torch/`` at the
-root of the checkout, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads in milliseconds.
-Nothing here runs when the module is imported.
+The library is built at first use by ``_build.build_library`` (a
+hash-named cache under ``build/jepsen_torch/``). Nothing here runs when
+the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from ._build import build_library
+
 SRC = Path(__file__).resolve().parent / "csrc" / "wgl_frontier.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jepsen_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Widest state space (two packed 32-state words) and pending window the
 # kernel takes: the widest window one card hosts (ops.linearize's data1wide
@@ -46,9 +40,6 @@ SMEM_DEFAULT_BYTES = 48 * 1024
 # Launches of the kernel in this process; callers reset it to 0 and read
 # it back to show that a path ran on the card.
 LAUNCHES = 0
-
-# nvcc's output (register and shared-memory use) from this process's build.
-BUILD_LOG = ""
 
 _LIB = None
 
@@ -82,34 +73,15 @@ def smem_plan(V: int, W: int, w_live: Optional[int] = None) -> dict:
 
 def _library():
     """Build (once per source hash) and load the kernel library."""
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    src = SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libwgl_frontier-{tag[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = shutil.which("nvcc") or os.path.join(
-            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC)],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SRC.name}:\n"
-                               f"{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wgl_frontier_launch.argtypes = [
-        p, p, p, i, p, ctypes.c_longlong, p, p, p, p,
-        i, i, i, i, i, i, i, i, i, i, i, i, p]
-    lib.wgl_frontier_launch.restype = ctypes.c_int
-    lib.wgl_frontier_error.argtypes = [ctypes.c_int]
-    lib.wgl_frontier_error.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
+    global _LIB
+    if _LIB is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _LIB = build_library(SRC, {
+            "wgl_frontier_launch": (
+                [p, p, p, i, p, ctypes.c_longlong, p, p, p, p,
+                 i, i, i, i, i, i, i, i, i, i, i, i, p], ctypes.c_int),
+            "wgl_frontier_error": ([ctypes.c_int], ctypes.c_char_p)})
+    return _LIB
 
 
 def build() -> None:

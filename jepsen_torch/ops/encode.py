@@ -25,8 +25,10 @@ Histories exceeding the bounds are flagged for host fallback rather than
 mis-checked.
 
 This is the exact, unfused encoding: one device event per ok completion
-plus a final close. Event fusion and the columnar encoder are not part of
-this package yet; ``encode_history(fuse=True)`` raises.
+plus a final close. ``bucket_encode`` lowers Op lists; ``encode_columnar``
+lowers a ColumnarOps batch (history.columnar) with one vectorised walk
+over the line axis. Event fusion and state renumbering are not part of
+this package yet; asking for either raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -303,6 +305,9 @@ class EncodedBatch:
     # completion only touch this many slots even when the mask axis is
     # wider (0 = W).
     w_live: int = 0
+    # True event counts per row ([B] int32, close included); set by the
+    # columnar encoder, None from bucket_encode.
+    orig_n_events: Optional[np.ndarray] = None
 
     @property
     def batch(self) -> int:
@@ -417,6 +422,141 @@ def bucket_encode(model: Model, prepared_histories: Sequence[List[Op]], *,
     return out
 
 
+def encode_columnar(space: StateSpace, cols, *, max_slots: int = 16,
+                    min_v: int = 8, min_w: int = 4, fuse: bool = False,
+                    renumber: bool = False
+                    ) -> Tuple[List[EncodedBatch], List[Tuple[int, str]]]:
+    """Vectorised twin of ``bucket_encode`` for a ColumnarOps batch: the
+    slot walk runs once over the line axis in numpy lockstep (every row
+    advances one line per step), then rows bucket by exact pending
+    window W. Returns (buckets, failures), failures being (row, reason)
+    pairs for histories overflowing ``max_slots``: callers route those
+    to a host engine via ``columnar_to_ops``.
+
+    ``space`` must be enumerated over ``cols.kinds`` (index-aligned).
+    The columnar contract (history.columnar) has already applied
+    failure removal, value propagation and the identity-drop rule, so
+    every line maps 1:1 onto the walk. ``fuse`` and ``renumber`` (event
+    fusion, per-alphabet state renumbering) are not ported yet and
+    raise."""
+    from ..history.columnar import C_INVOKE, C_OK
+    if fuse or renumber:
+        raise NotImplementedError(
+            "event fusion and state renumbering are not part of "
+            "jepsen_torch yet; encode with fuse=False, renumber=False")
+    B, N = cols.type.shape
+    S = max_slots
+    if not 1 <= S <= 32:
+        raise ValueError(f"max_slots={S} outside 1..32 (the slot mask is "
+                         "32 bits)")
+    K = space.n_kinds
+    P = int(cols.process.max(initial=0)) + 1
+
+    table = np.full((B, S), K,
+                    np.int8 if K < 127 else np.int32)  # K = empty sentinel
+    free = np.full(B, (1 << S) - 1, np.uint32)
+    slot_of = np.full((B, P), -1, np.int8)
+    live = np.zeros(B, np.int32)
+    max_live = np.zeros(B, np.int32)
+    cnt = np.zeros(B, np.int32)
+    overflow = np.zeros(B, bool)
+
+    # ok events + close, rounded up so the per-bucket event axis (also
+    # rounded to 8) can never exceed the buffer width
+    E = _round_up(N // 2 + 1, 8)
+    slot_dtype = np.int8 if K < 127 else np.int32
+    ev_slot = np.zeros((B, E), np.int8)
+    ev_slots = np.full((B, E, S), K, slot_dtype)
+    ev_opidx = np.full((B, E), -1, np.int32)
+
+    rows = np.arange(B)
+    for j in range(N):
+        t = cols.type[:, j]
+        sel = (t == C_INVOKE) & ~overflow
+        if sel.any():
+            i = rows[sel]
+            fm = free[i]
+            of = fm == 0
+            overflow[i[of]] = True
+            i, fm = i[~of], fm[~of]
+            bit = fm & (~fm + np.uint32(1))      # lowest free slot
+            slot = np.log2(bit).astype(np.int8)
+            free[i] = fm & ~bit
+            p = cols.process[i, j]
+            slot_of[i, p] = slot
+            table[i, slot] = cols.kind[i, j]
+            live[i] += 1
+            max_live[i] = np.maximum(max_live[i], live[i])
+        sel = (t == C_OK) & ~overflow
+        if sel.any():
+            i = rows[sel]
+            p = cols.process[i, j]
+            slot = slot_of[i, p]
+            ok = slot >= 0
+            i, p, slot = i[ok], p[ok], slot[ok]
+            c = cnt[i]
+            ev_slot[i, c] = slot
+            ev_slots[i, c, :] = table[i, :]
+            ev_opidx[i, c] = j
+            table[i, slot] = K
+            free[i] |= np.uint32(1) << slot.astype(np.uint32)
+            slot_of[i, p] = -1
+            cnt[i] += 1
+            live[i] -= 1
+        # C_INFO lines change nothing the walk tracks: the pending slot
+        # stays pinned (allocated at invoke) and the process is free to
+        # invoke again, which overwrites slot_of.
+
+    # Trailing close/flush event per row.
+    ev_slots[rows, cnt, :] = table
+    n_events = cnt + 1
+    return _bucket_encoded(space, ev_slot, ev_slots, ev_opidx, max_live,
+                           n_events, overflow, min_v, min_w, max_slots)
+
+
+def _bucket_encoded(space, ev_slot, ev_slots, ev_opidx, max_live,
+                    n_events, overflow, min_v, min_w, max_slots):
+    """Bucket walked rows by exact pending window W; every bucket shares
+    the one transition table. Buckets come sorted by (V, W), and the
+    overflow failures ride on the first."""
+    rows = np.arange(len(n_events))
+    failures = [(int(r), f"more than {max_slots} concurrently-pending ops")
+                for r in rows[overflow]]
+    gr = rows[~overflow]
+    out: List[EncodedBatch] = []
+    if len(gr):
+        K = space.n_kinds
+        V = _round_up(max(space.n_states, min_v), 8)
+        padded_target = space.padded_target(V, K)
+        g_slots = ev_slots[gr].astype(np.int8 if K < 127 else np.int32,
+                                      copy=False)
+        g_slot, g_opidx, g_nev = ev_slot[gr], ev_opidx[gr], n_events[gr]
+        cnt = g_nev - 1
+        W_row = np.maximum(max_live[gr], min_w)
+        for W in sorted(set(W_row.tolist())):
+            sel = np.flatnonzero(W_row == W)
+            r = gr[sel]
+            Nev = _round_up(int(g_nev[sel].max()), 8)
+            ar = np.arange(Nev)
+            etype = np.full((len(r), Nev), EV_PAD, np.int8)
+            etype[ar[None, :] < cnt[sel, None]] = EV_OK
+            etype[np.arange(len(r)), cnt[sel]] = EV_CLOSE
+            # Every row shares one transition table: a zero-copy
+            # broadcast view, shipped to the device once.
+            tgt = np.broadcast_to(padded_target, (len(r), K + 1, V))
+            out.append(EncodedBatch(
+                ev_type=etype, ev_slot=g_slot[sel, :Nev],
+                ev_slots=g_slots[sel][:, :Nev, :W],
+                ev_opidx=g_opidx[sel, :Nev],
+                target=tgt, V=V, W=int(W), indices=r.tolist(),
+                failures=[], spaces=[space] * len(r), shared_target=True,
+                w_live=int(W), orig_n_events=g_nev[sel].astype(np.int32)))
+    out.sort(key=lambda b: (b.V, b.W))
+    if out:
+        out[0].failures = failures
+    return out, failures
+
+
 def take_rows(batch: EncodedBatch, rows: Sequence[int]) -> EncodedBatch:
     """Row-subset of a batch at arbitrary positions, keeping the
     survivors' encoding and their caller-level indices."""
@@ -433,4 +573,6 @@ def take_rows(batch: EncodedBatch, rows: Sequence[int]) -> EncodedBatch:
         failures=list(batch.failures),
         spaces=([batch.spaces[i] for i in rows] if batch.spaces
                 else batch.spaces),
-        shared_target=batch.shared_target, w_live=batch.w_live)
+        shared_target=batch.shared_target, w_live=batch.w_live,
+        orig_n_events=(batch.orig_n_events[r]
+                       if batch.orig_n_events is not None else None))

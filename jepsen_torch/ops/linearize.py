@@ -31,6 +31,7 @@ keeps frontiers and the journal format identical to the reference's.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -43,6 +44,7 @@ from ..history.ops import Op
 from ..models.core import Model
 from . import cuda_wgl
 from .cuda_wgl import n_state_words
+from .device import resolve_device
 from .encode import (EV_CLOSE, EV_FUSED, EV_OK, EncodedBatch, bucket_encode,
                      slot_ops_at_event)
 
@@ -68,17 +70,6 @@ DISPATCH_LOG: "deque" = deque(maxlen=256)
 class WindowOverflow(Exception):
     """A cost bucket's pending window exceeds what one card can host; the
     rows belong on the host engine."""
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; the CPU only when asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the plain PyTorch version on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _w_live(W: int, w_live: Optional[int]) -> int:
@@ -303,7 +294,8 @@ def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
 # ------------------------------------------------------------- dispatch
 
 def _on(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # a shared target is a read-only broadcast view: copy it first
+    return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(device)
 
 
 def _launch(batch: EncodedBatch, return_frontier: bool, device) -> list:
@@ -696,3 +688,159 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
 def check_one(model: Model, history: List[Op], **kw) -> dict:
     """Single-history device check (the Checker-protocol CUDA backend)."""
     return check_batch(model, [history], **kw)[0]
+
+
+# ------------------------------------------------------ the columnar path
+
+def _keyed(cols) -> bool:
+    key = getattr(cols, "key", None)
+    return key is not None and len(np.unique(key[key >= 0])) > 1
+
+
+def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
+                   host_fallback=None, details=False,
+                   timings: Optional[dict] = None):
+    """Check a ColumnarOps batch end to end: one vectorised encode walk
+    (``encode_columnar``), one kernel launch per exact (V, W) bucket,
+    verdicts decoded per row.
+
+    Returns (valid [B] bool, bad [B] int32): ``bad`` is the op index of
+    the first impossible completion (the original-history index for
+    converted batches, else the line position; INT32_MAX when valid).
+    ``details=True`` returns per-row result dicts of the host engine's
+    shape ({"valid", "op", "configs"}, configs truncated to 10), decoded
+    from the latched frontiers; ``details="invalid"`` decodes only the
+    invalid rows and returns valid ones as {"valid": True}.
+
+    Rows the encoder cannot bound (a pending window past one card) are
+    converted to Op lists and decided by ``host_fallback(model,
+    history)`` (default: the exact host engine), their dicts carrying
+    ``fallback`` and ``provenance``. ``device=None`` means the CUDA card
+    and raises when there is none; ``device="cpu"`` runs the plain
+    version. A keyed batch (a key column with several keys) raises
+    NotImplementedError: it must be partitioned per key, which this
+    package does not do yet, and checking it as one register would give
+    a wrong answer.
+
+    ``timings``, when given a dict, gets the host-clock seconds of the
+    layers: ``encode_s`` (state space and encode walk), ``device_s``
+    (launches, copies back and the per-bucket verdict decode) and
+    ``fallback_s`` (host-engine rows)."""
+    from ..history.columnar import columnar_to_ops
+    from .encode import encode_columnar
+    from .statespace import enumerate_statespace
+
+    if details not in (False, True, "invalid"):
+        raise ValueError(f"details={details!r}: False, True or 'invalid'")
+    if _keyed(cols):
+        raise NotImplementedError(
+            "keyed columnar batches need the per-key partition, which is "
+            "not part of jepsen_torch yet")
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    space = enumerate_statespace(model, cols.kinds, MAX_PACKED_STATES)
+    eff_slots = max_slots + (SINGLE_DEVICE_EXTRA_SLOTS
+                             if max_slots >= DATA_MAX_SLOTS else 0)
+    valid = np.ones(cols.batch, bool)
+    bad = np.full(cols.batch, INT32_MAX, np.int32)
+    results: List[Optional[dict]] = [None] * cols.batch if details else None
+    host_fallback = host_fallback or wgl_check
+    buckets, failures = encode_columnar(space, cols, max_slots=eff_slots)
+    failures = list(failures)
+    laps = [time.perf_counter()]
+    for batch, out in run_buckets(buckets, device=device,
+                                  return_frontier=bool(details)):
+        if isinstance(out, WindowOverflow):
+            failures.extend((i, str(out)) for i in batch.indices)
+            continue
+        v, b, front = out
+        idx = np.asarray(batch.indices)
+        valid[idx] = v
+        inv = np.nonzero(~v)[0]
+        bad_rows = idx[~v]
+        bad_lines = batch.ev_opidx[inv, b[~v]]
+        bad[bad_rows] = (cols.index[bad_rows, bad_lines]
+                         if cols.index is not None else bad_lines)
+        if not details:
+            continue
+        for bi, row in enumerate(batch.indices):
+            if details == "invalid" and bool(v[bi]):
+                results[row] = {"valid": True}
+                continue
+            # The columnar form already applied the prepared-history
+            # contract: rebuild with propagated invokes and skip the
+            # per-op drop recompute.
+            ops = columnar_to_ops(cols, row, propagated=True)
+            results[row] = _decode_result(
+                batch.spaces[bi], ops, bool(v[bi]),
+                int(bad[row]) if not bool(v[bi]) else -1, front[bi],
+                predropped=True)
+    laps.append(time.perf_counter())
+    for row, reason in failures:
+        r = host_fallback(model, columnar_to_ops(cols, row))
+        valid[row] = r["valid"] is True
+        if r["valid"] is False:
+            bad[row] = r["op"].get("index", -1)
+        if details:
+            r.setdefault("fallback", reason)
+            r.setdefault("provenance", "host-fallback")
+            results[row] = r
+    laps.append(time.perf_counter())
+    if timings is not None:
+        timings.update(encode_s=laps[0] - t_start,
+                       device_s=laps[1] - laps[0],
+                       fallback_s=laps[2] - laps[1])
+    if details:
+        return results
+    return valid, bad
+
+
+def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
+                         device=None, max_slots: int = 16,
+                         max_states: int = 64, host_fallback=None,
+                         details=True) -> List[dict]:
+    """Check recorded Op-list histories through the columnar path: one
+    conversion walk (``ops_to_columnar``), one vectorised encode, one
+    launch per cost bucket. Per-history result dicts; ``details=
+    "invalid"`` skips the valid rows' decode. When the shared
+    vocabulary's state space explodes, the batch goes through
+    ``check_batch`` instead."""
+    from ..history.columnar import ops_to_columnar
+    from .statespace import StateSpaceExplosion
+
+    if not histories:
+        return []
+    try:
+        cols = ops_to_columnar(model, histories,
+                               max_states=min(max_states,
+                                              MAX_PACKED_STATES))
+    except StateSpaceExplosion:
+        return check_batch(model, histories, device=device,
+                           max_states=max_states, max_slots=max_slots,
+                           host_fallback=host_fallback)
+    if details not in (True, "invalid"):    # the contract is List[dict]
+        raise ValueError(f"details={details!r}: True or 'invalid'")
+    return check_columnar(model, cols, device=device, max_slots=max_slots,
+                          details=details, host_fallback=host_fallback)
+
+
+def check_synth(model: Model, spec, *, device=None,
+                return_meta: bool = False, **kw):
+    """Generate and check a deterministic synthetic batch
+    (ops.synth_device.SynthSpec): the histories are born in the columnar
+    layout on the device (the generator kernel on the card, its plain
+    version on the CPU) and ride ``check_columnar``. The cas and wide
+    families check here. Returns check_columnar's shapes, plus the
+    SynthMeta when ``return_meta=True``. A ``timings`` dict among ``kw``
+    also gets ``synth_s``, the generation with its copy back."""
+    from .synth_device import synthesize
+    if spec.family not in ("cas", "wide"):
+        raise ValueError(f"check_synth takes the cas and wide families, "
+                         f"not {spec.family!r}")
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    cols, meta = synthesize(spec, key_meta=False, device=device)
+    if kw.get("timings") is not None:
+        kw["timings"]["synth_s"] = time.perf_counter() - t0
+    out = check_columnar(model, cols, device=device, **kw)
+    return (out, meta) if return_meta else out

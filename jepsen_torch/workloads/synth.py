@@ -105,3 +105,16 @@ def synth_cas_batch(n: int, seed0: int = 0, **kw) -> List[List[Op]]:
     """n seeded histories down the shared ``seed_stream``."""
     return [synth_cas_history(s, rng=rng, **kw)
             for s, rng in seeded_rngs(seed0, n)]
+
+
+def cas_kind_vocabulary(n_values: int):
+    """The shared op-kind vocabulary for a CAS-register value domain:
+    read(None), read(v), write(v), cas(a, b) — index-aligned with the
+    columnar ``kind`` arrays the device generators emit
+    (ops.synth_device)."""
+    kinds = [("read", None)]
+    kinds += [("read", v) for v in range(n_values)]
+    kinds += [("write", v) for v in range(n_values)]
+    kinds += [("cas", (a, b)) for a in range(n_values)
+              for b in range(n_values)]
+    return kinds
