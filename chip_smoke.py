@@ -2,23 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from the checkout's sources (one nvcc each, in
-parallel) and holds each bit for bit against its plain PyTorch version
-on the card: the WGL frontier kernel (frontiers in shared and in device
-memory, two state words, the event-chunked resume entry) and the history
-generators (CAS/register cases over processes, values, op counts, keys,
-faults and row slices; the wide family). Then it drives the port's two
-paths, each with the launch counts set to 0 just before and read just
-after:
+Builds both CUDA libraries from the checkout's sources (one nvcc each,
+in parallel) and holds each kernel bit for bit against its plain PyTorch
+version on the card: the WGL frontier kernel (frontiers in shared and in
+device memory, two state words, the event-chunked resume entry), its
+group entry (several bucket chunks of mixed shapes in one launch, padding
+rows skipped, against ``plain_fused_wgl`` and against single-bucket
+launches) and the history generators (CAS/register cases over processes,
+values, op counts, keys, faults and row slices; the wide family). Then
+it drives the port's paths, each with the launch counts set to 0 just
+before and read just after:
 
-  * the Op-list path, ``check_batch`` on seeded CAS-register histories
-    of 1,000 invocations each (2,000 of them: cut in count, never in
-    length, to keep the run short), with the host oracle on sampled rows;
-  * the columnar main path, ``check_synth`` on the north-star spec:
-    10,000 histories of 1,000 ops generated on the card, encoded by the
-    columnar walk and checked by the frontier kernel, with its layer
-    split, the host oracle on sampled rows, ``details=True`` against
-    ``check_batch`` on a 256-row slice, and two wide W = 17 specs.
+  * the Op-list path, ``check_batch(scheduler=False)`` on seeded
+    CAS-register histories of 1,000 invocations each (2,000 of them: cut
+    in count, never in length, to keep the run short), with the host
+    oracle on sampled rows;
+  * the columnar exact path, ``check_synth(scheduler=False)`` on the
+    north-star spec: 10,000 histories of 1,000 ops generated on the
+    card, encoded by the columnar walk and checked by the frontier
+    kernel, with its layer split, the host oracle on sampled rows,
+    ``details=True`` against ``check_batch`` on a 256-row slice, and two
+    wide W = 17 specs; the same spec also through the default
+    ``check_synth`` (the scheduler), timed and held against it;
+  * the scheduler main path, the default ``check_synth`` on the bench's
+    keyed headline spec (10,000 histories of 1,000 ops over 8 keys):
+    per-key partition, fused and renumbered encode groups, the bucket
+    scheduler and its group launches, held against the exact path on
+    every history, the host oracle on sampled sub-histories and
+    ``details=True`` on a 256-row slice; then the scheduler over the
+    wide specs and over 500 Op-list histories against
+    ``scheduler=False``.
 
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero. The last three lines are the kernels line, the card's
@@ -46,7 +59,13 @@ INT32_OPS_PER_S = 67e12 / 4
 # The north-star batch: 10,000 CAS-register histories of 1,000 ops.
 NS_SPEC = dict(family="cas", n=10_000, seed=0, n_procs=5, n_ops=1_000,
                n_values=5, corrupt=0.25)
+# The reference bench's keyed headline batch (bench.py:271-273): the
+# scheduler main path.
+HEADLINE_SPEC = dict(family="cas", n=10_000, seed=1, n_procs=5,
+                     n_ops=1_000, n_values=5, corrupt=0.1, p_info=0.01,
+                     n_keys=8)
 OPLIST_HISTORIES = 2_000  # the Op-list path's count (its length is uncut)
+SCHED_OPLIST_HISTORIES = 500
 ORACLE_ROWS = 64
 DETAIL_ROWS = 256
 WIDE_ROWS = 256
@@ -57,7 +76,14 @@ WIDE_ROWS = 256
 FOLD_IN_OPS = 11
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line also gets the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -274,11 +300,27 @@ def phase_synth_parity(dev, S, cuda_synth):
     return err
 
 
+def frontier_bytes(L, ev_type, ev_slots, target, V, W, w_live) -> int:
+    """Bytes a frontier launch must move for its rows: per live event
+    (padding events are skipped before their slots are read, so they
+    count nothing) its type, its slot and its ``w_live`` slot kinds; the
+    transition table (shared, or one per row) read once; and valid
+    (bool), bad (int32) and the frontier (int32 [words, 2^W]) written
+    once per row."""
+    from jepsen_torch.ops.encode import EV_PAD
+    model = L.vpu_op_model(V, W, w_live)
+    live = int((ev_type != EV_PAD).sum())
+    return (live * (2 + model["w_live"] * ev_slots.element_size())
+            + target.numel() * target.element_size()
+            + ev_type.shape[0] * (1 + 4 + 4 * model["words"]
+                                  * model["masks"]))
+
+
 def wgl_measure(dev, L, buckets):
     """The frontier kernel over a path's buckets: upload, kernel time (CUDA
     events, 5 runs after a warm-up), the plain version's time, and the
     bound from the operations this batch's data needs and the bytes it
-    must move."""
+    must move (``frontier_bytes``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     argsets = [(b, bucket_args(b, dev)) for b in buckets]
@@ -321,10 +363,8 @@ def wgl_measure(dev, L, buckets):
         live = int(np.isin(b.ev_type, (2, 3, 4)).sum())
         dense += model["per_iteration"] * int(it.sum()) \
             + model["per_event"] * live
-        # inputs read once; outputs valid (bool), bad (int32) and the
-        # frontier (int32 [B, words, 2^W]) written once
-        nbytes += sum(t.numel() * t.element_size() for t in a) \
-            + b.batch * (1 + 4 + 4 * model["words"] * model["masks"])
+        nbytes += frontier_bytes(L, a[0], a[2], a[3], b.V, b.W,
+                                 b.eff_w_live)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {"upload_ms": upload_ms, "kernel_ms": kernel_ms,
@@ -370,7 +410,8 @@ def wide_bound(spec) -> dict:
 
 
 def phase_oplist_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
-    """check_batch on Op lists: the first slice's path, at 2,000 rows."""
+    """check_batch(scheduler=False) on Op lists: the first slice's path,
+    at 2,000 rows."""
     from jepsen_torch.ops.encode import take_rows
     t0 = time.perf_counter()
     hists = synth(OPLIST_HISTORIES, seed0=0, n_procs=5,
@@ -381,7 +422,7 @@ def phase_oplist_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
     L.cuda_wgl.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = L.check_batch(cas(), hists)
+    results = L.check_batch(cas(), hists, scheduler=False)
     e2e_s = time.perf_counter() - t0
     launches = L.cuda_wgl.LAUNCHES
     require(launches > 0, "check_batch did not launch the kernel")
@@ -443,7 +484,9 @@ def phase_oplist_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
 
 
 def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
-    """check_synth on the north-star spec, then its layers one by one."""
+    """check_synth(scheduler=False) on the north-star spec, the default
+    check_synth on the same spec, then the exact path's layers one by
+    one."""
     from jepsen_torch.history.columnar import ColumnarOps, columnar_to_ops
     from jepsen_torch.ops.encode import encode_columnar, take_rows
     from jepsen_torch.ops.statespace import enumerate_statespace
@@ -456,13 +499,36 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     split: dict = {}
-    valid, bad = L.check_synth(cas(), spec, timings=split)
+    valid, bad = L.check_synth(cas(), spec, timings=split, scheduler=False)
     e2e_s = time.perf_counter() - t0
     launches = {"synth_device": cuda_synth.LAUNCHES,
                 "wgl_frontier": L.cuda_wgl.LAUNCHES}
     require(all(v > 0 for v in launches.values()),
             f"check_synth missed a kernel: {launches}")
     require(valid.shape == (B,) and bad.shape == (B,), "verdict shapes")
+
+    # The same spec through the default check_synth (scheduler, fused
+    # and renumbered encode groups; the batch is unkeyed, so no
+    # partition), held against the exact path's verdicts.
+    cuda_synth.LAUNCHES = 0
+    L.cuda_wgl.LAUNCHES = 0
+    L.cuda_wgl.GROUP_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dsplit, dstats = {}, {}
+    dv, db = L.check_synth(cas(), spec, timings=dsplit, stats_out=dstats)
+    default = {"check_synth_s": time.perf_counter() - t0,
+               "launches": {"synth_device": cuda_synth.LAUNCHES,
+                            "wgl_frontier": L.cuda_wgl.LAUNCHES,
+                            "wgl_frontier_group":
+                                L.cuda_wgl.GROUP_LAUNCHES},
+               "split_s": dsplit,
+               "stats": {k: dstats[k] for k in (
+                   "classes", "chunks", "dispatches", "fused_groups",
+                   "fusion_ratio", "t_first_verdict_s")}}
+    default["histories_per_s"] = B / default["check_synth_s"]
+    require(np.array_equal(dv, valid) and np.array_equal(db, bad),
+            "default check_synth != exact path on the north-star spec")
 
     # The same batch again, layer by layer.
     t0 = time.perf_counter()
@@ -520,9 +586,10 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
 
     # details=True on a slice against check_batch on the same rows.
     sub, _ = S.synth_cas_device(spec, rows=(0, DETAIL_ROWS), key_meta=False)
-    got = L.check_columnar(cas(), sub, details=True)
+    got = L.check_columnar(cas(), sub, details=True, scheduler=False)
     want = L.check_batch(cas(), [columnar_to_ops(sub, r)
-                                 for r in range(DETAIL_ROWS)])
+                                 for r in range(DETAIL_ROWS)],
+                         scheduler=False)
     for r, (g, w) in enumerate(zip(got, want)):
         require(g["valid"] == w["valid"] and g["valid"] == bool(valid[r]),
                 f"details verdict differs at {r}")
@@ -539,7 +606,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
         cuda_synth.LAUNCHES = 0
         L.cuda_wgl.LAUNCHES = 0
         t0 = time.perf_counter()
-        wv, _ = L.check_synth(cas(), ws)
+        wv, _ = L.check_synth(cas(), ws, scheduler=False)
         wide_s = time.perf_counter() - t0
         counts = {"synth_device": cuda_synth.LAUNCHES,
                   "wgl_frontier": L.cuda_wgl.LAUNCHES}
@@ -564,6 +631,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
 
     emit({"phase": "columnar_main_path", "spec": NS_SPEC,
           "check_synth_s": e2e_s, "histories_per_s": B / e2e_s,
+          "default_check_synth": default,
           "invalid": int((~valid).sum()), "launches": launches,
           # host clock, inside the check_synth run
           "split_s": split,
@@ -594,6 +662,408 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
                          "plain_ms": synth_plain_ms,
                          "bound_ms": sb["bound_ms"],
                          "bound_by": sb["bound_by"]}}
+
+
+# Group-launch cases, one tuple per member: (V, W, w_live, K1, shared
+# target). V 8/40/48, W 4..15, shared and per-row targets, int8 and
+# int32 slot tables (K1 >= 127), 1, 2, 4 and 8 members. Every member's
+# frontier fits in shared memory (W <= 15 at one word, <= 14 at two), as
+# in the scheduler's groups.
+GROUP_CASES = (
+    ((8, 15, None, 12, True),),
+    ((40, 14, 5, 9, False), (8, 4, None, 7, True)),
+    ((8, 6, None, 7, True), (48, 9, 6, 200, False), (40, 5, None, 9, True),
+     (8, 12, 4, 130, False)),
+    ((8, 4, None, 5, True), (8, 7, None, 9, False), (40, 10, 3, 140, True),
+     (48, 8, None, 11, False), (8, 13, 6, 7, True), (48, 14, 4, 9, True),
+     (8, 15, None, 6, False), (40, 4, None, 300, False)),
+)
+
+
+def tensors_err(a, b) -> int:
+    """Largest absolute difference of two integer or bool tensors, int32
+    words compared as uint32 bit patterns; a bool pair counts its
+    mismatches."""
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    d = (a.to(torch.int64) & 0xFFFFFFFF) - (b.to(torch.int64) & 0xFFFFFFFF)
+    return int(d.abs().max()) if d.numel() else 0
+
+
+def padded_member(rng, V, W, w_live, K1, shared, pad, dev):
+    """One member's random tables with ``pad`` padding rows (all EV_PAD,
+    empty slots, unreachable per-row targets) after its real rows."""
+    B, N = int(rng.integers(1, 40)), int(rng.integers(8, 64))
+    args = random_tables(rng, B, N, V, W, w_live, K1, shared, dev)
+    ev_type, ev_slot, ev_slots, target = args
+    z = lambda t: torch.zeros((pad,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=dev)
+    flat = [torch.cat([ev_type, z(ev_type)]), torch.cat([ev_slot, z(ev_slot)]),
+            torch.cat([ev_slots, z(ev_slots).fill_(K1 - 1)]),
+            target if shared else torch.cat([target, z(target).fill_(-1)])]
+    return flat, B
+
+
+def group_vs_plain(members, flat, rows, dev, L):
+    """One group launch against plain_fused_wgl and against single-bucket
+    launches member by member, on the same inputs: (equal, max_abs_err,
+    invalid rows)."""
+    got = L.get_fused_kernel(members)(*flat, rows=rows)
+    want = L.plain_fused_wgl(members, flat)
+    single = []
+    for i, (V, W, wl, _) in enumerate(members):
+        single += L.get_kernel(V, W, w_live=wl)(*flat[4 * i:4 * i + 4])
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, w) and torch.equal(g, x)
+                for g, w, x in zip(got, want, single))
+    err = max(max(tensors_err(g, w), tensors_err(g, x))
+              for g, w, x in zip(got, want, single))
+    invalid = sum(int((~got[3 * i]).sum()) for i in range(len(members)))
+    return equal, err, invalid
+
+
+def encoder_members(dev, S, cas):
+    """Real encoder chunks for group launches: a batch whose rows
+    renumber into sub-spaces, encoded fused in two streamed groups with
+    one registry (as the scheduler's source does). Returns the first
+    group's renumbered buckets and a bucket merged across both groups."""
+    from jepsen_torch.ops.encode import merge_batches
+    from jepsen_torch.ops.schedule import iter_columnar_groups
+    from jepsen_torch.ops.statespace import enumerate_statespace
+    spec = S.SynthSpec(family="cas", n=512, seed=13, n_procs=2, n_ops=60,
+                       n_values=40, corrupt=0.3, p_info=0.05)
+    cols, _ = S.synth_cas_device(spec, key_meta=False, device=dev)
+    space = enumerate_statespace(cas(), cols.kinds, 64)
+    first, second = [[b for b in g if b.batch] for g in iter_columnar_groups(
+        space, cols, max_slots=16, encode_rows=256, fuse=True,
+        renumber=True)]
+    # Rows renumber into sub-spaces of their own alphabets: a pair of
+    # different widths.
+    by_v = {}
+    for b in first:
+        if b.V < len(space.states):
+            by_v.setdefault(b.V, b)
+    renumbered = list(by_v.values())
+    require(len(renumbered) >= 2, "no renumbered pair")
+    both = sorted({b.V for b in first} & {b.V for b in second})
+    require(both, "no V in both encode groups")
+    V = both[0]
+    pend = [b for b in first + second if b.V == V]
+    return renumbered[:2], merge_batches(pend, max(b.W for b in pend))
+
+
+def phase_group_parity(dev, L, S, cas):
+    from jepsen_torch.ops.encode import EV_FUSED
+    from jepsen_torch.ops.schedule import (EVENT_QUANTUM, BucketScheduler,
+                                           _round_up)
+    out = {"phase": "group_vs_plain", "groups": []}
+    max_err = 0
+    rng = np.random.default_rng(77)
+    for case in GROUP_CASES:
+        members, flat, rows = [], [], []
+        for V, W, wl, K1, shared in case:
+            f, nb = padded_member(rng, V, W, wl, K1, shared,
+                                  int(rng.integers(0, 9)), dev)
+            members.append((V, W, wl, shared))
+            flat += f
+            rows.append(nb)
+        eq, err, inv = group_vs_plain(members, flat, rows, dev, L)
+        out["groups"].append({"source": "random", "members": [
+            {"V": V, "W": W, "w_live": wl, "K1": K1, "shared_target": sh,
+             "rows": nb, "padded_rows": int(flat[4 * i].shape[0]),
+             "slots": str(flat[4 * i + 2].dtype)}
+            for i, ((V, W, wl, K1, sh), nb) in enumerate(zip(case, rows))],
+            "invalid": inv, "equal": eq})
+        require(eq, f"group launch != plain on {len(case)} random members")
+        max_err = max(max_err, err)
+    # Real encoder chunks, padded as the scheduler pads them.
+    sch = BucketScheduler(device=dev)
+    pair, merged = encoder_members(dev, S, cas)
+    for label, bs in (("renumbered_pair", pair),
+                      ("merged_across_groups", [merged] + pair)):
+        members, flat, rows = [], [], []
+        for b in bs:
+            Bp, _ = sch._chunk_plan(b)
+            nb = min(b.batch, Bp)
+            flat += sch._pad_chunk(b, 0, nb, Bp,
+                                   _round_up(b.n_events, EVENT_QUANTUM))
+            members.append(sch._member_spec(b))
+            rows.append(nb)
+        eq, err, inv = group_vs_plain(members, flat, rows, dev, L)
+        out["groups"].append({"source": label, "members": [
+            {"V": b.V, "W": b.W, "rows": nb, "shared_target": b.shared_target,
+             "fused_events": int((b.ev_type == EV_FUSED).sum())}
+            for b, nb in zip(bs, rows)], "invalid": inv, "equal": eq})
+        require(eq, f"group launch != plain on the {label}")
+        max_err = max(max_err, err)
+    out["max_abs_err"] = max_err
+    emit(out)
+    return max_err
+
+
+class LaunchRecorder:
+    """Keeps the inputs of every kernel launch made while it is active
+    (the wrappers still launch and count as always), so a path's launches
+    can be replayed, timed and held against the plain version on the
+    same inputs afterwards."""
+
+    def __init__(self, cuda_wgl):
+        self.mod = cuda_wgl
+        self.singles, self.groups = [], []
+
+    def __enter__(self):
+        single, group = self.mod.wgl_frontier, self.mod.wgl_frontier_group
+
+        def rec_single(ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
+                       valid, bad, **kw):
+            self.singles.append(((ev_type, ev_slot, ev_slots, target, idx0,
+                                  F.clone(), Fb.clone(), valid.clone(),
+                                  bad.clone()), kw))
+            return single(ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
+                          valid, bad, **kw)
+
+        def rec_group(members, flat, rows=None):
+            self.groups.append((members, tuple(flat), rows))
+            return group(members, flat, rows)
+
+        self._orig = single, group
+        self.mod.wgl_frontier, self.mod.wgl_frontier_group = \
+            rec_single, rec_group
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.wgl_frontier, self.mod.wgl_frontier_group = self._orig
+        return False
+
+
+def real_rows(members, flat, rows):
+    """A recorded group's inputs cut to each member's real rows."""
+    out = []
+    for i, ((_, _, _, shared), nb) in enumerate(zip(members, rows)):
+        out += [t[:nb] for t in flat[4 * i:4 * i + 3]]
+        out.append(flat[4 * i + 3] if shared else flat[4 * i + 3][:nb])
+    return out
+
+
+def group_measure(dev, L, groups):
+    """The recorded group launches of a path: their kernel time (CUDA
+    events, 3 replays after a warm-up), parity and time of the plain
+    version on the same inputs, and the bound from the bytes the groups
+    must move (``frontier_bytes`` over each member's real rows) and the
+    operations their data needs."""
+    def replay():
+        return [L.cuda_wgl.wgl_frontier_group(m, f, r) for m, f, r in groups]
+
+    ms = time_cuda(replay, reps=3)
+    got = replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [L.plain_fused_wgl(m, real_rows(m, f, r)) for m, f, r in groups]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, equal = 0, True
+    for (m, _, r), g, w in zip(groups, got, want):
+        for j in range(3 * len(m)):
+            gj = g[j][:r[j // 3]]
+            equal = equal and torch.equal(gj, w[j])
+            err = max(err, tensors_err(gj, w[j]))
+    del got, want
+    ops = nbytes = 0
+    for m, f, r in groups:
+        flat = real_rows(m, f, r)
+        for i, ((V, W, wl, _), nb) in enumerate(zip(m, r)):
+            ev = flat[4 * i:4 * i + 4]
+            needed = torch.zeros(nb, dtype=torch.int64, device=dev)
+            L.plain_wgl(*ev, 0, *L.initial_carry(nb, V, W, dev), V=V, W=W,
+                        w_live=wl, ops=needed)
+            ops += int(needed.sum())
+            nbytes += frontier_bytes(L, ev[0], ev[2], ev[3], V, W, wl)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"groups": len(groups),
+            "members": sum(len(m) for m, _, _ in groups),
+            "rows": sum(sum(r) for _, _, r in groups),
+            "ms": ms, "plain_ms": plain_ms, "equal": equal,
+            "max_abs_err": err, "needed_ops": ops, "bytes": nbytes,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def singles_measure(dev, L, singles):
+    """The recorded single-bucket launches of a path: kernel time (CUDA
+    events) and parity with the plain version on the same inputs."""
+    def replay():
+        return [L.cuda_wgl.wgl_frontier(*a[:5], *(t.clone() for t in a[5:]),
+                                        **kw) for a, kw in singles]
+
+    ms = time_cuda(replay, reps=3)
+    got = replay()
+    t0 = time.perf_counter()
+    want = [L.plain_wgl(*a, **kw) for a, kw in singles]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max((tensors_err(x, y) for g, w in zip(got, want)
+               for x, y in zip(g, w)), default=0)
+    return {"launches": len(singles), "ms": ms, "plain_ms": plain_ms,
+            "equal": err == 0, "max_abs_err": err}
+
+
+def hist_json(h: dict) -> dict:
+    return {str(k): int(v) for k, v in sorted(h.items())}
+
+
+def phase_scheduler_path(dev, L, S, cuda_synth, cas, wgl_check):
+    """The default check_synth (partition, fused and renumbered encode
+    groups, the bucket scheduler and its group launches) on the bench's
+    keyed headline spec, held against the exact path."""
+    from jepsen_torch.history.columnar import columnar_to_ops
+    from jepsen_torch.ops.partition import partition_columnar, pending_w_hist
+    spec = S.SynthSpec(**HEADLINE_SPEC)
+    B = spec.n
+
+    split, stats = {}, {}
+    with LaunchRecorder(L.cuda_wgl) as rec:
+        cuda_synth.LAUNCHES = 0
+        L.cuda_wgl.LAUNCHES = 0
+        L.cuda_wgl.GROUP_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        valid, bad = L.check_synth(cas(), spec, timings=split,
+                                   stats_out=stats)
+        e2e_s = time.perf_counter() - t0
+        launches = {"synth_device": cuda_synth.LAUNCHES,
+                    "wgl_frontier": L.cuda_wgl.LAUNCHES,
+                    "wgl_frontier_group": L.cuda_wgl.GROUP_LAUNCHES}
+    require(all(v > 0 for v in launches.values()),
+            f"the scheduler path missed a kernel: {launches}")
+    require(launches["wgl_frontier_group"] == len(rec.groups)
+            and launches["wgl_frontier"] == len(rec.singles),
+            "recorded launches differ from the counts")
+    require(valid.shape == (B,) and bad.shape == (B,), "verdict shapes")
+
+    # The same batch: the partition's effect, then the exact path.
+    cols, _ = S.synthesize(spec, key_meta=False, device=dev)
+    t0 = time.perf_counter()
+    pb = partition_columnar(cols)
+    partition_s = time.perf_counter() - t0
+    w_pre, w_post = pending_w_hist(cols), pending_w_hist(pb.cols)
+    exact_split: dict = {}
+    t0 = time.perf_counter()
+    ev, eb = L.check_columnar(cas(), cols, scheduler=False,
+                              timings=exact_split)
+    exact_s = time.perf_counter() - t0
+    require(np.array_equal(valid, ev), "scheduler verdicts != exact path")
+    require(np.array_equal(bad, eb), "scheduler bad ops != exact path")
+
+    # The host oracle on 64 sub-histories: the witness subs of 32 invalid
+    # histories and 32 subs of valid ones.
+    invalid = np.flatnonzero(~valid)
+    require(len(invalid) >= ORACLE_ROWS // 2, "too few invalid rows")
+    sub_of = {(int(h), k): s for s, (h, k) in
+              enumerate(zip(pb.sub_history.tolist(), pb.sub_key))}
+    t0 = time.perf_counter()
+    for i in invalid[:ORACLE_ROWS // 2].tolist():
+        key = int(cols.key[i, int(bad[i])])
+        want = wgl_check(cas(), columnar_to_ops(pb.cols, sub_of[(i, key)]))
+        require(want["valid"] is False and want["op"]["index"] == int(bad[i]),
+                f"oracle disagrees on history {i} key {key}")
+    valid_subs = [s for s, h in enumerate(pb.sub_history.tolist())
+                  if valid[h]][:ORACLE_ROWS // 2]
+    for s in valid_subs:
+        require(wgl_check(cas(), columnar_to_ops(pb.cols, s))["valid"]
+                is True, f"oracle finds sub {s} invalid")
+    oracle_s = time.perf_counter() - t0
+
+    # details=True on a slice against the exact path.
+    sub, _ = S.synth_cas_device(spec, rows=(0, DETAIL_ROWS), key_meta=False)
+    got = L.check_columnar(cas(), sub, details=True)
+    want = L.check_columnar(cas(), sub, details=True, scheduler=False)
+    for r, (g, w) in enumerate(zip(got, want)):
+        require(g["valid"] == w["valid"] and g["valid"] == bool(valid[r]),
+                f"details verdict differs at {r}")
+        for f in ("op", "configs", "independent_key"):
+            gv, wv = g.get(f), w.get(f)
+            if f == "op":
+                gv, wv = (gv or {}).get("index"), (wv or {}).get("index")
+            require(gv == wv, f"details {f} differs at {r}")
+
+    single = singles_measure(dev, L, rec.singles)
+    require(single["equal"], "a single launch != plain on the main path")
+    group = group_measure(dev, L, rec.groups)
+    require(group["equal"], "a group launch != plain on the main path")
+    del rec
+    emit({"phase": "scheduler_main_path", "spec": HEADLINE_SPEC,
+          "check_synth_s": e2e_s, "histories_per_s": B / e2e_s,
+          "invalid": int((~valid).sum()), "launches": launches,
+          # host clock, inside the check_synth run: synth, partition,
+          # encode groups, device and decode, host fallback
+          "split_s": split, "rest_s": e2e_s - sum(split.values()),
+          "stats": stats,
+          "subs": {"before": B, "after": pb.n_subs,
+                   "partition_s": partition_s,
+                   "w_hist_before": hist_json(w_pre),
+                   "w_hist_after": hist_json(w_post)},
+          "exact_check_columnar_s": exact_s, "exact_split_s": exact_split,
+          "oracle_subs": ORACLE_ROWS, "oracle_s": oracle_s,
+          "details_rows": DETAIL_ROWS,
+          "single_launches": single, "group_launches": group})
+    return {"launches": launches, "single": single, "group": group}
+
+
+def phase_scheduler_sides(dev, L, S, cuda_synth, synth, cas):
+    """The scheduler over the wide specs (W = 17: the wide route) and
+    over Op-list histories, against scheduler=False."""
+    out = {"phase": "scheduler_sides", "wide": []}
+    for inv in (False, True):
+        ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2,
+                         invalid=inv)
+        cuda_synth.LAUNCHES = 0
+        L.cuda_wgl.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sv, sb = L.check_synth(cas(), ws)
+        s = time.perf_counter() - t0
+        counts = {"synth_device": cuda_synth.LAUNCHES,
+                  "wgl_frontier": L.cuda_wgl.LAUNCHES}
+        route = L.DISPATCH_LOG[-1][0]
+        xv, xb = L.check_synth(cas(), ws, scheduler=False)
+        require(np.array_equal(sv, xv) and np.array_equal(sb, xb),
+                f"wide invalid={inv}: scheduler != exact")
+        require(all(v > 0 for v in counts.values()) and route == "data1wide",
+                f"wide invalid={inv}: {counts}, route {route}")
+        out["wide"].append({"invalid": inv, "rows": WIDE_ROWS, "s": s,
+                            "valid_rows": int(sv.sum()), "launches": counts,
+                            "route": route})
+    # No info ops, as in the Op-list phase: an info op pins its slot to
+    # the end, and a wide invalid row whose first failure lies inside a
+    # fused run is re-derived by the exponential host engine.
+    hists = synth(SCHED_OPLIST_HISTORIES, seed0=11, n_procs=5,
+                  n_ops=NS_SPEC["n_ops"], n_values=5, corrupt=0.25,
+                  p_info=0.0)
+    L.cuda_wgl.LAUNCHES = 0
+    L.cuda_wgl.GROUP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = L.check_batch(cas(), hists)
+    sched_s = time.perf_counter() - t0
+    counts = {"wgl_frontier": L.cuda_wgl.LAUNCHES,
+              "wgl_frontier_group": L.cuda_wgl.GROUP_LAUNCHES}
+    require(counts["wgl_frontier"] + counts["wgl_frontier_group"] > 0,
+            "check_batch(scheduler=True) launched nothing")
+    t0 = time.perf_counter()
+    want = L.check_batch(cas(), hists, scheduler=False)
+    exact_s = time.perf_counter() - t0
+    prov: dict = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = dict(g)
+        p = g.pop("provenance")
+        prov[p] = prov.get(p, 0) + 1
+        require(g == w, f"Op-list history {i}: scheduler != exact")
+    out["oplist"] = {"histories": SCHED_OPLIST_HISTORIES,
+                     "check_batch_s": sched_s, "exact_s": exact_s,
+                     "invalid": sum(r["valid"] is False for r in got),
+                     "provenance": prov, "launches": counts}
+    emit(out)
+    return counts
 
 
 def build_kernels(L, cuda_synth):
@@ -642,29 +1112,55 @@ def main() -> int:
                                prepare_history, bucket_encode, wgl_check)
     main_k = phase_columnar_path(dev, L, S, cuda_synth, cas_register,
                                  wgl_check)
+    group_err = phase_group_parity(dev, L, S, cas_register)
+    sched = phase_scheduler_path(dev, L, S, cuda_synth, cas_register,
+                                 wgl_check)
+    sides = phase_scheduler_sides(dev, L, S, cuda_synth, synth_cas_batch,
+                                  cas_register)
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
 
     wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
+    sl, gk = sched["launches"], sched["group"]
     emit({"kernels": [{
         "name": "wgl_frontier", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
         "replaces": "jepsen_tpu/ops/pallas_wgl.py:190",
         "launches": wk["launches"],
         "launches_by_path": {"check_batch": oplist["launches"],
-                             "check_synth": wk["launches"]},
+                             "check_synth": wk["launches"],
+                             "check_synth_scheduler": sl["wgl_frontier"],
+                             "check_batch_scheduler":
+                                 sides["wgl_frontier"]},
         "parity": True,
         "max_abs_err": max(wgl_err, oplist["max_abs_err"],
-                           wk["max_abs_err"]),
+                           wk["max_abs_err"],
+                           sched["single"]["max_abs_err"]),
         "ms": wk["ms"], "plain_ms": wk["plain_ms"],
         "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
         "library_ms": None}, {
         "name": "synth_device", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/synth_device.cu",
         "replaces": "jepsen_tpu/ops/synth_device.py:361,735",
-        "launches": sk["launches"], "parity": True,
+        "launches": sk["launches"],
+        "launches_by_path": {"check_synth": sk["launches"],
+                             "check_synth_scheduler": sl["synth_device"]},
+        "parity": True,
         "max_abs_err": max(synth_err, sk["max_abs_err"]),
         "ms": sk["ms"], "plain_ms": sk["plain_ms"],
         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
+        "library_ms": None}, {
+        "name": "wgl_frontier_group", "route": "cuda",
+        "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
+        "replaces": "jepsen_tpu/ops/linearize.py:355",
+        "launches": sl["wgl_frontier_group"],
+        "launches_by_path": {"check_synth_scheduler":
+                             sl["wgl_frontier_group"],
+                             "check_batch_scheduler":
+                                 sides["wgl_frontier_group"]},
+        "parity": True,
+        "max_abs_err": max(group_err, gk["max_abs_err"]),
+        "ms": gk["ms"], "plain_ms": gk["plain_ms"],
+        "bound_ms": gk["bound_ms"], "bound_by": gk["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

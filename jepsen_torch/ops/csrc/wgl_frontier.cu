@@ -38,6 +38,23 @@
 // row's slice of the output tensor in device memory; the body is the same
 // code on a different pointer.
 //
+// The group entry (wgl_frontier_group_kernel) replaces the TPU dispatch
+// group jepsen_tpu/ops/linearize.py::make_fused_kernel: one XLA call that
+// scans several class buckets of different shapes back to back. Here it is
+// one launch whose blocks are the real rows of up to kMaxMembers member
+// chunks (different V, W, w_live, event lengths, slot dtypes, shared or
+// per-row targets). Block b finds its member by scanning the members' row
+// prefix sums in a __grid_constant__ descriptor and runs the same row body
+// as the single-bucket kernel. What it saves is launches, not work: the
+// scheduler's many small chunks stop paying a launch and a host round trip
+// each. Every member keeps its frontier in shared memory (the scheduler
+// ships a member that needs the device-memory frontier alone), the block
+// gets the largest member's shared-memory plan, and a row's latched
+// pre-failure closure is written straight into its frontier output, which
+// therefore holds the check form's where(valid, F, Fb) when the block ends.
+// Padding rows of a member are not launched: their outputs arrive
+// pre-filled as the plain version leaves an all-EV_PAD row.
+//
 // Why in-place updates are race-free. Applying slot i reads only masks
 // without bit i and writes only masks with bit i, and each mask pair
 // (m, m | 1<<i) belongs to one thread, so a slot needs no barrier inside
@@ -67,39 +84,40 @@ __device__ __forceinline__ int load_kind(const void* slots, long long at,
                    : static_cast<const int8_t*>(slots)[at];
 }
 
-__global__ void wgl_frontier_kernel(
-    const int8_t* __restrict__ ev_type, const int8_t* __restrict__ ev_slot,
-    const void* __restrict__ ev_slots, int slots_i32,
-    const int32_t* __restrict__ target, long long target_row_stride,
-    uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad,
-    int N, int Wt, int K1, int V, int NW, int W, int WL, int idx0,
-    int frontier_in_smem) {
+// One row's walk over its N events: the body both entries share. `et`,
+// `es` and `ev_slots` are the row's event tables (its slot table at element
+// offset `slots_base`, Wt entries per event), `tg` its [K1][V] transition table,
+// Fg and Fbg its carry frontiers in device memory, valid_p and bad_p its
+// verdict. With frontier_in_smem the frontier lives in shared memory after
+// the staged transition rows and is copied back to Fg at the end, unless
+// Fbg aliases Fg and the row has failed: then Fg keeps the latched
+// closure (the group entry's output).
+__device__ void wgl_row(const int8_t* __restrict__ et,
+                        const int8_t* __restrict__ es,
+                        const void* __restrict__ ev_slots,
+                        long long slots_base,
+                        int slots_i32, const int32_t* __restrict__ tg,
+                        uint32_t* Fg, uint32_t* Fbg, uint8_t* valid_p,
+                        int32_t* bad_p, int N, int Wt, int K1, int V, int NW,
+                        int W, int WL, int idx0, int frontier_in_smem) {
   extern __shared__ uint32_t smem[];
   __shared__ uint32_t live_slots;
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const long long row = blockIdx.x;
   const uint32_t M = 1u << W;
   const uint32_t P = M >> 1;
   const uint32_t NWM = static_cast<uint32_t>(NW) * M;
 
   // [WL][NW][V] packed one-hot target rows of this event's slots.
   uint32_t* rows = smem;
-  uint32_t* Fg = F + row * NWM;
-  uint32_t* Fbg = Fb + row * NWM;
   uint32_t* Fw = frontier_in_smem ? smem + WL * NW * V : Fg;
-
-  const int8_t* et = ev_type + row * N;
-  const int8_t* es = ev_slot + row * N;
-  const long long slots_base = row * static_cast<long long>(N) * Wt;
-  const int32_t* tg = target + row * target_row_stride;
 
   if (frontier_in_smem) {
     for (uint32_t m = tid; m < NWM; m += nt) Fw[m] = Fg[m];
   }
-  bool ok = valid[row] != 0;
-  int32_t first_bad = bad[row];
+  bool ok = *valid_p != 0;
+  int32_t first_bad = *bad_p;
   // True once a failed completion has emptied F: from then on every event
   // leaves F, Fb and valid as they are, and only bad's running min moves.
   bool dead = false;
@@ -221,14 +239,68 @@ __global__ void wgl_frontier_kernel(
     __syncthreads();
   }
 
-  if (frontier_in_smem) {
+  if (frontier_in_smem && (ok || Fbg != Fg)) {
     __syncthreads();
     for (uint32_t m = tid; m < NWM; m += nt) Fg[m] = Fw[m];
   }
   if (tid == 0) {
-    valid[row] = ok ? 1 : 0;
-    bad[row] = first_bad;
+    *valid_p = ok ? 1 : 0;
+    *bad_p = first_bad;
   }
+}
+
+__global__ void wgl_frontier_kernel(
+    const int8_t* __restrict__ ev_type, const int8_t* __restrict__ ev_slot,
+    const void* __restrict__ ev_slots, int slots_i32,
+    const int32_t* __restrict__ target, long long target_row_stride,
+    uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad,
+    int N, int Wt, int K1, int V, int NW, int W, int WL, int idx0,
+    int frontier_in_smem) {
+  const long long row = blockIdx.x;
+  const long long NWM = static_cast<long long>(NW) << W;
+  wgl_row(ev_type + row * N, ev_slot + row * N, ev_slots,
+          row * static_cast<long long>(N) * Wt, slots_i32,
+          target + row * target_row_stride, F + row * NWM, Fb + row * NWM,
+          valid + row, bad + row, N, Wt, K1, V, NW, W, WL, idx0,
+          frontier_in_smem);
+}
+
+// One member chunk of a group launch. Layout shared with the ctypes
+// Structure in ops/cuda_wgl.py: keep the two in step.
+struct WglMember {
+  const int8_t* ev_type;   // [Bp, N]
+  const int8_t* ev_slot;   // [Bp, N]
+  const void* ev_slots;    // [Bp, N, Wt] int8 or int32
+  const int32_t* target;   // [K1, V] shared or [Bp, K1, V]
+  uint32_t* frontier;      // [Bp, NW, 2^W] in: initial carry, out: result
+  uint8_t* valid;          // [Bp] in: 1, out: verdict
+  int32_t* bad;            // [Bp] in: INT32_MAX, out: first bad event
+  long long target_row_stride;  // 0 when shared, else K1 * V
+  int slots_i32, N, Wt, K1, V, NW, W, WL;
+  int row_start;           // prefix sum of the real rows before it
+  int rows;                // real rows launched (<= Bp)
+};
+
+constexpr int kMaxMembers = 8;
+
+struct WglGroup {
+  WglMember m[kMaxMembers];
+  int n_members;
+  int total_rows;
+};
+
+__global__ void wgl_frontier_group_kernel(const __grid_constant__ WglGroup g) {
+  const int b = blockIdx.x;
+  int j = 0;
+  while (j + 1 < g.n_members && g.m[j + 1].row_start <= b) ++j;
+  const WglMember& mb = g.m[j];
+  const long long row = b - mb.row_start;
+  const long long NWM = static_cast<long long>(mb.NW) << mb.W;
+  uint32_t* Fg = mb.frontier + row * NWM;
+  wgl_row(mb.ev_type + row * mb.N, mb.ev_slot + row * mb.N, mb.ev_slots,
+          row * static_cast<long long>(mb.N) * mb.Wt, mb.slots_i32,
+          mb.target + row * mb.target_row_stride, Fg, Fg, mb.valid + row,
+          mb.bad + row, mb.N, mb.Wt, mb.K1, mb.V, mb.NW, mb.W, mb.WL, 0, 1);
 }
 
 }  // namespace
@@ -254,6 +326,28 @@ extern "C" int wgl_frontier_launch(
       static_cast<uint8_t*>(valid), static_cast<int32_t*>(bad), N, Wt, K1, V,
       NW, W, WL, idx0, frontier_in_smem);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgl_frontier_group_launch(const void* group, int threads,
+                                         int smem_bytes, void* stream) {
+  const WglGroup* g = static_cast<const WglGroup*>(group);
+  if (g->n_members < 1 || g->n_members > kMaxMembers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wgl_frontier_group_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (g->total_rows > 0) {
+    wgl_frontier_group_kernel<<<g->total_rows, threads, smem_bytes,
+                                static_cast<cudaStream_t>(stream)>>>(*g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wgl_frontier_group_desc_bytes() {
+  return static_cast<int>(sizeof(WglGroup));
 }
 
 extern "C" const char* wgl_frontier_error(int code) {

@@ -24,6 +24,14 @@ kernel (ops.cuda_wgl, ``csrc/wgl_frontier.cu``) launches or raises; on a
 CPU tensor ``plain_wgl``, the plain PyTorch version, runs. Both take and
 return the same carry ``(F, Fb, valid, bad)``, so one entry serves the
 one-shot check, the event-chunked walk and carried frontiers.
+``get_fused_kernel`` does the same for a dispatch group of several
+bucket chunks: the CUDA group entry in one launch, or ``plain_fused_wgl``.
+
+The entry points (``check_batch``, ``check_one``, ``check_columnar``,
+``check_batch_columnar``, ``check_synth``) stream through the bucket
+scheduler (ops.schedule) by default, after the per-key pre-partition
+(ops.partition); ``scheduler=False`` keeps the exact-W flow, the parity
+oracle.
 
 Packed words are int32 bit patterns throughout (torch has no CPU shifts
 on uint32); they are viewed as uint32 only at the numpy boundary, which
@@ -195,7 +203,12 @@ def plain_wgl(ev_type: torch.Tensor, ev_slot: torch.Tensor,
                             kinds_all).clamp(0, K1 - 1)
     ar = torch.arange(B, device=dev)[:, None]
     F, Fb, valid, bad = F.clone(), Fb.clone(), valid.clone(), bad.clone()
+    # An event that is padding in every row changes nothing: skip it.
+    live_any = ((typ_all == EV_OK) | (typ_all == EV_FUSED)
+                | (typ_all == EV_CLOSE)).any(0).tolist()
     for e in range(N):
+        if not live_any[e]:
+            continue
         typ = typ_all[:, e]
         is_ok = (typ == EV_OK) | (typ == EV_FUSED)
         is_close = typ == EV_CLOSE
@@ -249,6 +262,71 @@ def initial_carry(B: int, V: int, W: int, device) -> tuple:
             torch.ones(B, dtype=torch.bool, device=device),
             torch.full((B,), int(INT32_MAX), dtype=torch.int32,
                        device=device))
+
+
+def _plain_check(V, W, w_live, ev_type, ev_slot, ev_slots, target):
+    """The check form of the plain version: a fresh carry, one walk, and
+    the final frontier of a valid row or the latched closure of an
+    invalid one."""
+    carry = initial_carry(ev_type.shape[0], V, W, ev_type.device)
+    valid, bad, F, Fb = plain_wgl(ev_type, ev_slot, ev_slots, target, 0,
+                                  *carry, V=V, W=W, w_live=w_live)
+    return valid, bad, torch.where(valid[:, None, None], F, Fb)
+
+
+def plain_fused_wgl(members, flat) -> tuple:
+    """The plain PyTorch version of a dispatch group, the twin of the
+    reference's ``make_fused_kernel``: ``members`` is a sequence of
+    ``(V, W, w_live, shared_target)`` per bucket chunk, ``flat`` four
+    tensors per member (ev_type, ev_slot, ev_slots, target); returns
+    three per member (valid, bad, frontier), each member checked on its
+    own by ``plain_wgl``."""
+    out = []
+    for i, (V, W, w_live, _) in enumerate(members):
+        out.extend(_plain_check(V, W, _w_live(W, w_live),
+                                *flat[4 * i:4 * i + 4]))
+    return tuple(out)
+
+
+def get_fused_kernel(members):
+    """The check of one dispatch group — the group twin of
+    ``get_kernel``: ``members`` as in ``plain_fused_wgl``; the callable
+    takes the four flat tensors per member and, optionally, ``rows=``,
+    each member's count of real rows (the rest must be padding rows).
+    On CUDA tensors the group entry (``cuda_wgl.wgl_frontier_group``)
+    retires every member in one launch, skipping padding rows; on CPU
+    tensors ``plain_fused_wgl`` runs."""
+    members = tuple(tuple(m) for m in members)
+    for V, _, _, _ in members:
+        if V > MAX_PACKED_STATES:
+            raise ValueError(f"V={V} exceeds the packed kernel's "
+                             f"{MAX_PACKED_STATES} states")
+
+    def fused(*flat, rows=None):
+        dev = flat[0].device
+        if dev.type == "cuda":
+            return cuda_wgl.wgl_frontier_group(members, flat, rows)
+        if dev.type != "cpu":
+            raise ValueError(f"no WGL kernel for device {dev}")
+        if rows is None:
+            return plain_fused_wgl(members, flat)
+        # Check the real rows only; the padding rows' outputs are what
+        # the walk leaves an all-EV_PAD row: the initial carry.
+        real = []
+        for i, ((_, _, _, shared), nb) in enumerate(zip(members, rows)):
+            ev = [t[:nb] for t in flat[4 * i:4 * i + 3]]
+            tgt = flat[4 * i + 3]
+            real += ev + [tgt if shared else tgt[:nb]]
+        out = list(plain_fused_wgl(members, real))
+        for i, (V, W, _, _) in enumerate(members):
+            B = flat[4 * i].shape[0]
+            full = initial_carry(B, V, W, dev)
+            for j, init in enumerate((full[2], full[3], full[0])):
+                init[:rows[i]] = out[3 * i + j]
+                out[3 * i + j] = init
+        return tuple(out)
+
+    return fused
 
 
 def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
@@ -530,9 +608,8 @@ def grow_frontier_states(carry: dict, old_words: int,
 def fused_bad_rows(batch: EncodedBatch, valid, bad) -> np.ndarray:
     """Row positions (within ``batch``) whose first impossible completion
     landed on an EV_FUSED step: the device only knows such a run's FIRST
-    member, so their exact bad op is re-derived on the host. This
-    package's encoder does not fuse yet, so ``check_batch`` has no such
-    rows; the scheduler slice, which fuses, routes them."""
+    member, so the entry points re-derive their exact bad op on the
+    host."""
     v = np.asarray(valid)
     b = np.asarray(bad)
     inv = np.nonzero(~v)[0]
@@ -629,10 +706,45 @@ def _result_for(row: int, batch: EncodedBatch, valid: np.ndarray,
 
 # ---------------------------------------------------------- entry points
 
+def _scheduler_opts(faults, journal, scheduler_opts) -> dict:
+    """The BucketScheduler knobs of an entry point's ``scheduler_opts``;
+    refuses what this package does not carry yet."""
+    if faults is not None or journal is not None:
+        raise NotImplementedError(
+            "the checker nemesis (faults=) and the chunk journal "
+            "(journal=) come with the fault-ladder slice, which is not "
+            "part of jepsen_torch yet")
+    opts = dict(scheduler_opts or {})
+    backend = opts.pop("wgl_backend", "auto")
+    if backend == "dc":
+        raise NotImplementedError(
+            "the decrease-and-conquer backend (wgl_backend='dc') needs the "
+            "dc peel kernel, which is not part of jepsen_torch yet")
+    if backend != "auto":
+        # The reference's "xla" and "pallas" pick one of its two TPU
+        # forms of the frontier search; here one CUDA kernel replaces
+        # both, so there is nothing to pick.
+        raise ValueError(f"wgl_backend={backend!r}: jepsen_torch has one "
+                         "frontier kernel; pass 'auto' or leave it out")
+    return opts
+
+
+def _decided_on_host(r: dict, scheduler: bool, why=None) -> dict:
+    """Tag a host-engine result the way the reference does."""
+    if why is not None:
+        r.setdefault("fallback", why)
+    if scheduler:
+        r.setdefault("provenance", "host-fallback")
+    return r
+
+
 def check_batch(model: Model, histories: Sequence[List[Op]], *,
                 device=None, max_slots: int = 16,
                 max_states: int = MAX_PACKED_STATES,
-                host_fallback=None) -> List[dict]:
+                host_fallback=None, min_device_batch: int = 1,
+                scheduler: bool = True, faults=None, journal=None,
+                scheduler_opts: Optional[dict] = None,
+                partition: object = "auto") -> List[dict]:
     """Check many raw histories on the device; per-history result dicts
     (``valid``, on failure ``op``, and a ``configs`` sample).
 
@@ -640,9 +752,41 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
     ``device="cpu"`` runs the plain version. Histories the encoder cannot
     bound (state-space explosion, a pending window past one card) are
     decided by ``host_fallback(model, history)`` (default: the exact host
-    engine) and carry a ``fallback`` key naming why. Buckets run one
-    kernel per exact (V, W) class, in the reference's exact-W order."""
+    engine) and carry a ``fallback`` key naming why. Cost buckets
+    smaller than ``min_device_batch`` go to the host engine too (under
+    the scheduler only wide, W >= DATA_MAX_SLOTS, ones: narrow small
+    buckets merge into classes).
+
+    ``scheduler=True`` (default) encodes with event fusion and streams
+    through the bucket scheduler (ops.schedule: W-class consolidation,
+    chunked pipeline, group launches); every result then carries a
+    ``provenance`` tag (``device`` or ``host-fallback``). Rows whose
+    first failure falls inside a fused run re-derive on the host.
+    ``scheduler=False`` keeps one launch per exact (V, W) bucket — the
+    parity oracle. ``scheduler_opts`` forwards BucketScheduler knobs
+    (chunk_rows, max_classes, fuse_width, ...). ``faults`` and
+    ``journal`` are not carried yet and raise NotImplementedError.
+
+    ``partition`` is the per-key pre-partition (ops.partition): KV-valued
+    histories strain into per-key sub-histories before encoding, each
+    key checks at its own pending window, and verdicts recombine with
+    the witness key (``independent_key``). ``"auto"`` (default) samples
+    each history's head for KV values; True forces the strain; False
+    keeps the unpartitioned path."""
+    opts = _scheduler_opts(faults, journal, scheduler_opts)
     device = resolve_device(device)
+    if partition:
+        from .partition import partition_histories, recombine_details
+        parts = partition_histories(histories, force=partition is True)
+        if parts is not None:
+            subs, sub_hist, sub_key = parts
+            inner = check_batch(
+                model, subs, device=device, max_slots=max_slots,
+                max_states=max_states, host_fallback=host_fallback,
+                min_device_batch=min_device_batch, scheduler=scheduler,
+                scheduler_opts=opts, partition=False)
+            return recombine_details(inner, sub_hist, sub_key,
+                                     len(histories))
     if host_fallback is None:
         _cache: dict = {}
 
@@ -657,31 +801,50 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
                              if max_slots >= DATA_MAX_SLOTS else 0)
     buckets = bucket_encode(model, prepared,
                             max_states=min(max_states, MAX_PACKED_STATES),
-                            max_slots=eff_slots)
+                            max_slots=eff_slots, fuse=scheduler)
 
     results: List[Optional[dict]] = [None] * len(histories)
 
-    def fallback(i, why):
-        r = host_fallback(model, histories[i])
-        r.setdefault("fallback", why)
-        results[i] = r
+    def on_host(i, why=None):
+        results[i] = _decided_on_host(host_fallback(model, histories[i]),
+                                      scheduler, why)
 
     device_batches = []
     for batch in buckets:
-        if batch.batch:
+        if 0 < batch.batch < min_device_batch and \
+                (not scheduler or batch.W >= DATA_MAX_SLOTS):
+            for i in batch.indices:
+                on_host(i)
+        elif batch.batch:
             device_batches.append(batch)
         for i, reason in batch.failures:
-            fallback(i, reason)
-    for batch, out in run_buckets(device_batches, device=device,
-                                  return_frontier=True):
+            on_host(i, reason)
+    if scheduler:
+        from .schedule import BucketScheduler
+        stream = BucketScheduler(return_frontier=True, device=device,
+                                 **opts).run(device_batches)
+    else:
+        stream = run_buckets(device_batches, device=device,
+                             return_frontier=True)
+    for batch, out in stream:
         if isinstance(out, WindowOverflow):
             for i in batch.indices:
-                fallback(i, str(out))
+                on_host(i, str(out))
             continue
         valid, bad, front = out
+        fused = set(fused_bad_rows(batch, valid, bad).tolist())
         for row, i in enumerate(batch.indices):
+            if row in fused:
+                # The first impossible completion fell inside a fused
+                # run: the device only knows the run's first member.
+                on_host(i)
+                continue
             results[i] = _result_for(row, batch, valid, bad, front,
                                      model, prepared[i])
+            if scheduler:
+                # This scheduler has no retry ladder: every row it
+                # decides is decided by the device.
+                results[i]["provenance"] = "device"
     return results
 
 
@@ -692,17 +855,15 @@ def check_one(model: Model, history: List[Op], **kw) -> dict:
 
 # ------------------------------------------------------ the columnar path
 
-def _keyed(cols) -> bool:
-    key = getattr(cols, "key", None)
-    return key is not None and len(np.unique(key[key >= 0])) > 1
-
-
 def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
                    host_fallback=None, details=False,
-                   timings: Optional[dict] = None):
-    """Check a ColumnarOps batch end to end: one vectorised encode walk
-    (``encode_columnar``), one kernel launch per exact (V, W) bucket,
-    verdicts decoded per row.
+                   timings: Optional[dict] = None, scheduler: bool = True,
+                   faults=None, journal=None,
+                   scheduler_opts: Optional[dict] = None,
+                   partition: object = "auto",
+                   stats_out: Optional[dict] = None):
+    """Check a ColumnarOps batch end to end: a vectorised encode walk,
+    kernel launches per bucket, verdicts decoded per row.
 
     Returns (valid [B] bool, bad [B] int32): ``bad`` is the op index of
     the first impossible completion (the original-history index for
@@ -712,31 +873,77 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
     from the latched frontiers; ``details="invalid"`` decodes only the
     invalid rows and returns valid ones as {"valid": True}.
 
+    ``scheduler=True`` (default) streams through the bucket scheduler
+    (ops.schedule): the encode walk runs in row groups with event fusion
+    and state renumbering, exact windows consolidate into few W classes,
+    chunks pipeline against decode, and several chunks share one group
+    launch. Detail dicts of device rows then carry ``provenance``. Rows
+    whose first failure falls inside a fused run are re-derived on the
+    host after the stream drains. ``scheduler=False`` keeps the fully
+    encoded exact-W flow, the parity oracle. There is no
+    ``min_device_batch``: the reference uses it here only to send small
+    wide buckets to its native engine, which this package does not have.
+    ``faults`` and ``journal`` raise NotImplementedError.
+
+    ``partition`` (default ``"auto"``): a KEYED batch (``cols.key``)
+    strains into its per-key sub-batch before encoding (ops.partition)
+    and verdicts recombine per history: valid iff every key is, ``bad``
+    the smallest original bad-op index over the invalid keys, and
+    (details mode) the witness sub's result plus ``independent_key``.
+
     Rows the encoder cannot bound (a pending window past one card) are
     converted to Op lists and decided by ``host_fallback(model,
     history)`` (default: the exact host engine), their dicts carrying
     ``fallback`` and ``provenance``. ``device=None`` means the CUDA card
     and raises when there is none; ``device="cpu"`` runs the plain
-    version. A keyed batch (a key column with several keys) raises
-    NotImplementedError: it must be partitioned per key, which this
-    package does not do yet, and checking it as one register would give
-    a wrong answer.
+    versions.
 
     ``timings``, when given a dict, gets the host-clock seconds of the
-    layers: ``encode_s`` (state space and encode walk), ``device_s``
-    (launches, copies back and the per-bucket verdict decode) and
-    ``fallback_s`` (host-engine rows)."""
+    layers: ``partition_s`` (keyed batches: the strain), ``encode_s``
+    (state space and encode walk; on the scheduler path the encode
+    groups), ``device_s`` (launches, copies back and the per-bucket
+    verdict decode) and ``fallback_s`` (host-engine rows). ``stats_out``,
+    when given a dict, gets the scheduler's ``stats`` (scheduler path
+    only)."""
+    if details not in (False, True, "invalid"):
+        raise ValueError(f"details={details!r}: False, True or 'invalid'")
+    opts = _scheduler_opts(faults, journal, scheduler_opts)
+    device = resolve_device(device)
+    if partition and getattr(cols, "key", None) is not None:
+        from .partition import (partition_columnar, recombine_details,
+                                recombine_verdicts)
+        t0 = time.perf_counter()
+        pb = partition_columnar(cols)
+        if timings is not None:
+            timings["partition_s"] = time.perf_counter() - t0
+        if pb is not None:
+            inner = check_columnar(
+                model, pb.cols, device=device, max_slots=max_slots,
+                host_fallback=host_fallback, details=details,
+                timings=timings, scheduler=scheduler,
+                scheduler_opts=opts, partition=False, stats_out=stats_out)
+            if details:
+                return recombine_details(inner, pb.sub_history,
+                                         pb.sub_key, cols.batch)
+            v, b, _ = recombine_verdicts(inner[0], inner[1],
+                                         pb.sub_history, pb.sub_key,
+                                         cols.batch)
+            return v, b
+    return _check_columnar_impl(model, cols, device=device,
+                                max_slots=max_slots,
+                                host_fallback=host_fallback,
+                                details=details, timings=timings,
+                                scheduler=scheduler, opts=opts,
+                                stats_out=stats_out)
+
+
+def _check_columnar_impl(model: Model, cols, *, device, max_slots,
+                         host_fallback, details, timings, scheduler, opts,
+                         stats_out):
     from ..history.columnar import columnar_to_ops
     from .encode import encode_columnar
     from .statespace import enumerate_statespace
 
-    if details not in (False, True, "invalid"):
-        raise ValueError(f"details={details!r}: False, True or 'invalid'")
-    if _keyed(cols):
-        raise NotImplementedError(
-            "keyed columnar batches need the per-key partition, which is "
-            "not part of jepsen_torch yet")
-    device = resolve_device(device)
     t_start = time.perf_counter()
     space = enumerate_statespace(model, cols.kinds, MAX_PACKED_STATES)
     eff_slots = max_slots + (SINGLE_DEVICE_EXTRA_SLOTS
@@ -744,12 +951,25 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
     valid = np.ones(cols.batch, bool)
     bad = np.full(cols.batch, INT32_MAX, np.int32)
     results: List[Optional[dict]] = [None] * cols.batch if details else None
+    failures: List = []
+    fused_refine: List[int] = []
     host_fallback = host_fallback or wgl_check
-    buckets, failures = encode_columnar(space, cols, max_slots=eff_slots)
-    failures = list(failures)
+    sch = None
+    if scheduler:
+        from .schedule import BucketScheduler, iter_columnar_groups
+        groups = iter_columnar_groups(space, cols, max_slots=eff_slots,
+                                      failures=failures, fuse=True,
+                                      renumber=True)
+        sch = BucketScheduler(return_frontier=details, device=device,
+                              **opts)
+        stream = sch.run(groups)
+    else:
+        buckets, fails = encode_columnar(space, cols, max_slots=eff_slots)
+        failures.extend(fails)
+        stream = run_buckets(buckets, device=device,
+                             return_frontier=bool(details))
     laps = [time.perf_counter()]
-    for batch, out in run_buckets(buckets, device=device,
-                                  return_frontier=bool(details)):
+    for batch, out in stream:
         if isinstance(out, WindowOverflow):
             failures.extend((i, str(out)) for i in batch.indices)
             continue
@@ -761,35 +981,57 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
         bad_lines = batch.ev_opidx[inv, b[~v]]
         bad[bad_rows] = (cols.index[bad_rows, bad_lines]
                          if cols.index is not None else bad_lines)
+        # Rows whose first impossible completion fell inside a fused
+        # run only know the run's FIRST member: re-derive exactly on
+        # the host after the stream drains.
+        fb = fused_bad_rows(batch, v, b)
+        fused_refine.extend(int(idx[x]) for x in fb)
+        fused_local = set(fb.tolist())
         if not details:
             continue
         for bi, row in enumerate(batch.indices):
             if details == "invalid" and bool(v[bi]):
                 results[row] = {"valid": True}
                 continue
+            if bi in fused_local:
+                continue               # refined below
             # The columnar form already applied the prepared-history
             # contract: rebuild with propagated invokes and skip the
-            # per-op drop recompute.
+            # per-op drop recompute. Renumbered rows decode against
+            # their own sub-space (batch.spaces).
             ops = columnar_to_ops(cols, row, propagated=True)
+            sp = batch.spaces[bi] if batch.spaces else space
             results[row] = _decode_result(
-                batch.spaces[bi], ops, bool(v[bi]),
+                sp, ops, bool(v[bi]),
                 int(bad[row]) if not bool(v[bi]) else -1, front[bi],
                 predropped=True)
+            if sch is not None:
+                results[row]["provenance"] = "device"
     laps.append(time.perf_counter())
-    for row, reason in failures:
+    # The fused-run rows and the rows the encoder could not bound go to
+    # the host engine (the reference's branch for a missing native
+    # engine).
+    refine = [(i, None) for i in fused_refine] + list(failures)
+    for row, reason in refine:
         r = host_fallback(model, columnar_to_ops(cols, row))
         valid[row] = r["valid"] is True
         if r["valid"] is False:
             bad[row] = r["op"].get("index", -1)
         if details:
-            r.setdefault("fallback", reason)
-            r.setdefault("provenance", "host-fallback")
-            results[row] = r
+            results[row] = _decided_on_host(r, True, reason)
     laps.append(time.perf_counter())
     if timings is not None:
-        timings.update(encode_s=laps[0] - t_start,
-                       device_s=laps[1] - laps[0],
+        encode_s = laps[0] - t_start
+        device_s = laps[1] - laps[0]
+        if sch is not None:
+            # The encode groups run inside the stream, between
+            # dispatches.
+            encode_s += sch.stats["encode_busy_s"]
+            device_s -= sch.stats["encode_busy_s"]
+        timings.update(encode_s=encode_s, device_s=device_s,
                        fallback_s=laps[2] - laps[1])
+    if stats_out is not None and sch is not None:
+        stats_out.update(sch.stats)
     if details:
         return results
     return valid, bad
@@ -798,18 +1040,38 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
 def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
                          device=None, max_slots: int = 16,
                          max_states: int = 64, host_fallback=None,
-                         details=True) -> List[dict]:
+                         details=True, min_device_batch: int = 1,
+                         scheduler: bool = True, faults=None,
+                         journal=None,
+                         scheduler_opts: Optional[dict] = None,
+                         partition: object = "auto") -> List[dict]:
     """Check recorded Op-list histories through the columnar path: one
-    conversion walk (``ops_to_columnar``), one vectorised encode, one
-    launch per cost bucket. Per-history result dicts; ``details=
-    "invalid"`` skips the valid rows' decode. When the shared
-    vocabulary's state space explodes, the batch goes through
-    ``check_batch`` instead."""
+    conversion walk (``ops_to_columnar``), one vectorised encode, kernel
+    launches per cost bucket. Per-history result dicts; ``details=
+    "invalid"`` skips the valid rows' decode. KV-valued histories
+    pre-partition into per-key sub-histories before conversion
+    (``partition``, as in check_batch). When the shared vocabulary's
+    state space explodes, the batch goes through ``check_batch``
+    instead; ``min_device_batch`` applies only there. The scheduler
+    knobs are check_columnar's."""
     from ..history.columnar import ops_to_columnar
     from .statespace import StateSpaceExplosion
 
     if not histories:
         return []
+    opts = _scheduler_opts(faults, journal, scheduler_opts)
+    if partition:
+        from .partition import partition_histories, recombine_details
+        parts = partition_histories(histories, force=partition is True)
+        if parts is not None:
+            subs, sub_hist, sub_key = parts
+            inner = check_batch_columnar(
+                model, subs, device=device, max_slots=max_slots,
+                max_states=max_states, host_fallback=host_fallback,
+                details=details, min_device_batch=min_device_batch,
+                scheduler=scheduler, scheduler_opts=opts, partition=False)
+            return recombine_details(inner, sub_hist, sub_key,
+                                     len(histories))
     try:
         cols = ops_to_columnar(model, histories,
                                max_states=min(max_states,
@@ -817,11 +1079,14 @@ def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
     except StateSpaceExplosion:
         return check_batch(model, histories, device=device,
                            max_states=max_states, max_slots=max_slots,
-                           host_fallback=host_fallback)
+                           host_fallback=host_fallback,
+                           min_device_batch=min_device_batch,
+                           scheduler=scheduler, scheduler_opts=opts)
     if details not in (True, "invalid"):    # the contract is List[dict]
         raise ValueError(f"details={details!r}: True or 'invalid'")
     return check_columnar(model, cols, device=device, max_slots=max_slots,
-                          details=details, host_fallback=host_fallback)
+                          details=details, host_fallback=host_fallback,
+                          scheduler=scheduler, scheduler_opts=opts)
 
 
 def check_synth(model: Model, spec, *, device=None,
@@ -829,7 +1094,8 @@ def check_synth(model: Model, spec, *, device=None,
     """Generate and check a deterministic synthetic batch
     (ops.synth_device.SynthSpec): the histories are born in the columnar
     layout on the device (the generator kernel on the card, its plain
-    version on the CPU) and ride ``check_columnar``. The cas and wide
+    version on the CPU) and ride ``check_columnar`` — per-key partition
+    of keyed specs and the bucket scheduler by default. The cas and wide
     families check here. Returns check_columnar's shapes, plus the
     SynthMeta when ``return_meta=True``. A ``timings`` dict among ``kw``
     also gets ``synth_s``, the generation with its copy back."""

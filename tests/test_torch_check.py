@@ -1,7 +1,8 @@
 """The port's entry points against the reference, field for field.
 
-``jepsen_torch.ops.linearize.check_batch(device="cpu")`` (encoder, plain
-version of the kernel, host decode) must return the same result dicts as
+``jepsen_torch.ops.linearize.check_batch(device="cpu", scheduler=False,
+partition=False)`` (the exact-W oracle path: encoder, plain version of
+the kernel, host decode) must return the same result dicts as
 ``jepsen_tpu.ops.linearize.check_batch_tpu(scheduler=False,
 partition=False)`` and as both packages' host oracles ``wgl_check``.
 Windows stay at W <= 16: the reference's test mesh hosts wider windows on
@@ -12,6 +13,7 @@ Tolerance: none (dict and array equality).
 """
 import numpy as np
 import pytest
+import torch
 
 from jepsen_tpu.checkers.linearizable import (prepare_history as r_prepare,
                                               wgl_check as r_wgl)
@@ -29,6 +31,10 @@ from jepsen_torch.models.core import cas_register as p_cas
 from jepsen_torch.ops import linearize as L
 from jepsen_torch.ops.encode import EncodedBatch
 from jepsen_torch.workloads.synth import synth_cas_batch as p_synth
+
+# One intra-op thread: the plain versions run many small ops, and test
+# processes running side by side must not oversubscribe the cores.
+torch.set_num_threads(1)
 
 CORPUS = dict(seed0=101, n_procs=4, n_ops=24, n_values=3, corrupt=0.35,
               p_info=0.15)
@@ -48,7 +54,8 @@ def corpora(n=30, wide=True):
 @pytest.fixture(scope="module")
 def checked():
     r, p = corpora()
-    got = L.check_batch(p_cas(), p, device="cpu", max_slots=5)
+    got = L.check_batch(p_cas(), p, device="cpu", max_slots=5,
+                        scheduler=False, partition=False)
     want = R.check_batch_tpu(r_cas(), r, max_slots=5, scheduler=False,
                              partition=False)
     return r, p, got, want
@@ -73,7 +80,8 @@ def test_check_batch_matches_both_host_oracles(checked):
 
 def test_default_window_matches_reference():
     r, p = corpora(n=24, wide=False)
-    got = L.check_batch(p_cas(), p, device="cpu")
+    got = L.check_batch(p_cas(), p, device="cpu", scheduler=False,
+                        partition=False)
     assert got == R.check_batch_tpu(r_cas(), r, scheduler=False,
                                     partition=False)
 
@@ -85,7 +93,8 @@ def test_invalid_config_sample_parity():
                 invoke(2, "read", None), ok(2, "read", 7)]
     want = R.check_one_tpu(r_cas(), hist(r_invoke, r_ok),
                            scheduler=False, partition=False)
-    got = L.check_one(p_cas(), hist(p_invoke, p_ok), device="cpu")
+    got = L.check_one(p_cas(), hist(p_invoke, p_ok), device="cpu",
+                      scheduler=False, partition=False)
     assert got == want
     assert got["valid"] is False and got["configs"]
 
@@ -96,7 +105,11 @@ def test_linearizable_checker_backends(backend, kw):
     _, p = corpora(n=6, wide=False)
     chk = linearizable(backend, **kw)
     for h in p:
-        assert chk.check({}, p_cas(), h) == p_wgl(p_cas(), h)
+        got = chk.check({}, p_cas(), h)
+        # the device backend streams through the scheduler, which tags
+        # each result with the engine that decided it
+        assert got.pop("provenance", "device") == "device"
+        assert got == p_wgl(p_cas(), h)
     with pytest.raises(ValueError):
         linearizable("tpu")
 

@@ -3,14 +3,16 @@
 ``ops_to_columnar``/``columnar_to_ops``, ``encode_columnar`` and the
 entry points ``check_columnar``, ``check_batch_columnar`` and
 ``check_synth`` on the CPU (``device="cpu"``: the plain versions of both
-kernels) must match the reference's with ``scheduler=False,
-partition=False`` (and ``native=False`` for the walks): the same arrays,
+kernels) with ``scheduler=False, partition=False`` (the exact-W oracle
+path) must match the reference's with the same flags (and
+``native=False`` for the walks): the same arrays,
 the same buckets, the same verdict arrays and result dicts. Batches stay
 small (at most 48 histories of at most 60 ops) so the reference compiles
 few (V, W) shapes. Tolerance: none (array and dict equality).
 """
 import numpy as np
 import pytest
+import torch
 
 from jepsen_tpu.history.columnar import (columnar_to_ops as r_to_ops,
                                          ops_to_columnar as r_to_cols)
@@ -31,6 +33,10 @@ from jepsen_torch.ops import synth_device as PS
 from jepsen_torch.ops.encode import encode_columnar
 from jepsen_torch.ops.statespace import enumerate_statespace
 from jepsen_torch.workloads.synth import synth_cas_batch as p_synth
+
+# One intra-op thread: the plain versions run many small ops, and test
+# processes running side by side must not oversubscribe the cores.
+torch.set_num_threads(1)
 
 CORPUS = dict(seed0=404, n_procs=4, n_ops=40, n_values=3, corrupt=0.35,
               p_info=0.15)
@@ -103,11 +109,18 @@ def test_encode_columnar_matches_reference(max_slots):
 
 
 def test_encode_columnar_refuses_fusion():
+    """Fusion and renumbering are ported (tests/test_torch_fusion.py
+    holds their arrays against the reference): the flags the oracle
+    leaves off now encode, keep every row, and leave the failures as
+    they were."""
     pc, _ = PS.synth_cas_device(PS.SynthSpec(**CAS_SPEC), device="cpu")
     space = enumerate_statespace(p_cas(), pc.kinds, 64)
+    plain, pf = encode_columnar(space, pc, max_slots=MAX_SLOTS)
     for kw in ({"fuse": True}, {"renumber": True}):
-        with pytest.raises(NotImplementedError):
-            encode_columnar(space, pc, **kw)
+        bs, fails = encode_columnar(space, pc, max_slots=MAX_SLOTS, **kw)
+        assert fails == pf
+        assert sorted(i for b in bs for i in b.indices) == \
+            sorted(i for b in plain for i in b.indices)
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +136,8 @@ def test_check_columnar_matches_reference(synth_cols, details):
                             details=details, scheduler=False,
                             partition=False)
     got = L.check_columnar(p_cas(), pc, device="cpu", max_slots=MAX_SLOTS,
-                           details=details)
+                           details=details, scheduler=False,
+                           partition=False)
     if details is False:
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and np.array_equal(a, b)
@@ -144,7 +158,8 @@ def test_check_batch_columnar_matches_reference(details):
                                   max_slots=MAX_SLOTS, scheduler=False,
                                   partition=False)
     got = L.check_batch_columnar(p_cas(), p, device="cpu", details=details,
-                                 max_slots=MAX_SLOTS)
+                                 max_slots=MAX_SLOTS, scheduler=False,
+                                 partition=False)
     assert got == want
     assert any(w["valid"] is False for w in want)
 
@@ -156,9 +171,11 @@ def test_check_batch_columnar_explosion_falls_back_to_check_batch():
     r, p = r_synth(6, **kw), p_synth(6, **kw)
     want = R.check_batch_columnar(r_cas(), r, max_states=8,
                                   scheduler=False, partition=False)
-    got = L.check_batch_columnar(p_cas(), p, device="cpu", max_states=8)
+    got = L.check_batch_columnar(p_cas(), p, device="cpu", max_states=8,
+                                 scheduler=False, partition=False)
     assert got == want
-    assert got == L.check_batch(p_cas(), p, device="cpu", max_states=8)
+    assert got == L.check_batch(p_cas(), p, device="cpu", max_states=8,
+                                scheduler=False, partition=False)
 
 
 @pytest.mark.parametrize("spec", [
@@ -172,7 +189,8 @@ def test_check_synth_matches_reference(spec, details):
                          scheduler=False, partition=False, details=details,
                          max_slots=8)
     got = L.check_synth(p_cas(), PS.SynthSpec(**spec), device="cpu",
-                        details=details, max_slots=8)
+                        details=details, max_slots=8, scheduler=False,
+                        partition=False)
     if details is False:
         for a, b in zip(got, want):
             assert np.array_equal(a, b)
@@ -198,9 +216,17 @@ def test_check_synth_returns_meta_and_timings():
 
 
 def test_keyed_batches_are_refused():
-    spec = PS.SynthSpec(**dict(CAS_SPEC, n_keys=3))
-    with pytest.raises(NotImplementedError):
-        L.check_synth(p_cas(), spec, device="cpu")
-    cols, _ = PS.synth_cas_device(spec, device="cpu")
-    with pytest.raises(NotImplementedError):
-        L.check_columnar(p_cas(), cols, device="cpu")
+    """Keyed batches are no longer refused: the per-key partition is
+    ported (tests/test_torch_partition.py). On the exact path a keyed
+    batch partitions by default, as in the reference."""
+    spec = dict(CAS_SPEC, n_keys=3)
+    got = L.check_synth(p_cas(), PS.SynthSpec(**spec), device="cpu",
+                        scheduler=False)
+    want = R.check_synth(r_cas(), RS.SynthSpec(**spec), synth="numpy",
+                         scheduler=False)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    cols, _ = PS.synth_cas_device(PS.SynthSpec(**spec), device="cpu")
+    v, b = L.check_columnar(p_cas(), cols, device="cpu", scheduler=False)
+    np.testing.assert_array_equal(v, got[0])
+    np.testing.assert_array_equal(b, got[1])

@@ -114,9 +114,16 @@ def test_slot_ops_at_event_matches_reference():
 
 
 def test_fused_encoding_is_not_ported():
-    _, p = both(n=1)
-    with pytest.raises(NotImplementedError):
-        p_enc.encode_history(p_models.cas_register(), p[0], fuse=True)
+    """Event fusion is ported now: a fused per-history encoding equals
+    the reference's (tests/test_torch_fusion.py covers it in depth)."""
+    r, p = both(n=4, n_procs=2)
+    for rh, ph in zip(r, p):
+        a = p_enc.encode_history(p_models.cas_register(), ph, fuse=True)
+        b = r_enc.encode_history(r_models.cas_register(), rh, fuse=True)
+        for name in ("ev_type", "ev_slot", "ev_slots", "ev_opidx"):
+            np.testing.assert_array_equal(getattr(a, name),
+                                          getattr(b, name))
+        assert (a.n_events, a.orig_events) == (b.n_events, b.orig_events)
 
 
 def _mutex_history(invoke, ok):

@@ -24,6 +24,10 @@ from jepsen_torch.convert import batch_from_arrays
 from jepsen_torch.ops import cuda_wgl
 from jepsen_torch.ops import linearize as L
 
+# One intra-op thread: the plain versions run many small ops, and test
+# processes running side by side must not oversubscribe the cores.
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 
