@@ -4,14 +4,18 @@
 
 Builds both CUDA libraries from the checkout's sources (one nvcc each,
 in parallel) and holds each kernel bit for bit against its plain PyTorch
-version on the card: the WGL frontier kernel (frontiers in shared and in
-device memory, two state words, the event-chunked resume entry), its
-group entry (several bucket chunks of mixed shapes in one launch, padding
+version on the card: the WGL frontier kernel in each of its three tiers
+(warp, block, device memory) with cases at every tier edge, two state
+words, tables staged on chip and left in device memory, padding rows and
+tile-edge rows, and the event-chunked resume entry; its group entry
+(several bucket chunks of mixed shapes and tiers in one launch, padding
 rows skipped, against ``plain_fused_wgl`` and against single-bucket
-launches) and the history generators (CAS/register cases over processes,
-values, op counts, keys, faults and row slices; the wide family). Then
-it drives the port's paths, each with the launch counts set to 0 just
-before and read just after:
+launches); and the history generators (CAS/register cases over
+processes, values, op counts, keys, faults and row slices; the wide
+family). It times the warp tier against the block tier on the same rows
+at each window it could take (``tier_cut``). Then it drives the port's
+paths, each with the launch counts set to 0 just before and read just
+after:
 
   * the Op-list path, ``check_batch(scheduler=False)`` on seeded
     CAS-register histories of 1,000 invocations each (2,000 of them: cut
@@ -33,6 +37,9 @@ before and read just after:
     wide specs and over 500 Op-list histories against
     ``scheduler=False``.
 
+Kernel times are of the kernel alone (``time_launches``: carries reset
+and outputs allocated outside the window, CUDA events around each
+launch), with the wrapper-inclusive time beside them as ``wrapper_ms``.
 Each phase prints one JSON line; a failed check raises and the script
 exits non-zero. The last three lines are the kernels line, the card's
 name and power limit as nvidia-smi reports them, and the result line.
@@ -131,17 +138,44 @@ def kernel_vs_plain(args, V, W, w_live, dev, L, idx0=0):
     return equal, err, int((~kv).sum())
 
 
-# Seeded random tables (V, W, w_live, K1, shared target): every event
-# code, slot and kind indices past both ends (they clamp and wrap as in
-# the reference), int32 slot tables (K1 >= 127), two state words with
-# bit 31, w_live < W, and a frontier in device memory.
-RANDOM_CASES = ((8, 5, None, 7, True), (8, 9, 6, 12, False),
-                (48, 6, None, 200, True), (64, 4, None, 9, False),
-                (8, 16, 3, 6, True))
+# Seeded random tables (V, W, w_live, K1, shared target) at every tier
+# edge of the kernel: W = 1, 2, 4, 5, W_WARP and W_WARP + 1 (warp tier,
+# then block tier), 15 (the widest block-tier window at one word) and 16
+# (device-memory tier). They cover every event code, slot and kind
+# indices past both ends (they clamp and wrap as in the reference), int8
+# and int32 slot tables (K1 >= 127), V = 8, 40, 48 and 64 (two state words
+# with bit 31), shared and per-row targets, w_live < W, warp-tier tables
+# as nibble images (V <= 8), as int8 targets, in a block of fewer rows,
+# and left in device memory (K1 = 800 at V = 64).
+def random_cases(w_warp: int) -> tuple:
+    return ((8, 1, None, 5, True), (8, 2, None, 7, False),
+            (40, 4, None, 9, True), (64, 4, None, 9, False),
+            (8, 5, None, 7, True), (64, 5, 3, 200, False),
+            (48, 6, None, 200, True), (64, 6, None, 800, True),
+            (64, 3, None, 800, False),
+            (8, w_warp, None, 12, False), (40, w_warp, 6, 130, True),
+            (8, w_warp + 1, 6, 12, False), (8, 15, 5, 9, True),
+            (8, 16, 3, 6, True))
+
+
+# Events per random row: three 32-event tiles of the warp tier.
+RANDOM_EVENTS = 96
 
 
 def random_tables(rng, B, N, V, W, w_live, K1, shared, dev):
+    """Seeded random tables for B rows of N events. The first rows are
+    edge rows (when N >= 64): row 0 is all EV_PAD, rows 1 and 2 end their
+    live events at the last event of the first and second 32-event tile,
+    row 3 has one live event, the first of the second tile."""
     ev_type = rng.choice(np.array([0, 2, 2, 2, 3, 4], np.int8), (B, N))
+    if B >= 4 and N >= 64:
+        ev_type[0] = 0
+        ev_type[1, 32:] = 0
+        ev_type[1, 31] = 2
+        ev_type[2, 64:] = 0
+        ev_type[2, 63] = 3
+        ev_type[3] = 0
+        ev_type[3, 32] = 2
     ev_slot = rng.integers(-1, W + 1, (B, N)).astype(np.int8)
     ev_slots = rng.integers(-1, K1 + 1, (B, N, W))
     # the completing slot holds a real op kind, as in an encoded history
@@ -154,6 +188,13 @@ def random_tables(rng, B, N, V, W, w_live, K1, shared, dev):
     target[rng.random(shape) < 0.5] = -1     # rows both fail and survive
     target[..., K1 - 1, :] = -1
     return tuple(on(a, dev) for a in (ev_type, ev_slot, ev_slots, target))
+
+
+def tier_of(L, V, W, w_live, K1, shared) -> dict:
+    """The kernel's plan for a bucket, as the wrappers pick it."""
+    plan = L.cuda_wgl.smem_plan(V, W, w_live, K1=K1, shared_target=shared)
+    return {"tier": plan["tier"], "rows_per_block": plan["rows_per_block"],
+            "table_form": plan["table_form"]}
 
 
 def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
@@ -176,11 +217,11 @@ def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
                 continue
             eq, err, inv = kernel_vs_plain(bucket_args(b, dev), b.V, b.W,
                                            b.eff_w_live, dev, L)
-            plan = L.cuda_wgl.smem_plan(b.V, b.W, b.eff_w_live)
             out["buckets"].append({
                 "corpus": tag, "V": b.V, "W": b.W, "rows": b.batch,
                 "events": b.n_events, "invalid": inv, "equal": eq,
-                "frontier_in_smem": plan["frontier_in_smem"]})
+                **tier_of(L, b.V, b.W, b.eff_w_live, b.target.shape[-2],
+                          b.shared_target)})
             require(eq, f"kernel != plain at corpus {tag} V={b.V} "
                         f"W={b.W}")
             max_err = max(max_err, err)
@@ -190,15 +231,25 @@ def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
     require(any(v > 32 for v in Vs), "no two-word corpus")
     # Seeded random tables, resumed at a nonzero event index.
     rng = np.random.default_rng(2024)
-    for V, W, wl, K1, shared in RANDOM_CASES:
-        args = random_tables(rng, 64, 48, V, W, wl, K1, shared, dev)
+    tiers = set()
+    for V, W, wl, K1, shared in random_cases(L.cuda_wgl.W_WARP):
+        args = random_tables(rng, 64, RANDOM_EVENTS, V, W, wl, K1, shared,
+                             dev)
         eq, err, inv = kernel_vs_plain(args, V, W, wl, dev, L, idx0=1000)
+        tier = tier_of(L, V, W, wl, K1, shared)
+        tiers.add((tier["tier"], tier["table_form"],
+                   tier["rows_per_block"] < L.cuda_wgl.WARP_ROWS
+                   and tier["tier"] == "warp"))
         out["buckets"].append({
             "corpus": "random", "V": V, "W": W, "w_live": wl, "K1": K1,
-            "shared_target": shared, "rows": 64, "events": 48,
-            "invalid": inv, "equal": eq})
+            "shared_target": shared, "rows": 64, "events": RANDOM_EVENTS,
+            "invalid": inv, "equal": eq, **tier})
         require(eq, f"kernel != plain on random tables V={V} W={W}")
         max_err = max(max_err, err)
+    require({("warp", "nibble", False), ("warp", "int8", False),
+             ("warp", "int8", True), ("warp", "device", False),
+             ("block", "device", False), ("device", "device", False)}
+            <= tiers, f"the random cases missed a tier: {sorted(tiers)}")
     # (c) the resume entry: event-chunked equals one-shot.
     resumed = 0
     for b in [x for x in ba if x.batch and x.W <= 12] + bb:
@@ -214,6 +265,72 @@ def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
     return max_err
 
 
+TIER_CUT_ROWS = 4096
+
+
+# The variants tier_cut compares: (name, warp tier taken, nibble images).
+TIER_VARIANTS = (("warp", True, True), ("warp_int8", True, False),
+                 ("block", False, True))
+
+
+def phase_tier_cut(dev, L, S, cas):
+    """The warp tier against the block tier on the same rows, W = 5 to
+    the widest window the warp tier is built for: the first 4,096
+    north-star rows (V 8, W 5, 792 events), widened as the scheduler
+    widens a bucket to its W class; and the warp tier's nibble images
+    against its int8 table. Kernel alone, the variants in turns and back
+    (warp, warp_int8, block, block, warp_int8, warp), their outputs held
+    equal: the basis of W_WARP and NIBBLE_MAX_V."""
+    from jepsen_torch.ops.encode import (encode_columnar, take_rows,
+                                         widen_batch)
+    from jepsen_torch.ops.statespace import enumerate_statespace
+    cw = L.cuda_wgl
+    spec = S.SynthSpec(**{**NS_SPEC, "n": TIER_CUT_ROWS})
+    cols, _ = S.synth_cas_device(spec, key_meta=False, device=dev)
+    space = enumerate_statespace(cas(), cols.kinds, 64)
+    buckets, _ = encode_columnar(space, cols, max_slots=18)
+    b = max(buckets, key=lambda x: x.batch)
+    out = {"phase": "tier_cut", "rows": b.batch, "V": b.V,
+           "events": b.n_events, "w_live": b.eff_w_live,
+           "w_warp": cw.W_WARP, "by_W": []}
+    saved = cw.W_WARP, cw.NIBBLE_MAX_V
+    try:
+        for W in range(b.W, cw.WARP_MAX_W + 1):
+            wb = widen_batch(b, W)
+            args = bucket_args(wb, dev)
+            carry = L.initial_carry(wb.batch, wb.V, W, dev)
+            times = {name: [] for name, _, _ in TIER_VARIANTS}
+            results = {}
+            for name, warp, nibble in TIER_VARIANTS + TIER_VARIANTS[::-1]:
+                cw.W_WARP = W if warp else W - 1
+                cw.NIBBLE_MAX_V = saved[1] if nibble else 0
+                times[name].append(time_launches([prepared_single(
+                    L, *args, 0, *carry, V=wb.V, W=W,
+                    w_live=wb.eff_w_live)], reps=3))
+                results[name] = L.get_kernel(wb.V, W,
+                                             w_live=wb.eff_w_live)(*args)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(x, y) for r in results.values()
+                        for x, y in zip(r, results["block"]))
+            require(equal, f"the tiers disagree at W={W}")
+            out["by_W"].append({"W": W, **{f"{n}_ms": t for n, t in
+                                           times.items()},
+                                "equal": equal})
+    finally:
+        cw.W_WARP, cw.NIBBLE_MAX_V = saved
+    # The warp tier at the bucket's own W on fewer rows: how its time
+    # scales with the warps an SM holds.
+    out["rows_scaling"] = []
+    for rows in (1024, 2048, TIER_CUT_ROWS):
+        sub = take_rows(b, range(rows))
+        args = bucket_args(sub, dev)
+        carry = L.initial_carry(rows, sub.V, sub.W, dev)
+        out["rows_scaling"].append({"rows": rows, "warp_ms": time_launches(
+            [prepared_single(L, *args, 0, *carry, V=sub.V, W=sub.W,
+                             w_live=sub.eff_w_live)], reps=3)})
+    emit(out)
+
+
 def time_cuda(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps runs, by CUDA events."""
     fn()
@@ -226,6 +343,62 @@ def time_cuda(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# GPU cycles the card sleeps before each timed launch, so that the host
+# enqueues the launch and its closing event while the card is still busy
+# and the window holds the kernel alone (about 50 us at 1.98 GHz).
+SLEEP_CYCLES = 100_000
+
+
+def time_launches(launches, reps: int) -> float:
+    """Mean milliseconds per rep of a sequence of prepared launches, the
+    kernel alone: each ``(reset, launch)`` pair restores its carry before
+    the window, and CUDA events bracket the launch only."""
+    for reset, launch in launches:
+        reset()
+        launch()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(reps):
+        for reset, launch in launches:
+            reset()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            stop.record()
+            windows.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in windows) / reps
+
+
+def prepared_single(L, ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
+                    valid, bad, **kw):
+    """A single-bucket launch on copies of the given carry, with the
+    reset that restores them: ``(reset, launch)``."""
+    init = (F, Fb, valid, bad)
+    carry = [t.clone() for t in init]
+    launch = L.cuda_wgl.prepare_frontier(ev_type, ev_slot, ev_slots, target,
+                                         idx0, *carry, **kw)
+
+    def reset():
+        for c, t in zip(carry, init):
+            c.copy_(t)
+    return reset, launch
+
+
+def prepared_group(L, members, flat, rows):
+    """A group launch with its outputs allocated, and the reset that
+    restores their initial carry: ``(reset, launch)``."""
+    launch, outs = L.cuda_wgl.prepare_group(members, flat, rows)
+    init = [o.clone() for o in outs]
+
+    def reset():
+        for o, t in zip(outs, init):
+            o.copy_(t)
+    return reset, launch
 
 
 def outputs_err(a: dict, b: dict) -> int:
@@ -317,10 +490,11 @@ def frontier_bytes(L, ev_type, ev_slots, target, V, W, w_live) -> int:
 
 
 def wgl_measure(dev, L, buckets):
-    """The frontier kernel over a path's buckets: upload, kernel time (CUDA
-    events, 5 runs after a warm-up), the plain version's time, and the
-    bound from the operations this batch's data needs and the bytes it
-    must move (``frontier_bytes``)."""
+    """The frontier kernel over a path's buckets: upload, kernel time
+    alone (``time_launches``, 5 runs after a warm-up) and through the
+    wrapper (CUDA events around the check calls, fresh carry included),
+    the plain version's time, and the bound from the operations this
+    batch's data needs and the bytes it must move (``frontier_bytes``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     argsets = [(b, bucket_args(b, dev)) for b in buckets]
@@ -332,7 +506,11 @@ def wgl_measure(dev, L, buckets):
         for k, (_, a) in zip(kerns, argsets):
             k(*a)
 
-    kernel_ms = time_cuda(run_kernel, reps=5)
+    wrapper_ms = time_cuda(run_kernel, reps=5)
+    kernel_ms = time_launches(
+        [prepared_single(L, *a, 0, *L.initial_carry(b.batch, b.V, b.W, dev),
+                         V=b.V, W=b.W, w_live=b.eff_w_live)
+         for b, a in argsets], reps=5)
 
     def run_plain(**counters):
         for j, (b, a) in enumerate(argsets):
@@ -368,7 +546,9 @@ def wgl_measure(dev, L, buckets):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {"upload_ms": upload_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "tiers": [tier_of(L, b.V, b.W, b.eff_w_live, a[3].shape[-2],
+                              b.shared_target) for b, a in argsets],
             "closure_sweeps": sum(int(it.sum()) for it in sweeps),
             "needed_ops": ops, "dense_model_lane_ops": dense,
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -563,6 +743,9 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
                                      head.eff_w_live, dev, L)
     require(eq, "kernel != plain on the north-star slice")
     wgl = wgl_measure(dev, L, buckets)
+    require(len(buckets) == 1 and wgl["tiers"][0]["tier"] == "warp",
+            f"the north-star buckets {[(b.V, b.W) for b in buckets]} do "
+            f"not run on the warp tier: {wgl['tiers']}")
     reasons: dict = {}
     for _, why in failures:
         reasons[why] = reasons.get(why, 0) + 1
@@ -642,8 +825,9 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
           "encode_columnar_s": encode_s,
           "wgl_upload_ms": wgl["upload_ms"],
           "wgl_kernel_ms": wgl["kernel_ms"],
+          "wgl_wrapper_ms": wgl["wrapper_ms"],
           "decode_s": split["device_s"]
-          - (wgl["upload_ms"] + wgl["kernel_ms"]) / 1e3,
+          - (wgl["upload_ms"] + wgl["wrapper_ms"]) / 1e3,
           "buckets": [{"V": b.V, "W": b.W, "rows": b.batch,
                        "events": b.n_events} for b in buckets],
           "host_rows": reasons, "oracle_rows": len(sample),
@@ -654,6 +838,8 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
     return {
         "wgl_frontier": {"launches": launches["wgl_frontier"],
                          "max_abs_err": wgl_err, "ms": wgl["kernel_ms"],
+                         "wrapper_ms": wgl["wrapper_ms"],
+                         "tier": wgl["tiers"][0]["tier"],
                          "plain_ms": wgl["plain_ms"],
                          "bound_ms": wgl["bound_ms"],
                          "bound_by": wgl["bound_by"]},
@@ -665,10 +851,13 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
 
 
 # Group-launch cases, one tuple per member: (V, W, w_live, K1, shared
-# target). V 8/40/48, W 4..15, shared and per-row targets, int8 and
-# int32 slot tables (K1 >= 127), 1, 2, 4 and 8 members. Every member's
-# frontier fits in shared memory (W <= 15 at one word, <= 14 at two), as
-# in the scheduler's groups.
+# target[, real rows]). V 8/40/48/64, W 1..15, shared and per-row
+# targets, int8 and int32 slot tables (K1 >= 127), 1, 2, 4 and 8 members,
+# warp-tier and block-tier members side by side, a warp-tier member whose
+# table fits only 2 rows per block, one whose table stays in device
+# memory, and members with fewer real rows than a warp-tier block holds.
+# Every member's frontier fits in shared memory (W <= 15 at one word,
+# <= 14 at two), as in the scheduler's groups.
 GROUP_CASES = (
     ((8, 15, None, 12, True),),
     ((40, 14, 5, 9, False), (8, 4, None, 7, True)),
@@ -677,6 +866,9 @@ GROUP_CASES = (
     ((8, 4, None, 5, True), (8, 7, None, 9, False), (40, 10, 3, 140, True),
      (48, 8, None, 11, False), (8, 13, 6, 7, True), (48, 14, 4, 9, True),
      (8, 15, None, 6, False), (40, 4, None, 300, False)),
+    ((8, 5, None, 7, True, 3), (8, 9, None, 9, False, 5),
+     (64, 7, 4, 300, False, 3), (8, 1, None, 4, False, 1),
+     (64, 6, None, 800, True, 11), (8, 8, 5, 12, True, 17)),
 )
 
 
@@ -690,10 +882,12 @@ def tensors_err(a, b) -> int:
     return int(d.abs().max()) if d.numel() else 0
 
 
-def padded_member(rng, V, W, w_live, K1, shared, pad, dev):
+def padded_member(rng, V, W, w_live, K1, shared, pad, dev, B=None):
     """One member's random tables with ``pad`` padding rows (all EV_PAD,
-    empty slots, unreachable per-row targets) after its real rows."""
-    B, N = int(rng.integers(1, 40)), int(rng.integers(8, 64))
+    empty slots, unreachable per-row targets) after its ``B`` real rows
+    (drawn when not given)."""
+    B = int(rng.integers(1, 40)) if B is None else B
+    N = int(rng.integers(8, 100))
     args = random_tables(rng, B, N, V, W, w_live, K1, shared, dev)
     ev_type, ev_slot, ev_slots, target = args
     z = lambda t: torch.zeros((pad,) + tuple(t.shape[1:]), dtype=t.dtype,
@@ -761,9 +955,9 @@ def phase_group_parity(dev, L, S, cas):
     rng = np.random.default_rng(77)
     for case in GROUP_CASES:
         members, flat, rows = [], [], []
-        for V, W, wl, K1, shared in case:
+        for V, W, wl, K1, shared, *nb in case:
             f, nb = padded_member(rng, V, W, wl, K1, shared,
-                                  int(rng.integers(0, 9)), dev)
+                                  int(rng.integers(0, 9)), dev, *nb)
             members.append((V, W, wl, shared))
             flat += f
             rows.append(nb)
@@ -771,8 +965,10 @@ def phase_group_parity(dev, L, S, cas):
         out["groups"].append({"source": "random", "members": [
             {"V": V, "W": W, "w_live": wl, "K1": K1, "shared_target": sh,
              "rows": nb, "padded_rows": int(flat[4 * i].shape[0]),
-             "slots": str(flat[4 * i + 2].dtype)}
-            for i, ((V, W, wl, K1, sh), nb) in enumerate(zip(case, rows))],
+             "slots": str(flat[4 * i + 2].dtype),
+             **tier_of(L, V, W, wl, K1, sh)}
+            for i, ((V, W, wl, K1, sh, *_), nb) in enumerate(
+                zip(case, rows))],
             "invalid": inv, "equal": eq})
         require(eq, f"group launch != plain on {len(case)} random members")
         max_err = max(max_err, err)
@@ -792,7 +988,9 @@ def phase_group_parity(dev, L, S, cas):
         eq, err, inv = group_vs_plain(members, flat, rows, dev, L)
         out["groups"].append({"source": label, "members": [
             {"V": b.V, "W": b.W, "rows": nb, "shared_target": b.shared_target,
-             "fused_events": int((b.ev_type == EV_FUSED).sum())}
+             "fused_events": int((b.ev_type == EV_FUSED).sum()),
+             **tier_of(L, b.V, b.W, b.eff_w_live, b.target.shape[-2],
+                       b.shared_target)}
             for b, nb in zip(bs, rows)], "invalid": inv, "equal": eq})
         require(eq, f"group launch != plain on the {label}")
         max_err = max(max_err, err)
@@ -845,16 +1043,28 @@ def real_rows(members, flat, rows):
     return out
 
 
+def launch_bound(nbytes: int, ops: int) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"needed_ops": ops, "bytes": nbytes, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def group_measure(dev, L, groups):
-    """The recorded group launches of a path: their kernel time (CUDA
-    events, 3 replays after a warm-up), parity and time of the plain
-    version on the same inputs, and the bound from the bytes the groups
-    must move (``frontier_bytes`` over each member's real rows) and the
-    operations their data needs."""
+    """The recorded group launches of a path: their kernel time alone
+    (``time_launches``, 3 runs after a warm-up) and through the wrapper
+    (CUDA events around the wrapper calls, output allocation included),
+    each member's tier, parity and time of the plain version on the same
+    inputs, and the bound from the bytes the groups must move
+    (``frontier_bytes`` over each member's real rows) and the operations
+    their data needs."""
     def replay():
         return [L.cuda_wgl.wgl_frontier_group(m, f, r) for m, f, r in groups]
 
-    ms = time_cuda(replay, reps=3)
+    wrapper_ms = time_cuda(replay, reps=3)
+    ms = time_launches([prepared_group(L, m, f, r) for m, f, r in groups],
+                       reps=3)
     got = replay()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -869,35 +1079,41 @@ def group_measure(dev, L, groups):
             err = max(err, tensors_err(gj, w[j]))
     del got, want
     ops = nbytes = 0
+    tiers: dict = {}
     for m, f, r in groups:
         flat = real_rows(m, f, r)
-        for i, ((V, W, wl, _), nb) in enumerate(zip(m, r)):
+        for i, ((V, W, wl, shared), nb) in enumerate(zip(m, r)):
             ev = flat[4 * i:4 * i + 4]
             needed = torch.zeros(nb, dtype=torch.int64, device=dev)
             L.plain_wgl(*ev, 0, *L.initial_carry(nb, V, W, dev), V=V, W=W,
                         w_live=wl, ops=needed)
             ops += int(needed.sum())
             nbytes += frontier_bytes(L, ev[0], ev[2], ev[3], V, W, wl)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+            t = tier_of(L, V, W, wl, ev[3].shape[-2], shared)["tier"]
+            require(t == "warp" or W > L.cuda_wgl.W_WARP,
+                    f"a W={W} member runs on the {t} tier")
+            key = f"{t}_W{W}"
+            tiers[key] = tiers.get(key, 0) + 1
     return {"groups": len(groups),
             "members": sum(len(m) for m, _, _ in groups),
             "rows": sum(sum(r) for _, _, r in groups),
-            "ms": ms, "plain_ms": plain_ms, "equal": equal,
-            "max_abs_err": err, "needed_ops": ops, "bytes": nbytes,
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "members_by_tier_and_W": dict(sorted(tiers.items())),
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "equal": equal, "max_abs_err": err, **launch_bound(nbytes, ops)}
 
 
 def singles_measure(dev, L, singles):
-    """The recorded single-bucket launches of a path: kernel time (CUDA
-    events) and parity with the plain version on the same inputs."""
+    """The recorded single-bucket launches of a path: kernel time alone
+    and through the wrapper (CUDA events), parity with the plain version
+    on the same inputs, and the bound from the bytes they must move and
+    the operations their data needs (as ``group_measure``)."""
     def replay():
         return [L.cuda_wgl.wgl_frontier(*a[:5], *(t.clone() for t in a[5:]),
                                         **kw) for a, kw in singles]
 
-    ms = time_cuda(replay, reps=3)
+    wrapper_ms = time_cuda(replay, reps=3)
+    ms = time_launches([prepared_single(L, *a, **kw) for a, kw in singles],
+                       reps=3)
     got = replay()
     t0 = time.perf_counter()
     want = [L.plain_wgl(*a, **kw) for a, kw in singles]
@@ -905,8 +1121,21 @@ def singles_measure(dev, L, singles):
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max((tensors_err(x, y) for g, w in zip(got, want)
                for x, y in zip(g, w)), default=0)
-    return {"launches": len(singles), "ms": ms, "plain_ms": plain_ms,
-            "equal": err == 0, "max_abs_err": err}
+    ops = nbytes = 0
+    tiers = []
+    for a, kw in singles:
+        needed = torch.zeros(a[0].shape[0], dtype=torch.int64, device=dev)
+        L.plain_wgl(*a, **kw, ops=needed)
+        ops += int(needed.sum())
+        nbytes += frontier_bytes(L, a[0], a[2], a[3], kw["V"], kw["W"],
+                                 kw["w_live"])
+        tiers.append({"V": kw["V"], "W": kw["W"], "rows": a[0].shape[0],
+                      **tier_of(L, kw["V"], kw["W"], kw["w_live"],
+                                a[3].shape[-2], a[3].dim() == 2)})
+    return {"launches": len(singles), "tiers": tiers, "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "equal": err == 0, "max_abs_err": err,
+            **launch_bound(nbytes, ops)}
 
 
 def hist_json(h: dict) -> dict:
@@ -1078,7 +1307,8 @@ def build_kernels(L, cuda_synth):
             f.result()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "smem" in ln]
+                    if any(w in ln for w in ("entry function", "spill",
+                                             "registers"))]
              for name, log in _build.BUILD_LOGS.items()}
     return build_s, ptxas
 
@@ -1107,6 +1337,7 @@ def main() -> int:
 
     wgl_err = phase_kernel_parity(dev, L, synth_cas_batch, cas_register,
                                   prepare_history, bucket_encode)
+    phase_tier_cut(dev, L, S, cas_register)
     synth_err = phase_synth_parity(dev, S, cuda_synth)
     oplist = phase_oplist_path(dev, L, synth_cas_batch, cas_register,
                                prepare_history, bucket_encode, wgl_check)
@@ -1137,7 +1368,10 @@ def main() -> int:
                            sched["single"]["max_abs_err"]),
         "ms": wk["ms"], "plain_ms": wk["plain_ms"],
         "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "wrapper_ms": wk["wrapper_ms"],
+        "tier": wk["tier"], "w_warp": L.cuda_wgl.W_WARP,
+        "scheduler_path": {k: sched["single"][k] for k in (
+            "launches", "ms", "wrapper_ms", "bound_ms", "bound_by")}}, {
         "name": "synth_device", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/synth_device.cu",
         "replaces": "jepsen_tpu/ops/synth_device.py:361,735",
@@ -1161,7 +1395,9 @@ def main() -> int:
         "max_abs_err": max(group_err, gk["max_abs_err"]),
         "ms": gk["ms"], "plain_ms": gk["plain_ms"],
         "bound_ms": gk["bound_ms"], "bound_by": gk["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None, "wrapper_ms": gk["wrapper_ms"],
+        "w_warp": L.cuda_wgl.W_WARP,
+        "members_by_tier_and_W": gk["members_by_tier_and_W"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

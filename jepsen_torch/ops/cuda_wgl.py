@@ -1,17 +1,22 @@
 """Build, load and launch the hand-written CUDA WGL frontier kernel.
 
 The counterpart of the reference's Pallas module (``ops/pallas_wgl.py``):
-``csrc/wgl_frontier.cu`` holds the kernel, one thread block per history
-row, and this module builds it with ``nvcc`` into a shared library with a
-plain C interface, loads it with ``ctypes`` and launches it on PyTorch's
-current stream. ``smem_plan`` decides where a row's frontier lives (the
-role ``vmem_plan`` plays for the TPU kernel). ``wgl_frontier`` is the
-wrapper of the single-bucket entry: it checks device, dtype, shape and
-contiguity, raises on anything the kernel does not take, and counts its
-launches in ``LAUNCHES``. ``wgl_frontier_group`` wraps the group entry,
-which checks several bucket chunks of different shapes in one launch
-(the counterpart of the reference's ``make_fused_kernel``), and counts
-its launches in ``GROUP_LAUNCHES``.
+``csrc/wgl_frontier.cu`` holds the kernel, and this module builds it with
+``nvcc`` into a shared library with a plain C interface, loads it with
+``ctypes`` and launches it on PyTorch's current stream. ``smem_plan``
+picks the kernel's tier for a window and says where a row's frontier and
+transition table live (the role ``vmem_plan`` plays for the TPU kernel):
+the warp tier (one warp per row, ``W <= W_WARP``), the block tier (one
+block per row, frontier in shared memory) or the device-memory tier (W =
+16..18). ``wgl_frontier`` is the wrapper of the single-bucket entry: it
+checks device, dtype, shape and contiguity, raises on anything the
+kernel does not take, and counts its launches in ``LAUNCHES``.
+``wgl_frontier_group`` wraps the group entry, which checks several bucket
+chunks of different shapes in one launch (the counterpart of the
+reference's ``make_fused_kernel``), and counts its launches in
+``GROUP_LAUNCHES``. ``prepare_frontier`` and ``prepare_group`` do a
+wrapper's checks and allocations and return the launch itself, so that a
+caller can time the kernel alone.
 
 The library is built at first use by ``_build.build_library`` (a
 hash-named cache under ``build/jepsen_torch/``). Nothing here runs when
@@ -40,6 +45,28 @@ MAX_W = 18
 SMEM_LIMIT_BYTES = 232448
 SMEM_DEFAULT_BYTES = 48 * 1024
 
+# The warp tier: windows up to W_WARP masks run one warp per row, up to
+# WARP_ROWS rows per block (kWarpRows in the source; the group entry's
+# blocks are always WARP_ROWS warps), the frontier in registers (at most
+# 8 masks per lane and state word: WARP_MAX_W, kWarpMaxW). A block's
+# event tiles (TILE_BYTES per row) and staged tables stay within
+# WARP_SMEM_BYTES, so that several blocks share an SM; a table that does
+# not fit even one row's block is read from device memory.
+W_WARP = 8
+WARP_MAX_W = 8
+WARP_ROWS = 8
+TILE_BYTES = 32 * WARP_MAX_W * 4
+WARP_SMEM_BYTES = SMEM_DEFAULT_BYTES
+
+# Staged table forms of the warp tier (kTable* in the source): int8 target
+# states, or for V <= NIBBLE_MAX_V at one state word the images of every
+# nibble of states (two lookups per image instead of a loop over states).
+TABLE_FORMS = {"device": 0, "int8": 1, "nibble": 2}
+NIBBLE_MAX_V = 8
+
+# Tier codes, as the source numbers them.
+TIERS = {"warp": 0, "block": 1, "device": 2}
+
 # Launches of the single-bucket and the group entry in this process;
 # callers reset them to 0 and read them back to show that a path ran on
 # the card.
@@ -56,27 +83,70 @@ def n_state_words(V: int) -> int:
     return (V + 31) // 32
 
 
-def smem_plan(V: int, W: int, w_live: Optional[int] = None) -> dict:
-    """Static shared-memory plan of one block (one history row).
+def table_form(V: int) -> str:
+    """The staged form of a warp-tier table at V states."""
+    return "nibble" if V <= NIBBLE_MAX_V else "int8"
 
-    The block stages the packed transition rows of its event's ``w_live``
+
+def table_bytes(K1: int, V: int, form: Optional[str] = None) -> int:
+    """Shared memory of one staged transition table in the warp tier:
+    [K1][V] int8 target states, or [K1][2][16] uint32 nibble images, then
+    [K1] reach flags, rounded up to 16 (table_bytes in the source)."""
+    form = table_form(V) if form is None else form
+    entries = K1 * 32 * 4 if form == "nibble" else K1 * V
+    return (entries + K1 + 15) & ~15
+
+
+def smem_plan(V: int, W: int, w_live: Optional[int] = None, *,
+              K1: int = 1, shared_target: bool = True) -> dict:
+    """Static launch plan of one bucket: its tier, rows per block,
+    threads and shared memory per block.
+
+    Block and device-memory tiers (W > W_WARP): one block per row. The
+    block stages the packed transition rows of its event's ``w_live``
     slots (``[w_live, words(V), V]`` uint32) and, when it fits beside
     them in the 227 KB a block may use, the row's whole frontier
-    ``[words(V), 2^W]`` uint32. Otherwise the frontier stays in the row's
-    slice of the output tensor in device memory (W = 16..18 at one word).
-    The kind vocabulary does not enter: only the event's own slots are
-    staged. ``threads`` is the block size: one thread per mask pair, at
-    least a warp, at most 512."""
+    ``[words(V), 2^W]`` uint32 (the block tier); otherwise the frontier
+    stays in the row's slice of the output tensor in device memory (the
+    device-memory tier, W = 16..18 at one word). ``threads`` is one per
+    mask pair, at least a warp, at most 512.
+
+    Warp tier (W <= W_WARP): one warp per row, ``rows_per_block`` rows
+    per block, the frontier in the warp's registers (``frontier_in_smem``
+    says it is on chip). Shared memory holds each row's event tile
+    (TILE_BYTES) and the transition table staged in ``table_form``
+    (``table_bytes``: once per block for a shared target, once per row
+    otherwise); R is the largest of 8, 4, 2, 1 that keeps a block within
+    WARP_SMEM_BYTES, and a table that fits no block stays in device
+    memory (``table_form`` "device", R = 8)."""
     NW, M = n_state_words(V), 1 << int(W)
     WL = W if w_live is None else max(1, min(int(w_live), W))
-    rows = WL * NW * V * 4
     frontier = NW * M * 4
-    resident = rows + frontier <= SMEM_LIMIT_BYTES
-    return {"rows_bytes": rows, "frontier_bytes": frontier,
-            "frontier_in_smem": resident,
-            "smem_bytes": rows + (frontier if resident else 0),
-            "threads": min(max(M // 2, 32), 512),
-            "limit_bytes": SMEM_LIMIT_BYTES}
+    if W > W_WARP:
+        rows = WL * NW * V * 4
+        resident = rows + frontier <= SMEM_LIMIT_BYTES
+        return {"tier": "block" if resident else "device",
+                "rows_per_block": 1, "table_form": "device",
+                "rows_bytes": rows, "frontier_bytes": frontier,
+                "frontier_in_smem": resident,
+                "smem_bytes": rows + (frontier if resident else 0),
+                "threads": min(max(M // 2, 32), 512),
+                "limit_bytes": SMEM_LIMIT_BYTES}
+    form = table_form(V)
+    tb = table_bytes(int(K1), V, form)
+    plan = {"tier": "warp", "rows_per_block": WARP_ROWS,
+            "table_form": "device", "rows_bytes": 0,
+            "frontier_bytes": frontier, "frontier_in_smem": True,
+            "smem_bytes": WARP_ROWS * TILE_BYTES,
+            "threads": WARP_ROWS * 32, "limit_bytes": SMEM_LIMIT_BYTES}
+    for R in (WARP_ROWS, 4, 2, 1):
+        tables = tb if shared_target else R * tb
+        if R * TILE_BYTES + tables <= WARP_SMEM_BYTES:
+            plan.update(rows_per_block=R, table_form=form,
+                        rows_bytes=tables,
+                        smem_bytes=R * TILE_BYTES + tables, threads=R * 32)
+            break
+    return plan
 
 
 class _Member(ctypes.Structure):
@@ -87,32 +157,42 @@ class _Member(ctypes.Structure):
         "bad")]
         + [("target_row_stride", ctypes.c_longlong)]
         + [(n, ctypes.c_int) for n in (
-            "slots_i32", "N", "Wt", "K1", "V", "NW", "W", "WL",
-            "row_start", "rows")])
+            "slots_i32", "N", "Wt", "K1", "V", "NW", "W", "WL", "tier",
+            "rows_per_block", "table_form", "block_start", "rows")])
 
 
 class _Group(ctypes.Structure):
     _fields_ = [("m", _Member * MAX_GROUP_MEMBERS),
-                ("n_members", ctypes.c_int), ("total_rows", ctypes.c_int)]
+                ("n_members", ctypes.c_int), ("total_blocks", ctypes.c_int)]
 
 
 def _library():
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library, and
+    check that its descriptor and warp-tier limits match this module."""
     global _LIB
     if _LIB is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
         lib = build_library(SRC, {
             "wgl_frontier_launch": (
-                [p, p, p, i, p, ctypes.c_longlong, p, p, p, p,
-                 i, i, i, i, i, i, i, i, i, i, i, i, p], ctypes.c_int),
+                [p, p, p, i, p, ctypes.c_longlong, p, p, p, p]
+                + [i] * 14 + [p], ctypes.c_int),
             "wgl_frontier_group_launch": ([p, i, i, p], ctypes.c_int),
             "wgl_frontier_group_desc_bytes": ([], ctypes.c_int),
+            "wgl_frontier_warp_limits": ([ip, ip], ctypes.c_int),
             "wgl_frontier_error": ([ctypes.c_int], ctypes.c_char_p)})
         size = lib.wgl_frontier_group_desc_bytes()
         if size != ctypes.sizeof(_Group):
             raise RuntimeError(f"wgl_frontier_group: descriptor is {size} "
                                f"bytes in the library, "
                                f"{ctypes.sizeof(_Group)} here")
+        max_w, rows = ctypes.c_int(), ctypes.c_int()
+        lib.wgl_frontier_warp_limits(ctypes.byref(max_w), ctypes.byref(rows))
+        if (max_w.value, rows.value) != (WARP_MAX_W, WARP_ROWS):
+            raise RuntimeError(
+                f"wgl_frontier: the library's warp tier takes W <= "
+                f"{max_w.value} in blocks of {rows.value} rows; this module "
+                f"expects {WARP_MAX_W} and {WARP_ROWS}")
         _LIB = lib
     return _LIB
 
@@ -149,24 +229,34 @@ def _check_events(ev_type, ev_slot, ev_slots, target, V, WL, what):
     return B, N, shared
 
 
-def wgl_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
-                 ev_slots: torch.Tensor, target: torch.Tensor, idx0: int,
-                 F: torch.Tensor, Fb: torch.Tensor, valid: torch.Tensor,
-                 bad: torch.Tensor, *, V: int, W: int,
-                 w_live: Optional[int] = None):
-    """Advance the packed WGL carry of B rows over N events on the card.
+def _check_plan_limits() -> None:
+    _check(1 <= W_WARP <= WARP_MAX_W,
+           f"W_WARP={W_WARP} outside 1..{WARP_MAX_W}")
+    _check(NIBBLE_MAX_V <= 8, f"NIBBLE_MAX_V={NIBBLE_MAX_V} > 8")
 
-    ``ev_type``/``ev_slot`` int8 [B, N], ``ev_slots`` int8 or int32
-    [B, N, Wt] (Wt >= w_live), ``target`` int32 [K1, V] shared or
-    [B, K1, V] per row; the carry is ``F``/``Fb`` int32 bit patterns
-    [B, words(V), 2^W], ``valid`` bool [B] and ``bad`` int32 [B], with
-    ``idx0`` the global index of event 0. Returns the new
-    ``(valid, bad, F, Fb)``; the inputs are left as they were. The same
-    function as ``ops.linearize.plain_wgl``, bit for bit."""
-    global LAUNCHES
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.wgl_frontier_error(err).decode())
+
+
+def prepare_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
+                     ev_slots: torch.Tensor, target: torch.Tensor,
+                     idx0: int, F: torch.Tensor, Fb: torch.Tensor,
+                     valid: torch.Tensor, bad: torch.Tensor, *, V: int,
+                     W: int, w_live: Optional[int] = None):
+    """``wgl_frontier``'s checks, without the launch: returns
+    ``launch()``, which advances the carry ``F, Fb, valid, bad`` in place
+    by one launch of the single-bucket entry (counted in ``LAUNCHES``)."""
     WL = W if w_live is None else max(1, min(int(w_live), W))
     _check(V <= MAX_STATES, f"V={V} > {MAX_STATES} states")
     _check(1 <= W <= MAX_W, f"W={W} outside 1..{MAX_W}")
+    _check_plan_limits()
     dev = ev_type.device
     _check(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     tensors = {"ev_type": ev_type, "ev_slot": ev_slot, "ev_slots": ev_slots,
@@ -185,56 +275,67 @@ def wgl_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
            "valid must be bool [B]")
     _check(bad.dtype == torch.int32 and tuple(bad.shape) == (B,),
            "bad must be int32 [B]")
-
-    F, Fb, valid, bad = F.clone(), Fb.clone(), valid.clone(), bad.clone()
-    if B == 0 or N == 0:
-        return valid, bad, F, Fb
-    plan = smem_plan(V, W, WL)
     K1 = int(target.shape[-2])
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wgl_frontier_launch(
-            ev_type.data_ptr(), ev_slot.data_ptr(), ev_slots.data_ptr(),
-            int(ev_slots.dtype == torch.int32), target.data_ptr(),
-            0 if shared else K1 * V, F.data_ptr(), Fb.data_ptr(),
-            valid.data_ptr(), bad.data_ptr(), B, N, int(ev_slots.shape[2]),
-            K1, V, NW, W, WL, int(idx0), int(plan["frontier_in_smem"]),
-            plan["threads"], plan["smem_bytes"], stream)
-    if err != 0:
-        raise RuntimeError("wgl_frontier launch failed: "
-                           + lib.wgl_frontier_error(err).decode())
-    LAUNCHES += 1
+    plan = smem_plan(V, W, WL, K1=K1, shared_target=shared)
+
+    def launch() -> None:
+        global LAUNCHES
+        if B == 0 or N == 0:
+            return
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.wgl_frontier_launch(
+                ev_type.data_ptr(), ev_slot.data_ptr(), ev_slots.data_ptr(),
+                int(ev_slots.dtype == torch.int32), target.data_ptr(),
+                0 if shared else K1 * V, F.data_ptr(), Fb.data_ptr(),
+                valid.data_ptr(), bad.data_ptr(), B, N,
+                int(ev_slots.shape[2]), K1, V, NW, W, WL, int(idx0),
+                TIERS[plan["tier"]], plan["rows_per_block"],
+                TABLE_FORMS[plan["table_form"]], plan["threads"],
+                plan["smem_bytes"], _stream(dev))
+        _raise_on(lib, err, "wgl_frontier")
+        LAUNCHES += 1
+
+    return launch
+
+
+def wgl_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
+                 ev_slots: torch.Tensor, target: torch.Tensor, idx0: int,
+                 F: torch.Tensor, Fb: torch.Tensor, valid: torch.Tensor,
+                 bad: torch.Tensor, *, V: int, W: int,
+                 w_live: Optional[int] = None):
+    """Advance the packed WGL carry of B rows over N events on the card.
+
+    ``ev_type``/``ev_slot`` int8 [B, N], ``ev_slots`` int8 or int32
+    [B, N, Wt] (Wt >= w_live), ``target`` int32 [K1, V] shared or
+    [B, K1, V] per row; the carry is ``F``/``Fb`` int32 bit patterns
+    [B, words(V), 2^W], ``valid`` bool [B] and ``bad`` int32 [B], with
+    ``idx0`` the global index of event 0. Returns the new
+    ``(valid, bad, F, Fb)``; the inputs are left as they were. The same
+    function as ``ops.linearize.plain_wgl``, bit for bit."""
+    F, Fb, valid, bad = F.clone(), Fb.clone(), valid.clone(), bad.clone()
+    prepare_frontier(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid,
+                     bad, V=V, W=W, w_live=w_live)()
     return valid, bad, F, Fb
 
 
-def wgl_frontier_group(members, flat, rows=None):
-    """Check several bucket chunks in ONE launch of the group entry.
-
-    ``members`` is a sequence of ``(V, W, w_live, shared_target)``, one
-    per chunk (at most MAX_GROUP_MEMBERS); ``flat`` holds four tensors
-    per member, ``ev_type, ev_slot, ev_slots, target`` as
-    ``wgl_frontier`` takes them. ``rows`` (optional) is each member's
-    count of real rows: the rows past it must be padding (all EV_PAD)
-    and are not launched. Returns three tensors per member, flat —
-    ``valid`` bool [B], ``bad`` int32 [B] and the frontier int32
-    [B, words(V), 2^W] (the final frontier of a valid row, the latched
-    pre-failure closure of an invalid one) — the same, bit for bit, as
-    a single-bucket check of each member (ops.linearize.get_kernel) and
-    as the plain version ``ops.linearize.plain_fused_wgl``. Every
-    member's frontier must fit in shared memory (smem_plan)."""
-    global GROUP_LAUNCHES
+def prepare_group(members, flat, rows=None):
+    """``wgl_frontier_group``'s checks and output allocation, without the
+    launch: returns ``(launch, outs)``. ``launch()`` runs the group entry
+    once on ``outs`` (counted in ``GROUP_LAUNCHES``), which must hold the
+    initial carry: they do when returned."""
     members = [tuple(m) for m in members]
     _check(1 <= len(members) <= MAX_GROUP_MEMBERS,
            f"{len(members)} members; the group entry takes 1.."
            f"{MAX_GROUP_MEMBERS}")
     _check(len(flat) == 4 * len(members), "four tensors per member")
+    _check_plan_limits()
     dev = flat[0].device
     _check(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     rows = [None] * len(members) if rows is None else list(rows)
     _check(len(rows) == len(members), "one row count per member")
     group = _Group()
-    outs, threads, smem, start = [], 32, 0, 0
+    outs, smem, blocks = [], 0, 0
     for j, ((V, W, w_live, shared_target), nb) in enumerate(
             zip(members, rows)):
         what = f"member {j}: "
@@ -252,17 +353,18 @@ def wgl_frontier_group(members, flat, rows=None):
                f"{what}target shape does not match shared_target")
         nb = B if nb is None else int(nb)
         _check(0 <= nb <= B, f"{what}rows={nb} outside 0..{B}")
-        plan = smem_plan(V, W, WL)
+        K1 = int(target.shape[-2])
+        plan = smem_plan(V, W, WL, K1=K1, shared_target=shared)
         _check(plan["frontier_in_smem"],
                f"{what}W={W} at V={V} needs the device-memory frontier; "
                "launch it alone")
         NW, M = n_state_words(V), 1 << W
-        K1 = int(target.shape[-2])
         frontier = torch.zeros((B, NW, M), dtype=torch.int32, device=dev)
         frontier[:, 0, 0] = 1
         valid = torch.ones(B, dtype=torch.bool, device=dev)
         bad = torch.full((B,), 2**31 - 1, dtype=torch.int32, device=dev)
         outs += [valid, bad, frontier]
+        R = plan["rows_per_block"]
         m = group.m[j]
         m.ev_type, m.ev_slot = ev_type.data_ptr(), ev_slot.data_ptr()
         m.ev_slots, m.target = ev_slots.data_ptr(), target.data_ptr()
@@ -272,19 +374,41 @@ def wgl_frontier_group(members, flat, rows=None):
         m.slots_i32 = int(ev_slots.dtype == torch.int32)
         m.N, m.Wt, m.K1, m.V, m.NW, m.W, m.WL = (
             N, int(ev_slots.shape[2]), K1, V, NW, W, WL)
-        m.row_start, m.rows = start, nb
-        start += nb
-        threads = max(threads, plan["threads"])
+        m.tier, m.rows_per_block = TIERS[plan["tier"]], R
+        m.table_form = TABLE_FORMS[plan["table_form"]]
+        m.block_start, m.rows = blocks, nb
+        blocks += -(-nb // R)
         smem = max(smem, plan["smem_bytes"])
-    group.n_members, group.total_rows = len(members), start
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wgl_frontier_group_launch(ctypes.byref(group), threads,
-                                            smem, stream)
-    if err != 0:
-        raise RuntimeError("wgl_frontier_group launch failed: "
-                           + lib.wgl_frontier_error(err).decode())
-    if start:                 # a group of padding rows launches nothing
-        GROUP_LAUNCHES += 1
-    return tuple(outs)
+    group.n_members, group.total_blocks = len(members), blocks
+
+    def launch() -> None:
+        global GROUP_LAUNCHES
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.wgl_frontier_group_launch(
+                ctypes.byref(group), WARP_ROWS * 32, smem, _stream(dev))
+        _raise_on(lib, err, "wgl_frontier_group")
+        if blocks:            # a group of padding rows launches nothing
+            GROUP_LAUNCHES += 1
+
+    return launch, tuple(outs)
+
+
+def wgl_frontier_group(members, flat, rows=None):
+    """Check several bucket chunks in ONE launch of the group entry.
+
+    ``members`` is a sequence of ``(V, W, w_live, shared_target)``, one
+    per chunk (at most MAX_GROUP_MEMBERS); ``flat`` holds four tensors
+    per member, ``ev_type, ev_slot, ev_slots, target`` as
+    ``wgl_frontier`` takes them. ``rows`` (optional) is each member's
+    count of real rows: the rows past it must be padding (all EV_PAD)
+    and are not launched. Returns three tensors per member, flat —
+    ``valid`` bool [B], ``bad`` int32 [B] and the frontier int32
+    [B, words(V), 2^W] (the final frontier of a valid row, the latched
+    pre-failure closure of an invalid one) — the same, bit for bit, as
+    a single-bucket check of each member (ops.linearize.get_kernel) and
+    as the plain version ``ops.linearize.plain_fused_wgl``. No member
+    may need the device-memory tier (smem_plan)."""
+    launch, outs = prepare_group(members, flat, rows)
+    launch()
+    return outs

@@ -12,6 +12,8 @@ the dispatch-overhead term pinned to 0 by tests/conftest.py, as for the
 reference), group launches (fuse_width 1 vs 4), and the refusals of what
 the port does not carry yet. Tolerance: none (exact equality).
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -299,6 +301,22 @@ def test_refuses_a_backend_choice(shared_cols, backend):
     with pytest.raises(ValueError, match="one frontier kernel"):
         L.check_batch(MODEL, mixed_w_histories(n=2), device="cpu",
                       scheduler_opts=opts)
+
+
+@pytest.mark.parametrize("V", [8, 48])
+@pytest.mark.parametrize("w_live", [None, 3])
+def test_groupable_answers_as_before_the_warp_tier(V, w_live):
+    """Which chunks may ride a group launch does not change with the
+    kernel's tiers: every window whose frontier fits in shared memory
+    beside its staged rows (W <= 15 at one state word, <= 14 at two),
+    so the scheduler's dispatches and launch counts stay as they were."""
+    for W in range(1, 19):
+        wl = W if w_live is None else min(w_live, W)
+        b = SimpleNamespace(V=V, W=W, eff_w_live=wl)
+        NW = (V + 31) // 32
+        fits = wl * NW * V * 4 + NW * 4 * (1 << W) <= 232448
+        assert BucketScheduler._groupable(b) is fits
+        assert fits is (W <= (15 if V <= 32 else 14))
 
 
 def test_iter_synth_groups_matches_reference_and_scheduler():

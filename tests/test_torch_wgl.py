@@ -203,13 +203,103 @@ def test_plain_matches_pallas_interpret_mode():
 
 @pytest.mark.parametrize("V,W,resident", [
     (8, 15, True), (8, 16, False), (8, 18, False),
-    (48, 14, True), (48, 15, False), (64, 4, True)])
+    (48, 14, True), (48, 15, False), (64, 4, True),
+    (8, 1, True), (8, cuda_wgl.W_WARP, True), (8, cuda_wgl.W_WARP + 1, True),
+    (64, cuda_wgl.W_WARP, True), (64, 14, True), (32, 16, False),
+    (33, 15, False)])
 def test_smem_plan_places_the_frontier(V, W, resident):
     plan = cuda_wgl.smem_plan(V, W)
     assert plan["frontier_in_smem"] is resident
     assert plan["smem_bytes"] <= plan["limit_bytes"]
     assert plan["frontier_bytes"] == L.n_state_words(V) * 4 << W
     assert 32 <= plan["threads"] <= 512
+    want = ("warp" if W <= cuda_wgl.W_WARP
+            else "block" if resident else "device")
+    assert plan["tier"] == want
+
+
+def block_tier_plan(V, W, w_live=None):
+    """The one-block-per-row plan as it stood before the warp tier: the
+    block and device-memory tiers must keep it."""
+    NW, M = L.n_state_words(V), 1 << W
+    WL = W if w_live is None else max(1, min(w_live, W))
+    rows, frontier = WL * NW * V * 4, NW * M * 4
+    resident = rows + frontier <= 232448
+    return {"rows_bytes": rows, "frontier_bytes": frontier,
+            "frontier_in_smem": resident,
+            "smem_bytes": rows + (frontier if resident else 0),
+            "threads": min(max(M // 2, 32), 512), "limit_bytes": 232448}
+
+
+@pytest.mark.parametrize("V", [1, 8, 31, 32, 33, 48, 64])
+def test_smem_plan_tiers_and_limits(V):
+    """Every window W 1..18 at every table size: the tier by W, the block
+    within the shared memory a block may use (and the warp tier within
+    its budget), threads a whole number of warps, and the block and
+    device-memory tiers exactly as before the warp tier."""
+    for W in range(1, cuda_wgl.MAX_W + 1):
+        for w_live in (None, 1, 3):
+            for K1 in (1, 37, 200, 800, 5000):
+                for shared in (True, False):
+                    plan = cuda_wgl.smem_plan(V, W, w_live, K1=K1,
+                                              shared_target=shared)
+                    assert plan["smem_bytes"] <= plan["limit_bytes"]
+                    assert plan["threads"] % 32 == 0
+                    if W > cuda_wgl.W_WARP:
+                        assert plan["tier"] in ("block", "device")
+                        assert plan["rows_per_block"] == 1
+                        assert plan["table_form"] == "device"
+                        assert {k: plan[k] for k in block_tier_plan(
+                            V, W, w_live)} == block_tier_plan(V, W, w_live)
+                        continue
+                    R = plan["rows_per_block"]
+                    assert plan["tier"] == "warp" and plan["frontier_in_smem"]
+                    assert plan["threads"] == 32 * R
+                    assert plan["smem_bytes"] <= cuda_wgl.WARP_SMEM_BYTES
+                    form = "nibble" if V <= 8 else "int8"
+                    tables = cuda_wgl.table_bytes(K1, V, form) * (
+                        1 if shared else R)
+                    tiles = R * cuda_wgl.TILE_BYTES
+                    if plan["table_form"] != "device":
+                        assert plan["table_form"] == form
+                        assert plan["smem_bytes"] == tiles + tables
+                    else:
+                        assert plan["table_form"] == "device"
+                        assert R == cuda_wgl.WARP_ROWS
+                        assert plan["smem_bytes"] == tiles
+                        # not even one row's block holds the table
+                        assert (cuda_wgl.TILE_BYTES
+                                + cuda_wgl.table_bytes(K1, V, form)
+                                > cuda_wgl.WARP_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("V,W,K1,shared,R,form", [
+    (8, 5, 40, True, 8, "nibble"),     # the north-star bucket
+    (8, 4, 40, True, 8, "nibble"),
+    (8, 5, 40, False, 4, "nibble"),    # nibble images per row
+    (9, 5, 40, True, 8, "int8"),       # past V = 8: int8 targets
+    (64, 5, 200, False, 2, "int8"),    # per-row tables: fewer rows
+    (64, 8, 300, False, 2, "int8"),
+    (64, 8, 700, False, 1, "int8"),
+    (64, 3, 350, False, 2, "int8"),
+    (64, 6, 800, True, 8, "device"),   # past the budget: device memory
+    (64, 8, 760, False, 8, "device"),
+    (64, 2, 800, True, 8, "device")])
+def test_smem_plan_warp_rows_and_table(V, W, K1, shared, R, form):
+    plan = cuda_wgl.smem_plan(V, W, K1=K1, shared_target=shared)
+    assert plan["tier"] == "warp"
+    assert (plan["rows_per_block"], plan["table_form"]) == (R, form)
+
+
+def test_table_bytes_rounds_to_16():
+    assert cuda_wgl.table_bytes(1, 1, "int8") == 16
+    assert cuda_wgl.table_bytes(40, 8, "int8") == 368
+    assert cuda_wgl.table_bytes(40, 8) == 40 * 129 + 8    # nibble images
+    assert cuda_wgl.table_bytes(40, 9) == 400
+    assert all(cuda_wgl.table_bytes(k, v, f) % 16 == 0
+               and cuda_wgl.table_bytes(k, v, f) >= k * (v + 1)
+               for k in (1, 7, 130) for v in (1, 8, 64)
+               for f in ("int8", "nibble"))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -224,6 +314,20 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         L.get_kernel(72, 4)
     with pytest.raises(ValueError, match="W=19"):
         cuda_wgl.wgl_frontier(*args, 0, *carry, V=8, W=19)
+
+
+def test_group_and_prepared_launches_refuse_cpu_tensors():
+    """No fallback: the group entry and the prepared launches take CUDA
+    tensors or raise, as the single-bucket wrapper does."""
+    args = [t(a) for a in random_inputs(1, B=2, N=8, V=8, W=4, K1=4,
+                                        shared=True)]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wgl.wgl_frontier_group([(8, 4, None, True)], args)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wgl.prepare_group([(8, 4, None, True)], args)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wgl.prepare_frontier(*args, 0, *L.initial_carry(2, 8, 4, CPU),
+                                  V=8, W=4)
 
 
 def test_plain_counts_the_operations_the_step_needs():
