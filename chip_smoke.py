@@ -2,15 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA libraries from the checkout's sources (one nvcc each,
-in parallel) and holds each kernel bit for bit against its plain PyTorch
-version on the card: the WGL frontier kernel in each of its three tiers
-(warp, block, device memory) with cases at every tier edge, two state
-words, tables staged on chip and left in device memory, padding rows and
-tile-edge rows, and the event-chunked resume entry; its group entry
-(several bucket chunks of mixed shapes and tiers in one launch, padding
-rows skipped, against ``plain_fused_wgl`` and against single-bucket
-launches); and the history generators (CAS/register cases over
+Builds the three CUDA libraries from the checkout's sources (one nvcc
+each, in parallel) and holds each kernel bit for bit against its plain
+PyTorch version on the card: the WGL frontier kernel in each of its
+three tiers (warp, block, device memory) with cases at every tier edge,
+two state words, tables staged on chip and left in device memory,
+padding rows and tile-edge rows, and the event-chunked resume entry; its
+group entry (several bucket chunks of mixed shapes and tiers in one
+launch, padding rows skipped, against ``plain_fused_wgl`` and against
+single-bucket launches); and the history generators (CAS/register cases over
 processes, values, op counts, keys, faults and row slices; the wide
 family). It times the warp tier against the block tier on the same rows
 at each window it could take (``tier_cut``). Then it drives the port's
@@ -35,7 +35,16 @@ after:
     every history, the host oracle on sampled sub-histories and
     ``details=True`` on a 256-row slice; then the scheduler over the
     wide specs and over 500 Op-list histories against
-    ``scheduler=False``.
+    ``scheduler=False``;
+  * the dependency-graph closure kernel's two entries (``graph_closure``,
+    ``txn_closure``) against their plain versions at every vertex bucket
+    from 8 to 2048 (``graph_kernel_parity``), then the cycle checker,
+    ``check_graphs_batch``, on the reference bench's list-append batch
+    and on a full-width one of 1,000-op histories (``graph_path``), and
+    the isolation certifier, ``certify_batch``, on the bench's
+    transactional mix and a wide one (``isolation_path``), each held
+    against its host oracle (run on a pool of worker processes) and the
+    kernel against its plain version on the batch.
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -49,6 +58,8 @@ Exits 2 without a result when no CUDA device is available.
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -1295,15 +1306,286 @@ def phase_scheduler_sides(dev, L, S, cuda_synth, synth, cas):
     return counts
 
 
+# ---------------------------------------------- dependency-graph phases
+
+# The closure kernel's parity buckets: every vertex bucket from 8 to 2048
+# (V = 1024 is the last whose rows fit in shared memory; 2048 runs the
+# global-memory tier), and forward-edge densities from sparse to dense.
+GRAPH_VS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+GRAPH_DENSITIES = (0.002, 0.05, 0.5)
+
+# The graph path's batches: the reference bench's (bench.py:849-852) and
+# a full-width one, Elle-style list-append histories of 1,000 ops over
+# 8 keys (V 1024). The full-width count is cut from 128 to 32: the
+# checker's host refinement of each cyclic graph's witness (a BFS per
+# vertex over about 500,000 realtime edges, seconds each) and the host
+# oracle, not the card, set its time. Host-oracle rows: every row of the
+# bench batch, GRAPH_ORACLE_ROWS evenly spaced rows of the wide one.
+GRAPH_BENCH_HISTORIES = 2_000
+GRAPH_WIDE = dict(n=32, n_ops=1_000, n_keys=8)
+GRAPH_WIDE_CUT_FROM = 128
+GRAPH_ORACLE_ROWS = 16
+# The isolation path's batches: the bench's (bench.py:899, V 16) and a
+# wide one (V 256), its count cut from 256 to 128 for the same reason
+# (the host refinement and the oracle, about 0.7 s a history).
+ISO_BENCH = dict(n=512, seed=7, anomaly="mix")
+ISO_WIDE = dict(n=128, seed=7, anomaly="mix", n_txns=250)
+ISO_WIDE_CUT_FROM = 256
+
+
+def graph_planes(rng, V, l_in, rows):
+    """Packed int32 planes [B, l_in, V, words(V)] for the kernel parity:
+    ``rows`` seeded random rows per density (forward edges at the
+    density, back edges, which close cycles, at a fiftieth of it; the
+    first two densities cumulative across planes as extraction makes
+    them, the last independent; for V >= 32 column 31 set on half the
+    rows), then the special rows: empty, a self-loop on the last vertex,
+    one edge, and the V-long cycle (Warshall's longest chain)."""
+    i, j = np.meshgrid(np.arange(V), np.arange(V), indexing="ij")
+    parts = []
+    for n, d in enumerate(GRAPH_DENSITIES):
+        p = np.where(j > i, d, d / 50).astype(np.float32)
+        dense = rng.random((rows, l_in, V, V), dtype=np.float32) < p
+        if n < 2:
+            dense = np.logical_or.accumulate(dense, axis=1)
+        if V >= 32:
+            dense[:, :, : V // 2, 31] = True
+        parts.append(dense)
+    special = np.zeros((4, l_in, V, V), bool)
+    special[1, :, V - 1, V - 1] = True
+    special[2, :, 0, 1] = True
+    special[3, :, np.arange(V), (np.arange(V) + 1) % V] = True
+    dense = np.concatenate(parts + [special]).astype(np.uint8)
+    if V < 32:
+        dense = np.concatenate(
+            [dense, np.zeros(dense.shape[:-1] + (32 - V,), np.uint8)], -1)
+    return np.packbits(dense, axis=-1, bitorder="little").view(np.int32)
+
+
+def closure_fns(entry):
+    """(kernel wrapper, plain version) of a closure entry."""
+    from jepsen_torch.ops import cuda_graph
+    from jepsen_torch.ops.graph import plain_graph_closure
+    from jepsen_torch.ops.txn_graph import plain_txn_closure
+    return (getattr(cuda_graph, f"{entry}_closure"),
+            plain_graph_closure if entry == "graph" else plain_txn_closure)
+
+
+def phase_graph_kernel_parity(dev):
+    """Both closure entries against their plain versions on the card, bit
+    for bit, at every vertex bucket from 8 to 2048."""
+    from jepsen_torch.ops import cuda_graph
+    rng = np.random.default_rng(31)
+    out = {"phase": "graph_kernel_parity", "cases": []}
+    err = 0
+    tiers = set()
+    for entry, (l_in, _) in cuda_graph.ENTRIES.items():
+        kern, plain = closure_fns(entry)
+        for V in GRAPH_VS:
+            rows = 8 if V <= 256 else max(1, 2048 // V)
+            adj = on(graph_planes(rng, V, l_in, rows), dev)
+            kc, kn = kern(adj, V)
+            pc, pn = plain(adj, V)
+            torch.cuda.synchronize()
+            equal = torch.equal(kc, pc) and torch.equal(kn, pn)
+            err = max(err, tensors_err(kc, pc), tensors_err(kn, pn))
+            tier = cuda_graph.tier(V)
+            tiers.add(tier)
+            out["cases"].append({
+                "entry": entry, "V": V, "tier": tier,
+                "graphs": adj.shape[0], "planes": int(pc.numel()),
+                "cyclic_planes": int(pc.sum()), "equal": equal})
+            require(equal, f"{entry}_closure != plain at V={V}")
+            require(0 < int(pc.sum()) < pc.numel(),
+                    f"{entry} V={V}: the cases must give both verdicts")
+    require(tiers == {"warp", "smem", "global"}, f"tiers seen: {tiers}")
+    out["max_abs_err"] = err
+    emit(out)
+    return err
+
+
+def closure_measure(dev, entry, buckets):
+    """A closure entry over a path's buckets: kernel time alone
+    (``time_launches``, 5 runs after a warm-up) and through the wrapper
+    (output allocation included), the plain version's time, parity with
+    it on every row, and the bound: the packed planes read once and
+    cyc/node written once over the memory rate, against L·V²·words(V)
+    word ORs a graph (plus V²·words(V) for the txn entry's SI plane) over
+    the int32 rate."""
+    from jepsen_torch.ops import cuda_graph
+    kern, plain = closure_fns(entry)
+    l_out = cuda_graph.ENTRIES[entry][1]
+    adjs = [(b.V, on(b.adj, dev)) for b in buckets]
+    ms = time_launches([(lambda: None, cuda_graph.prepare(a, V, entry)[0])
+                        for V, a in adjs], reps=5)
+    wrapper_ms = time_cuda(lambda: [kern(a, V) for V, a in adjs], reps=5)
+    plain_ms = time_cuda(lambda: [plain(a, V) for V, a in adjs], reps=2)
+    got = [kern(a, V) for V, a in adjs]
+    want = [plain(a, V) for V, a in adjs]
+    torch.cuda.synchronize()
+    err = max(max(tensors_err(g[0], w[0]), tensors_err(g[1], w[1]))
+              for g, w in zip(got, want))
+    nbytes = ops = 0
+    for V, a in adjs:
+        wd = cuda_graph.words(V)
+        nbytes += a.numel() * 4 + a.shape[0] * l_out * (1 + 4)
+        ops += a.shape[0] * V * V * wd * (l_out + (entry == "txn"))
+    return {"buckets": [{"V": V, "graphs": a.shape[0],
+                         "tier": cuda_graph.tier(V)}
+                        for V, a in adjs],
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "equal": err == 0, "max_abs_err": err,
+            **launch_bound(nbytes, ops)}
+
+
+def host_oracle(pool, fn, items):
+    """fn over items on the worker pool (the pure-Python host oracles)."""
+    return pool.map(fn, items, chunksize=max(1, len(items) // 64))
+
+
+def graph_batch(dev, pool, label, hists, oracle_rows, extra):
+    """check_graphs_batch on one batch, its histories extracted first
+    (as bench.py times it): launch count, layer split, parity with the
+    host oracle on ``oracle_rows`` and the kernel's measurement on the
+    batch's buckets."""
+    from jepsen_torch.checkers.cycle import check_graphs_batch
+    from jepsen_torch.ops import cuda_graph
+    from jepsen_torch.ops.graph import (bucket_v, check_graph_host,
+                                        encode_graphs, extract_graph)
+    t0 = time.perf_counter()
+    graphs = [extract_graph(h, "list-append") for h in hists]
+    extract_s = time.perf_counter() - t0
+    timings, stats = {}, {}
+    cuda_graph.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = check_graphs_batch(graphs, stats_out=stats, timings=timings)
+    batch_s = time.perf_counter() - t0
+    launches = cuda_graph.LAUNCHES
+    require(launches > 0, f"{label}: graph_closure was not launched")
+    require(len(res) == len(hists), f"{label}: result count")
+    t0 = time.perf_counter()
+    want = host_oracle(pool, check_graph_host, [graphs[i]
+                                                for i in oracle_rows])
+    oracle_s = time.perf_counter() - t0
+    for i, w in zip(oracle_rows, want):
+        require({**res[i], "provenance": "host"} == w,
+                f"{label}: row {i} differs from check_graph_host")
+    # Uncorrupted histories are serializable; a corrupted one (a stale
+    # read, when the history has a read to corrupt) is an
+    # anti-dependency cycle, never a write-order violation.
+    for s, r in enumerate(res):
+        require(r["valid"] is True or (s % 7 == 0 and r["anomaly"] == "G2"),
+                f"{label}: row {s}: {r['valid']}, {r['anomaly']}")
+    measure = closure_measure(dev, "graph", encode_graphs(graphs))
+    require(measure["equal"], f"{label}: kernel != plain on the batch")
+    vb: dict = {}
+    for g in graphs:
+        vb[bucket_v(g.n)] = vb.get(bucket_v(g.n), 0) + 1
+    return {"batch": label, **extra, "graphs": len(hists),
+            "vertex_buckets": hist_json(vb), "extract_s": extract_s,
+            "check_graphs_batch_s": batch_s,
+            "graphs_per_s": len(hists) / batch_s,
+            "e2e_graphs_per_s": len(hists) / (extract_s + batch_s),
+            "anomalies": sum(r["valid"] is not True for r in res),
+            "launches": launches, "split_s": timings,
+            "rest_s": batch_s - sum(timings.values()),
+            "stats": stats, "oracle_rows": len(oracle_rows),
+            "oracle_s": oracle_s, "kernel": measure}
+
+
+def phase_graph_path(dev, pool):
+    """check_graphs_batch on the card: the reference bench's batch (2,000
+    list-append histories of 30 ops, every seventh corrupted: V 32) and
+    the full-width one (1,000 ops over 8 keys: V 1024)."""
+    from jepsen_torch.workloads.synth import synth_la_history
+    bench = [synth_la_history(s, n_ops=30,
+                              corrupt=1.0 if s % 7 == 0 else 0.0)
+             for s in range(GRAPH_BENCH_HISTORIES)]
+    a = graph_batch(dev, pool, "bench", bench, list(range(len(bench))),
+                    {"n_ops": 30, "source": "bench.py:849-852"})
+    w = GRAPH_WIDE
+    wide = [synth_la_history(s, n_ops=w["n_ops"], n_keys=w["n_keys"],
+                             corrupt=1.0 if s % 7 == 0 else 0.0)
+            for s in range(w["n"])]
+    rows = np.linspace(0, w["n"] - 1, GRAPH_ORACLE_ROWS).astype(int)
+    b = graph_batch(dev, pool, "wide", wide, sorted(set(rows.tolist())),
+                    {"n_ops": w["n_ops"], "n_keys": w["n_keys"],
+                     "count_cut_from": GRAPH_WIDE_CUT_FROM})
+    emit({"phase": "graph_path", "batches": [a, b]})
+    return a, b
+
+
+def iso_batch(dev, pool, label, kw, extra):
+    """certify_batch on one TxnSpec batch, extracted first (as bench.py
+    times it): launch count, layer split,
+    parity with certify_host on every row and with the injected labels,
+    and the kernel's measurement on the batch's buckets."""
+    from jepsen_torch.isolation import certify_batch
+    from jepsen_torch.ops import cuda_graph
+    from jepsen_torch.ops.synth_txn import (EXPECTED_CAP, TxnSpec,
+                                            synth_txn_batch)
+    from jepsen_torch.ops.txn_graph import (check_txn_host,
+                                            encode_txn_graphs,
+                                            extract_txn_graph)
+    pairs = synth_txn_batch(TxnSpec(**kw))
+    t0 = time.perf_counter()
+    graphs = [extract_txn_graph(h) for h, _ in pairs]
+    extract_s = time.perf_counter() - t0
+    timings, stats = {}, {}
+    cuda_graph.TXN_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = certify_batch(graphs, stats_out=stats, timings=timings)
+    batch_s = time.perf_counter() - t0
+    launches = cuda_graph.TXN_LAUNCHES
+    require(launches > 0, f"{label}: txn_closure was not launched")
+    t0 = time.perf_counter()
+    want = host_oracle(pool, check_txn_host, graphs)
+    oracle_s = time.perf_counter() - t0
+    levels, mix = {}, {}
+    for i, ((_, anom), r, w) in enumerate(zip(pairs, res, want)):
+        require({**r, "provenance": "host"} == w,
+                f"{label}: history {i} differs from certify_host")
+        require(r["level"] == EXPECTED_CAP[anom],
+                f"{label}: history {i} ({anom}) certified at {r['level']}")
+        levels[r["level"]] = levels.get(r["level"], 0) + 1
+        mix[anom or "clean"] = mix.get(anom or "clean", 0) + 1
+    measure = closure_measure(dev, "txn", encode_txn_graphs(graphs))
+    require(measure["equal"], f"{label}: kernel != plain on the batch")
+    return {"batch": label, "spec": kw, **extra, "histories": len(pairs),
+            "extract_s": extract_s, "certify_batch_s": batch_s,
+            "hist_per_s": len(pairs) / batch_s,
+            "e2e_hist_per_s": len(pairs) / (extract_s + batch_s),
+            "launches": launches, "split_s": timings,
+            "rest_s": batch_s - sum(timings.values()), "stats": stats,
+            "levels": dict(sorted(levels.items())),
+            "anomaly_mix": dict(sorted(mix.items())),
+            "oracle_s": oracle_s, "kernel": measure}
+
+
+def phase_isolation_path(dev, pool):
+    """certify_batch on the card: the bench's batch (512 histories of 12
+    transactions, V 16) and a wide one (250 transactions, V 256)."""
+    a = iso_batch(dev, pool, "bench", ISO_BENCH,
+                  {"source": "bench.py:899"})
+    b = iso_batch(dev, pool, "wide", ISO_WIDE,
+                  {"count_cut_from": ISO_WIDE_CUT_FROM})
+    emit({"phase": "isolation_path", "batches": [a, b]})
+    return a, b
+
+
 def build_kernels(L, cuda_synth):
-    """Build both kernel libraries at once (one nvcc each, in parallel)."""
+    """Build the three kernel libraries at once (one nvcc each, in
+    parallel)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from jepsen_torch.ops import _build
+    from jepsen_torch.ops import _build, cuda_graph
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         for f in [pool.submit(L.cuda_wgl.build),
-                  pool.submit(cuda_synth.build)]:
+                  pool.submit(cuda_synth.build),
+                  pool.submit(cuda_graph.build)]:
             f.result()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
@@ -1311,6 +1593,27 @@ def build_kernels(L, cuda_synth):
                                              "registers"))]
              for name, log in _build.BUILD_LOGS.items()}
     return build_s, ptxas
+
+
+def closure_entry(name, replaces, path, bench, wide, parity_err) -> dict:
+    """The kernels-line entry of one closure entry: launches per batch of
+    its path, times and bound of the full-width batch, and the bench
+    batch's beside them."""
+    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
+    kb, kw = bench["kernel"], wide["kernel"]
+    return {"name": name, "route": "cuda",
+            "source": "jepsen_torch/ops/csrc/graph_closure.cu",
+            "replaces": replaces,
+            "launches": bench["launches"] + wide["launches"],
+            "launches_by_path": {f"{path}_bench": bench["launches"],
+                                 f"{path}_wide": wide["launches"]},
+            "parity": True,
+            "max_abs_err": max(parity_err, kb["max_abs_err"],
+                               kw["max_abs_err"]),
+            **{k: kw[k] for k in keys}, "library_ms": None,
+            "buckets": kw["buckets"],
+            "bench_batch": {"buckets": kb["buckets"],
+                            **{k: kb[k] for k in keys}}}
 
 
 def main() -> int:
@@ -1348,6 +1651,17 @@ def main() -> int:
                                  wgl_check)
     sides = phase_scheduler_sides(dev, L, S, cuda_synth, synth_cas_batch,
                                   cas_register)
+    # The closure's plain version is a float32 matmul chain: keep it in
+    # full float32 (the default) so that the comparison is plainly exact.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    closure_err = phase_graph_kernel_parity(dev)
+    # The host oracles of the graph phases are pure Python: they run on a
+    # pool of worker processes, started only now so that no worker sits
+    # beside the earlier phases' host timings, and stopped right after.
+    workers = min(8, len(os.sched_getaffinity(0)))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        gb, gw = phase_graph_path(dev, pool)
+        ib, iw = phase_isolation_path(dev, pool)
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
 
     wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
@@ -1397,7 +1711,11 @@ def main() -> int:
         "bound_ms": gk["bound_ms"], "bound_by": gk["bound_by"],
         "library_ms": None, "wrapper_ms": gk["wrapper_ms"],
         "w_warp": L.cuda_wgl.W_WARP,
-        "members_by_tier_and_W": gk["members_by_tier_and_W"]}]})
+        "members_by_tier_and_W": gk["members_by_tier_and_W"]},
+        closure_entry("graph_closure", "jepsen_tpu/ops/graph.py:416",
+                      "check_graphs_batch", gb, gw, closure_err),
+        closure_entry("txn_closure", "jepsen_tpu/ops/txn_graph.py:412",
+                      "certify_batch", ib, iw, closure_err)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

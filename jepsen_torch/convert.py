@@ -5,7 +5,9 @@ object that holds an encoded batch as numpy arrays under the reference
 encoder's attribute names (duck-typed: nothing is imported from the
 producer). It lets one encoding feed both packages, and lets a caller
 hand a batch encoded elsewhere to the CUDA kernel. ``cols_from_arrays``
-does the same for a columnar batch of histories (history.columnar).
+does the same for a columnar batch of histories (history.columnar), and
+``graph_bucket_from_arrays`` for a bucket of packed dependency graphs
+(ops.graph).
 Frontier carries cross over through
 ``ops.linearize.import_frontier``/``export_frontier``, which keep the
 reference's journal format. A synthetic batch crosses by its spec: a
@@ -18,6 +20,7 @@ import numpy as np
 
 from .history.columnar import ColumnarOps
 from .ops.encode import EncodedBatch
+from .ops.graph import GraphBucket
 
 
 def batch_from_arrays(src) -> EncodedBatch:
@@ -54,3 +57,14 @@ def cols_from_arrays(src) -> ColumnarOps:
                        kind=np.array(src.kind, np.int32),
                        kinds=[tuple(k) for k in src.kinds],
                        index=opt("index"), key=opt("key"))
+
+
+def graph_bucket_from_arrays(src) -> GraphBucket:
+    """A ``GraphBucket`` from ``src.adj`` (packed [B, L, V, words(V)]
+    words, uint32 or int32), ``src.V`` and ``src.indices``. The words are
+    copied as int32 bit patterns, the port's form of the reference's
+    uint32 packing."""
+    adj = np.array(src.adj)
+    return GraphBucket(adj=adj.view(np.int32) if adj.dtype == np.uint32
+                       else adj.astype(np.int32),
+                       V=int(src.V), indices=list(src.indices))

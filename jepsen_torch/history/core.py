@@ -1,4 +1,4 @@
-"""Pure history transforms the linearizability path needs.
+"""Pure history transforms the checkers need.
 
 Semantics follow the reference framework (invoke/completion pairing at
 jepsen/src/jepsen/util.clj:554-588, completion semantics used by knossos
@@ -6,7 +6,7 @@ and jepsen.checker).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 from .ops import Op, INVOKE, OK, FAIL
 
@@ -16,6 +16,24 @@ def index(history: List[Op]) -> List[Op]:
     for i, op in enumerate(history):
         op.index = i
     return history
+
+
+def pairs(history: List[Op]) -> List[Tuple[Op, Optional[Op]]]:
+    """Match invocations with their completions, in invocation order.
+
+    Returns (invoke, completion-or-None) tuples. A process has at most one
+    outstanding op, so pairing is a per-process scan.
+    """
+    open_: Dict[object, int] = {}
+    out: List[Tuple[Op, Optional[Op]]] = []
+    for op in history:
+        if op.type == INVOKE:
+            open_[op.process] = len(out)
+            out.append((op, None))
+        elif op.is_completion and op.process in open_:
+            i = open_.pop(op.process)
+            out[i] = (out[i][0], op)
+    return out
 
 
 def complete(history: List[Op]) -> List[Op]:

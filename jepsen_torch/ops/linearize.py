@@ -55,8 +55,7 @@ from .cuda_wgl import n_state_words
 from .device import resolve_device
 from .encode import (EV_CLOSE, EV_FUSED, EV_OK, EncodedBatch, bucket_encode,
                      slot_ops_at_event)
-
-INT32_MAX = np.int32(2**31 - 1)
+from .faults import INT32_MAX
 
 # Widest state space the packed kernel accepts: two 32-state words.
 MAX_PACKED_STATES = cuda_wgl.MAX_STATES

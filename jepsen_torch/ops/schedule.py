@@ -47,9 +47,15 @@ the checker-nemesis fault hooks, watchdog and degradation ladder, the
 chunk journal and resident frontiers (the next slice); the native-CPU
 tail diversion (the port has no native engine); and donated buffers,
 which have no meaning for torch tensors.
+
+``GraphScheduler``, at the end, is the happy path of the reference's
+dependency-graph scheduler (vertex-bucket chunks for the closure
+kernel). Both schedulers read the reference's environment knobs
+(``KNOBS``) when they are made.
 """
 from __future__ import annotations
 
+import logging
 import os
 import time
 from collections import deque
@@ -61,19 +67,62 @@ import torch
 from .cuda_wgl import MAX_GROUP_MEMBERS, n_state_words, smem_plan
 from .device import resolve_device
 from .encode import EncodedBatch, merge_batches
+from .faults import CorruptOutput
+from .graph import (N_LEVELS, close_planes, mxu_op_model,
+                    validate_graph_decoded)
 from .linearize import (DATA_MAX_SLOTS, DISPATCH_LOG, MAX_FRONTIER_ELEMENTS,
                         WindowOverflow, _on, get_fused_kernel, get_kernel,
                         run_encoded_batch, run_event_chunked)
 
-# Rows per device dispatch (before the per-class memory cap shrinks it).
-DEFAULT_CHUNK_ROWS = 1024
+log = logging.getLogger("jepsen.schedule")
 
-# Consolidation budget for the W <= DATA_MAX_SLOTS side.
-DEFAULT_MAX_CLASSES = 5
+# The schedulers' environment knobs, with the reference's names and
+# defaults: {knob: (variable, default, least value)}.
+#   chunk_rows          rows per device dispatch (before the per-class
+#                       memory cap shrinks it);
+#   max_classes         consolidation budget for the W <= DATA_MAX_SLOTS
+#                       side;
+#   fuse_width          class chunks one group launch takes (1 = one
+#                       launch per chunk), capped at MAX_GROUP_MEMBERS;
+#   max_queue           encoded chunks buffered at the encode-to-launch
+#                       hand-off while the pipeline is full before a
+#                       forced flush, counted in ``backpressure_events``
+#                       (0 = no bound);
+#   event_route_events  event-axis length at which a narrow bucket takes
+#                       the long-history route (the carried-frontier
+#                       resume kernel, run_event_chunked) instead of one
+#                       long launch (0 = never);
+#   event_chunk         event-axis chunk of that route;
+#   graph_chunk_rows    rows per graph-closure dispatch (GraphScheduler).
+# The reference also reads JT_COMPILE_CACHE=0 as fuse width 1, since a
+# fused XLA program is a compile it would otherwise pay per process; the
+# port compiles nothing per shape, so that variable means nothing here.
+KNOBS = {
+    "chunk_rows": ("JT_SCHED_CHUNK_ROWS", 1024, 1),
+    "max_classes": ("JT_SCHED_CLASSES", 5, 1),
+    "fuse_width": ("JT_SCHED_FUSE_WIDTH", 4, 1),
+    "max_queue": ("JT_SCHED_MAX_QUEUE", 0, 0),
+    "event_route_events": ("JT_EVENT_ROUTE_EVENTS", 8192, 0),
+    "event_chunk": ("JT_EVENT_CHUNK", 2048, 1),
+    "graph_chunk_rows": ("JT_GRAPH_CHUNK_ROWS", 2048, 1),
+}
 
-# Fused-dispatch group width: up to this many class chunks ride one
-# launch of the group kernel. 1 = one launch per chunk.
-DEFAULT_FUSE_WIDTH = 4
+
+def knob(name: str) -> int:
+    """The knob's value from its environment variable, read now (so a
+    setting applies to the next scheduler made), else its default. A
+    value that is not an integer is logged and ignored."""
+    var, default, least = KNOBS[name]
+    env = os.environ.get(var)
+    if env is None:
+        return default
+    try:
+        return max(least, int(env))
+    except ValueError:
+        log.warning("ignoring malformed %s=%r (want an integer >= %d)",
+                    var, env, least)
+        return default
+
 
 # In-flight dispatch-group budget: 2 = double buffering (host pads k+1,
 # card runs k, host decodes k-1).
@@ -84,12 +133,6 @@ PIPELINE_DEPTH = 2
 # reference, so both packages plan the same chunks.
 EVENT_QUANTUM = 64
 ROW_QUANTUM = 64
-
-# Event-axis chunk of the long-history route, and the event-axis length
-# at which a narrow bucket takes that route (the carried-frontier
-# resume kernel, run_event_chunked) instead of one long launch.
-EVENT_CHUNK = 2048
-EVENT_ROUTE_EVENTS = 8192
 
 # Rows per streamed encode group (iter_columnar_groups,
 # iter_synth_groups).
@@ -158,7 +201,7 @@ def dispatch_overhead_units(device=None) -> float:
 
 
 def choose_w_classes(stats: Dict[Tuple[int, int], float], *,
-                     max_classes: int = DEFAULT_MAX_CLASSES,
+                     max_classes: Optional[int] = None,
                      boundary: int = DATA_MAX_SLOTS,
                      overhead: Optional[float] = None
                      ) -> Dict[Tuple[int, int], int]:
@@ -171,8 +214,10 @@ def choose_w_classes(stats: Dict[Tuple[int, int], float], *,
     sum(base_group x 2^class_W + overhead) — total padded frontier work
     plus a per-group dispatch tax — over all such partitions. Windows
     past the boundary keep exact classes (the wide route, where the mask
-    axis is shape-critical). ``overhead`` defaults to
-    dispatch_overhead_units()."""
+    axis is shape-critical). ``max_classes`` defaults to the
+    ``max_classes`` knob, ``overhead`` to dispatch_overhead_units()."""
+    if max_classes is None:
+        max_classes = knob("max_classes")
     if overhead is None:
         overhead = dispatch_overhead_units()
     overhead = max(0.0, float(overhead))
@@ -260,15 +305,18 @@ class BucketScheduler:
                  device=None):
         self.return_frontier = return_frontier
         self.device = resolve_device(device)
-        self.max_classes = (DEFAULT_MAX_CLASSES if max_classes is None
+        self.max_classes = (knob("max_classes") if max_classes is None
                             else max_classes)
-        self.chunk_rows = (DEFAULT_CHUNK_ROWS if chunk_rows is None
+        self.chunk_rows = (knob("chunk_rows") if chunk_rows is None
                            else chunk_rows)
         self.depth = max(1, depth)
         # One group launch takes at most MAX_GROUP_MEMBERS chunks.
         self.fuse_width = min(MAX_GROUP_MEMBERS, max(
-            1, DEFAULT_FUSE_WIDTH if fuse_width is None
+            1, knob("fuse_width") if fuse_width is None
             else int(fuse_width)))
+        self.max_queue = knob("max_queue")
+        self.event_route_events = knob("event_route_events")
+        self.event_chunk = knob("event_chunk")
         self._fuse_buf: List[Tuple] = []
         self.consolidate = consolidate
         self.on_chunk = on_chunk
@@ -282,6 +330,7 @@ class BucketScheduler:
             "device_wait_s": 0.0, "overlap_ratio": None,
             "events": 0, "orig_events": 0, "fusion_ratio": None,
             "event_routed_rows": 0, "event_routed_dispatches": 0,
+            "backpressure_events": 0,
         }
         self._t0 = None
         self._first_dispatch_t = None
@@ -452,10 +501,10 @@ class BucketScheduler:
 
     def _run_event_routed(self, mb: EncodedBatch):
         """Long-history route: the whole bucket runs through the
-        event-chunked resume kernel (carried frontier, EVENT_CHUNK-step
-        launches)."""
-        n_disp = -(-mb.n_events // EVENT_CHUNK)
-        v, b, fr = run_event_chunked(mb, EVENT_CHUNK,
+        event-chunked resume kernel (carried frontier, ``event_chunk``-
+        step launches)."""
+        n_disp = -(-mb.n_events // self.event_chunk)
+        v, b, fr = run_event_chunked(mb, self.event_chunk,
                                      return_frontier=bool(
                                          self.return_frontier),
                                      device=self.device)
@@ -570,7 +619,8 @@ class BucketScheduler:
                 yield from drain()
                 yield blocking(mb, self._run_wide(mb))
                 return
-            if mb.n_events >= EVENT_ROUTE_EVENTS:
+            if (self.event_route_events
+                    and mb.n_events >= self.event_route_events):
                 yield from drain()
                 yield blocking(mb, self._run_event_routed(mb))
                 return
@@ -582,9 +632,17 @@ class BucketScheduler:
                 # (keeps the card busy, first verdicts early); once
                 # `depth` groups are in flight chunks accumulate and
                 # ship as one group launch of up to fuse_width members.
+                # With max_queue set, a full hand-off behind a full
+                # pipeline forces the flush, counted as backpressure.
                 self._fuse_buf.append((st, lo, hi, Bp))
+                full = bool(self.max_queue
+                            and len(self._fuse_buf) >= self.max_queue
+                            and len(inflight) >= self.depth)
+                if full:
+                    self._inc("backpressure_events")
                 if (len(inflight) < self.depth
-                        or len(self._fuse_buf) >= self.fuse_width):
+                        or len(self._fuse_buf) >= self.fuse_width
+                        or full):
                     yield from flush()
 
         it = iter(groups)
@@ -684,6 +742,116 @@ def _slice_rows(b: EncodedBatch, lo: int, hi: int) -> EncodedBatch:
         shared_target=b.shared_target, w_live=b.w_live,
         orig_n_events=(b.orig_n_events[lo:hi]
                        if b.orig_n_events is not None else None))
+
+
+# ----------------------------------------- dependency-graph scheduler
+
+class GraphScheduler:
+    """Vertex-bucket scheduler for the dependency-graph closure kernels
+    (ops.graph, ops.txn_graph): the happy path of the reference's
+    GraphScheduler. Each bucket splits into chunks of ``chunk_rows``
+    graphs (the ``graph_chunk_rows`` knob, JT_GRAPH_CHUNK_ROWS); a chunk
+    is copied to the device, launched (asynchronously), copied back and
+    shape-validated (validate_graph_decoded) before the next one.
+
+    ``family``/``kernel``/``levels``/``op_model`` say which closure
+    family it drives: by default the anomaly planes of ops.graph
+    (``close_planes``, 3 levels, ``mxu_op_model``); the isolation ladder
+    passes ``close_txn_planes``, 5 and ``txn_op_model``. A ``kernel``
+    takes (int32 [B, L_in, V, words(V)] planes on the device, V) and
+    returns (cyc bool [B, levels], node int32 [B, levels]) there.
+
+    Contract as in the reference: ``run(buckets)`` yields ``(bucket,
+    (cyc, node))`` per non-empty bucket with numpy arrays;
+    ``on_chunk(bucket, lo, hi, cyc, node)`` fires per decided chunk.
+    ``stats`` has the reference's keys: ``closure_matmuls`` and
+    ``mxu_macs`` price each chunk as the reference dispatches it, padded
+    to ``min(chunk_rows, max(8, pow2(rows)))`` graphs, by the same op
+    model, so that both packages' stats compare equal; the padding rows
+    themselves are not launched here. The fault ladder's counters stay
+    0, and ``quarantined`` and ``row_provenance`` stay empty: the
+    checker nemesis (``faults=``) and the degradation ladder come with
+    the fault-ladder slice. ``timings`` holds host-clock seconds of the
+    copy to the device, the launch (its enqueue), the copy back (which
+    waits for the kernel) and the validation.
+    """
+
+    def __init__(self, *, chunk_rows: Optional[int] = None,
+                 faults=None, on_chunk=None, family: str = "graph",
+                 kernel=None, levels: Optional[int] = None,
+                 op_model=None, device=None):
+        if faults is not None:
+            raise NotImplementedError(
+                "the checker nemesis (faults=) comes with the fault-ladder "
+                "slice (ROADMAP item 4b), which is not part of jepsen_torch "
+                "yet")
+        self.family = family
+        self.kernel = close_planes if kernel is None else kernel
+        self.levels = N_LEVELS if levels is None else int(levels)
+        self.op_model = mxu_op_model if op_model is None else op_model
+        self.chunk_rows = (knob("graph_chunk_rows") if chunk_rows is None
+                           else max(1, int(chunk_rows)))
+        self.device = resolve_device(device)
+        self.on_chunk = on_chunk
+        self.quarantined: Dict[int, str] = {}
+        self.row_provenance: Dict[int, str] = {}
+        self.stats: dict = {
+            "graphs": 0, "buckets": 0, "chunks": 0,
+            "closure_matmuls": 0, "mxu_macs": 0.0, "wall_s": None,
+            "retries": 0, "bisections": 0, "watchdog_fired": 0,
+            "oom_events": 0, "corrupt_chunks": 0, "quarantined_rows": 0,
+            "faults_injected": 0,
+        }
+        self.timings = {"upload_s": 0.0, "launch_s": 0.0,
+                        "copy_back_s": 0.0, "validate_s": 0.0}
+
+    def _lap(self, key: str, t0: float) -> float:
+        t = time.perf_counter()
+        self.timings[key] += t - t0
+        return t
+
+    def _exec(self, b, lo: int, hi: int, Bp: int):
+        """One chunk: upload, launch, copy back, validate."""
+        t = time.perf_counter()
+        adj = torch.from_numpy(np.ascontiguousarray(b.adj[lo:hi],
+                                                    np.int32))
+        adj = adj.to(self.device)
+        t = self._lap("upload_s", t)
+        cyc, node = self.kernel(adj, b.V)
+        m = self.op_model(b.V)
+        self.stats["chunks"] += 1
+        self.stats["closure_matmuls"] += Bp * int(m["matmuls"])
+        self.stats["mxu_macs"] += Bp * m["macs"]
+        t = self._lap("launch_s", t)
+        c, nd = cyc.cpu().numpy(), node.cpu().numpy()
+        t = self._lap("copy_back_s", t)
+        if c.ndim != 2 or c.shape[1] != self.levels:
+            raise CorruptOutput(f"{self.family} chunk decoded {c.shape}, "
+                                f"expected [rows, {self.levels}]")
+        validate_graph_decoded(c, nd, b.V)
+        self._lap("validate_s", t)
+        return c, nd
+
+    def run(self, buckets):
+        """Yield (bucket, (cyc, node)) per vertex bucket — see the class
+        docstring for the contract."""
+        t0 = time.monotonic()
+        for b in buckets:
+            if not b.batch:
+                continue
+            self.stats["buckets"] += 1
+            self.stats["graphs"] += b.batch
+            pieces = []
+            for lo in range(0, b.batch, self.chunk_rows):
+                hi = min(lo + self.chunk_rows, b.batch)
+                Bp = min(self.chunk_rows, max(8, _pow2_ceil(hi - lo)))
+                cyc, node = self._exec(b, lo, hi, Bp)
+                if self.on_chunk is not None:
+                    self.on_chunk(b, lo, hi, cyc, node)
+                pieces.append((cyc, node))
+            yield b, (np.concatenate([p[0] for p in pieces]),
+                      np.concatenate([p[1] for p in pieces]))
+        self.stats["wall_s"] = round(time.monotonic() - t0, 4)
 
 
 def run_buckets_streamed(batches, return_frontier=False, **kw):

@@ -1,4 +1,4 @@
-"""Seeded synthetic CAS-register histories.
+"""Seeded synthetic CAS-register and list-append histories.
 
 Simulates a *real* linearizable system executing a register workload —
 operations linearize at their completion point against a true register —
@@ -118,3 +118,65 @@ def cas_kind_vocabulary(n_values: int):
     kinds += [("cas", (a, b)) for a in range(n_values)
               for b in range(n_values)]
     return kinds
+
+
+def synth_la_history(seed: int, *, n_procs: int = 4, n_ops: int = 24,
+                     n_keys: int = 2, corrupt: float = 0.0,
+                     rng: Optional[random.Random] = None) -> List[Op]:
+    """One simulated serializable list-append history (Elle's workhorse
+    workload, the dependency-graph checker's native shape): ``append``
+    ops carry ``[k, element]`` with globally unique elements, ok
+    ``read`` ops observe ``[k, [elements...]]`` — the key's full list
+    at the read's completion point.
+
+    corrupt — probability the history is made invalid by a STALE read:
+    one observed list is truncated to drop an element whose append
+    completed before the read even invoked. That is exactly an
+    anti-dependency cycle (read → rw → dropped append → rt → read), so
+    the cycle checker must report a G2 anomaly; uncorrupted histories
+    lower to graphs whose every edge points forward in completion
+    order and are therefore acyclic.
+    """
+    rng = rng if rng is not None else random.Random(seed)
+    counter = 0
+    lists: dict = {k: [] for k in range(n_keys)}
+    applied_at: dict = {}            # element -> append completion line
+    reads = []                       # (ok line, invoke line, key)
+    h: List[Op] = []
+    live: dict = {}
+    free = list(range(n_procs))
+    started = 0
+    while started < n_ops or live:
+        if free and started < n_ops and (not live or rng.random() < 0.6):
+            p = free.pop(rng.randrange(len(free)))
+            k = rng.randrange(n_keys)
+            if rng.random() < 0.55:
+                counter += 1
+                h.append(invoke_op(p, "append", [k, counter]))
+                live[p] = ("append", k, counter, len(h) - 1)
+            else:
+                h.append(invoke_op(p, "read", [k, None]))
+                live[p] = ("read", k, None, len(h) - 1)
+            started += 1
+        else:
+            p = rng.choice(sorted(live.keys()))
+            f, k, v, inv_idx = live.pop(p)
+            if f == "append":
+                lists[k].append(v)
+                applied_at[v] = len(h)
+                h.append(ok_op(p, "append", [k, v]))
+            else:
+                h.append(ok_op(p, "read", [k, list(lists[k])]))
+                reads.append((len(h) - 1, inv_idx, k))
+            free.append(p)
+    if rng.random() < corrupt and reads:
+        rng.shuffle(reads)
+        for ok_idx, inv_idx, k in reads:
+            obs = h[ok_idx].value[1]
+            drops = [j for j, e in enumerate(obs)
+                     if applied_at[e] < inv_idx]
+            if drops:
+                j = rng.choice(drops)
+                h[ok_idx].value = [k, obs[:j]]
+                break
+    return index(h)

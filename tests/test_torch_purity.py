@@ -37,7 +37,11 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     assert {"jepsen_torch.ops.linearize", "jepsen_torch.ops.synth_device",
             "jepsen_torch.ops.cuda_synth", "jepsen_torch.ops._build",
-            "jepsen_torch.history.columnar"} <= set(MODULES)
+            "jepsen_torch.history.columnar", "jepsen_torch.ops.faults",
+            "jepsen_torch.ops.graph", "jepsen_torch.ops.cuda_graph",
+            "jepsen_torch.ops.txn_graph", "jepsen_torch.ops.synth_txn",
+            "jepsen_torch.checkers.cycle",
+            "jepsen_torch.isolation"} <= set(MODULES)
 
 
 def _imports(path: Path):
