@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA libraries from the checkout's sources (one nvcc
+Builds the four CUDA libraries from the checkout's sources (one nvcc
 each, in parallel) and holds each kernel bit for bit against its plain
 PyTorch version on the card: the WGL frontier kernel in each of its
 three tiers (warp, block, device memory) with cases at every tier edge,
@@ -44,7 +44,16 @@ after:
     the isolation certifier, ``certify_batch``, on the bench's
     transactional mix and a wide one (``isolation_path``), each held
     against its host oracle (run on a pool of worker processes) and the
-    kernel against its plain version on the batch.
+    kernel against its plain version on the batch;
+  * the fold kernels' four entries (``fold_counts`` in each of its four
+    families, ``counter_scan``, ``queue_scan``, ``fifo_scan``) against
+    their plain versions on seeded random lines at every width edge and
+    in both tiers (``fold_kernel_parity``), then each of the seven fold
+    checkers' ``check_*_batch`` on the reference bench's total-queue
+    batch and on a full-width batch per family, 64 histories of 10,000
+    elements with seeded violations, every history held against its host
+    oracle in ``checkers.simple`` and the kernel against its plain
+    version on the batch (``fold_path``).
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -1575,17 +1584,591 @@ def phase_isolation_path(dev, pool):
     return a, b
 
 
+# ------------------------------------------------ invariant fold phases
+
+# The fold kernels' parity cases: vocabulary widths at every edge (V 1,
+# 2, 31, 32, 33, 4096, the full-width 16384, and 65536, past shared
+# memory for every family's histograms: crdb leaves it at 16384 already),
+# process counts from 1 to 64 (the counter's shared-memory carry) and
+# 128 (its device-memory carry), queue multisets and FIFO rings at the
+# shared-memory edges and past them. The scans' full length (N 40,000)
+# is held against the plain version in fold_path, on the full-width
+# batches.
+FOLD_VS = (1, 2, 31, 32, 33, 4096, 16384, 65536)
+FOLD_PS = (1, 2, 5, 16, 64, 128)
+FOLD_QUEUE_VS = (1, 2, 31, 33, 4096, 16384, 65536)
+FOLD_FIFO_CASES = ((1, 1), (5, 8), (33, 64), (600, 1024), (600, 8),
+                   (4000, 4096), (10_000, 16384), (4000, 65536))
+FOLD_COUNT_FAMILIES = ("set", "crdb", "tq", "ids")
+FOLD_COUNT_CASES = tuple((V, 24 if V <= 4096 else 6, 3000)
+                         for V in FOLD_VS) + ((16384, 64, 40_000),)
+
+# The fold path's batches: the reference bench's total-queue batch
+# (bench.py:805-826: 2,000 histories of 100 elements) and, per family, a
+# full-width batch of 64 histories of 10,000 elements over 10 processes,
+# what a Jepsen set, queue, unique-id or counter run records over its
+# time limit. Seeded violations by seed % 8 (see fold_history).
+FOLD_BENCH_HISTORIES = 2_000
+FOLD_BENCH_ELEMENTS = 100
+FOLD_WIDE = dict(n=64, elements=10_000, procs=10)
+FOLD_CHECKS = {"set": "check_sets_batch", "crdb": "check_crdb_sets_batch",
+               "tq": "check_total_queues_batch",
+               "queue": "check_queues_batch",
+               "fifo": "check_fifo_queues_batch",
+               "ids": "check_unique_ids_batch",
+               "counter": "check_counters_batch"}
+# int32 operations a line and a plane element (the bound's operation
+# count): the count pass compares type, f and value and clips and adds
+# (6 a line), the epilogue a few a plane element (3); the scans compare
+# type and f, index their carry and write their outputs (counter 12,
+# queue 8, FIFO 10 a line).
+FOLD_OPS = {"fold_counts": (6, 3), "counter_scan": (12, 0),
+            "queue_scan": (8, 0), "fifo_scan": (10, 0)}
+
+
+def fold_lines(rng, B, N, V, P=None, queue=False):
+    """Seeded random line tensors [B, N] with the encoder's edges: a PAD
+    tail of random length per row (half its lines with garbage f and
+    val), every (type, f) code, values past V - 1, negative values and
+    NONE_SENTINEL; for the counter (P given) small raw values and
+    processes in [0, P); for the queue scans (``queue``) enqueues of
+    running values and dequeues that mostly follow them, so that rows of
+    both verdicts and both FIFO errors occur."""
+    from jepsen_torch.ops.folds import NONE_SENTINEL
+    none = int(NONE_SENTINEL)
+    typ = rng.choice(np.array([0, 1, 2, 3], np.int32), (B, N),
+                     p=[0.45, 0.4, 0.1, 0.05])
+    f = rng.integers(0, 2 if queue else 3, (B, N),
+                     dtype=np.int32)
+    if P is not None:
+        val = rng.integers(-3, 50, (B, N), dtype=np.int32)
+        proc = rng.integers(0, P, (B, N), dtype=np.int32)
+    elif queue:
+        enq = (typ == 0) & (f == 0)
+        deq = (typ == 1) & (f == 1)
+        val = np.where(enq, np.cumsum(enq, 1) - 1,
+                       np.cumsum(deq, 1) - 1).astype(np.int32) % max(V, 1)
+        corrupt = rng.random((B, N)) < rng.choice([0, 0.0005, 0.05],
+                                                  (B, 1))
+        val = np.where(corrupt, rng.integers(0, V + 2, (B, N)), val)
+        proc = None
+    else:
+        val = rng.integers(0, V + 3, (B, N), dtype=np.int32)
+        proc = None
+    val = val.astype(np.int32)
+    odd = rng.random((B, N))
+    val[odd < 0.01] = none
+    val[(odd >= 0.01) & (odd < 0.02)] = -5
+    live = rng.integers(0, N + 1, B)
+    live[0] = N
+    pad = np.arange(N)[None, :] >= live[:, None]
+    typ[pad] = -1
+    clean = pad & (rng.random((B, N)) < 0.5)
+    f[clean] = 0
+    val[clean] = none
+    out = [typ, f, val] + ([proc] if proc is not None else [])
+    return [np.ascontiguousarray(a, np.int32) for a in out]
+
+
+def fold_outputs_equal(a, b) -> tuple:
+    """(all equal, largest absolute difference) of two output tuples,
+    kernel on the card and plain on the CPU (None where a family has no
+    such output)."""
+    eq, err = True, 0
+    for x, y in zip(a, b):
+        if x is None and y is None:
+            continue
+        x = x.cpu()
+        eq &= torch.equal(x, y)
+        err = max(err, tensors_err(x, y))
+    return eq, err
+
+
+def phase_fold_kernel_parity(dev):
+    """Each of the four fold entries, and each fold_counts family, against
+    its plain version (on the CPU) bit for bit, on seeded random lines at
+    every width edge and in both tiers."""
+    from jepsen_torch.ops import cuda_folds as K
+    from jepsen_torch.ops import folds as F
+    rng = np.random.default_rng(77)
+    out = {"phase": "fold_kernel_parity", "cases": []}
+    err = 0
+    tiers = set()
+
+    def case(entry, args_np, width, run_k, run_p, **info):
+        nonlocal err
+        cpu = [torch.from_numpy(a) for a in args_np]
+        got = run_k([t.to(dev) for t in cpu])
+        torch.cuda.synchronize()
+        want = run_p(cpu)
+        equal, e = fold_outputs_equal(got, want)
+        err = max(err, e)
+        tier = K.tier(entry, width, info.get("family"))
+        tiers.add((entry, info.get("family"), tier))
+        B, N = args_np[0].shape
+        out["cases"].append({"entry": entry, **info, "width": width,
+                             "B": B, "N": N, "tier": tier, "equal": equal})
+        require(equal, f"{entry} {info} width {width}: kernel != plain")
+        return want
+
+    for fam in FOLD_COUNT_FAMILIES:
+        for V, B, N in FOLD_COUNT_CASES:
+            lines = fold_lines(rng, B, N, V)
+            final = ((rng.random((B, V)) < 0.5).astype(np.uint8)
+                     if fam in ("set", "crdb") else None)
+            args = lines + ([final] if final is not None else [])
+
+            def run_k(ts, fam=fam, V=V):
+                final_t = ts[3] if len(ts) > 3 else None
+                return K.fold_counts(fam, *ts[:3], final_t, V)
+
+            def run_p(ts, fam=fam, V=V):
+                final_t = ts[3] if len(ts) > 3 else None
+                return F.plain_fold_counts(fam, *ts[:3], final_t, V)
+            want = case("fold_counts", args, V, run_k, run_p, family=fam)
+            planes = want[0]
+            require(fam == "ids" or V == 1 or 0 < int((planes != 0).sum())
+                    < planes.numel(), f"{fam} V={V}: degenerate planes")
+    for P in FOLD_PS:
+        args = fold_lines(rng, 40, 600, None, P=P)
+        want = case("counter_scan", args, P,
+                    lambda ts, P=P: K.counter_scan(*ts, P),
+                    lambda ts, P=P: F.plain_counter_scan(*ts, P))
+        require(0 < int(want[3].sum()), f"counter P={P}: no read emitted")
+    verdicts = set()
+    for V in FOLD_QUEUE_VS:
+        B = 40 if V <= 4096 else 8
+        args = fold_lines(rng, B, 600, V, queue=True)
+        want = case("queue_scan", args, V,
+                    lambda ts, V=V: K.queue_scan(*ts, V),
+                    lambda ts, V=V: F.plain_queue_scan(*ts, V))
+        verdicts |= set(want[0].tolist())
+    require(verdicts == {0, 1}, f"queue verdicts seen: {verdicts}")
+    verdicts = set()
+    for N, Nmax in FOLD_FIFO_CASES:
+        B = 40 if N <= 600 else 8
+        args = fold_lines(rng, B, N, max(N, 2), queue=True)
+        want = case("fifo_scan", args, Nmax,
+                    lambda ts, Nmax=Nmax: K.fifo_scan(*ts, Nmax),
+                    lambda ts, Nmax=Nmax: F.plain_fifo_scan(*ts, Nmax))
+        verdicts |= set(want[0].tolist())
+    require(verdicts == {0, 1}, f"FIFO verdicts seen: {verdicts}")
+    seen = {(e, t) for e, _, t in tiers}
+    require(seen == {(e, t) for e in K.ENTRIES for t in ("smem", "global")},
+            f"tiers seen: {sorted(seen)}")
+    out["max_abs_err"] = err
+    emit(out)
+    return err
+
+
+# ---- the full-width histories (port Op types), one per (family, seed)
+
+def _windows(rng, n, procs):
+    """Element indices in windows of ``procs`` concurrent operations:
+    yields (invokes, completions), each a list of (process, element),
+    the completions in a shuffled order."""
+    for w in range(0, n, procs):
+        inv = [(p, w + p) for p in range(min(procs, n - w))]
+        done = list(inv)
+        rng.shuffle(done)
+        yield inv, done
+
+
+def fold_set_history(seed, n, procs):
+    """Adds of 0..n-1 by ``procs`` processes, 85% ok, 7.5% fail, 7.5%
+    info (half of those in the read), then one final read. seed % 8: 1
+    loses an acknowledged add, 2 reads an element never added, 3 reads
+    one twice, 4 revives a failed add."""
+    import random
+
+    from jepsen_torch.history.core import index
+    from jepsen_torch.history.ops import fail_op, info_op, invoke_op, ok_op
+    rng = random.Random(seed)
+    h, ok, failed, final = [], [], [], []
+    for inv, done in _windows(rng, n, procs):
+        h += [invoke_op(p, "add", v) for p, v in inv]
+        for p, v in done:
+            r = rng.random()
+            if r < 0.85:
+                h.append(ok_op(p, "add", v))
+                ok.append(v)
+                final.append(v)
+            elif r < 0.925:
+                h.append(fail_op(p, "add", v))
+                failed.append(v)
+            else:
+                h.append(info_op(p, "add", v))
+                if rng.random() < 0.5:
+                    final.append(v)
+    kind = seed % 8
+    if kind == 1:
+        final.remove(rng.choice(ok))
+    elif kind == 2:
+        final.append(n + seed)
+    elif kind == 3:
+        final.append(rng.choice(final))
+    elif kind == 4 and failed:
+        final.append(rng.choice(failed))
+    h += [invoke_op(procs, "read", None), ok_op(procs, "read",
+                                                sorted(final))]
+    return index(h)
+
+
+def fold_queue_history(seed, n, procs, fifo=False):
+    """Enqueues of 0..n-1 (90% ok, 5% fail, 5% info), then dequeues: for
+    ``fifo`` the first n - k elements in enqueue order, else the ok
+    enqueues and half the info ones, shuffled. seed % 8: 1 loses an
+    element, 2 dequeues one twice, 3 dequeues one never enqueued, 4
+    swaps two dequeues (out of order)."""
+    import random
+
+    from jepsen_torch.history.core import index
+    from jepsen_torch.history.ops import fail_op, info_op, invoke_op, ok_op
+    rng = random.Random(seed)
+    h, deqs = [], []
+    for inv, done in _windows(rng, n, procs):
+        h += [invoke_op(p, "enqueue", v) for p, v in inv]
+        for p, v in done:
+            r = rng.random()
+            if r < 0.9:
+                h.append(ok_op(p, "enqueue", v))
+                deqs.append(v)
+            elif r < 0.95:
+                h.append(fail_op(p, "enqueue", v))
+            else:
+                h.append(info_op(p, "enqueue", v))
+                if rng.random() < 0.5:
+                    deqs.append(v)
+    if fifo:
+        deqs = list(range(n - rng.randrange(0, 20)))
+    else:
+        rng.shuffle(deqs)
+    kind = seed % 8
+    if kind == 1:
+        deqs.pop(rng.randrange(len(deqs)))
+    elif kind == 2:
+        deqs.insert(rng.randrange(len(deqs)), rng.choice(deqs))
+    elif kind == 3:
+        deqs.insert(rng.randrange(len(deqs)), n + seed)
+    elif kind == 4:
+        i = rng.randrange(len(deqs) - 1)
+        deqs[i], deqs[i + 1] = deqs[i + 1], deqs[i]
+    it = iter(deqs)
+    for inv, done in _windows(rng, len(deqs), procs):
+        h += [invoke_op(p, "dequeue", None) for p, _ in inv]
+        h += [ok_op(p, "dequeue", next(it)) for p, _ in done]
+    return index(h)
+
+
+def fold_ids_history(seed, n, procs):
+    """n generates (90% ok with the next id, 5% fail, 5% info). seed %
+    8: 1 acknowledges one id twice, 2 three ids twice each."""
+    import random
+
+    from jepsen_torch.history.core import index
+    from jepsen_torch.history.ops import fail_op, info_op, invoke_op, ok_op
+    rng = random.Random(seed)
+    h, issued = [], []
+    kind = seed % 8
+    dup_at = set(rng.sample(range(n // 2, n), {1: 1, 2: 3}.get(kind, 0)))
+    for inv, done in _windows(rng, n, procs):
+        h += [invoke_op(p, "generate", None) for p, _ in inv]
+        for p, i in done:
+            r = rng.random()
+            if i in dup_at or r < 0.9:
+                v = rng.choice(issued) if i in dup_at else len(issued)
+                issued.append(v)
+                h.append(ok_op(p, "generate", v))
+            elif r < 0.95:
+                h.append(fail_op(p, "generate", None))
+            else:
+                h.append(info_op(p, "generate", None))
+    return index(h)
+
+
+def fold_counter_history(seed, n, procs):
+    """n adds (1..5, 90% ok, 10% info) and reads by ``procs`` processes,
+    half each, each read's value within its bounds. seed % 8: 1 reads
+    past the upper bound, 2 adds 3,000,000,000 (past int32: the row
+    detours to the host checker)."""
+    import random
+
+    from jepsen_torch.history.core import index
+    from jepsen_torch.history.ops import info_op, invoke_op, ok_op
+    rng = random.Random(seed)
+    h = []
+    lower = upper = 0
+    kind = seed % 8
+    for inv, done in _windows(rng, n, procs):
+        ops = {}
+        for p, i in inv:
+            if rng.random() < 0.5:
+                v = 3_000_000_000 if kind == 2 and i == n // 2 \
+                    else rng.randrange(1, 6)
+                h.append(invoke_op(p, "add", v))
+                upper += v
+                ops[p] = ("add", v)
+            else:
+                h.append(invoke_op(p, "read", None))
+                ops[p] = ("read", None)
+        lo, hi = lower, upper
+        for p, i in done:
+            f, v = ops[p]
+            if f == "add":
+                if rng.random() < 0.9:
+                    h.append(ok_op(p, "add", v))
+                    lower += v
+                else:
+                    h.append(info_op(p, "add", v))
+            else:
+                r = hi + 1 + rng.randrange(5) if kind == 1 and i == n // 2 \
+                    else rng.randint(lo, hi)
+                h.append(ok_op(p, "read", r))
+    return index(h)
+
+
+def fold_bench_history(seed, n=FOLD_BENCH_ELEMENTS):
+    """The reference bench's total-queue history (bench.py:805-818)."""
+    import random
+
+    from jepsen_torch.history.ops import invoke_op, ok_op
+    rng = random.Random(seed)
+    h = []
+    for i in range(n):
+        h.append(invoke_op(0, "enqueue", i))
+        h.append(ok_op(0, "enqueue", i))
+    order = list(range(n))
+    rng.shuffle(order)
+    if rng.random() < 0.3:
+        order.pop()                      # lost element
+    for v in order:
+        h.append(invoke_op(1, "dequeue", None))
+        h.append(ok_op(1, "dequeue", v))
+    return h
+
+
+def fold_history(family, seed, elements, procs):
+    """A full-width history of ``family`` (set and crdb share theirs,
+    and tq and queue theirs)."""
+    if family in ("set", "crdb"):
+        return fold_set_history(seed, elements, procs)
+    if family in ("tq", "queue", "fifo"):
+        return fold_queue_history(seed, elements, procs, family == "fifo")
+    if family == "ids":
+        return fold_ids_history(seed, elements, procs)
+    return fold_counter_history(seed, elements, procs)
+
+
+def fold_oracle(job):
+    """The host checker of ``jepsen_torch.checkers.simple`` on one
+    history, regenerated from its seed in the worker: ``job`` is
+    (family, seed, elements, procs); elements None is the bench's
+    history."""
+    from jepsen_torch.checkers import simple
+    from jepsen_torch.models.core import fifo_queue, unordered_queue
+    family, seed, elements, procs = job
+    h = (fold_bench_history(seed) if elements is None
+         else fold_history(family, seed, elements, procs))
+    checker, model = {
+        "set": (simple.SetChecker(), None),
+        "tq": (simple.TotalQueueChecker(), None),
+        "ids": (simple.UniqueIdsChecker(), None),
+        "counter": (simple.CounterChecker(), None),
+        "queue": (simple.QueueChecker(), unordered_queue()),
+        "fifo": (simple.QueueChecker(), fifo_queue())}[family]
+    r = checker.check(None, model, h)
+    if family == "queue" and r["valid"] is True:
+        # The batch fold reports the multiset left as a dict.
+        r = {**r, "final-queue": dict(r["final-queue"].pending)}
+    return r
+
+
+def fold_measure(dev, lw, ts):
+    """A batch's kernel on the inputs the batch function gave it (its
+    lowered batch ``lw`` and device tensors ``ts``): the kernel alone
+    (``time_launches``, 5 runs after a warm-up) and through its wrapper,
+    the plain version's time on CPU copies (host clock, one run) and
+    parity with it, for fold_counts one ``scatter_add_`` of its
+    histograms on the card (``library_ms``), and the bound: inputs read
+    once and outputs written once over the memory rate, against FOLD_OPS
+    over the int32 rate."""
+    from jepsen_torch.ops import cuda_folds as K
+    from jepsen_torch.ops import folds as F
+    cpu = [None if t is None else t.cpu() for t in ts]
+    if lw.entry == "fold_counts":
+        launch = K.prepare_counts(lw.family, *ts, lw.width)[0]
+    else:
+        launch = getattr(K, "prepare_" + lw.entry.split("_")[0])(
+            *ts, lw.width)[0]
+    ms = time_launches([(lambda: None, launch)], reps=5)
+    wrapper_ms = time_cuda(lambda: F.run_kernel(lw, ts), reps=5)
+    got = F.run_kernel(lw, ts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = F.run_kernel(lw, cpu)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    equal, err = fold_outputs_equal(got, want)
+    B, N = lw.arrays[0].shape
+    in_bytes = sum(a.nbytes for a in lw.arrays if a is not None)
+    out_bytes = sum(w.numel() * w.element_size() for w in want
+                    if w is not None)
+    per_line, per_elem = FOLD_OPS[lw.entry]
+    ops = per_line * B * N + per_elem * sum(w.numel() for w in want
+                                            if w is not None)
+    library_ms = None
+    if lw.entry == "fold_counts":
+        C = K.FAMILIES[lw.family][1]
+        V = lw.width
+        code = torch.full((B, N), -1, dtype=torch.int64, device=dev)
+        for c, (t, fc) in enumerate(FOLD_CODES[lw.family]):
+            code[(ts[0] == t) & (ts[1] == fc)] = c
+        mask = (code >= 0) & (ts[2] >= 0)
+        idx = torch.where(mask, code * V + ts[2].clamp(0, V - 1).long(),
+                          torch.zeros_like(code))
+        ones = mask.to(torch.int32)
+        hist = torch.zeros((B, C * V), dtype=torch.int32, device=dev)
+        library_ms = time_cuda(lambda: hist.zero_().scatter_add_(1, idx,
+                                                                 ones),
+                               reps=5)
+    return {"entry": lw.entry, "family": lw.family, "width": lw.width,
+            "B": B, "N": N, "tier": K.tier(lw.entry, lw.width, lw.family),
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "plain_on": "cpu", "library_ms": library_ms, "equal": equal,
+            "max_abs_err": err, **launch_bound(in_bytes + out_bytes, ops)}
+
+
+# (type, f) of each fold_counts histogram, in the kernel's order.
+FOLD_CODES = {"set": ((0, 0), (1, 0)),
+              "crdb": ((0, 0), (1, 0), (2, 0), (3, 0)),
+              "tq": ((0, 0), (1, 0), (1, 1)), "ids": ((1, 0),)}
+
+
+def fold_batch(dev, pool, family, label, hists, jobs):
+    """One check_*_batch on the card: launch counts (set to 0 just
+    before, read just after), the host clock's split, every history
+    held against its host oracle (crdb: against the port's CPU path),
+    and the kernel's measurement on the batch's inputs."""
+    from jepsen_torch.ops import cuda_folds as K
+    from jepsen_torch.ops import folds as F
+    fn = getattr(F, FOLD_CHECKS[family])
+    kw = {"stats_out": {}} if family == "counter" else {}
+    timings = {}
+    # Keep the kernel's inputs as the batch function hands them over, to
+    # time and hold the kernel on them afterwards.
+    seen = []
+    run_kernel = F.run_kernel
+
+    def recording(lw, ts):
+        seen.append((lw, ts))
+        return run_kernel(lw, ts)
+    F.run_kernel = recording
+    for e in K.LAUNCHES:
+        K.LAUNCHES[e] = 0
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        res = fn(hists, timings=timings, **kw)
+        batch_s = time.perf_counter() - t0
+    finally:
+        F.run_kernel = run_kernel
+    launches = dict(K.LAUNCHES)
+    require(len(seen) == 1, f"{label} {family}: {len(seen)} kernel calls")
+    entry = seen[0][0].entry
+    require(launches == {e: int(e == entry) for e in K.ENTRIES},
+            f"{label} {family}: launches {launches}")
+    t0 = time.perf_counter()
+    if family == "crdb":
+        want = F.check_crdb_sets_batch(hists, device="cpu")
+    else:
+        want = host_oracle(pool, fold_oracle, jobs)
+    oracle_s = time.perf_counter() - t0
+    for i, (r, w) in enumerate(zip(res, want)):
+        require(r == w, f"{label} {family}: history {i} differs from its "
+                        f"oracle")
+    measure = fold_measure(dev, *seen[0])
+    require(measure["equal"], f"{label} {family}: kernel != plain")
+    kernel_s = measure["ms"] / 1e3
+    return {"family": family, "check": FOLD_CHECKS[family],
+            "histories": len(hists),
+            "lines": int(sum(len(h) for h in hists)),
+            "batch_s": batch_s, "hist_per_s": len(hists) / batch_s,
+            "split_s": timings, "rest_s": batch_s - sum(timings.values()),
+            "host_share": 1 - kernel_s / batch_s,
+            "invalid": sum(r["valid"] is not True for r in res),
+            "launches": launches[entry], "oracle_s": oracle_s,
+            **kw, "kernel": measure}
+
+
+def phase_fold_path(dev, pool):
+    """Each of the seven check_*_batch on the card: the reference bench's
+    total-queue batch (its fold_total_queue_rate is the batch's rate on
+    a warm call, as bench.py times it) and a full-width batch per
+    family."""
+    from jepsen_torch.ops import folds as F
+    t0 = time.perf_counter()
+    bench = [fold_bench_history(s) for s in range(FOLD_BENCH_HISTORIES)]
+    F.check_total_queues_batch(bench)          # warm, as bench.py does
+    b = fold_batch(dev, pool, "tq", "bench", bench,
+                   [("tq", s, None, None)
+                    for s in range(FOLD_BENCH_HISTORIES)])
+    out = {"phase": "fold_path", "fold_total_queue_rate": b["hist_per_s"],
+           "bench": b, "wide": dict(FOLD_WIDE), "families": []}
+    w = FOLD_WIDE
+    shared = {}
+    for family in FOLD_CHECKS:
+        key = {"crdb": "set", "queue": "tq"}.get(family, family)
+        t1 = time.perf_counter()
+        if key not in shared:
+            shared.clear()
+            shared[key] = [fold_history(family, s, w["elements"], w["procs"])
+                           for s in range(w["n"])]
+        gen_s = time.perf_counter() - t1
+        jobs = [(family, s, w["elements"], w["procs"])
+                for s in range(w["n"])]
+        b = fold_batch(dev, pool, family, "wide", shared[key], jobs)
+        out["families"].append({**b, "generate_s": gen_s})
+    out["fold_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def fold_entry(name, replaces, path, parity_err) -> dict:
+    """The kernels-line entry of one fold kernel: launches per
+    check_*_batch of the full-width path (and the bench batch), times
+    and bound of its full-width batches (the largest of its batches'
+    times where an entry serves several families, each family beside
+    it)."""
+    mine = [b for b in path["families"] if b["kernel"]["entry"] == name]
+    if name == "fold_counts":
+        mine.append({**path["bench"], "check": "bench_total_queue"})
+    worst = max(mine, key=lambda b: b["kernel"]["ms"])["kernel"]
+    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {"name": name, "route": "cuda",
+            "source": "jepsen_torch/ops/csrc/folds.cu",
+            "replaces": replaces,
+            "launches": sum(b["launches"] for b in mine),
+            "launches_by_path": {b["check"]: b["launches"] for b in mine},
+            "parity": True,
+            "max_abs_err": max([parity_err] + [b["kernel"]["max_abs_err"]
+                                              for b in mine]),
+            **{k: worst[k] for k in keys}, "plain_on": "cpu",
+            "by_batch": {b["check"]: {k: b["kernel"][k] for k in keys}
+                         for b in mine}}
+
+
 def build_kernels(L, cuda_synth):
-    """Build the three kernel libraries at once (one nvcc each, in
+    """Build the four kernel libraries at once (one nvcc each, in
     parallel)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from jepsen_torch.ops import _build, cuda_graph
+    from jepsen_torch.ops import _build, cuda_folds, cuda_graph
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for f in [pool.submit(L.cuda_wgl.build),
                   pool.submit(cuda_synth.build),
-                  pool.submit(cuda_graph.build)]:
+                  pool.submit(cuda_graph.build),
+                  pool.submit(cuda_folds.build)]:
             f.result()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
@@ -1662,6 +2245,8 @@ def main() -> int:
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
         gb, gw = phase_graph_path(dev, pool)
         ib, iw = phase_isolation_path(dev, pool)
+        fold_err = phase_fold_kernel_parity(dev)
+        folds = phase_fold_path(dev, pool)
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
 
     wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
@@ -1715,7 +2300,15 @@ def main() -> int:
         closure_entry("graph_closure", "jepsen_tpu/ops/graph.py:416",
                       "check_graphs_batch", gb, gw, closure_err),
         closure_entry("txn_closure", "jepsen_tpu/ops/txn_graph.py:412",
-                      "certify_batch", ib, iw, closure_err)]})
+                      "certify_batch", ib, iw, closure_err),
+        fold_entry("fold_counts", "jepsen_tpu/ops/folds.py:137,151,233,309,"
+                   "365", folds, fold_err),
+        fold_entry("counter_scan", "jepsen_tpu/ops/folds.py:410", folds,
+                   fold_err),
+        fold_entry("queue_scan", "jepsen_tpu/ops/folds.py:517", folds,
+                   fold_err),
+        fold_entry("fifo_scan", "jepsen_tpu/ops/folds.py:574", folds,
+                   fold_err)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

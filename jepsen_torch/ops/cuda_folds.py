@@ -1,0 +1,269 @@
+"""Build, load and launch the hand-written CUDA kernels of the invariant
+fold checkers.
+
+The counterparts of the reference's seven XLA programs in
+``ops/folds.py``: ``csrc/folds.cu`` holds four kernels and this module is
+their wrapper. ``fold_counts`` launches the count kernel of a family
+(set, crdb, tq, ids: the reference's ``_set_kernel``,
+``_crdb_set_kernel``, ``_tq_kernel`` and ``_ids_kernel``);
+``counter_scan``, ``queue_scan`` and ``fifo_scan`` launch the per-row
+scans (``_counter_kernel``, ``_queue_kernel``, ``_fifo_kernel``). Each
+counts its launches in ``LAUNCHES[entry]``, checks device, dtype, shape
+and contiguity, raises on anything its kernel does not take, allocates
+the outputs and, past shared memory, the rows' scratch, and launches on
+PyTorch's current stream. ``tier`` says where a kernel keeps its
+per-row state. ``prepare_*`` do a wrapper's checks and allocations and
+return the launch itself, so that a caller can time the kernel alone.
+
+The library is built at first use by ``_build.build_library``; nothing
+here runs when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ._build import build_library
+
+SRC = Path(__file__).resolve().parent / "csrc" / "folds.cu"
+
+ENTRIES = ("fold_counts", "counter_scan", "queue_scan", "fifo_scan")
+
+# Each count family: its code in the source, its histograms (C) and its
+# output planes (L) with their dtype.
+FAMILIES = {
+    "set": (0, 2, 5, torch.uint8),
+    "crdb": (1, 4, 7, torch.uint8),
+    "tq": (2, 3, 6, torch.int32),
+    "ids": (3, 1, 1, torch.int32),
+}
+
+# Dynamic shared memory one block may use (kSmemLimit in the source);
+# rows a scan block takes at most (kScanRows); the counter's carry stays
+# in shared memory to P words (kCounterSmemP).
+SMEM_LIMIT_BYTES = 232448 - 64
+SCAN_ROWS = 32
+COUNTER_SMEM_P = 64
+
+# Launches of each entry in this process; callers reset them to 0 and
+# read them back to show that a path ran on the card.
+LAUNCHES = dict.fromkeys(ENTRIES, 0)
+
+_LIB = None
+
+
+def _library():
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    if _LIB is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _LIB = build_library(SRC, {
+            "fold_counts": ([i, p, p, p, p, i, i, i, p, p, p, p], i),
+            "counter_scan": ([p, p, p, p, i, i, i, p, p, p, p, p, p], i),
+            "queue_scan": ([p, p, p, i, i, i, p, p, p, p], i),
+            "fifo_scan": ([p, p, p, i, i, i, p, p, p, p, p, p, p], i),
+            "folds_error": ([i], ctypes.c_char_p)})
+    return _LIB
+
+
+def build() -> None:
+    """Build and load the kernels now (they are otherwise built at first
+    launch)."""
+    _library()
+
+
+def tier(entry: str, width: int, family: Optional[str] = None) -> str:
+    """Where ``entry`` keeps a row's state at ``width`` (V for the counts
+    and the queue, P for the counter, Nmax for the FIFO): ``smem``
+    (shared memory) or ``global`` (device memory)."""
+    if entry == "fold_counts":
+        words = FAMILIES[family][1] * width
+    elif entry == "counter_scan":
+        return "smem" if width <= COUNTER_SMEM_P else "global"
+    else:
+        words = width
+    return "smem" if words * 4 <= SMEM_LIMIT_BYTES else "global"
+
+
+def _check(entry: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{entry}: {msg}")
+
+
+def _check_lines(entry: str, *lines: torch.Tensor) -> Tuple[int, int]:
+    """The line tensors must be contiguous int32 [B, N] CUDA tensors of
+    one shape on one device, N >= 1; returns (B, N)."""
+    t0 = lines[0]
+    _check(entry, t0.device.type == "cuda",
+           f"line tensors must be on a CUDA device, got {t0.device}")
+    for t in lines:
+        _check(entry, t.device == t0.device,
+               f"line tensors on {t.device} and {t0.device}")
+        _check(entry, t.dtype == torch.int32 and t.dim() == 2
+               and t.shape == t0.shape and t.is_contiguous(),
+               f"line tensors must be contiguous int32 [B, N] of one "
+               f"shape, got {t.dtype} {tuple(t.shape)} beside "
+               f"{tuple(t0.shape)}")
+    B, N = t0.shape
+    _check(entry, N >= 1, "rows must have at least one line")
+    return B, N
+
+
+def _launcher(entry: str, dev: torch.device, B: int, call
+              ) -> Callable[[], None]:
+    """The launch of ``entry``: ``call(stream)`` on PyTorch's current
+    stream, raising if the kernel did not launch, counted in
+    LAUNCHES."""
+    def launch() -> None:
+        if B == 0:
+            return
+        with torch.cuda.device(dev):
+            err = call(torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: "
+                               + _library().folds_error(err).decode())
+        LAUNCHES[entry] += 1
+    return launch
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def prepare_counts(family: str, typ: torch.Tensor, f: torch.Tensor,
+                   val: torch.Tensor, final: Optional[torch.Tensor], V: int
+                   ) -> Tuple[Callable[[], None], torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """The checks and allocations of ``fold_counts``, without the launch:
+    returns ``(launch, planes, attempted)``."""
+    entry = "fold_counts"
+    _check(entry, family in FAMILIES, f"unknown family {family!r}")
+    code, C, L, dtype = FAMILIES[family]
+    B, N = _check_lines(entry, typ, f, val)
+    _check(entry, V >= 1 and C * V < 2**31,
+           f"V={V} is not a vocabulary width the kernel takes")
+    dev = typ.device
+    if family in ("set", "crdb"):
+        _check(entry, final is not None and final.device == dev
+               and final.dtype == torch.uint8
+               and tuple(final.shape) == (B, V) and final.is_contiguous(),
+               f"{family} needs a contiguous uint8 [{B}, {V}] final-read "
+               f"bitmap on {dev}")
+    else:
+        _check(entry, final is None, f"{family} takes no final read")
+    planes = torch.empty((B, L, V), dtype=dtype, device=dev)
+    attempted = (torch.empty(B, dtype=torch.int32, device=dev)
+                 if family == "ids" else None)
+    scratch = None
+    if tier(entry, V, family) == "global" and B:
+        scratch = torch.empty(B * C * V, dtype=torch.int32, device=dev)
+    fn = _library().fold_counts
+    launch = _launcher(entry, dev, B, lambda s: fn(
+        code, typ.data_ptr(), f.data_ptr(), val.data_ptr(), _ptr(final), B,
+        N, V, _ptr(scratch), planes.data_ptr(), _ptr(attempted), s))
+    return launch, planes, attempted
+
+
+def fold_counts(family: str, typ: torch.Tensor, f: torch.Tensor,
+                val: torch.Tensor, final: Optional[torch.Tensor], V: int
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A family's count planes on the card: ``planes`` [B, L, V] (uint8
+    for set and crdb, int32 for tq and ids) and, for ids, ``attempted``
+    int32 [B]; bit for bit ``plain_fold_counts``."""
+    launch, planes, attempted = prepare_counts(family, typ, f, val, final, V)
+    launch()
+    return planes, attempted
+
+
+def prepare_counter(typ: torch.Tensor, f: torch.Tensor, val: torch.Tensor,
+                    proc: torch.Tensor, P: int
+                    ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """The checks and allocations of ``counter_scan``: returns
+    ``(launch, (lows, vals, ups, emits))``."""
+    entry = "counter_scan"
+    B, N = _check_lines(entry, typ, f, val, proc)
+    _check(entry, 1 <= P and 3 * P < 2**31, f"P={P} out of range")
+    dev = typ.device
+    outs = tuple(torch.empty((B, N), dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    emits = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    scratch = None
+    if tier(entry, P) == "global" and B:
+        scratch = torch.empty(B * 3 * P, dtype=torch.int32, device=dev)
+    fn = _library().counter_scan
+    launch = _launcher(entry, dev, B, lambda s: fn(
+        typ.data_ptr(), f.data_ptr(), val.data_ptr(), proc.data_ptr(), B, N,
+        P, _ptr(scratch), *(o.data_ptr() for o in outs), emits.data_ptr(),
+        s))
+    return launch, (*outs, emits)
+
+
+def counter_scan(typ, f, val, proc, P: int) -> Tuple[torch.Tensor, ...]:
+    """The counter's bounds on the card: (lows, vals, ups int32 [B, N],
+    emits uint8 [B, N]), bit for bit ``plain_counter_scan``. ``proc``
+    holds each row's densified processes, in [0, P)."""
+    launch, outs = prepare_counter(typ, f, val, proc, P)
+    launch()
+    return outs
+
+
+def prepare_queue(typ: torch.Tensor, f: torch.Tensor, val: torch.Tensor,
+                  V: int
+                  ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """The checks and allocations of ``queue_scan``: returns
+    ``(launch, (valid, bad, counts))``."""
+    entry = "queue_scan"
+    B, N = _check_lines(entry, typ, f, val)
+    _check(entry, 1 <= V < 2**31, f"V={V} out of range")
+    dev = typ.device
+    valid = torch.empty(B, dtype=torch.uint8, device=dev)
+    bad = torch.empty(B, dtype=torch.int32, device=dev)
+    counts = torch.empty((B, V), dtype=torch.int32, device=dev)
+    fn = _library().queue_scan
+    launch = _launcher(entry, dev, B, lambda s: fn(
+        typ.data_ptr(), f.data_ptr(), val.data_ptr(), B, N, V,
+        valid.data_ptr(), bad.data_ptr(), counts.data_ptr(), s))
+    return launch, (valid, bad, counts)
+
+
+def queue_scan(typ, f, val, V: int) -> Tuple[torch.Tensor, ...]:
+    """The unordered queue's fold on the card: (valid uint8 [B], bad
+    int32 [B], counts int32 [B, V]), bit for bit ``plain_queue_scan``."""
+    launch, outs = prepare_queue(typ, f, val, V)
+    launch()
+    return outs
+
+
+def prepare_fifo(typ: torch.Tensor, f: torch.Tensor, val: torch.Tensor,
+                 Nmax: int
+                 ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
+    """The checks and allocations of ``fifo_scan``: returns
+    ``(launch, (valid, bad, bad_head, head, tail))``."""
+    entry = "fifo_scan"
+    B, N = _check_lines(entry, typ, f, val)
+    _check(entry, 1 <= Nmax < 2**31, f"Nmax={Nmax} out of range")
+    dev = typ.device
+    valid = torch.empty(B, dtype=torch.uint8, device=dev)
+    outs = tuple(torch.empty(B, dtype=torch.int32, device=dev)
+                 for _ in range(4))
+    scratch = None
+    if tier(entry, Nmax) == "global" and B:
+        # Only ring slots below the tail are ever read, and each is
+        # written first: the scratch needs no zeroing.
+        scratch = torch.empty(B * Nmax, dtype=torch.int32, device=dev)
+    fn = _library().fifo_scan
+    launch = _launcher(entry, dev, B, lambda s: fn(
+        typ.data_ptr(), f.data_ptr(), val.data_ptr(), B, N, Nmax,
+        _ptr(scratch), valid.data_ptr(), *(o.data_ptr() for o in outs), s))
+    return launch, (valid, *outs)
+
+
+def fifo_scan(typ, f, val, Nmax: int) -> Tuple[torch.Tensor, ...]:
+    """The FIFO queue's fold on the card: (valid uint8 [B], bad,
+    bad_head, head, tail int32 [B]), bit for bit ``plain_fifo_scan``."""
+    launch, outs = prepare_fifo(typ, f, val, Nmax)
+    launch()
+    return outs

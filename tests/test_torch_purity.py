@@ -41,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
             "jepsen_torch.ops.graph", "jepsen_torch.ops.cuda_graph",
             "jepsen_torch.ops.txn_graph", "jepsen_torch.ops.synth_txn",
             "jepsen_torch.checkers.cycle",
-            "jepsen_torch.isolation"} <= set(MODULES)
+            "jepsen_torch.isolation", "jepsen_torch.ops.folds",
+            "jepsen_torch.ops.cuda_folds", "jepsen_torch.checkers.simple",
+            "jepsen_torch.utils.core"} <= set(MODULES)
 
 
 def _imports(path: Path):
@@ -72,6 +74,21 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         L.check_one(cas_register(), hists[0])
     assert L.check_batch(cas_register(), hists, device="cpu")
+
+
+@pytest.mark.parametrize("name", [
+    "check_sets_batch", "check_crdb_sets_batch", "check_total_queues_batch",
+    "check_unique_ids_batch", "check_counters_batch", "check_queues_batch",
+    "check_fifo_queues_batch"])
+def test_fold_checks_need_a_card_unless_told(monkeypatch, name):
+    from jepsen_torch.history.ops import invoke_op, ok_op
+    from jepsen_torch.ops import folds
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fold = getattr(folds, name)
+    h = [invoke_op(0, "add", 1), ok_op(0, "add", 1)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fold([h])
+    assert len(fold([h], device="cpu")) == 1
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
