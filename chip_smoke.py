@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA libraries from the checkout's sources (one nvcc
+Builds the five CUDA libraries from the checkout's sources (one nvcc
 each, in parallel) and holds each kernel bit for bit against its plain
 PyTorch version on the card: the WGL frontier kernel in each of its
 three tiers (warp, block, device memory) with cases at every tier edge,
@@ -53,7 +53,21 @@ after:
     batch and on a full-width batch per family, 64 histories of 10,000
     elements with seeded violations, every history held against its host
     oracle in ``checkers.simple`` and the kernel against its plain
-    version on the batch (``fold_path``).
+    version on the batch (``fold_path``);
+  * the peel loop (K4, ``cuda_dc.dc_peel``) against its plain version on
+    the probe plan, random plans at every width edge and in both tiers,
+    all-inactive rows and a round cap (``dc_kernel_parity``); then the
+    peel prefilter at full width (``dc_path``): the rate probe
+    (``fleet.probe_and_persist``), and two batches of 1,024 unkeyed
+    read/write histories of 80 ops at W 11-16, one healthy and one with
+    every eighth row stale, each through ``check_batch_columnar`` with
+    ``wgl_backend`` "dc", "xla" (the frontier search alone) and "auto"
+    (on the probed rates), verdicts and bad ops equal across the three,
+    the certified rows equal to the host twin, a sample against
+    ``wgl_check``, and K4 measured on the plans the path gave it; then
+    ``fleet.route_check`` on a mixed corpus (cas, rw, list-append and
+    transactional histories at the bench's shapes), every row held to
+    its host oracle (``route_check``).
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -2132,6 +2146,650 @@ def phase_fold_path(dev, pool):
     return out
 
 
+# ------------------------------------------------- the peel loop (K4)
+
+# The dc path's batches: unkeyed wide-window read/write histories, W 11
+# to 16 cycling by row. 80 ops keep the batch's shared vocabulary (the
+# register's values, one a write) at most 56 states over seeds 0-1023,
+# under the columnar path's 64; 96 ops reach 68 and would leave it.
+DC_ROWS = 1_024
+DC_OPS = 80
+DC_W0, DC_WS = 11, 6
+DC_STALE = 0.3
+DC_ORACLE_ROWS = 32
+# int32 operations the peel's function needs in one round (the bound's
+# count; dc_work replays each row to count what its data needs): an op
+# alive at the round's start takes part in the scatter-min and the
+# scatter-max, then reads its cluster's peel bit and is kept or killed,
+# 4; a live cluster takes the two-minimum merge (a compare, two selects)
+# and the peel test (the outside bound's compare and select, the
+# invocation compare), 6. Loads, stores and loop control are not counted.
+DC_OP_OPS = 4
+DC_CLUSTER_OPS = 6
+DC_PARITY_EVENTS = (1, 64, 256, 4096, 16384)
+# route_check's mixed corpus: the bench shapes of each family.
+ROUTE_CAS = dict(n=256, n_procs=5, n_ops=1_000, n_values=5, corrupt=0.25)
+ROUTE_RW = 512
+ROUTE_LA = dict(n=512, n_ops=30)
+ROUTE_TXN = dict(n=128, seed=7, anomaly="mix")
+
+
+def dc_sample() -> list:
+    """The healthy batch's oracle rows: spread over the batch, the
+    window cycling through W 11-16."""
+    step = DC_ROWS // DC_ORACLE_ROWS
+    return [step * i + (i - step * i) % DC_WS for i in range(DC_ORACLE_ROWS)]
+
+
+def rw_job(seed: int, stale: float) -> tuple:
+    return (seed, DC_W0 + seed % DC_WS, DC_OPS, stale)
+
+
+def rw_history(job):
+    from jepsen_torch.workloads.synth import synth_rw_history
+    seed, n_procs, n_ops, stale = job
+    return synth_rw_history(seed, n_procs=n_procs, n_ops=n_ops, stale=stale)
+
+
+def rw_oracle(job):
+    """``wgl_check`` on one rw history, regenerated from its job in the
+    worker: (valid, bad op index or None)."""
+    from jepsen_torch.checkers.linearizable import wgl_check
+    from jepsen_torch.models.core import cas_register
+    r = wgl_check(cas_register(), rw_history(job))
+    return r["valid"], (r.get("op") or {}).get("index")
+
+
+class RwOracle:
+    """The host oracle of rw histories on the worker pool, remembered
+    per job: a history the dc path's batches and route_check share is
+    checked once."""
+
+    def __init__(self, pool):
+        self.pool, self.seen, self.s = pool, {}, 0.0
+
+    def __call__(self, jobs):
+        new = sorted({j for j in jobs if j not in self.seen})
+        t0 = time.perf_counter()
+        for j, r in zip(new, host_oracle(self.pool, rw_oracle, new)):
+            self.seen[j] = r
+        self.s += time.perf_counter() - t0
+        return [self.seen[j] for j in jobs]
+
+
+def verdict(r: dict) -> tuple:
+    return r["valid"], (r.get("op") or {}).get("index")
+
+
+def dc_cases(rng):
+    """The parity cases of K4: (label, inv, cluster, active, round cap
+    or 0), padded as dc_decide pads."""
+    from jepsen_torch.ops import dc_monitor as D
+    out = [(f"probe_w{w}", *D.pad_plan(*D.make_probe_plan(64, 128, w)), 0)
+           for w in (6, 12)]
+    for E in DC_PARITY_EVENTS:
+        B = 64 if E <= 4096 else 8
+        for structured in (True, False):
+            if structured:
+                w = int(rng.integers(1, 17))
+                inv = np.maximum(0, np.arange(E) - w)[None].repeat(B, 0)
+                cl = (np.arange(E) // 2 * 2)[None].repeat(B, 0)
+            else:
+                inv = rng.integers(0, E, (B, E))
+                cl = rng.integers(0, E, (B, E))
+            out.append((f"{'pairs' if structured else 'random'}_E{E}",
+                        inv.astype(np.int32), cl.astype(np.int32),
+                        rng.random((B, E)) < 0.9, 0))
+    z = np.zeros((4, 64), np.int32)
+    out.append(("inactive", z, z, np.zeros((4, 64), bool), 0))
+    return out
+
+
+def dc_pair(plans, dev, cap=0):
+    """K4 on the card and its plain version on CPU copies over plans:
+    (rounds of every row, largest difference in decided or rounds)."""
+    from jepsen_torch.ops import cuda_dc
+    from jepsen_torch.ops import dc_monitor as D
+    err, rounds = 0, []
+    for inv, cl, act in plans:
+        cpu = [torch.from_numpy(a) for a in (inv, cl, act)]
+        kd, kr = cuda_dc.dc_peel(*(t.to(dev) for t in cpu),
+                                 cap or inv.shape[1] + 1)
+        pd, pr = D.plain_dc_peel(*cpu, cap)
+        err = max(err, tensors_err(kd.cpu(), pd), tensors_err(kr.cpu(), pr))
+        rounds += pr.tolist()
+    return rounds, err
+
+
+def dc_work(inv, cluster, active):
+    """Replays the peel loop over plan rows on the host, as
+    ``dc_host_decide`` does, and counts the work each round's data needs:
+    (rounds [B], op-rounds, cluster-rounds), a round counting the ops
+    alive at its start and the clusters they hold."""
+    B, E = active.shape
+    resp = np.arange(E)
+    rounds = np.zeros(B, np.int64)
+    ops = clusters = 0
+    for b in range(B):
+        alive = active[b].astype(bool)
+        while alive.any() and rounds[b] < E + 1:
+            rounds[b] += 1
+            cl = cluster[b]
+            m_resp = np.full(E, 1 << 30)
+            np.minimum.at(m_resp, cl[alive], resp[alive])
+            m_inv = np.full(E, -1)
+            np.maximum.at(m_inv, cl[alive], inv[b][alive])
+            has = m_resp < 1 << 30
+            ops += int(alive.sum())
+            clusters += int(has.sum())
+            a1 = int(np.argmin(m_resp))
+            m2 = m_resp.copy()
+            m2[a1] = 1 << 30
+            t_out = np.where(resp == a1, m2.min(), m_resp[a1])
+            new_alive = alive & ~(has & (m_inv <= t_out))[cl]
+            if (new_alive == alive).all():
+                break
+            alive = new_alive
+    return rounds, ops, clusters
+
+
+def phase_dc_kernel_parity(dev):
+    """K4 (``cuda_dc.dc_peel``) against ``plain_dc_peel`` on CPU copies,
+    decided and rounds bit for bit: the probe plan at W 6 and 12, random
+    plans at E 1 to 4096 (shared-memory tier) and 16384 (device-memory
+    tier), all-inactive rows, and JT_DC_MAX_ROUNDS=1 through dc_decide."""
+    from jepsen_torch.ops import cuda_dc
+    from jepsen_torch.ops import dc_monitor as D
+    rng = np.random.default_rng(8)
+    cases, err = [], 0
+    for label, inv, cl, act, cap in dc_cases(rng):
+        rounds, e = dc_pair([(inv, cl, act)], dev, cap)
+        require(e == 0, f"dc_peel != plain_dc_peel on {label}")
+        err = max(err, e)
+        cases.append({"case": label, "B": inv.shape[0], "E": inv.shape[1],
+                      "tier": cuda_dc.tier(inv.shape[1]),
+                      "rounds_max": max(rounds), "equal": True})
+    os.environ["JT_DC_MAX_ROUNDS"] = "1"
+    try:
+        plan = D.make_probe_plan(64, 128, 12)
+        got_r, want_r = [], []
+        got = D.dc_decide(*plan, device=dev, rounds_out=got_r)
+        want = D.dc_decide(*plan, device="cpu", rounds_out=want_r)
+    finally:
+        del os.environ["JT_DC_MAX_ROUNDS"]
+    require(np.array_equal(got, want) and got_r == want_r,
+            "dc_decide differs from its plain version under a round cap")
+    require(set(got_r) == {1} and not got.any(), "the round cap is ignored")
+    cases.append({"case": "JT_DC_MAX_ROUNDS=1", "B": 64, "E": 128,
+                  "tier": "smem", "rounds_max": 1, "equal": True})
+    emit({"phase": "dc_kernel_parity", "cases": cases, "max_abs_err": err})
+    return err
+
+
+class DcRecorder:
+    """Times the peel plan and the pre-filter on the host clock and keeps
+    the plan of every K4 launch and every chunk's certified rows while it
+    is active (the wrappers still launch and count as always). After the
+    timed run, ``padded_plans`` pads the plans as dc_decide does and
+    ``check_host`` holds the certified rows to ``dc_host_decide &
+    capable``, outside the run's clock."""
+
+    def __init__(self):
+        self.raw, self.chunks = [], []
+        self.plan_s = self.peel_s = 0.0
+        self.certified = 0
+
+    def padded_plans(self):
+        """[(padded plan, real rows)] of every K4 launch."""
+        return [(self.D.pad_plan(*p), p[0].shape[0]) for p in self.raw]
+
+    def certified_at(self) -> list:
+        """Positions in the caller's history list of every row the peel
+        loop certified."""
+        return sorted(batch.indices[lo + i] for batch, lo, _, out
+                      in self.chunks for i in np.flatnonzero(out))
+
+    def check_host(self) -> int:
+        """Holds each chunk's certified rows to the host twin; returns
+        the rows checked."""
+        D, n = self.D, 0
+        for batch, lo, hi, out in self.chunks:
+            p = D.dc_plan_for(batch)
+            host = D.dc_host_decide(p.inv[lo:hi], p.cluster[lo:hi],
+                                    p.active[lo:hi]) & p.capable[lo:hi]
+            require(np.array_equal(out, host),
+                    "certified rows != dc_host_decide & capable")
+            n += hi - lo
+        return n
+
+    def __enter__(self):
+        from jepsen_torch.ops import dc_monitor as D
+        self.D = D
+        self._orig = D.dc_plan, D.dc_decide, D.dc_prefilter_chunk
+        plan, decide, prefilter = self._orig
+
+        def rec_plan(batch):
+            t0 = time.perf_counter()
+            out = plan(batch)
+            self.plan_s += time.perf_counter() - t0
+            return out
+
+        def rec_decide(inv, cluster, active, **kw):
+            self.raw.append((inv, cluster, active))
+            t0 = time.perf_counter()
+            out = decide(inv, cluster, active, **kw)
+            self.peel_s += time.perf_counter() - t0
+            return out
+
+        def rec_prefilter(batch, lo, hi, **kw):
+            out = prefilter(batch, lo, hi, **kw)
+            if out is not None:
+                self.certified += int(out.sum())
+                self.chunks.append((batch, lo, hi, out.copy()))
+            return out
+
+        D.dc_plan, D.dc_decide, D.dc_prefilter_chunk = \
+            rec_plan, rec_decide, rec_prefilter
+        return self
+
+    def __exit__(self, *exc):
+        self.D.dc_plan, self.D.dc_decide, self.D.dc_prefilter_chunk = \
+            self._orig
+        return False
+
+
+def counts(L):
+    from jepsen_torch.ops import cuda_dc
+    return {"dc_peel": cuda_dc.LAUNCHES, "wgl_frontier": L.cuda_wgl.LAUNCHES,
+            "wgl_frontier_group": L.cuda_wgl.GROUP_LAUNCHES}
+
+
+def zero_counts(L):
+    from jepsen_torch.ops import cuda_dc
+    cuda_dc.LAUNCHES = L.cuda_wgl.LAUNCHES = L.cuda_wgl.GROUP_LAUNCHES = 0
+
+
+def dc_run(L, cas, hists, backend):
+    """check_batch_columnar(details="invalid") of an unkeyed batch under
+    one backend, as its two steps (the columnar conversion, then
+    check_columnar) so that the host clock splits them: launch counts
+    set to 0 just before and read just after, the scheduler's stats, the
+    peel plan's and pre-filter's host time, and the frontier launches
+    (K1, K2f) of the run replayed alone by CUDA events (``k1_ms``).
+    After the clock stops, every chunk's certified rows are held to the
+    host twin."""
+    from jepsen_torch.history.columnar import ops_to_columnar
+    from jepsen_torch.ops.statespace import enumerate_statespace
+    split, stats = {}, {}
+    with DcRecorder() as rec, LaunchRecorder(L.cuda_wgl) as k1:
+        zero_counts(L)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols = ops_to_columnar(cas(), hists, max_states=64)
+        split["convert_s"] = time.perf_counter() - t0
+        res = L.check_columnar(cas(), cols, details="invalid", timings=split,
+                               stats_out=stats,
+                               scheduler_opts={"wgl_backend": backend})
+        e2e_s = time.perf_counter() - t0
+        launches = counts(L)
+    require(launches["wgl_frontier"] == len(k1.singles)
+            and launches["wgl_frontier_group"] == len(k1.groups),
+            "recorded launches differ from the counts")
+    # K1 and K2f alone, every launch of the run replayed (5 runs).
+    k1_ms = time_launches(
+        [prepared_single(L, *a, **kw) for a, kw in k1.singles]
+        + [prepared_group(L, m, f, r) for m, f, r in k1.groups], reps=5)
+    del k1
+    host_checked, plans = rec.check_host(), rec.padded_plans()
+    split["dc_plan_s"], split["dc_prefilter_s"] = rec.plan_s, rec.peel_s
+    # device_s holds the plan, the pre-filter, K1 and the decode.
+    split["k1_and_decode_s"] = (split["device_s"] - rec.plan_s
+                                - rec.peel_s)
+    run = {"backend": backend, "check_s": e2e_s,
+           "histories_per_s": len(hists) / e2e_s,
+           "states": enumerate_statespace(cas(), cols.kinds, 64).n_states,
+           "launches": launches,
+           "k1_launches": launches["wgl_frontier"]
+           + launches["wgl_frontier_group"], "k1_ms": k1_ms,
+           "split_s": split, "certified_rows": rec.certified,
+           "host_checked_rows": host_checked,
+           "stats": {k: stats.get(k) for k in (
+               "chunks", "dispatches", "fused_groups", "classes",
+               "dc_dispatches", "dc_rows", "dc_decided_rows",
+               "dc_skipped_scans", "wgl_backend")},
+           "fallback_rows": sum(1 for r in res if "fallback" in r)}
+    return res, run, plans, rec.certified_at()
+
+
+def dc_measure(dev, plans):
+    """K4 over the padded plans a path gave it: the kernel alone
+    (``time_launches``, 5 runs after a warm-up) and through its wrapper,
+    the plain version's time on CPU copies (host clock, one run) and
+    parity with it, one scatter_reduce_ round over the same plans on the
+    card (``library_ms``), the rounds' distribution, and the bound over
+    the real rows: each event's active byte and each active event's inv
+    and cluster read once and two outputs written once, over the memory
+    rate, against the peel's operations on each round's alive ops and
+    live clusters (``dc_work``) over the int32 rate. ``plans`` is
+    [(padded plan, real rows)]."""
+    from jepsen_torch.ops import cuda_dc
+    from jepsen_torch.ops import dc_monitor as D
+    real = [b for _, b in plans]
+    plans = [p for p, _ in plans]
+    ts = [[torch.from_numpy(a).to(dev) for a in p] for p in plans]
+    caps = [p[0].shape[1] + 1 for p in plans]
+    ms = time_launches([(lambda: None, cuda_dc.prepare(*t, c)[0])
+                        for t, c in zip(ts, caps)], reps=5)
+    wrapper_ms = time_cuda(lambda: [cuda_dc.dc_peel(*t, c)
+                                    for t, c in zip(ts, caps)], reps=5)
+    got = [cuda_dc.dc_peel(*t, c) for t, c in zip(ts, caps)]
+    cpu = [[torch.from_numpy(a) for a in p] for p in plans]
+    t0 = time.perf_counter()
+    want = [D.plain_dc_peel(*c) for c in cpu]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(max(tensors_err(g[0].cpu(), w[0]), tensors_err(g[1].cpu(),
+                                                             w[1]))
+              for g, w in zip(got, want))
+    # Rounds of the real rows (the padding rows run none).
+    rounds = [r for (_, w), b in zip(want, real) for r in w[:b].tolist()]
+    # The nearest library route: one round's scatter-min of alive ops'
+    # event index by cluster, over the same [B, E] plans.
+    lib = []
+    for inv, cl, act in ts:
+        E = inv.shape[1]
+        idx = torch.where(act, cl, 0).long()
+        val = torch.where(act, torch.arange(E, device=dev,
+                                            dtype=torch.int32),
+                          torch.tensor(1 << 30, device=dev,
+                                       dtype=torch.int32))
+        out = torch.empty_like(inv)
+        lib.append((idx, val, out))
+    library_ms = time_cuda(lambda: [o.fill_(1 << 30).scatter_reduce_(
+        1, i, v, "amin", include_self=True) for i, v, o in lib], reps=5)
+    nbytes = op_rounds = cluster_rounds = 0
+    for (inv, cl, act), b, (_, w) in zip(plans, real, want):
+        nbytes += act[:b].size + int(act[:b].sum()) * 8 + b * 5
+        r, o, c = dc_work(inv[:b], cl[:b], act[:b])
+        require(r.tolist() == w[:b].tolist(),
+                "dc_work's replay differs from plain_dc_peel's rounds")
+        op_rounds, cluster_rounds = op_rounds + o, cluster_rounds + c
+    ops = op_rounds * DC_OP_OPS + cluster_rounds * DC_CLUSTER_OPS
+    hist: dict = {}
+    for r in rounds:
+        hist[r] = hist.get(r, 0) + 1
+    return {"launches": len(plans),
+            "shapes": sorted({tuple(p[0].shape) for p in plans}),
+            "real_rows": sum(real),
+            "tier": sorted({cuda_dc.tier(p[0].shape[1]) for p in plans}),
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "plain_on": "cpu", "library_ms": library_ms,
+            "library_call": "scatter_reduce_ amin, one round",
+            "rounds_hist": hist_json(hist), "rows": len(rounds),
+            "op_rounds": op_rounds, "cluster_rounds": cluster_rounds,
+            "equal": err == 0, "max_abs_err": err,
+            **launch_bound(nbytes, ops)}
+
+
+def dc_batch(dev, L, cas, oracle, label, stale_rows):
+    """One full-width rw batch through check_batch_columnar three ways in
+    one run (dc, xla, auto after the probe): verdicts and bad ops equal
+    across them, dc's certified rows equal to the host twin's, a 32-row
+    sample equal to wgl_check on the worker pool, and K4 measured on the
+    plans the dc run gave it."""
+    jobs = [rw_job(s, DC_STALE if s in stale_rows else 0.0)
+            for s in range(DC_ROWS)]
+    hists = [rw_history(j) for j in jobs]
+    runs, verdicts, plans = {}, {}, None
+    for backend in ("dc", "xla", "auto"):
+        res, run, p, at = dc_run(L, cas, hists, backend)
+        require(run["fallback_rows"] == 0,
+                f"{label} {backend}: rows went to the host")
+        require(all(r["valid"] is True or "op" in r for r in res),
+                f"{label} {backend}: result shape")
+        runs[backend] = run
+        verdicts[backend] = [verdict(r) for r in res]
+        if backend == "dc":
+            plans, certified = p, [jobs[i] for i in at]
+            run["wgl_dc_rows"] = sum(r.get("provenance") == "wgl-dc"
+                                     for r in res)
+            require(all(r["valid"] is True for r in res
+                        if r.get("provenance") == "wgl-dc"),
+                    f"{label}: a wgl-dc row is not valid")
+    for b in ("dc", "auto"):
+        require(verdicts[b] == verdicts["xla"],
+                f"{label}: {b} verdicts or bad ops differ from xla")
+    require(runs["dc"]["launches"]["dc_peel"] > 0,
+            f"{label}: dc_peel was not launched")
+    # Rows spread over the batch, every window W 11-16 among them; in the
+    # faulty batch half of them stale rows.
+    sample = dc_sample()
+    if stale_rows:
+        half = DC_ORACLE_ROWS // 2
+        st = sorted(stale_rows)
+        sample = (st[::len(st) // half][:half]
+                  + [s for s in sample if s not in stale_rows][:half])
+    for s, w in zip(sample, oracle([jobs[s] for s in sample])):
+        require(verdicts["xla"][s] == w,
+                f"{label}: row {s} differs from wgl_check")
+    measure = dc_measure(dev, plans)
+    require(measure["equal"], f"{label}: dc_peel != plain on the path")
+    ws: dict = {}
+    for j in jobs:
+        ws[j[1]] = ws.get(j[1], 0) + 1
+    return {"batch": label, "rows": DC_ROWS, "n_ops": DC_OPS,
+            "n_procs": hist_json(ws), "stale_rows": len(stale_rows),
+            "invalid": sum(v is not True for v, _ in verdicts["xla"]),
+            "oracle_rows": len(sample), "runs": runs, "kernel": measure,
+            "certified_jobs": certified}
+
+
+def dc_skip_batch(L, cas, jobs):
+    """The rows the peel loop certified in the healthy batch, checked as
+    a batch of their own under dc and xla: every chunk is certified
+    whole, so dc must skip every K1 launch, and xla's K1 verdicts must
+    agree."""
+    hists = [rw_history(j) for j in jobs]
+    runs, verdicts = {}, {}
+    for backend in ("dc", "xla"):
+        res, run, _, _ = dc_run(L, cas, hists, backend)
+        runs[backend], verdicts[backend] = run, [verdict(r) for r in res]
+    st = runs["dc"]["stats"]
+    require(verdicts["dc"] == verdicts["xla"]
+            and all(v is True for v, _ in verdicts["xla"]),
+            "certified batch: a verdict differs from xla's or is invalid")
+    require(runs["dc"]["k1_launches"] == 0
+            and st["dc_skipped_scans"] == st["chunks"] > 0,
+            "certified batch: a chunk launched K1 under dc")
+    return {"batch": "certified", "rows": len(jobs), "runs": runs}
+
+
+def phase_dc_path(dev, L, oracle):
+    """The peel prefilter at full width: probe_and_persist() (its
+    launches counted apart), then the healthy and the faulty batch, and
+    the healthy batch's certified rows alone, where every chunk skips."""
+    from jepsen_torch import fleet
+    from jepsen_torch.models.core import cas_register
+    zero_counts(L)
+    t0 = time.perf_counter()
+    rates = fleet.probe_and_persist()
+    probe = {"probe_s": time.perf_counter() - t0, "rates": rates,
+             "launches": counts(L)}
+    require(probe["launches"]["dc_peel"] > 0 and rates["dc_events_per_s"],
+            "the dc rate probe did not run K4")
+    healthy = dc_batch(dev, L, cas_register, oracle, "healthy", set())
+    faulty = dc_batch(dev, L, cas_register, oracle, "faulty",
+                      set(range(0, DC_ROWS, 8)))
+    whole = dc_skip_batch(L, cas_register, healthy.pop("certified_jobs"))
+    del faulty["certified_jobs"]
+    emit({"phase": "dc_path", "probe": probe,
+          "table": fleet.CostRouter().table(ws=tuple(range(
+              DC_W0, DC_W0 + DC_WS)), events=2 * DC_OPS + 1),
+          "batches": [healthy, faulty, whole], "oracle_s": oracle.s})
+    require(healthy["runs"]["dc"]["stats"]["dc_skipped_scans"] > 0,
+            "healthy batch: no scan was skipped")
+    # A dc-routed chunk launches K1 alone unless the peel loop decided
+    # every row of it: each skipped scan is one K1 launch saved.
+    for b in (healthy, faulty):
+        for backend in ("dc", "auto"):
+            r = b["runs"][backend]
+            require(r["launches"]["wgl_frontier_group"] == 0
+                    and r["k1_launches"] == r["stats"]["chunks"]
+                    - r["stats"]["dc_skipped_scans"],
+                    f"{b['batch']} {backend}: K1 launches != chunks - "
+                    "skipped scans")
+    return probe, healthy, faulty, whole
+
+
+def route_corpus():
+    """route_check's mixed corpus, each history with its oracle job."""
+    from jepsen_torch.ops.synth_txn import TxnSpec, synth_txn_batch
+    from jepsen_torch.workloads.synth import (synth_cas_history,
+                                              synth_la_history)
+    kw = {k: v for k, v in ROUTE_CAS.items() if k != "n"}
+    out = [(synth_cas_history(s, **kw), ("cas", s))
+           for s in range(ROUTE_CAS["n"])]
+    # Half the rw rows are healthy rows of the dc path's batch, its
+    # oracle rows first (their oracle is remembered), half stale ones of
+    # other seeds.
+    half = ROUTE_RW // 2
+    first = dc_sample()
+    seeds = first + [s for s in range(DC_ROWS) if s not in first]
+    out += [(rw_history(rw_job(s, 0.0)), ("rw", rw_job(s, 0.0)))
+            for s in seeds[:half]]
+    out += [(rw_history(rw_job(s, DC_STALE)), ("rw", rw_job(s, DC_STALE)))
+            for s in range(DC_ROWS, DC_ROWS + half)]
+    out += [(synth_la_history(s, n_ops=ROUTE_LA["n_ops"],
+                              corrupt=1.0 if s % 7 == 0 else 0.0),
+             ("la", s)) for s in range(ROUTE_LA["n"])]
+    out += [(h, ("txn", i)) for i, (h, _) in
+            enumerate(synth_txn_batch(TxnSpec(**ROUTE_TXN)))]
+    return out
+
+
+def cas_oracle(seed):
+    """``wgl_check`` on one route_check cas history, regenerated from
+    its seed in the worker: (valid, bad op index or None)."""
+    from jepsen_torch.checkers.linearizable import wgl_check
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.workloads.synth import synth_cas_history
+    kw = {k: v for k, v in ROUTE_CAS.items() if k != "n"}
+    r = wgl_check(cas_register(), synth_cas_history(seed, **kw))
+    return r["valid"], (r.get("op") or {}).get("index")
+
+
+def phase_route_check(dev, L, pool, oracle):
+    """route_check on a mixed corpus after probe_and_persist(): every
+    unit priced on the H100's probed rates and each backend group run as
+    one batch. Every row is held to an engine other than the one that
+    decided it: rows a device group decided to their host oracle on the
+    worker pool (wgl_check, check_graph_host, check_txn_host; the rw
+    rows to a 32-row wgl_check sample), and every linearizable row to the
+    frontier-only device verdicts (``wgl_backend="xla"``)."""
+    from jepsen_torch import fleet
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.ops import cuda_graph
+    from jepsen_torch.ops.graph import check_graph_host, extract_graph
+    from jepsen_torch.ops.txn_graph import check_txn_host, extract_txn_graph
+    rates = fleet.probe_and_persist()
+    corpus = route_corpus()
+    hists = [h for h, _ in corpus]
+    zero_counts(L)
+    cuda_graph.LAUNCHES = cuda_graph.TXN_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, routing = fleet.route_check(cas_register(), hists)
+    route_s = time.perf_counter() - t0
+    launches = {**counts(L), "graph_closure": cuda_graph.LAUNCHES,
+                "txn_closure": cuda_graph.TXN_LAUNCHES}
+    require(len(res) == len(hists) and all("backend" in r for r in res),
+            "route_check: a result without its backend")
+    by_fam: dict = {}
+    for (h, (fam, key)), r in zip(corpus, res):
+        by_fam.setdefault(fam, []).append((key, h, r))
+    t0 = time.perf_counter()
+    for fam in ("cas", "rw"):
+        rows = by_fam[fam]
+        frontier = L.check_batch_columnar(
+            cas_register(), [h for _, h, _ in rows], details="invalid",
+            scheduler_opts={"wgl_backend": "xla"})
+        for (k, _, r), f in zip(rows, frontier):
+            require(verdict(r) == verdict(f),
+                    f"route_check: {fam} row {k} != the frontier-only "
+                    "verdict")
+    cas = [(s, r) for s, _, r in by_fam["cas"]
+           if r["backend"] != "host-oracle"]
+    for (s, r), w in zip(cas, host_oracle(pool, cas_oracle,
+                                          [s for s, _ in cas])):
+        require(verdict(r) == w, f"route_check: cas row {s} != wgl_check")
+    rw = by_fam["rw"]
+    half = len(rw) // 2
+    pick = list(range(DC_ORACLE_ROWS // 2)) + np.linspace(
+        half, len(rw) - 1, DC_ORACLE_ROWS // 2).astype(int).tolist()
+    for i, w in zip(pick, oracle([rw[i][0] for i in pick])):
+        require(verdict(rw[i][2]) == w,
+                f"route_check: rw row {rw[i][0]} != wgl_check")
+    la = by_fam["la"]
+    for (s, h, r), w in zip(la, host_oracle(
+            pool, check_graph_host, [extract_graph(h) for _, h, _ in la])):
+        require({k: v for k, v in r.items() if k != "backend"}
+                == {**w, "provenance": r["provenance"]},
+                f"route_check: la row {s} != check_graph_host")
+    txn = by_fam["txn"]
+    for (i, h, r), w in zip(txn, host_oracle(
+            pool, check_txn_host, [extract_txn_graph(h) for _, h, _ in txn])):
+        require({k: v for k, v in r.items() if k != "backend"}
+                == {**w, "provenance": r["provenance"]},
+                f"route_check: txn row {i} != check_txn_host")
+    oracle_s = time.perf_counter() - t0
+    backends_by_family = {
+        fam: {b: sum(r["backend"] == b for _, _, r in rows)
+              for b in sorted({r["backend"] for _, _, r in rows})}
+        for fam, rows in by_fam.items()}
+    w_cas = sorted(fleet.estimate_w(h) for _, h, _ in by_fam["cas"])
+    emit({"phase": "route_check", "units": len(hists),
+          "corpus": {"cas": ROUTE_CAS, "rw": {"n": ROUTE_RW,
+                                              "n_ops": DC_OPS,
+                                              "stale_half": DC_STALE},
+                     "la": {**ROUTE_LA, "source": "bench.py:849-852"},
+                     "txn": ROUTE_TXN},
+          "route_check_s": route_s, "units_per_s": len(hists) / route_s,
+          "backends": routing["backends"], "chosen": routing["chosen"],
+          "backends_by_family": backends_by_family,
+          "cas_estimate_w": {"min": w_cas[0], "max": w_cas[-1]},
+          "est_cost_s": routing["est_cost_s"], "rates": rates,
+          "launches": launches,
+          "invalid": sum(r["valid"] is not True for r in res),
+          "oracle_s": oracle_s})
+    require(launches["dc_peel"] > 0 or "wgl-dc" not in routing["backends"],
+            "route_check: the wgl-dc group launched no K4")
+    return {"launches": launches, "backends": routing["backends"]}
+
+
+def dc_entry(probe, batches, route, parity_err) -> dict:
+    """The kernels-line entry of K4: launches per path, times and bound
+    of the healthy batch's dc run (the faulty batch's beside them)."""
+    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kh, kf = batches[0]["kernel"], batches[1]["kernel"]
+    by_path = {
+        f"check_batch_columnar_{b}": sum(
+            x["runs"][b]["launches"]["dc_peel"] for x in batches
+            if b in x["runs"]) for b in ("dc", "auto")}
+    by_path.update({
+        "route_check": route["launches"]["dc_peel"],
+        "probe": probe["launches"]["dc_peel"]})
+    return {"name": "dc_peel", "route": "cuda",
+            "source": "jepsen_torch/ops/csrc/dc_peel.cu",
+            "replaces": "jepsen_tpu/ops/dc_monitor.py:372",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "parity": True,
+            "max_abs_err": max(parity_err, kh["max_abs_err"],
+                               kf["max_abs_err"]),
+            **{k: kh[k] for k in keys}, "tier": kh["tier"],
+            "plain_on": "cpu", "rounds_hist": kh["rounds_hist"],
+            "faulty_batch": {k: kf[k] for k in keys}}
+
+
 def fold_entry(name, replaces, path, parity_err) -> dict:
     """The kernels-line entry of one fold kernel: launches per
     check_*_batch of the full-width path (and the bench batch), times
@@ -2158,17 +2816,18 @@ def fold_entry(name, replaces, path, parity_err) -> dict:
 
 
 def build_kernels(L, cuda_synth):
-    """Build the four kernel libraries at once (one nvcc each, in
+    """Build the five kernel libraries at once (one nvcc each, in
     parallel)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from jepsen_torch.ops import _build, cuda_folds, cuda_graph
+    from jepsen_torch.ops import _build, cuda_dc, cuda_folds, cuda_graph
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(L.cuda_wgl.build),
                   pool.submit(cuda_synth.build),
                   pool.submit(cuda_graph.build),
-                  pool.submit(cuda_folds.build)]:
+                  pool.submit(cuda_folds.build),
+                  pool.submit(cuda_dc.build)]:
             f.result()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
@@ -2247,7 +2906,19 @@ def main() -> int:
         ib, iw = phase_isolation_path(dev, pool)
         fold_err = phase_fold_kernel_parity(dev)
         folds = phase_fold_path(dev, pool)
+        dc_err = phase_dc_kernel_parity(dev)
+        oracle = RwOracle(pool)
+        probe, dch, dcf, dcw = phase_dc_path(dev, L, oracle)
+        route = phase_route_check(dev, L, pool, oracle)
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
+
+    def dc_launches(entry):
+        """An entry's launches on the dc path's runs and route_check."""
+        out = {f"check_batch_columnar_{b}": sum(
+            x["runs"][b]["launches"][entry] for x in (dch, dcf, dcw)
+            if b in x["runs"]) for b in ("dc", "xla", "auto")}
+        out["route_check"] = route["launches"][entry]
+        return out
 
     wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
     sl, gk = sched["launches"], sched["group"]
@@ -2260,7 +2931,8 @@ def main() -> int:
                              "check_synth": wk["launches"],
                              "check_synth_scheduler": sl["wgl_frontier"],
                              "check_batch_scheduler":
-                                 sides["wgl_frontier"]},
+                                 sides["wgl_frontier"],
+                             **dc_launches("wgl_frontier")},
         "parity": True,
         "max_abs_err": max(wgl_err, oplist["max_abs_err"],
                            wk["max_abs_err"],
@@ -2289,7 +2961,8 @@ def main() -> int:
         "launches_by_path": {"check_synth_scheduler":
                              sl["wgl_frontier_group"],
                              "check_batch_scheduler":
-                                 sides["wgl_frontier_group"]},
+                                 sides["wgl_frontier_group"],
+                             **dc_launches("wgl_frontier_group")},
         "parity": True,
         "max_abs_err": max(group_err, gk["max_abs_err"]),
         "ms": gk["ms"], "plain_ms": gk["plain_ms"],
@@ -2308,7 +2981,8 @@ def main() -> int:
         fold_entry("queue_scan", "jepsen_tpu/ops/folds.py:517", folds,
                    fold_err),
         fold_entry("fifo_scan", "jepsen_tpu/ops/folds.py:574", folds,
-                   fold_err)]})
+                   fold_err),
+        dc_entry(probe, (dch, dcf, dcw), route, dc_err)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ producer). It lets one encoding feed both packages, and lets a caller
 hand a batch encoded elsewhere to the CUDA kernel. ``cols_from_arrays``
 does the same for a columnar batch of histories (history.columnar), and
 ``graph_bucket_from_arrays`` for a bucket of packed dependency graphs
-(ops.graph).
+(ops.graph), ``dc_plan_from_arrays`` for a peel-loop plan
+(ops.dc_monitor). Router rates cross over as the plain dict they are
+(``fleet.set_measured_rates``).
 Frontier carries cross over through
 ``ops.linearize.import_frontier``/``export_frontier``, which keep the
 reference's journal format. A synthetic batch crosses by its spec: a
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from .history.columnar import ColumnarOps
+from .ops.dc_monitor import DCPlan
 from .ops.encode import EncodedBatch
 from .ops.graph import GraphBucket
 
@@ -68,3 +71,13 @@ def graph_bucket_from_arrays(src) -> GraphBucket:
     return GraphBucket(adj=adj.view(np.int32) if adj.dtype == np.uint32
                        else adj.astype(np.int32),
                        V=int(src.V), indices=list(src.indices))
+
+
+def dc_plan_from_arrays(src) -> DCPlan:
+    """A ``DCPlan`` from ``src.inv``, ``cluster``, ``active`` and
+    ``capable``, copied at the plan's dtypes (int32, int32, bool,
+    bool)."""
+    return DCPlan(inv=np.array(src.inv, np.int32),
+                  cluster=np.array(src.cluster, np.int32),
+                  active=np.array(src.active, bool),
+                  capable=np.array(src.capable, bool))

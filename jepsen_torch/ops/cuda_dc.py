@@ -1,0 +1,122 @@
+"""Build, load and launch the hand-written CUDA kernel of the peel loop.
+
+The counterpart of the reference's ``get_dc_kernel``
+(``ops/dc_monitor.py``), a vmapped ``lax.while_loop``: ``csrc/dc_peel.cu``
+holds one kernel, a block per plan row with the rounds inside it, and
+this module is its wrapper. ``dc_peel`` checks device, dtype, shape and
+contiguity, raises on anything the kernel does not take, allocates the
+outputs and, past shared memory, the rows' scratch, launches on
+PyTorch's current stream and counts the launch in ``LAUNCHES``.
+``prepare`` does the checks and allocations and returns the launch
+itself, so that a caller can time the kernel alone. ``tier`` says where
+a row's state lives at a width.
+
+The library is built at first use by ``_build.build_library``; nothing
+here runs when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Callable, Tuple
+
+import torch
+
+from ._build import build_library
+
+SRC = Path(__file__).resolve().parent / "csrc" / "dc_peel.cu"
+
+# Dynamic shared memory one block may use (kSmemLimit in the source) and
+# the bytes a row takes there per event: inv, cluster, m_resp and m_inv
+# as int32, alive as one byte.
+SMEM_LIMIT_BYTES = 232448 - 256
+SMEM_BYTES_PER_EVENT = 17
+
+# Launches of the kernel in this process; callers reset it to 0 and read
+# it back to show that a path ran on the card.
+LAUNCHES = 0
+
+_LIB = None
+
+
+def _library():
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    if _LIB is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _LIB = build_library(SRC, {
+            "dc_peel": ([p, p, p, i, i, i, p, p, p, p], i),
+            "dc_peel_error": ([i], ctypes.c_char_p)})
+    return _LIB
+
+
+def build() -> None:
+    """Build and load the kernel now (it is otherwise built at first
+    launch)."""
+    _library()
+
+
+def tier(E: int) -> str:
+    """Where a row of width ``E`` keeps its state: ``smem`` (shared
+    memory) or ``global`` (a device-memory scratch slice)."""
+    return "smem" if SMEM_BYTES_PER_EVENT * E <= SMEM_LIMIT_BYTES \
+        else "global"
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"dc_peel: {msg}")
+
+
+def prepare(inv: torch.Tensor, cluster: torch.Tensor, active: torch.Tensor,
+            cap: int
+            ) -> Tuple[Callable[[], None], torch.Tensor, torch.Tensor]:
+    """The checks and allocations of ``dc_peel``, without the launch:
+    returns ``(launch, decided, rounds)``."""
+    _check(inv.device.type == "cuda",
+           f"plan tensors must be on a CUDA device, got {inv.device}")
+    for t, dtype in ((inv, torch.int32), (cluster, torch.int32),
+                     (active, torch.bool)):
+        _check(t.device == inv.device and t.dtype == dtype
+               and t.dim() == 2 and t.shape == inv.shape
+               and t.is_contiguous(),
+               f"want contiguous int32 inv, int32 cluster and bool active "
+               f"[B, E] on one device, got {t.dtype} {tuple(t.shape)} on "
+               f"{t.device} beside {tuple(inv.shape)}")
+    B, E = inv.shape
+    _check(E >= 1, "rows must have at least one event")
+    _check(cap >= 1, f"round cap {cap} must be >= 1")
+    dev = inv.device
+    decided = torch.empty(B, dtype=torch.bool, device=dev)
+    rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = None
+    if tier(E) == "global" and B:
+        scratch = torch.empty(B * 3 * E, dtype=torch.int32, device=dev)
+    fn = _library().dc_peel
+
+    def launch() -> None:
+        global LAUNCHES
+        if B == 0:
+            return
+        with torch.cuda.device(dev):
+            err = fn(inv.data_ptr(), cluster.data_ptr(), active.data_ptr(),
+                     B, E, cap,
+                     scratch.data_ptr() if scratch is not None else None,
+                     decided.data_ptr(), rounds.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError("dc_peel launch failed: "
+                               + _library().dc_peel_error(err).decode())
+        LAUNCHES += 1
+    return launch, decided, rounds
+
+
+def dc_peel(inv: torch.Tensor, cluster: torch.Tensor, active: torch.Tensor,
+            cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The peel loop on the card: ``(decided bool [B], rounds int32
+    [B])``, bit for bit ``dc_monitor.plain_dc_peel`` with the round cap
+    ``cap`` (the reference's ``max_rounds or E + 1``). ``cluster`` must
+    lie in [0, E)."""
+    launch, decided, rounds = prepare(inv, cluster, active, cap)
+    launch()
+    return decided, rounds

@@ -52,7 +52,7 @@ from ..history.ops import Op
 from ..models.core import Model
 from . import cuda_wgl
 from .cuda_wgl import n_state_words
-from .device import resolve_device
+from .device import resolve_device, time_launch
 from .encode import (EV_CLOSE, EV_FUSED, EV_OK, EncodedBatch, bucket_encode,
                      slot_ops_at_event)
 from .faults import INT32_MAX
@@ -366,6 +366,55 @@ def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
         return valid, bad, torch.where(valid[:, None, None], F, Fb)
 
     return check
+
+
+# ------------------------------------------------- scan-rate probe
+
+def make_probe_batch(V: int = 4, W: int = 6, rows: int = 32,
+                     events: int = 64):
+    """Synthetic always-valid encoded arrays that run the full closure
+    and completion arithmetic with no model machinery: one identity op
+    resident in slot 0, completed every event. The router's scan-rate
+    probe times the frontier kernel on it."""
+    K1 = 2
+    ev_type = np.full((rows, events), EV_OK, np.int8)
+    ev_slot = np.zeros((rows, events), np.int8)
+    ev_slots = np.full((rows, events, W), K1 - 1, np.int8)
+    ev_slots[:, :, 0] = 0
+    target = np.full((K1, V), -1, np.int32)
+    target[0] = np.arange(V, dtype=np.int32)
+    return ev_type, ev_slot, ev_slots, target
+
+
+def probe_rates(rows: int = 32, events: int = 64, V: int = 4, W: int = 6,
+                repeats: int = 3, *, device=None) -> dict:
+    """The router's scan-rate probe: the frontier search's sustained rate
+    on ``make_probe_batch`` in the cost router's units (frontier-lane
+    events per second, the ``n_events * 2^W / rate`` basis of
+    ``fleet.CostRouter.price_wgl``). On the card the kernel alone by
+    CUDA events, on the CPU the plain version by the host clock; best of
+    ``repeats`` after a warm-up. Returns ``{"lane_ops_per_s",
+    "pallas_lane_ops_per_s", "probe_s"}``; the pallas rate is always 0.0:
+    the reference's two TPU forms of the search are one CUDA kernel here,
+    and a zero rate prices that term out as an unprobed reference does."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    args = [_on(a, device) for a in make_probe_batch(V, W, rows, events)]
+    carry = initial_carry(rows, V, W, device)
+    init = [c.clone() for c in carry]
+    if device.type == "cuda":
+        launch = cuda_wgl.prepare_frontier(*args, 0, *carry, V=V, W=W)
+    else:
+        def launch():
+            plain_wgl(*args, 0, *carry, V=V, W=W, w_live=W)
+
+    def reset():
+        for c, i in zip(carry, init):
+            c.copy_(i)
+    best = time_launch(launch, device, repeats, reset=reset)
+    return {"lane_ops_per_s": rows * events * float(1 << W) / max(best, 1e-9),
+            "pallas_lane_ops_per_s": 0.0,
+            "probe_s": round(time.perf_counter() - t0, 4)}
 
 
 # ------------------------------------------------------------- dispatch
@@ -706,26 +755,17 @@ def _result_for(row: int, batch: EncodedBatch, valid: np.ndarray,
 # ---------------------------------------------------------- entry points
 
 def _scheduler_opts(faults, journal, scheduler_opts) -> dict:
-    """The BucketScheduler knobs of an entry point's ``scheduler_opts``;
-    refuses what this package does not carry yet."""
+    """The BucketScheduler knobs of an entry point's ``scheduler_opts``
+    (``wgl_backend`` among them: "auto", "dc", or "xla" / "pallas", the
+    reference's two TPU forms of the frontier search, which here both
+    name the one CUDA kernel and never the peel pre-filter); refuses
+    what this package does not carry yet."""
     if faults is not None or journal is not None:
         raise NotImplementedError(
             "the checker nemesis (faults=) and the chunk journal "
             "(journal=) come with the fault-ladder slice, which is not "
             "part of jepsen_torch yet")
-    opts = dict(scheduler_opts or {})
-    backend = opts.pop("wgl_backend", "auto")
-    if backend == "dc":
-        raise NotImplementedError(
-            "the decrease-and-conquer backend (wgl_backend='dc') needs the "
-            "dc peel kernel, which is not part of jepsen_torch yet")
-    if backend != "auto":
-        # The reference's "xla" and "pallas" pick one of its two TPU
-        # forms of the frontier search; here one CUDA kernel replaces
-        # both, so there is nothing to pick.
-        raise ValueError(f"wgl_backend={backend!r}: jepsen_torch has one "
-                         "frontier kernel; pass 'auto' or leave it out")
-    return opts
+    return dict(scheduler_opts or {})
 
 
 def _decided_on_host(r: dict, scheduler: bool, why=None) -> dict:
@@ -818,10 +858,11 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
             device_batches.append(batch)
         for i, reason in batch.failures:
             on_host(i, reason)
+    sch = None
     if scheduler:
         from .schedule import BucketScheduler
-        stream = BucketScheduler(return_frontier=True, device=device,
-                                 **opts).run(device_batches)
+        sch = BucketScheduler(return_frontier=True, device=device, **opts)
+        stream = sch.run(device_batches)
     else:
         stream = run_buckets(device_batches, device=device,
                              return_frontier=True)
@@ -840,10 +881,12 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
                 continue
             results[i] = _result_for(row, batch, valid, bad, front,
                                      model, prepared[i])
-            if scheduler:
+            if sch is not None:
                 # This scheduler has no retry ladder: every row it
-                # decides is decided by the device.
-                results[i]["provenance"] = "device"
+                # decides is decided by the device, by the frontier
+                # search unless its row_provenance says otherwise.
+                results[i]["provenance"] = sch.row_provenance.get(
+                    i, "device")
     return results
 
 
@@ -990,7 +1033,11 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
             continue
         for bi, row in enumerate(batch.indices):
             if details == "invalid" and bool(v[bi]):
+                # The bare contract dict; provenance appears only when it
+                # says more than the default (the peel loop decided it).
                 results[row] = {"valid": True}
+                if sch is not None and row in sch.row_provenance:
+                    results[row]["provenance"] = sch.row_provenance[row]
                 continue
             if bi in fused_local:
                 continue               # refined below
@@ -1005,7 +1052,8 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
                 int(bad[row]) if not bool(v[bi]) else -1, front[bi],
                 predropped=True)
             if sch is not None:
-                results[row]["provenance"] = "device"
+                results[row]["provenance"] = sch.row_provenance.get(
+                    row, "device")
     laps.append(time.perf_counter())
     # The fused-run rows and the rows the encoder could not bound go to
     # the host engine (the reference's branch for a missing native

@@ -27,6 +27,16 @@ the reference's ``ops/schedule.py`` trimmed to its happy path:
     entry ``wgl_frontier_group``), so many small buckets stop paying one
     launch each.
 
+  * **the peel pre-filter** (``wgl_backend``) — before a chunk's
+    frontier launch, the decrease-and-conquer peel loop (ops.dc_monitor,
+    kernel K4) may certify its register-class rows valid; a chunk whose
+    every row it certifies skips its frontier launch, and the residue
+    rides the unchanged search in the same ``_ship``. ``"dc"`` pins the
+    pre-filter on, ``"auto"`` engages it per bucket shape when the cost
+    router prices it under the frontier search, and ``"xla"`` or
+    ``"pallas"`` (the reference's two TPU forms of the search, one CUDA
+    kernel here) run the search alone.
+
 Contract for callers: ``run(source)`` yields ``(batch, out)`` pairs
 where ``batch`` is a *consolidated* EncodedBatch (NOT an element of the
 input list) and ``out`` is (valid, bad, frontier) or a WindowOverflow.
@@ -42,11 +52,10 @@ kernel pre-warm (the port has no compile step: each CUDA library builds
 once, at first use, into ``build/jepsen_torch/``); the Pallas-versus-
 scan backend choice (one CUDA kernel serves both TPU forms); the
 batch-sharded multi-device route (one card; it waits for the multi-GPU
-slice); the decrease-and-conquer pre-filter (its kernel is not ported);
-the checker-nemesis fault hooks, watchdog and degradation ladder, the
-chunk journal and resident frontiers (the next slice); the native-CPU
-tail diversion (the port has no native engine); and donated buffers,
-which have no meaning for torch tensors.
+slice); the checker-nemesis fault hooks, watchdog and degradation
+ladder, the chunk journal and resident frontiers (the next slice); the
+native-CPU tail diversion (the port has no native engine); and donated
+buffers, which have no meaning for torch tensors.
 
 ``GraphScheduler``, at the end, is the happy path of the reference's
 dependency-graph scheduler (vertex-bucket chunks for the closure
@@ -67,7 +76,7 @@ import torch
 from .cuda_wgl import MAX_GROUP_MEMBERS, n_state_words, smem_plan
 from .device import resolve_device
 from .encode import EncodedBatch, merge_batches
-from .faults import CorruptOutput
+from .faults import INT32_MAX, CorruptOutput
 from .graph import (N_LEVELS, close_planes, mxu_op_model,
                     validate_graph_decoded)
 from .linearize import (DATA_MAX_SLOTS, DISPATCH_LOG, MAX_FRONTIER_ELEMENTS,
@@ -293,7 +302,11 @@ class BucketScheduler:
     streams (wall_s and overlap_ratio land when the generator ends).
     ``device`` is where the kernels run (the card unless the caller
     names another); ``return_frontier`` is False, True or "invalid"
-    (frontiers of the invalid rows only, as {row: frontier})."""
+    (frontiers of the invalid rows only, as {row: frontier}).
+    ``wgl_backend`` is "auto", "dc", "xla" or "pallas" (the module
+    docstring), $JT_WGL_BACKEND when None. ``row_provenance`` maps the
+    caller-level index of each row the peel loop decided alone to
+    ``"wgl-dc"``."""
 
     def __init__(self, *, return_frontier=False,
                  max_classes: Optional[int] = None,
@@ -302,9 +315,19 @@ class BucketScheduler:
                  consolidate: bool = True,
                  on_chunk=None,
                  fuse_width: Optional[int] = None,
+                 wgl_backend: Optional[str] = None,
                  device=None):
         self.return_frontier = return_frontier
         self.device = resolve_device(device)
+        if wgl_backend is None:
+            wgl_backend = os.environ.get("JT_WGL_BACKEND", "auto")
+        if wgl_backend not in ("auto", "xla", "pallas", "dc"):
+            log.warning("ignoring unknown wgl_backend=%r (want "
+                        "auto|xla|pallas|dc)", wgl_backend)
+            wgl_backend = "auto"
+        self.wgl_backend = wgl_backend
+        self._backend_choice: Dict[Tuple, bool] = {}
+        self.row_provenance: Dict[int, str] = {}
         self.max_classes = (knob("max_classes") if max_classes is None
                             else max_classes)
         self.chunk_rows = (knob("chunk_rows") if chunk_rows is None
@@ -331,6 +354,9 @@ class BucketScheduler:
             "events": 0, "orig_events": 0, "fusion_ratio": None,
             "event_routed_rows": 0, "event_routed_dispatches": 0,
             "backpressure_events": 0,
+            "dc_dispatches": 0, "dc_rows": 0, "dc_decided_rows": 0,
+            "dc_skipped_scans": 0,
+            "wgl_backend": self.wgl_backend,
         }
         self._t0 = None
         self._first_dispatch_t = None
@@ -377,11 +403,59 @@ class BucketScheduler:
         return tuple(_on(a, self.device)
                      for a in (ev_type, ev_slot, ev_slots, target))
 
+    def _dc_for(self, batch: EncodedBatch) -> bool:
+        """Does this bucket's dispatch run the peel pre-filter first?
+        Forced "dc" runs it wherever the plan has a capable row; "auto"
+        only when the cost router prices the peel loop under the frontier
+        search (a measured dc_events_per_s, never a constant) and the
+        bucket's capable fraction clears the residue gate. Memoized per
+        bucket shape."""
+        if self.wgl_backend in ("xla", "pallas"):
+            return False
+        from .dc_monitor import (dc_available, dc_plan_for,
+                                 dc_residue_max_frac, router_prefers_dc)
+        if not dc_available():
+            return False
+        if self.wgl_backend == "dc":
+            return dc_plan_for(batch) is not None
+        key = ("dc", batch.V, batch.W,
+               _round_up(batch.n_events, EVENT_QUANTUM))
+        hit = self._backend_choice.get(key)
+        if hit is None:
+            hit = router_prefers_dc(batch.W, batch.n_events,
+                                    max(batch.batch, 1), device=self.device)
+            self._backend_choice[key] = hit
+        if not hit:
+            return False
+        plan = dc_plan_for(batch)
+        return (plan is not None
+                and plan.capable_frac >= 1.0 - dc_residue_max_frac())
+
     def _ship(self, batch: EncodedBatch, lo: int, hi: int, Bp: int,
               Np: int):
-        """Pad one chunk and launch it alone (asynchronously): the
-        single-bucket kernel. Returns the device (valid, bad,
-        frontier)."""
+        """Launch one chunk alone (asynchronously): the peel pre-filter
+        first where ``_dc_for`` says so, then, unless it decided every
+        row, the padded chunk through the single-bucket kernel. Returns
+        the device (valid, bad, frontier), or host arrays (all valid, no
+        bad event, no frontier) for a chunk the peel loop decided
+        alone."""
+        if self._dc_for(batch):
+            from .dc_monitor import dc_prefilter_chunk
+            decided = dc_prefilter_chunk(batch, lo, hi, device=self.device)
+            if decided is not None:
+                DISPATCH_LOG.append(("dc", batch.V, batch.W, hi - lo))
+                self._inc("dc_dispatches")
+                self._inc("dc_rows", hi - lo)
+                nd = int(decided.sum())
+                if nd:
+                    self._inc("dc_decided_rows", nd)
+                if nd == hi - lo and self.return_frontier is not True:
+                    self._inc("dc_skipped_scans")
+                    self._inc("dispatches")
+                    for r in range(lo, hi):
+                        self.row_provenance[batch.indices[r]] = "wgl-dc"
+                    return (np.ones(hi - lo, bool),
+                            np.full(hi - lo, INT32_MAX, np.int32), None)
         ev_type, ev_slot, ev_slots, target = self._pad_chunk(
             batch, lo, hi, Bp, Np)
         kern = get_kernel(batch.V, batch.W, w_live=batch.eff_w_live)
@@ -411,7 +485,10 @@ class BucketScheduler:
         hi, Bp)]. A single member rides the single-bucket kernel
         (_ship); two or more groupable members retire in ONE launch of
         the group kernel, with any member that cannot join shipped alone
-        in member order. Returns (members, outs)."""
+        in member order. A member routed to the peel pre-filter never
+        joins: the pre-filter lives in _ship, and a chunk it decides
+        skips the frontier launch a group would make. Returns (members,
+        outs)."""
         t0 = time.monotonic()
         if len(members) == 1:
             run, lo, hi, Bp = members[0]
@@ -419,7 +496,8 @@ class BucketScheduler:
                                _round_up(run.batch.n_events,
                                          EVENT_QUANTUM))]
         else:
-            ok = [self._groupable(run.batch) for run, _, _, _ in members]
+            ok = [self._groupable(run.batch) and not self._dc_for(run.batch)
+                  for run, _, _, _ in members]
             if ok.count(True) < 2:
                 ok = [False] * len(members)
             outs: List = [None] * len(members)
@@ -459,8 +537,13 @@ class BucketScheduler:
     def _decode_member(self, out, nb: int):
         """Copy one dispatch's outputs back (the pipeline's block
         point), slice off pad rows, and shape the frontier per
-        return_frontier."""
+        return_frontier. A chunk the peel loop decided alone arrives as
+        host arrays with no frontier (never under return_frontier=True):
+        every row valid."""
         valid, bad, front = out
+        if isinstance(valid, np.ndarray):
+            return (valid[:nb], bad[:nb],
+                    {} if self.return_frontier == "invalid" else None)
         v = valid[:nb].cpu().numpy()
         b = bad[:nb].cpu().numpy()
         fr = None

@@ -1,4 +1,5 @@
-"""Seeded synthetic CAS-register and list-append histories.
+"""Seeded synthetic CAS-register, read/write-register and list-append
+histories.
 
 Simulates a *real* linearizable system executing a register workload —
 operations linearize at their completion point against a true register —
@@ -118,6 +119,63 @@ def cas_kind_vocabulary(n_values: int):
     kinds += [("cas", (a, b)) for a in range(n_values)
               for b in range(n_values)]
     return kinds
+
+
+def synth_rw_history(seed: int, *, n_procs: int = 12, n_ops: int = 48,
+                     p_read: float = 0.55, stale: float = 0.0,
+                     rng: Optional[random.Random] = None) -> List[Op]:
+    """One unkeyed wide-window read/write register history, the
+    decrease-and-conquer workload: every op completes ok, written values
+    are distinct within the history, and the pending window sits at
+    about ``n_procs`` (so W = 11+ is just n_procs = 11+; every frontier
+    search pays 2^W here, the peel loop does not).
+
+    stale — probability an observed read is drawn from ALL past writes
+            instead of the register (possibly stale): invalid histories
+            that stay in the peel loop's capable class, so they exercise
+            its stuck residue rather than its capability test.
+    """
+    rng = rng if rng is not None else random.Random(seed)
+    reg: Optional[int] = None
+    written: List[int] = []
+    h: List[Op] = []
+    live = {}
+    free = list(range(n_procs))
+    started = 0
+    nextv = 1
+    while started < n_ops or live:
+        # Invoke-biased: keep about n_procs ops open at once, so the
+        # pending window sits at the process count.
+        if free and started < n_ops and (not live or rng.random() < 0.75):
+            p = free.pop(rng.randrange(len(free)))
+            if rng.random() < p_read:
+                h.append(invoke_op(p, "read", None))
+                live[p] = ("read", None)
+            else:
+                h.append(invoke_op(p, "write", nextv))
+                live[p] = ("write", nextv)
+                nextv += 1
+            started += 1
+        else:
+            p = rng.choice(sorted(live.keys()))
+            f, v = live.pop(p)
+            if f == "write":
+                reg = v
+                written.append(v)
+                h.append(ok_op(p, "write", v))
+            else:
+                val = reg
+                if stale and written and rng.random() < stale:
+                    val = rng.choice(written)
+                h.append(ok_op(p, "read", val))
+            free.append(p)
+    return index(h)
+
+
+def synth_rw_batch(n: int, seed0: int = 0, **kw) -> List[List[Op]]:
+    """n seeded wide-window register histories down ``seed_stream``."""
+    return [synth_rw_history(s, rng=rng, **kw)
+            for s, rng in seeded_rngs(seed0, n)]
 
 
 def synth_la_history(seed: int, *, n_procs: int = 4, n_ops: int = 24,

@@ -9,8 +9,9 @@ points' result dicts — ``provenance`` included — must equal the
 reference's ``scheduler=True`` results on the CPU. Also pinned: why
 widening is safe, the W-class DP's budget and boundary contract (with
 the dispatch-overhead term pinned to 0 by tests/conftest.py, as for the
-reference), group launches (fuse_width 1 vs 4), and the refusals of what
-the port does not carry yet. Tolerance: none (exact equality).
+reference), group launches (fuse_width 1 vs 4), the frontier-only
+backend names, and the refusals of what the port does not carry yet.
+Tolerance: none (exact equality).
 """
 from types import SimpleNamespace
 
@@ -278,9 +279,8 @@ def test_fuse_width_one_vs_four(shared_cols):
 
 
 @pytest.mark.parametrize("kw", [
-    {"faults": object()}, {"journal": object()},
-    {"scheduler_opts": {"wgl_backend": "dc"}}],
-    ids=["faults", "journal", "dc"])
+    {"faults": object()}, {"journal": object()}],
+    ids=["faults", "journal"])
 def test_refuses_what_is_not_ported(shared_cols, kw):
     _, pc = shared_cols
     hists = mixed_w_histories(n=2)
@@ -293,14 +293,25 @@ def test_refuses_what_is_not_ported(shared_cols, kw):
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_refuses_a_backend_choice(shared_cols, backend):
     """The reference's two TPU forms of the frontier search are one CUDA
-    kernel here: naming one is refused, not silently ignored."""
-    _, pc = shared_cols
-    opts = {"wgl_backend": backend}
-    with pytest.raises(ValueError, match="one frontier kernel"):
-        L.check_columnar(MODEL, pc, device="cpu", scheduler_opts=opts)
-    with pytest.raises(ValueError, match="one frontier kernel"):
-        L.check_batch(MODEL, mixed_w_histories(n=2), device="cpu",
-                      scheduler_opts=opts)
+    kernel here: naming either runs that kernel alone, never the peel
+    pre-filter, with the same results as "auto" on both entry points
+    and the same dicts as the reference under that name."""
+    rc, pc = shared_cols
+    opts = {"wgl_backend": backend, "chunk_rows": 8}
+    L.DISPATCH_LOG.clear()
+    got = L.check_columnar(MODEL, pc, device="cpu", details=True,
+                           scheduler_opts=opts)
+    assert not any(e[0] == "dc" for e in L.DISPATCH_LOG)
+    assert got == L.check_columnar(MODEL, pc, device="cpu", details=True,
+                                   scheduler_opts={"chunk_rows": 8})
+    if backend == "xla":
+        assert got == R.check_columnar(r_cas(), rc, details=True,
+                                       scheduler_opts=opts)
+    hists = mixed_w_histories(n=8)
+    L.DISPATCH_LOG.clear()
+    got = L.check_batch(MODEL, hists, device="cpu", scheduler_opts=opts)
+    assert not any(e[0] == "dc" for e in L.DISPATCH_LOG)
+    assert got == L.check_batch(MODEL, hists, device="cpu")
 
 
 @pytest.mark.parametrize("V", [8, 48])
