@@ -18,7 +18,7 @@ paths, each with the launch counts set to 0 just before and read just
 after:
 
   * the Op-list path, ``check_batch(scheduler=False)`` on seeded
-    CAS-register histories of 1,000 invocations each (2,000 of them: cut
+    CAS-register histories of 1,000 invocations each (1,000 of them: cut
     in count, never in length, to keep the run short), with the host
     oracle on sampled rows;
   * the columnar exact path, ``check_synth(scheduler=False)`` on the
@@ -69,6 +69,29 @@ after:
     transactional histories at the bench's shapes), every row held to
     its host oracle (``route_check``).
 
+Then the fault ladder's phases, after every kernel is built:
+
+  * the instrumented entry of the frontier kernel (K2 instrument, each
+    row's closure passes) against the plain version's pass count bit for
+    bit and against the frontier kernel's valid, bad and frontier, on
+    random tables at every edge of its plan and on the north-star bucket
+    and the keyed headline's dispatched buckets, which its path
+    (``measure_closure_iters``) measures (``instrument_parity``);
+  * the keyed headline's shape at 1,000 histories under each single-fault
+    schedule of the checker nemesis, fault-free, with
+    ``scheduler=False``, launched on a side stream, under a sticky
+    corruption that quarantines every row to the host oracle, and killed
+    at a decode chunk then resumed from a chunk journal with no decided
+    row dispatched again (``wgl_faults``);
+  * the graph and isolation bench batches under each single-fault
+    schedule, and killed and resumed (``graph_faults``);
+  * the failure classifier on the card's real failures: an allocation
+    far past its memory and a refused launch (``real_oom``).
+
+``python3 chip_smoke.py --headline TREE [TREE ...]`` instead times the
+default ``check_synth`` on the keyed headline spec in each checkout
+given, in that order (for example parent, change, change, parent).
+
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
 launch), with the wrapper-inclusive time beside them as ``wrapper_ms``.
@@ -105,7 +128,7 @@ NS_SPEC = dict(family="cas", n=10_000, seed=0, n_procs=5, n_ops=1_000,
 HEADLINE_SPEC = dict(family="cas", n=10_000, seed=1, n_procs=5,
                      n_ops=1_000, n_values=5, corrupt=0.1, p_info=0.01,
                      n_keys=8)
-OPLIST_HISTORIES = 2_000  # the Op-list path's count (its length is uncut)
+OPLIST_HISTORIES = 1_000  # the Op-list path's count (its length is uncut)
 SCHED_OPLIST_HISTORIES = 500
 ORACLE_ROWS = 64
 DETAIL_ROWS = 256
@@ -557,34 +580,29 @@ def wgl_measure(dev, L, buckets):
     run_plain()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    # Once more, untimed, counting per row the closure sweeps and the
-    # integer operations this batch's data needs (each closure
-    # configuration expanded once per reaching slot, one word test per
-    # kept mask): the latter is the op-count bound's input.
-    sweeps = [torch.zeros(b.batch, dtype=torch.int64, device=dev)
-              for b, _ in argsets]
+    # Once more, untimed, counting per row the integer operations this
+    # batch's data needs (each closure configuration expanded once per
+    # reaching slot, one word test per kept mask): the op-count bound's
+    # input.
     needed = [torch.zeros(b.batch, dtype=torch.int64, device=dev)
               for b, _ in argsets]
-    run_plain(iters=sweeps, ops=needed)
+    run_plain(ops=needed)
     ops = sum(int(nd.sum()) for nd in needed)
-    dense = nbytes = 0
-    for (b, a), it in zip(argsets, sweeps):
-        # The reference's dense formulation (vpu_op_model: every state
-        # bit of every mask tested on every sweep), for comparison only.
-        model = L.vpu_op_model(b.V, b.W, b.eff_w_live)
-        live = int(np.isin(b.ev_type, (2, 3, 4)).sum())
-        dense += model["per_iteration"] * int(it.sum()) \
-            + model["per_event"] * live
-        nbytes += frontier_bytes(L, a[0], a[2], a[3], b.V, b.W,
-                                 b.eff_w_live)
+    nbytes = sum(frontier_bytes(L, a[0], a[2], a[3], b.V, b.W,
+                                b.eff_w_live) for b, a in argsets)
+    # The closure passes of every event, from the instrumented entry, and
+    # the reference's dense formulation over them (vpu_op_model: every
+    # state bit of every mask tested on every pass, per_event over every
+    # event), for comparison only.
+    passes = L.measure_closure_iters(buckets, device=dev)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {"upload_ms": upload_ms, "kernel_ms": kernel_ms,
             "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "tiers": [tier_of(L, b.V, b.W, b.eff_w_live, a[3].shape[-2],
                               b.shared_target) for b, a in argsets],
-            "closure_sweeps": sum(int(it.sum()) for it in sweeps),
-            "needed_ops": ops, "dense_model_lane_ops": dense,
+            "closure_sweeps": passes["iters"],
+            "needed_ops": ops, "dense_model_lane_ops": passes["lane_ops"],
             "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -870,6 +888,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
           "synth_bound": synth_bound(spec)})
     sb = synth_bound(spec)
     return {
+        "buckets": buckets,
         "wgl_frontier": {"launches": launches["wgl_frontier"],
                          "max_abs_err": wgl_err, "ms": wgl["kernel_ms"],
                          "wrapper_ms": wgl["wrapper_ms"],
@@ -1068,6 +1087,33 @@ class LaunchRecorder:
         return False
 
 
+class BucketRecorder:
+    """Keeps every bucket the bucket scheduler yields while active: the
+    consolidated buckets a path dispatched."""
+
+    def __init__(self):
+        from jepsen_torch.ops import schedule
+        self.cls = schedule.BucketScheduler
+        self.buckets = []
+
+    def __enter__(self):
+        run, buckets = self.cls.run, self.buckets
+
+        def rec_run(sch, source):
+            for batch, out in run(sch, source):
+                if not isinstance(out, Exception):
+                    buckets.append(batch)
+                yield batch, out
+
+        self._orig = run
+        self.cls.run = rec_run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self._orig
+        return False
+
+
 def real_rows(members, flat, rows):
     """A recorded group's inputs cut to each member's real rows."""
     out = []
@@ -1186,7 +1232,7 @@ def phase_scheduler_path(dev, L, S, cuda_synth, cas, wgl_check):
     B = spec.n
 
     split, stats = {}, {}
-    with LaunchRecorder(L.cuda_wgl) as rec:
+    with LaunchRecorder(L.cuda_wgl) as rec, BucketRecorder() as disp:
         cuda_synth.LAUNCHES = 0
         L.cuda_wgl.LAUNCHES = 0
         L.cuda_wgl.GROUP_LAUNCHES = 0
@@ -1271,7 +1317,8 @@ def phase_scheduler_path(dev, L, S, cuda_synth, cas, wgl_check):
           "oracle_subs": ORACLE_ROWS, "oracle_s": oracle_s,
           "details_rows": DETAIL_ROWS,
           "single_launches": single, "group_launches": group})
-    return {"launches": launches, "single": single, "group": group}
+    return {"launches": launches, "single": single, "group": group,
+            "buckets": disp.buckets}
 
 
 def phase_scheduler_sides(dev, L, S, cuda_synth, synth, cas):
@@ -2156,7 +2203,7 @@ DC_ROWS = 1_024
 DC_OPS = 80
 DC_W0, DC_WS = 11, 6
 DC_STALE = 0.3
-DC_ORACLE_ROWS = 32
+DC_ORACLE_ROWS = 16
 # int32 operations the peel's function needs in one round (the bound's
 # count; dc_work replays each row to count what its data needs): an op
 # alive at the round's start takes part in the scatter-min and the
@@ -2815,6 +2862,452 @@ def fold_entry(name, replaces, path, parity_err) -> dict:
                          for b in mine}}
 
 
+# ------------------------------------------- the fault ladder's phases
+
+# The instrumented entry's random cases, (V, W, w_live, K1, shared
+# target), at every edge of its plan: both frontiers in shared memory
+# (the block tier, whatever W) up to W = 14 at one state word and 13 at
+# two, the device-memory tier past that (W 15 and 16 at one word, 14 at
+# two); V = 1, 8, 33, 40 and 64; w_live < W; shared and per-row targets;
+# int8 and int32 slot tables. random_tables gives pads that carry live
+# slot kinds (row 0 is all pads) and rows that fail early.
+INSTRUMENT_CASES = ((1, 1, None, 3, True), (8, 1, None, 5, False),
+                    (8, 2, None, 7, True), (8, 5, None, 7, False),
+                    (64, 5, 3, 200, True), (8, 8, None, 12, False),
+                    (40, 8, 6, 130, True), (8, 9, 6, 12, False),
+                    (64, 12, None, 9, False), (8, 13, None, 9, True),
+                    (8, 14, 5, 9, False), (33, 14, None, 9, True),
+                    (8, 15, 5, 9, True), (8, 16, 3, 6, True))
+
+# Rows of each real bucket whose pass count the plain version replays
+# (the north-star bucket is replayed whole, to time the plain version).
+INSTRUMENT_HELD_ROWS = 32
+
+
+def instrument_vs(args, V, W, w_live, dev, L, held=None):
+    """One batch through the instrumented entry, K1's check and (on its
+    first ``held`` rows, all when None) the plain version's pass count.
+    Returns (equal, max_abs_err, passes [B] int64, invalid rows,
+    plain seconds)."""
+    kv, kb, kf, ki = L.get_kernel(V, W, w_live=w_live,
+                                  instrument=True)(*args)
+    rv, rb, rf = L.get_kernel(V, W, w_live=w_live)(*args)
+    n = args[0].shape[0] if held is None else min(held, args[0].shape[0])
+    sub = [a[:n] for a in args[:3]] + [args[3] if args[3].dim() == 2
+                                       else args[3][:n]]
+    pi = torch.zeros(n, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L.plain_wgl(*sub, 0, *L.initial_carry(n, V, W, dev), V=V, W=W,
+                w_live=w_live, iters=pi)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ki = ki.to(torch.int64)
+    equal = (torch.equal(ki[:n], pi) and torch.equal(kv, rv)
+             and torch.equal(kb, rb) and torch.equal(kf, rf))
+    err = max(tensors_err(kb, rb), tensors_err(kf, rf),
+              tensors_err(kv, rv),
+              int((ki[:n] - pi).abs().max()) if n else 0)
+    return equal, err, ki, int((~kv).sum()), plain_s
+
+
+def instrument_launches(L, buckets, dev, instrument):
+    """Prepared launches of the instrumented entry (or K1's) over whole
+    buckets, for time_launches."""
+    out = []
+    for b in buckets:
+        a = bucket_args(b, dev)
+        kw = dict(V=b.V, W=b.W, w_live=b.eff_w_live)
+        if instrument:
+            kw["iters"] = torch.zeros(b.batch, dtype=torch.int32,
+                                      device=dev)
+        out.append(prepared_single(L, *a, 0,
+                                   *L.initial_carry(b.batch, b.V, b.W, dev),
+                                   **kw))
+    return out
+
+
+def instrument_times(L, buckets, dev) -> dict:
+    """The instrumented entry and K1 on the same buckets in one call:
+    kernel alone (time_launches) and through the wrappers (CUDA events
+    around the check calls)."""
+    argsets = [(b, bucket_args(b, dev)) for b in buckets]
+
+    def wrapped(instrument):
+        kerns = [L.get_kernel(b.V, b.W, w_live=b.eff_w_live,
+                              instrument=instrument) for b, _ in argsets]
+        return lambda: [k(*a) for k, (_, a) in zip(kerns, argsets)]
+
+    return {"ms": time_launches(instrument_launches(L, buckets, dev, True),
+                                reps=3),
+            "k1_ms": time_launches(instrument_launches(L, buckets, dev,
+                                                       False), reps=3),
+            "wrapper_ms": time_cuda(wrapped(True), reps=3),
+            "k1_wrapper_ms": time_cuda(wrapped(False), reps=3)}
+
+
+def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound):
+    """The instrumented entry (K2 instrument) against the plain version's
+    pass count bit for bit, and against K1's valid, bad and frontier:
+    random cases at every edge of its plan, then the north-star bucket
+    and the keyed headline's dispatched buckets, which its path
+    (``measure_closure_iters``) measures with the launch counts set to 0
+    just before."""
+    out = {"phase": "instrument_parity", "cases": []}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2026)
+    max_err, tiers = 0, set()
+    for V, W, wl, K1, shared in INSTRUMENT_CASES:
+        args = random_tables(rng, 64, RANDOM_EVENTS, V, W, wl, K1, shared,
+                             dev)
+        eq, err, passes, inv, _ = instrument_vs(args, V, W, wl, dev, L)
+        plan = L.cuda_wgl.smem_plan(V, W, wl, K1=K1, shared_target=shared,
+                                    instrument=True)
+        tiers.add(plan["tier"])
+        live_pads = int(((args[0] == 0)[..., None]
+                         & (args[2][..., :wl or W] >= 0)
+                         & (args[2][..., :wl or W] < K1 - 1)).any(-1).sum())
+        out["cases"].append({"V": V, "W": W, "w_live": wl, "K1": K1,
+                             "shared_target": shared, "rows": 64,
+                             "events": RANDOM_EVENTS, "invalid": inv,
+                             "pads_with_live_kinds": live_pads,
+                             "passes": int(passes.sum()),
+                             "tier": plan["tier"], "equal": eq})
+        require(eq, f"instrumented != plain/K1 on random tables V={V} "
+                    f"W={W}")
+        require(inv > 0 and live_pads > 0,
+                f"case V={V} W={W} has no failing row or no live pad")
+        max_err = max(max_err, err)
+    require(tiers == {"block", "device"},
+            f"the instrumented cases missed a tier: {sorted(tiers)}")
+
+    # The path: measure_closure_iters on the north-star bucket and on the
+    # keyed headline's dispatched buckets.
+    zero_counts(L)
+    L.cuda_wgl.INSTRUMENT_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_ns = L.measure_closure_iters(ns_buckets, device=dev)
+    m_hl = L.measure_closure_iters(hl_buckets, device=dev)
+    measure_s = time.perf_counter() - t0
+    launches = L.cuda_wgl.INSTRUMENT_LAUNCHES
+    others = counts(L)
+    require(launches > 0, "measure_closure_iters did not launch the "
+                          "instrumented entry")
+    require(not any(others.values()),
+            f"measure_closure_iters launched another kernel: {others}")
+
+    # Each real bucket again: passes against the plain version (the
+    # north-star bucket whole, the others on their first rows), outputs
+    # against K1, and the totals against the path's.
+    real = []
+    for label, bs, m in (("north_star", ns_buckets, m_ns),
+                         ("headline", hl_buckets, m_hl)):
+        total, plain_s = 0, 0.0
+        for b in bs:
+            held = None if label == "north_star" else INSTRUMENT_HELD_ROWS
+            eq, err, passes, inv, ps = instrument_vs(
+                bucket_args(b, dev), b.V, b.W, b.eff_w_live, dev, L, held)
+            require(eq, f"instrumented != plain/K1 on the {label} bucket "
+                        f"V={b.V} W={b.W}")
+            max_err = max(max_err, err)
+            total += int(passes.sum())
+            plain_s += ps
+        require(total == m["iters"], f"{label}: passes {total} != "
+                                     f"measure_closure_iters {m['iters']}")
+        real.append({"batch": label, "buckets": len(bs),
+                     "rows": sum(b.batch for b in bs),
+                     "closure_iters_total": m["iters"],
+                     "vpu_lane_ops": m["lane_ops"],
+                     "plain_s": plain_s, **instrument_times(L, bs, dev)})
+    out.update(launches=launches, measure_closure_iters_s=measure_s,
+               batches=real, max_abs_err=max_err,
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    ns = real[0]
+    return {"launches": launches, "max_abs_err": max_err,
+            "ms": ns["ms"], "wrapper_ms": ns["wrapper_ms"],
+            "k1_ms": ns["k1_ms"], "plain_ms": ns["plain_s"] * 1e3,
+            "bound_ms": ns_bound["bound_ms"],
+            "bound_by": ns_bound["bound_by"],
+            "headline": {k: real[1][k] for k in (
+                "buckets", "rows", "ms", "k1_ms", "wrapper_ms",
+                "k1_wrapper_ms", "closure_iters_total", "vpu_lane_ops")}}
+
+
+# The fault phases' WGL batch: the keyed headline's shape, its count cut
+# from 10,000 to 1,000 histories to keep the run's time.
+FAULT_SPEC = dict(HEADLINE_SPEC, n=1_000)
+FAULT_STICKY_ROWS = 32
+# Rows per chunk of the killed and resumed runs: several chunks retire
+# before the kill.
+FAULT_CHUNK_ROWS = 256
+# The recovery each single schedule must show in the stats.
+ENGAGED = {"oom": "oom_events", "timeout": "watchdog_fired",
+           "wedge": "watchdog_fired", "corrupt": "corrupt_chunks"}
+
+
+def engaged(inj, stats, name) -> dict:
+    """A schedule fired, and its recovery shows in the stats."""
+    kind = name.split("@")[0]
+    require(inj.log, f"schedule {name} never fired")
+    require(stats["faults_injected"] == len(inj.log),
+            f"{name}: faults_injected {stats['faults_injected']} != "
+            f"{len(inj.log)}")
+    require(stats[ENGAGED[kind]] >= 1 and stats["retries"] >= 1,
+            f"{name}: the ladder did not engage: {stats}")
+    return {k: stats[k] for k in ("retries", "oom_events", "bisections",
+                                  "watchdog_fired", "corrupt_chunks",
+                                  "quarantined_rows", "faults_injected")}
+
+
+def phase_wgl_faults(dev, L, S, cas):
+    """The WGL checker under the checker nemesis on the card: every
+    single-fault schedule, a sticky corruption, a kill and a resume from
+    the chunk journal, and a run launched on a side stream."""
+    import tempfile
+
+    from jepsen_torch.ops.faults import (FaultInjector, FaultPlan,
+                                         InjectedKill, single_fault_schedules)
+    from jepsen_torch.store import ChunkJournal, spec_digest
+    spec = S.SynthSpec(**FAULT_SPEC)
+    t_phase = time.perf_counter()
+    out = {"phase": "wgl_faults", "spec": FAULT_SPEC, "schedules": []}
+
+    def run(**kw):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, b = L.check_synth(cas(), spec, stats_out=stats, **kw)
+        return v, b, stats, time.perf_counter() - t0
+
+    fv, fb, fstats, fs = run()
+    ev, eb, _, es = run(scheduler=False)
+    require(np.array_equal(fv, ev) and np.array_equal(fb, eb),
+            "fault-free scheduler != scheduler=False")
+    require(fstats["retries"] == 0 and fstats["quarantined_rows"] == 0,
+            "the fault-free run walked the ladder")
+    out.update(fault_free_s=fs, exact_s=es, invalid=int((~fv).sum()),
+               dispatches=fstats["dispatches"])
+    for name, plan in single_fault_schedules():
+        inj = FaultInjector(plan)
+        v, b, stats, s = run(faults=inj)
+        require(np.array_equal(v, fv) and np.array_equal(b, fb),
+                f"{name}: verdicts differ from the fault-free run")
+        out["schedules"].append({"schedule": name, "s": s,
+                                 "log": inj.log,
+                                 **engaged(inj, stats, name)})
+
+    # A run launched on a side stream: the retire threads copy back on
+    # the launch's stream.
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        v, b, _, s = run()
+    require(np.array_equal(v, fv) and np.array_equal(b, fb),
+            "a side-stream run differs from the fault-free run")
+    out["side_stream_s"] = s
+
+    # Sticky corruption on the first rows: every row quarantined to the
+    # host oracle, verdicts unchanged.
+    sub, _ = S.synth_cas_device(spec, rows=(0, FAULT_STICKY_ROWS),
+                                key_meta=False)
+    inj = FaultInjector(FaultPlan.sticky("decode", "corrupt"))
+    stats = {}
+    t0 = time.perf_counter()
+    v, b = L.check_columnar(cas(), sub, faults=inj, stats_out=stats,
+                            scheduler_opts={"max_retries": 1})
+    sticky_s = time.perf_counter() - t0
+    dstats = {}
+    L.check_columnar(cas(), sub, stats_out=dstats)
+    require(np.array_equal(v, fv[:FAULT_STICKY_ROWS])
+            and np.array_equal(b, fb[:FAULT_STICKY_ROWS]),
+            "sticky corruption: verdicts differ from the fault-free run")
+    require(stats["quarantined_rows"] == dstats["rows"] > 0,
+            f"sticky corruption quarantined {stats['quarantined_rows']} of "
+            f"{dstats['rows']} rows")
+    out["sticky_corrupt"] = {"histories": FAULT_STICKY_ROWS,
+                             "rows": dstats["rows"], "s": sticky_s,
+                             "quarantined_rows": stats["quarantined_rows"],
+                             "corrupt_chunks": stats["corrupt_chunks"]}
+
+    # Kill at decode chunk 2 with a journal, then resume from it.
+    opts = {"chunk_rows": FAULT_CHUNK_ROWS}
+    with tempfile.TemporaryDirectory() as tmp:
+        key = {"spec": spec_digest(spec), "model": "cas-register"}
+        path = os.path.join(tmp, "wgl.journal.jsonl")
+        j1 = ChunkJournal(path, key)
+        try:
+            run(faults=FaultInjector(FaultPlan.single("decode", "kill",
+                                                      chunk=2)),
+                journal=j1, scheduler_opts=opts)
+            require(False, "the kill did not fire")
+        except InjectedKill:
+            pass
+        j1.close()
+        j2 = ChunkJournal(path, key, resume=True)
+        decided = len(j2.decided())
+        L.DISPATCH_LOG.clear()
+        v, b, stats, s = run(journal=j2, scheduler_opts=opts)
+        logged = sum(n for _, _, _, n in L.DISPATCH_LOG)
+        j2.finish()
+    require(np.array_equal(v, fv) and np.array_equal(b, fb),
+            "resumed verdicts differ from the fault-free run")
+    subs = fstats["rows"]
+    require(0 < decided < subs, f"the journal held {decided} of {subs}")
+    require(stats["rows"] == subs - decided and logged <= subs - decided,
+            f"resume re-dispatched decided rows: {stats['rows']} rows "
+            f"scheduled, {logged} logged, {subs - decided} undecided")
+    out["kill_resume"] = {"rows": subs, "journaled": decided,
+                          "resumed_rows_scheduled": stats["rows"],
+                          "dispatch_log_rows": logged,
+                          "dispatches": stats["dispatches"],
+                          "resume_s": s}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+GRAPH_FAULT_CHUNK_ROWS = 256
+PROVENANCE = {"device", "device-retried", "host-fallback"}
+
+
+def same_but_provenance(got, want, label) -> int:
+    """Result dicts equal field for field but provenance, which must be
+    a legal tag; returns the rows off the happy path."""
+    off = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(len(got) == len(want)
+                and {**g, "provenance": None} == {**w, "provenance": None},
+                f"{label}: row {i} differs from the fault-free run")
+        require(g["provenance"] in PROVENANCE, f"{label}: row {i} tag")
+        off += g["provenance"] != "device"
+    return off
+
+
+def phase_graph_faults(dev):
+    """The graph and isolation checkers under the checker nemesis on the
+    card: the bench batches under every single-fault schedule, and a
+    kill and a resume from the chunk journal each."""
+    import tempfile
+
+    from jepsen_torch.checkers.cycle import check_graphs_batch
+    from jepsen_torch.isolation import certify_batch
+    from jepsen_torch.ops.faults import (FaultInjector, FaultPlan,
+                                         InjectedKill, single_fault_schedules)
+    from jepsen_torch.ops.graph import extract_graph
+    from jepsen_torch.ops.synth_txn import TxnSpec, synth_txn_batch
+    from jepsen_torch.ops.txn_graph import extract_txn_graph
+    from jepsen_torch.store import ChunkJournal
+    from jepsen_torch.workloads.synth import synth_la_history
+    t_phase = time.perf_counter()
+    graphs = [extract_graph(synth_la_history(
+        s, n_ops=30, corrupt=1.0 if s % 7 == 0 else 0.0), "list-append")
+        for s in range(GRAPH_BENCH_HISTORIES)]
+    txns = [extract_txn_graph(h) for h, _ in synth_txn_batch(
+        TxnSpec(**ISO_BENCH))]
+    out = {"phase": "graph_faults", "batches": []}
+    for label, fn, items in (("graph_bench", check_graphs_batch, graphs),
+                             ("isolation_bench", certify_batch, txns)):
+        base = fn(items)
+        rec = {"batch": label, "rows": len(items), "schedules": []}
+        for name, plan in single_fault_schedules():
+            inj = FaultInjector(plan)
+            stats = {}
+            t0 = time.perf_counter()
+            got = fn(items, faults=inj, stats_out=stats)
+            s = time.perf_counter() - t0
+            off = same_but_provenance(got, base, f"{label} {name}")
+            require(off > 0, f"{label} {name}: no row records a recovery")
+            rec["schedules"].append({"schedule": name, "s": s,
+                                     "recovered_rows": off,
+                                     **engaged(inj, stats, name)})
+        opts = {"chunk_rows": GRAPH_FAULT_CHUNK_ROWS}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{label}.journal.jsonl")
+            key = {"batch": label}
+            j1 = ChunkJournal(path, key)
+            try:
+                fn(items, faults=FaultInjector(FaultPlan.single(
+                    "dispatch", "kill", chunk=1)), journal=j1,
+                   scheduler_opts=opts)
+                require(False, f"{label}: the kill did not fire")
+            except InjectedKill:
+                pass
+            j1.close()
+            j2 = ChunkJournal(path, key, resume=True)
+            decided = len(j2.decided())
+            stats = {}
+            got = fn(items, journal=j2, scheduler_opts=opts,
+                     stats_out=stats)
+            j2.finish()
+        require(0 < decided < len(items),
+                f"{label}: the journal held {decided} rows")
+        require(stats["graphs"] == len(items) - decided,
+                f"{label}: resume re-dispatched decided rows")
+        # A resumed row is bare: its verdict and class (the graph
+        # anomaly, or the isolation level) without a witness.
+        cls = "level" if "level" in base[0] else "anomaly"
+        for i, (g, w) in enumerate(zip(got, base)):
+            require(g["valid"] == w["valid"] and g[cls] == w[cls],
+                    f"{label}: resumed row {i} differs")
+            if not g.get("resumed"):
+                require(g == w, f"{label}: fresh row {i} differs")
+        rec["kill_resume"] = {"journaled": decided,
+                              "resumed_rows_dispatched": stats["graphs"]}
+        out["batches"].append(rec)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def phase_real_oom(dev, L):
+    """classify_failure on real failures of the card: an allocation far
+    past its memory (torch's OutOfMemoryError, "oom"), a launch the
+    kernel library refuses (another CUDA error: None), and the library's
+    cudaErrorMemoryAllocation code ("oom"); the allocator gives back what
+    the failed attempt took."""
+    import ctypes
+
+    from jepsen_torch.ops import _build
+    from jepsen_torch.ops.faults import classify_failure
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        torch.empty(4 * total, dtype=torch.uint8, device=dev)
+        require(False, "an allocation of 4x the card's memory succeeded")
+    except torch.cuda.OutOfMemoryError as e:
+        oom = classify_failure(e)
+    after = torch.cuda.memory_allocated(dev)
+    require(oom == "oom", f"a real OutOfMemoryError classified {oom!r}")
+    require(after == before, f"memory_allocated {before} -> {after}")
+    lib = L.cuda_wgl._library()
+    group = L.cuda_wgl._Group()           # no members: refused
+    try:
+        L.cuda_wgl._raise_on(lib, lib.wgl_frontier_group_launch(
+            ctypes.byref(group), 8 * 32, 0,
+            L.cuda_wgl._stream(dev)), "wgl_frontier_group")
+        require(False, "a group of no members launched")
+    except _build.CudaLaunchError as e:
+        refused = {"code": e.code, "class": classify_failure(e),
+                   "message": str(e)}
+    require(refused["class"] is None, f"a refused launch: {refused}")
+    alloc = _build.CudaLaunchError(
+        "wgl_frontier", _build.CUDA_ERROR_MEMORY_ALLOCATION,
+        lib.wgl_frontier_error(_build.CUDA_ERROR_MEMORY_ALLOCATION)
+        .decode())
+    require(classify_failure(alloc) == "oom",
+            "cudaErrorMemoryAllocation is not an oom")
+    torch.cuda.synchronize()
+    out = {"phase": "real_oom", "requested_bytes": 4 * total,
+           "oom_class": oom, "memory_allocated_before": before,
+           "memory_allocated_after": after, "refused_launch": refused,
+           "memory_allocation_code": {"message": str(alloc),
+                                      "class": classify_failure(alloc)}}
+    emit(out)
+    return out
+
+
 def build_kernels(L, cuda_synth):
     """Build the five kernel libraries at once (one nvcc each, in
     parallel)."""
@@ -2858,10 +3351,56 @@ def closure_entry(name, replaces, path, bench, wide, parity_err) -> dict:
                             **{k: kb[k] for k in keys}}}
 
 
+# The keyed headline timed alone in another checkout of the package (its
+# own build and import), for comparing two trees on one card.
+HEADLINE_CHILD = r"""
+import json, sys, time
+import torch
+from jepsen_torch.models.core import cas_register
+from jepsen_torch.ops import linearize as L
+from jepsen_torch.ops import synth_device as S
+kw, reps = json.loads(sys.argv[1]), int(sys.argv[2])
+L.check_synth(cas_register(), S.SynthSpec(**dict(kw, n=64)))   # build, warm
+runs = []
+for _ in range(reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L.check_synth(cas_register(), S.SynthSpec(**kw))
+    torch.cuda.synchronize()
+    runs.append(time.perf_counter() - t0)
+print(json.dumps(runs))
+"""
+
+
+def headline_compare(trees, reps: int = 2) -> None:
+    """The default check_synth on the keyed headline spec in each
+    checkout of ``trees``, in the order given (for example parent,
+    change, change, parent), each in a process of its own that builds
+    that tree's kernels: seconds and histories per second per run."""
+    out = {"phase": "headline_compare", "spec": HEADLINE_SPEC, "runs": []}
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        p = subprocess.run(
+            [sys.executable, "-c", HEADLINE_CHILD, json.dumps(HEADLINE_SPEC),
+             str(reps)], cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
+            capture_output=True, text=True, timeout=1200)
+        require(p.returncode == 0, f"{tree}: {p.stderr[-2000:]}")
+        runs = json.loads(p.stdout.strip().splitlines()[-1])
+        out["runs"].append({"tree": tree, "check_synth_s": runs,
+                            "histories_per_s": [HEADLINE_SPEC["n"] / t
+                                                for t in runs]})
+    emit(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--headline"]:
+        smi = nvidia_smi()
+        headline_compare(sys.argv[2:])
+        print(smi, flush=True)
+        return 0
     from jepsen_torch.checkers.linearizable import prepare_history, wgl_check
     from jepsen_torch.models.core import cas_register
     from jepsen_torch.ops import cuda_synth
@@ -2910,6 +3449,13 @@ def main() -> int:
         oracle = RwOracle(pool)
         probe, dch, dcf, dcw = phase_dc_path(dev, L, oracle)
         route = phase_route_check(dev, L, pool, oracle)
+    # The fault ladder's phases, after every kernel is built.
+    inst = phase_instrument_parity(dev, L, main_k.pop("buckets"),
+                                   sched.pop("buckets"),
+                                   main_k["wgl_frontier"])
+    phase_wgl_faults(dev, L, S, cas_register)
+    phase_graph_faults(dev)
+    phase_real_oom(dev, L)
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
 
     def dc_launches(entry):
@@ -2982,7 +3528,17 @@ def main() -> int:
                    fold_err),
         fold_entry("fifo_scan", "jepsen_tpu/ops/folds.py:574", folds,
                    fold_err),
-        dc_entry(probe, (dch, dcf, dcw), route, dc_err)]})
+        dc_entry(probe, (dch, dcf, dcw), route, dc_err), {
+        "name": "wgl_frontier_instrument", "route": "cuda",
+        "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
+        "replaces": "jepsen_tpu/ops/linearize.py:158,243",
+        "launches": inst["launches"],
+        "launches_by_path": {"measure_closure_iters": inst["launches"]},
+        "parity": True, "max_abs_err": inst["max_abs_err"],
+        "ms": inst["ms"], "wrapper_ms": inst["wrapper_ms"],
+        "plain_ms": inst["plain_ms"], "bound_ms": inst["bound_ms"],
+        "bound_by": inst["bound_by"], "library_ms": None,
+        "k1_ms": inst["k1_ms"], "headline": inst["headline"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ each history satisfies (ops.txn_graph), the ladder's 5 cycle planes
 closed on the card by the closure kernel's txn entry through the
 parameterized ops.schedule.GraphScheduler. ``JT_TXN_DEVICE=0`` is the
 restore switch: every history certifies on the host oracle
-``check_txn_host`` and nothing is launched. The reference's checker
-nemesis and chunk journal come with the fault-ladder slice, and its live
-monitor (IncrementalIsolation) with the online slice.
+``check_txn_host`` and nothing is launched. The checker nemesis
+(``faults=``) and the chunk journal (``journal=``, ``bad`` holding
+``LADDER.index(level)``) ride the scheduler's degradation ladder as in
+checkers.cycle; quarantined rows are re-decided by the host oracle. The
+live monitor (IncrementalIsolation) comes with the online slice.
 """
 from __future__ import annotations
 
@@ -18,12 +20,11 @@ import time
 from typing import List, Optional, Sequence
 
 from .checkers.core import Checker
-from .checkers.cycle import _refuse_ladder
 from .ops.graph import DepGraph
-from .ops.txn_graph import (N_CYC_PLANES, check_txn_host, close_txn_planes,
-                            encode_txn_graphs, extract_txn_graph,
-                            iso_abbrev, ladder_verdict, refine_txn_witness,
-                            txn_op_model, txn_result)
+from .ops.txn_graph import (LADDER, N_CYC_PLANES, check_txn_host,
+                            close_txn_planes, encode_txn_graphs,
+                            extract_txn_graph, iso_abbrev, ladder_verdict,
+                            refine_txn_witness, txn_op_model, txn_result)
 
 __all__ = ["certify_batch", "certify_host", "IsolationChecker",
            "HostIsolationChecker", "iso_abbrev"]
@@ -48,6 +49,40 @@ def _decide(g: DepGraph, cyc, provenance: str) -> dict:
     return txn_result(g, level, anomaly, witness, provenance)
 
 
+def _rehydrate(g: DepGraph, valid, bad, prov) -> dict:
+    """A journal-resumed verdict: bare (level only, no witness), as in
+    checkers.cycle."""
+    level = "serializability" if valid else LADDER[int(bad)]
+    out = txn_result(g, level, None, None, prov)
+    out["valid"] = bool(valid)      # the journal is authoritative
+    out["resumed"] = True
+    return out
+
+
+def _chunk_recorder(sch, journal, graphs):
+    """on_chunk hook journaling ladder verdicts as chunks retire;
+    ``bad`` holds LADDER.index(level). Quarantined rows journal only
+    when the host oracle decides them."""
+    def on_chunk(bucket, lo, hi, cyc, node):
+        rows, vals, bads, provs = [], [], [], []
+        for r in range(lo, hi):
+            i = bucket.indices[r]
+            if i in sch.quarantined:
+                continue
+            g = graphs[i]
+            level, _, _ = ladder_verdict(
+                bool(g.meta.get("g1a_reads")),
+                bool(g.meta.get("g1b_reads")), cyc[r - lo])
+            valid = level == "serializability"
+            rows.append(i)
+            vals.append(valid)
+            bads.append(None if valid else LADDER.index(level))
+            provs.append(sch.row_provenance.get(i, "device"))
+        if rows:
+            journal.record(rows, vals, bads, provs)
+    return on_chunk
+
+
 def certify_host(items: Sequence) -> List[dict]:
     """Host-oracle certification for a batch (the JT_TXN_DEVICE=0
     path)."""
@@ -62,28 +97,52 @@ def certify_batch(items: Sequence, *, faults=None, journal=None,
     """Certify a batch of transactional histories (or pre-extracted
     DepGraphs) at their highest satisfied isolation level on ``device``
     (the card unless the caller names another); one result dict per
-    input (ops.txn_graph.txn_result shape), rows tagged ``device``, or
-    ``host`` under JT_TXN_DEVICE=0. ``stats_out`` and ``timings`` as in
-    checkers.cycle.check_graphs_batch."""
+    input (ops.txn_graph.txn_result shape), rows tagged ``device`` /
+    ``device-retried`` / ``host-fallback``, or ``host`` under
+    JT_TXN_DEVICE=0. ``faults``, ``journal``, ``stats_out`` and
+    ``timings`` as in checkers.cycle.check_graphs_batch."""
     from .ops.schedule import GraphScheduler
-    _refuse_ladder(faults, journal)
     if not device_enabled():
-        return certify_host(items)
+        graphs = _as_graphs(items)
+        results = certify_host(graphs)
+        if journal is not None:
+            for i, r in enumerate(results):
+                bad = None if r["valid"] else LADDER.index(r["level"])
+                journal.record([i], [r["valid"]], [bad], ["host"])
+        return results
     t0 = time.perf_counter()
     graphs = _as_graphs(items)
     t1 = time.perf_counter()
-    sch = GraphScheduler(family="txn", kernel=close_txn_planes,
-                         levels=N_CYC_PLANES, op_model=txn_op_model,
-                         device=device, **(scheduler_opts or {}))
-    buckets = encode_txn_graphs(graphs)
-    t2 = time.perf_counter()
     results: List[Optional[dict]] = [None] * len(graphs)
+    if journal is not None:
+        for i, (valid, bad, prov) in journal.decided().items():
+            if 0 <= i < len(graphs):
+                results[i] = _rehydrate(graphs[i], valid, bad, prov)
+    todo = [i for i, r in enumerate(results) if r is None]
+    sch = GraphScheduler(faults=faults, family="txn",
+                         kernel=close_txn_planes, levels=N_CYC_PLANES,
+                         op_model=txn_op_model, device=device,
+                         **(scheduler_opts or {}))
+    if journal is not None:
+        sch.on_chunk = _chunk_recorder(sch, journal, graphs)
+    buckets = encode_txn_graphs([graphs[i] for i in todo], indices=todo)
+    t2 = time.perf_counter()
     refine_s = 0.0
     for bucket, (cyc, node) in sch.run(buckets):
         tr = time.perf_counter()
         for r, i in enumerate(bucket.indices):
-            results[i] = _decide(graphs[i], cyc[r], "device")
+            if i in sch.quarantined:
+                continue           # placeholder; host-decided below
+            results[i] = _decide(graphs[i], cyc[r],
+                                 sch.row_provenance.get(i, "device"))
         refine_s += time.perf_counter() - tr
+    for i, reason in sch.quarantined.items():
+        r = check_txn_host(graphs[i], provenance="host-fallback")
+        r["quarantine_reason"] = reason
+        results[i] = r
+        if journal is not None:
+            bad = None if r["valid"] else LADDER.index(r["level"])
+            journal.record([i], [r["valid"]], [bad], ["host-fallback"])
     if stats_out is not None:
         stats_out.update(sch.stats)
     if timings is not None:

@@ -27,6 +27,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # this process's builds.
 BUILD_LOGS: Dict[str, str] = {}
 
+# cudaErrorMemoryAllocation: the one launch error the fault ladder treats
+# as an out-of-memory (ops.faults.classify_failure).
+CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
+class CudaLaunchError(RuntimeError):
+    """A kernel's C entry returned a CUDA error: ``code`` is the
+    cudaError_t, ``entry`` the kernel's name."""
+
+    def __init__(self, entry: str, code: int, message: str):
+        super().__init__(f"{entry} launch failed: {message}")
+        self.entry, self.code = entry, int(code)
+
 
 def build_library(src: Path, symbols: Dict[str, Tuple[Sequence, object]]
                   ) -> ctypes.CDLL:

@@ -77,6 +77,20 @@
 //     tier's body with the frontier in the row's slice of the output
 //     tensor, for frontiers past the 227 KB a block may use.
 //
+// The instrumented entry (wgl_instrument_kernel) replaces the fourth
+// output of make_kernel(instrument=True) (jepsen_tpu/ops/linearize.py:158,
+// :243): each row's closure while_loop passes, summed over EVERY event of
+// its event axis. That count depends on the reference's schedule, slots
+// 0..WL-1 applied in place in order and then one whole-frontier change
+// test, which is the block tier's closure; the warp tier propagates only
+// new configurations and skips pads, so it cannot count it. The entry is
+// the block tier's row body with the counter switched on: a pad event's
+// closure runs on a scratch copy of the frontier (beside it in shared
+// memory, or the row's scratch slice in device memory) and is dropped, a
+// closure whose slots reach no state counts one pass, and a failed row's
+// every later event counts one (the closure of its empty frontier). Its
+// valid, bad and frontier are K1's, bit for bit.
+//
 // The group entry (wgl_frontier_group_kernel) replaces the TPU dispatch
 // group jepsen_tpu/ops/linearize.py::make_fused_kernel: one XLA call that
 // scans several class buckets of different shapes back to back. Here it is
@@ -136,6 +150,66 @@ __device__ __forceinline__ int load_kind(const void* slots, long long at,
                    : static_cast<const int8_t*>(slots)[at];
 }
 
+// The block tier's closure of the frontier Fw under the staged rows of the
+// live slots, slot by slot in place to a fixpoint. Returns the number of
+// sweeps, the last one (which changes nothing) included; block-uniform.
+__device__ __forceinline__ int block_closure(uint32_t* Fw,
+                                             const uint32_t* rows,
+                                             uint32_t live, int WL, int NW,
+                                             int V, uint32_t M, uint32_t P,
+                                             int tid, int nt) {
+  int passes = 0;
+  int changed;
+  do {
+    int ch = 0;
+    for (int i = 0; i < WL; ++i) {
+      if (!((live >> i) & 1u)) continue;
+      const uint32_t bit = 1u << i;
+      const uint32_t* r = rows + i * NW * V;
+      for (uint32_t p = tid; p < P; p += nt) {
+        const uint32_t m0 = pair_mask(p, i);
+        uint32_t s0 = Fw[m0];
+        uint32_t s1 = NW > 1 ? Fw[M + m0] : 0u;
+        if (!(s0 | s1)) continue;
+        uint32_t n0 = 0u, n1 = 0u;
+        while (s0) {
+          const int s = __ffs(s0) - 1;
+          s0 &= s0 - 1u;
+          if (s < V) {
+            n0 |= r[s];
+            if (NW > 1) n1 |= r[V + s];
+          }
+        }
+        while (s1) {
+          const int s = 32 + __ffs(s1) - 1;
+          s1 &= s1 - 1u;
+          if (s < V) {
+            n0 |= r[s];
+            n1 |= r[V + s];
+          }
+        }
+        const uint32_t m1 = m0 | bit;
+        const uint32_t o0 = Fw[m1];
+        if (n0 & ~o0) {
+          Fw[m1] = o0 | n0;
+          ch = 1;
+        }
+        if (NW > 1) {
+          const uint32_t o1 = Fw[M + m1];
+          if (n1 & ~o1) {
+            Fw[M + m1] = o1 | n1;
+            ch = 1;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    changed = __syncthreads_or(ch);
+    ++passes;
+  } while (changed);
+  return passes;
+}
+
 // The block and device-memory tiers: one row's walk over its N events by
 // a whole block, under both entries. `et`, `es` and `ev_slots` are the
 // row's event tables (its slot table at element offset `slots_base`, Wt
@@ -144,7 +218,10 @@ __device__ __forceinline__ int load_kind(const void* slots, long long at,
 // frontier_in_smem the frontier lives in shared memory after the staged
 // transition rows and is copied back to Fg at the end, unless Fbg aliases
 // Fg and the row has failed: then Fg keeps the latched closure (the group
-// entry's output).
+// entry's output). kInstrument is the instrumented entry's body: Sg is the
+// row's scratch frontier in device memory (used when the frontier is not
+// in shared memory) and *iters_p gets the row's closure passes.
+template <bool kInstrument>
 __device__ void wgl_row(const int8_t* __restrict__ et,
                         const int8_t* __restrict__ es,
                         const void* __restrict__ ev_slots,
@@ -152,7 +229,8 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
                         int slots_i32, const int32_t* __restrict__ tg,
                         uint32_t* Fg, uint32_t* Fbg, uint8_t* valid_p,
                         int32_t* bad_p, int N, int Wt, int K1, int V, int NW,
-                        int W, int WL, int idx0, int frontier_in_smem) {
+                        int W, int WL, int idx0, int frontier_in_smem,
+                        uint32_t* Sg, int32_t* iters_p) {
   extern __shared__ uint32_t smem[];
   __shared__ uint32_t live_slots;
 
@@ -165,6 +243,9 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
   // [WL][NW][V] packed one-hot target rows of this event's slots.
   uint32_t* rows = smem;
   uint32_t* Fw = frontier_in_smem ? smem + WL * NW * V : Fg;
+  // The instrumented body's scratch frontier for pad events' closures.
+  uint32_t* Sw = frontier_in_smem ? Fw + NWM : Sg;
+  int32_t sweeps = 0;
 
   if (frontier_in_smem) {
     for (uint32_t m = tid; m < NWM; m += nt) Fw[m] = Fg[m];
@@ -179,9 +260,12 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
     const int typ = et[e];
     const bool is_ok = typ == kEvOk || typ == kEvFused;
     const bool is_close = typ == kEvClose;
-    if (!is_ok && !is_close) continue;  // EV_PAD: no-op, block-uniform
+    const bool is_live = is_ok || is_close;
+    // EV_PAD: a no-op, block-uniform (the instrumented body counts it).
+    if (!kInstrument && !is_live) continue;
     if (dead) {
       if (is_ok) first_bad = min(first_bad, idx0 + e);
+      if (kInstrument) sweeps += 1;  // the closure of an empty frontier
       continue;
     }
 
@@ -206,56 +290,24 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
     __syncthreads();
     const uint32_t live = live_slots;
 
-    // Closure to fixpoint, slot by slot in place.
-    if (live) {
-      int changed;
-      do {
-        int ch = 0;
-        for (int i = 0; i < WL; ++i) {
-          if (!((live >> i) & 1u)) continue;
-          const uint32_t bit = 1u << i;
-          const uint32_t* r = rows + i * NW * V;
-          for (uint32_t p = tid; p < P; p += nt) {
-            const uint32_t m0 = pair_mask(p, i);
-            uint32_t s0 = Fw[m0];
-            uint32_t s1 = NW > 1 ? Fw[M + m0] : 0u;
-            if (!(s0 | s1)) continue;
-            uint32_t n0 = 0u, n1 = 0u;
-            while (s0) {
-              const int s = __ffs(s0) - 1;
-              s0 &= s0 - 1u;
-              if (s < V) {
-                n0 |= r[s];
-                if (NW > 1) n1 |= r[V + s];
-              }
-            }
-            while (s1) {
-              const int s = 32 + __ffs(s1) - 1;
-              s1 &= s1 - 1u;
-              if (s < V) {
-                n0 |= r[s];
-                n1 |= r[V + s];
-              }
-            }
-            const uint32_t m1 = m0 | bit;
-            const uint32_t o0 = Fw[m1];
-            if (n0 & ~o0) {
-              Fw[m1] = o0 | n0;
-              ch = 1;
-            }
-            if (NW > 1) {
-              const uint32_t o1 = Fw[M + m1];
-              if (n1 & ~o1) {
-                Fw[M + m1] = o1 | n1;
-                ch = 1;
-              }
-            }
-          }
-          __syncthreads();
-        }
-        changed = __syncthreads_or(ch);
-      } while (changed);
+    if (kInstrument && !is_live) {
+      // A pad event: close a scratch copy, count its passes, drop it.
+      int passes = 1;
+      if (live) {
+        for (uint32_t m = tid; m < NWM; m += nt) Sw[m] = Fw[m];
+        __syncthreads();
+        passes = block_closure(Sw, rows, live, WL, NW, V, M, P, tid, nt);
+      }
+      sweeps += passes;
+      __syncthreads();
+      continue;
     }
+
+    // Closure to fixpoint, slot by slot in place (one pass counted when
+    // no slot reaches a state).
+    const int passes =
+        live ? block_closure(Fw, rows, live, WL, NW, V, M, P, tid, nt) : 1;
+    if (kInstrument) sweeps += passes;
 
     if (is_ok) {
       // The reference selects among WL static branches, so the slot index
@@ -299,6 +351,7 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
   if (tid == 0) {
     *valid_p = ok ? 1 : 0;
     *bad_p = first_bad;
+    if (kInstrument) *iters_p = sweeps;
   }
 }
 
@@ -845,11 +898,32 @@ __global__ void wgl_frontier_kernel(
     int frontier_in_smem) {
   const long long row = blockIdx.x;
   const long long NWM = static_cast<long long>(NW) << W;
-  wgl_row(ev_type + row * N, ev_slot + row * N, ev_slots,
-          row * static_cast<long long>(N) * Wt, slots_i32,
-          target + row * target_row_stride, F + row * NWM, Fb + row * NWM,
-          valid + row, bad + row, N, Wt, K1, V, NW, W, WL, idx0,
-          frontier_in_smem);
+  wgl_row<false>(ev_type + row * N, ev_slot + row * N, ev_slots,
+                 row * static_cast<long long>(N) * Wt, slots_i32,
+                 target + row * target_row_stride, F + row * NWM,
+                 Fb + row * NWM, valid + row, bad + row, N, Wt, K1, V, NW,
+                 W, WL, idx0, frontier_in_smem, nullptr, nullptr);
+}
+
+// The instrumented entry: the block tier's body with the pass counter on,
+// one block per row; `scratch` ([B][NW][2^W]) is read only when the
+// frontier is not in shared memory (then it may not be null).
+__global__ void wgl_instrument_kernel(
+    const int8_t* __restrict__ ev_type, const int8_t* __restrict__ ev_slot,
+    const void* __restrict__ ev_slots, int slots_i32,
+    const int32_t* __restrict__ target, long long target_row_stride,
+    uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad,
+    uint32_t* scratch, int32_t* iters, int N, int Wt, int K1, int V, int NW,
+    int W, int WL, int idx0, int frontier_in_smem) {
+  const long long row = blockIdx.x;
+  const long long NWM = static_cast<long long>(NW) << W;
+  wgl_row<true>(ev_type + row * N, ev_slot + row * N, ev_slots,
+                row * static_cast<long long>(N) * Wt, slots_i32,
+                target + row * target_row_stride, F + row * NWM,
+                Fb + row * NWM, valid + row, bad + row, N, Wt, K1, V, NW, W,
+                WL, idx0, frontier_in_smem,
+                frontier_in_smem ? nullptr : scratch + row * NWM,
+                iters + row);
 }
 
 // One member chunk of a group launch. Layout shared with the ctypes
@@ -910,10 +984,11 @@ wgl_frontier_group_kernel(const __grid_constant__ WglGroup g) {
   }
   const long long NWM = static_cast<long long>(mb.NW) << mb.W;
   uint32_t* Fg = mb.frontier + blk * NWM;
-  wgl_row(mb.ev_type + blk * mb.N, mb.ev_slot + blk * mb.N, mb.ev_slots,
-          blk * static_cast<long long>(mb.N) * mb.Wt, mb.slots_i32,
-          mb.target + blk * mb.target_row_stride, Fg, Fg, mb.valid + blk,
-          mb.bad + blk, mb.N, mb.Wt, mb.K1, mb.V, mb.NW, mb.W, mb.WL, 0, 1);
+  wgl_row<false>(mb.ev_type + blk * mb.N, mb.ev_slot + blk * mb.N,
+                 mb.ev_slots, blk * static_cast<long long>(mb.N) * mb.Wt,
+                 mb.slots_i32, mb.target + blk * mb.target_row_stride, Fg,
+                 Fg, mb.valid + blk, mb.bad + blk, mb.N, mb.Wt, mb.K1, mb.V,
+                 mb.NW, mb.W, mb.WL, 0, 1, nullptr, nullptr);
 }
 
 template <typename Kernel>
@@ -979,6 +1054,32 @@ extern "C" int wgl_frontier_launch(
         et, es, ev_slots, slots_i32, tg, target_row_stride, f, fb, v, bd, N,
         Wt, K1, V, NW, W, WL, idx0, tier == kTierBlock ? 1 : 0);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instrumented entry over B rows: B blocks of `threads`, the frontier
+// and its scratch copy in shared memory when frontier_in_smem, else both
+// in device memory (F and `scratch`); iters[b] gets row b's closure
+// passes over these N events.
+extern "C" int wgl_frontier_instrument_launch(
+    const void* ev_type, const void* ev_slot, const void* ev_slots,
+    int slots_i32, const void* target, long long target_row_stride,
+    void* F, void* Fb, void* valid, void* bad, void* scratch, void* iters,
+    int B, int N, int Wt, int K1, int V, int NW, int W, int WL, int idx0,
+    int frontier_in_smem, int threads, int smem_bytes, void* stream) {
+  if (!frontier_in_smem && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = allow_smem(wgl_instrument_kernel, smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wgl_instrument_kernel<<<B, threads, smem_bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(ev_type),
+      static_cast<const int8_t*>(ev_slot), ev_slots, slots_i32,
+      static_cast<const int32_t*>(target), target_row_stride,
+      static_cast<uint32_t*>(F), static_cast<uint32_t*>(Fb),
+      static_cast<uint8_t*>(valid), static_cast<int32_t*>(bad),
+      static_cast<uint32_t*>(scratch), static_cast<int32_t*>(iters), N, Wt,
+      K1, V, NW, W, WL, idx0, frontier_in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from ._build import build_library
+from ._build import CudaLaunchError, build_library
 
 SRC = Path(__file__).resolve().parent / "csrc" / "dc_peel.cu"
 
@@ -105,8 +105,8 @@ def prepare(inv: torch.Tensor, cluster: torch.Tensor, active: torch.Tensor,
                      decided.data_ptr(), rounds.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError("dc_peel launch failed: "
-                               + _library().dc_peel_error(err).decode())
+            raise CudaLaunchError(
+                "dc_peel", err, _library().dc_peel_error(err).decode())
         LAUNCHES += 1
     return launch, decided, rounds
 

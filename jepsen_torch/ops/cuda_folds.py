@@ -26,7 +26,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ._build import build_library
+from ._build import CudaLaunchError, build_library
 
 SRC = Path(__file__).resolve().parent / "csrc" / "folds.cu"
 
@@ -123,8 +123,8 @@ def _launcher(entry: str, dev: torch.device, B: int, call
         with torch.cuda.device(dev):
             err = call(torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"{entry} launch failed: "
-                               + _library().folds_error(err).decode())
+            raise CudaLaunchError(entry, err,
+                                  _library().folds_error(err).decode())
         LAUNCHES[entry] += 1
     return launch
 

@@ -25,7 +25,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from ._build import build_library
+from ._build import CudaLaunchError, build_library
 from .graph import words
 
 SRC = Path(__file__).resolve().parent / "csrc" / "graph_closure.cu"
@@ -122,9 +122,9 @@ def prepare(adj: torch.Tensor, V: int, entry: str = "graph"
                      scratch.data_ptr() if scratch is not None else None,
                      cyc.data_ptr(), node.data_ptr(), stream)
         if err != 0:
-            raise RuntimeError(
-                f"{entry}_closure launch failed: "
-                + _library().graph_closure_error(err).decode())
+            raise CudaLaunchError(
+                f"{entry}_closure", err,
+                _library().graph_closure_error(err).decode())
         if entry == "txn":
             TXN_LAUNCHES += 1
         else:

@@ -20,7 +20,7 @@ from typing import Dict
 
 import torch
 
-from ._build import build_library
+from ._build import CudaLaunchError, build_library
 
 SRC = Path(__file__).resolve().parent / "csrc" / "synth_device.cu"
 
@@ -73,8 +73,8 @@ def _check_rows(tensors: Dict[str, torch.Tensor]) -> torch.device:
 def _raise_on(err: int) -> None:
     global LAUNCHES
     if err != 0:
-        raise RuntimeError("synth_device launch failed: "
-                           + _library().synth_device_error(err).decode())
+        raise CudaLaunchError("synth_device", err,
+                              _library().synth_device_error(err).decode())
     LAUNCHES += 1
 
 

@@ -14,7 +14,11 @@ kernel does not take, and counts its launches in ``LAUNCHES``.
 ``wgl_frontier_group`` wraps the group entry, which checks several bucket
 chunks of different shapes in one launch (the counterpart of the
 reference's ``make_fused_kernel``), and counts its launches in
-``GROUP_LAUNCHES``. ``prepare_frontier`` and ``prepare_group`` do a
+``GROUP_LAUNCHES``. ``wgl_frontier(..., iters=)`` launches the
+instrumented entry instead (the counterpart of the reference's
+``make_kernel(instrument=True)``), which also counts each row's closure
+passes; its launches count in ``INSTRUMENT_LAUNCHES``.
+``prepare_frontier`` and ``prepare_group`` do a
 wrapper's checks and allocations and return the launch itself, so that a
 caller can time the kernel alone.
 
@@ -30,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from ._build import build_library
+from ._build import CudaLaunchError, build_library
 
 SRC = Path(__file__).resolve().parent / "csrc" / "wgl_frontier.cu"
 
@@ -72,6 +76,7 @@ TIERS = {"warp": 0, "block": 1, "device": 2}
 # the card.
 LAUNCHES = 0
 GROUP_LAUNCHES = 0
+INSTRUMENT_LAUNCHES = 0
 
 # Members one group launch takes (kMaxMembers in the source).
 MAX_GROUP_MEMBERS = 8
@@ -98,7 +103,8 @@ def table_bytes(K1: int, V: int, form: Optional[str] = None) -> int:
 
 
 def smem_plan(V: int, W: int, w_live: Optional[int] = None, *,
-              K1: int = 1, shared_target: bool = True) -> dict:
+              K1: int = 1, shared_target: bool = True,
+              instrument: bool = False) -> dict:
     """Static launch plan of one bucket: its tier, rows per block,
     threads and shared memory per block.
 
@@ -118,11 +124,17 @@ def smem_plan(V: int, W: int, w_live: Optional[int] = None, *,
     (``table_bytes``: once per block for a shared target, once per row
     otherwise); R is the largest of 8, 4, 2, 1 that keeps a block within
     WARP_SMEM_BYTES, and a table that fits no block stays in device
-    memory (``table_form`` "device", R = 8)."""
+    memory (``table_form`` "device", R = 8).
+
+    ``instrument=True`` plans the instrumented entry, which runs the block
+    tier's body at every W (the warp tier cannot count the reference's
+    closure passes) and keeps a scratch copy of the frontier beside it:
+    ``frontier_bytes`` counts both, in shared memory (block tier) or in
+    device memory (device-memory tier)."""
     NW, M = n_state_words(V), 1 << int(W)
     WL = W if w_live is None else max(1, min(int(w_live), W))
-    frontier = NW * M * 4
-    if W > W_WARP:
+    frontier = NW * M * 4 * (2 if instrument else 1)
+    if W > W_WARP or instrument:
         rows = WL * NW * V * 4
         resident = rows + frontier <= SMEM_LIMIT_BYTES
         return {"tier": "block" if resident else "device",
@@ -177,6 +189,9 @@ def _library():
             "wgl_frontier_launch": (
                 [p, p, p, i, p, ctypes.c_longlong, p, p, p, p]
                 + [i] * 14 + [p], ctypes.c_int),
+            "wgl_frontier_instrument_launch": (
+                [p, p, p, i, p, ctypes.c_longlong, p, p, p, p, p, p]
+                + [i] * 12 + [p], ctypes.c_int),
             "wgl_frontier_group_launch": ([p, i, i, p], ctypes.c_int),
             "wgl_frontier_group_desc_bytes": ([], ctypes.c_int),
             "wgl_frontier_warp_limits": ([ip, ip], ctypes.c_int),
@@ -241,18 +256,22 @@ def _stream(dev) -> int:
 
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           + lib.wgl_frontier_error(err).decode())
+        raise CudaLaunchError(what, err,
+                              lib.wgl_frontier_error(err).decode())
 
 
 def prepare_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
                      ev_slots: torch.Tensor, target: torch.Tensor,
                      idx0: int, F: torch.Tensor, Fb: torch.Tensor,
                      valid: torch.Tensor, bad: torch.Tensor, *, V: int,
-                     W: int, w_live: Optional[int] = None):
+                     W: int, w_live: Optional[int] = None,
+                     iters: Optional[torch.Tensor] = None):
     """``wgl_frontier``'s checks, without the launch: returns
     ``launch()``, which advances the carry ``F, Fb, valid, bad`` in place
-    by one launch of the single-bucket entry (counted in ``LAUNCHES``)."""
+    by one launch of the single-bucket entry (counted in ``LAUNCHES``).
+    With ``iters`` (int32 [B] on the card) it launches the instrumented
+    entry instead (counted in ``INSTRUMENT_LAUNCHES``), which writes each
+    row's closure passes over these events into ``iters``."""
     WL = W if w_live is None else max(1, min(int(w_live), W))
     _check(V <= MAX_STATES, f"V={V} > {MAX_STATES} states")
     _check(1 <= W <= MAX_W, f"W={W} outside 1..{MAX_W}")
@@ -276,6 +295,14 @@ def prepare_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
     _check(bad.dtype == torch.int32 and tuple(bad.shape) == (B,),
            "bad must be int32 [B]")
     K1 = int(target.shape[-2])
+    if iters is not None:
+        _check(iters.device == dev and iters.dtype == torch.int32
+               and tuple(iters.shape) == (B,) and iters.is_contiguous(),
+               "iters must be a contiguous int32 [B] on the frontier's "
+               "device")
+        return _prepare_instrument(ev_type, ev_slot, ev_slots, target,
+                                   idx0, F, Fb, valid, bad, iters, B, N,
+                                   shared, K1, V, NW, W, WL)
     plan = smem_plan(V, W, WL, K1=K1, shared_target=shared)
 
     def launch() -> None:
@@ -299,11 +326,47 @@ def prepare_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
     return launch
 
 
+def _prepare_instrument(ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
+                        valid, bad, iters, B, N, shared, K1, V, NW, W, WL):
+    """The instrumented entry's launch (prepare_frontier with iters=)."""
+    plan = smem_plan(V, W, WL, K1=K1, shared_target=shared, instrument=True)
+    in_smem = plan["frontier_in_smem"]
+    dev = ev_type.device
+    # The pad events' scratch frontier, in device memory when the two
+    # frontiers do not fit in shared memory; fresh for every launch.
+    scratch = (None if in_smem or B == 0 else
+               torch.empty((B, NW, 1 << W), dtype=torch.int32, device=dev))
+
+    def launch() -> None:
+        global INSTRUMENT_LAUNCHES
+        if B == 0:
+            return
+        if N == 0:
+            iters.zero_()
+            return
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.wgl_frontier_instrument_launch(
+                ev_type.data_ptr(), ev_slot.data_ptr(), ev_slots.data_ptr(),
+                int(ev_slots.dtype == torch.int32), target.data_ptr(),
+                0 if shared else K1 * V, F.data_ptr(), Fb.data_ptr(),
+                valid.data_ptr(), bad.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                iters.data_ptr(), B, N, int(ev_slots.shape[2]), K1, V, NW,
+                W, WL, int(idx0), int(in_smem), plan["threads"],
+                plan["smem_bytes"], _stream(dev))
+        _raise_on(lib, err, "wgl_frontier_instrument")
+        INSTRUMENT_LAUNCHES += 1
+
+    return launch
+
+
 def wgl_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
                  ev_slots: torch.Tensor, target: torch.Tensor, idx0: int,
                  F: torch.Tensor, Fb: torch.Tensor, valid: torch.Tensor,
                  bad: torch.Tensor, *, V: int, W: int,
-                 w_live: Optional[int] = None):
+                 w_live: Optional[int] = None,
+                 iters: Optional[torch.Tensor] = None):
     """Advance the packed WGL carry of B rows over N events on the card.
 
     ``ev_type``/``ev_slot`` int8 [B, N], ``ev_slots`` int8 or int32
@@ -312,10 +375,21 @@ def wgl_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
     [B, words(V), 2^W], ``valid`` bool [B] and ``bad`` int32 [B], with
     ``idx0`` the global index of event 0. Returns the new
     ``(valid, bad, F, Fb)``; the inputs are left as they were. The same
-    function as ``ops.linearize.plain_wgl``, bit for bit."""
+    function as ``ops.linearize.plain_wgl``, bit for bit.
+
+    ``iters`` (an integer [B] tensor on the card, optional) launches the
+    instrumented entry, which adds each row's closure passes over these
+    events to ``iters`` in place, as ``plain_wgl(iters=...)`` does; the
+    carry it returns is the same, bit for bit."""
     F, Fb, valid, bad = F.clone(), Fb.clone(), valid.clone(), bad.clone()
+    count = None
+    if iters is not None:
+        count = torch.empty(ev_type.shape[0], dtype=torch.int32,
+                            device=ev_type.device)
     prepare_frontier(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid,
-                     bad, V=V, W=W, w_live=w_live)()
+                     bad, V=V, W=W, w_live=w_live, iters=count)()
+    if iters is not None:
+        iters += count.to(iters.dtype)
     return valid, bad, F, Fb
 
 

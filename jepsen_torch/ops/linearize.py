@@ -177,9 +177,14 @@ def plain_wgl(ev_type: torch.Tensor, ev_slot: torch.Tensor,
 
     Vectorised over [B, words, 2^W]; Python loops over events, closure
     sweeps (until no row changes — re-sweeping a converged row is a
-    no-op) and slots. ``iters`` ([B] int64, optional) accumulates each
-    row's closure sweeps on its non-pad events: the measured input to
-    ``vpu_op_model``. ``ops`` ([B] int64, optional) accumulates the
+    no-op) and slots. ``iters`` ([B] int64, optional) accumulates what
+    the reference's ``make_kernel(instrument=True)`` counts, the measured
+    input to ``vpu_op_model``: on EVERY event of the row's event axis
+    (pads and events after the first failure included), the closure's
+    sweeps, the last one that changes nothing included. A pad event's
+    closure runs on the current frontier and its result is dropped, and
+    the closure of an empty frontier (a failed row) is one sweep.
+    ``ops`` ([B] int64, optional) accumulates the
     32-bit integer operations the step needs on the row's data: on each
     non-pad event, every configuration of the closure expanded once under
     each slot whose transition row reaches a state (one OR per state
@@ -202,11 +207,12 @@ def plain_wgl(ev_type: torch.Tensor, ev_slot: torch.Tensor,
                             kinds_all).clamp(0, K1 - 1)
     ar = torch.arange(B, device=dev)[:, None]
     F, Fb, valid, bad = F.clone(), Fb.clone(), valid.clone(), bad.clone()
-    # An event that is padding in every row changes nothing: skip it.
+    # An event that is padding in every row changes nothing: skip it,
+    # unless its closure sweeps are counted.
     live_any = ((typ_all == EV_OK) | (typ_all == EV_FUSED)
                 | (typ_all == EV_CLOSE)).any(0).tolist()
     for e in range(N):
-        if not live_any[e]:
+        if not live_any[e] and iters is None:
             continue
         typ = typ_all[:, e]
         is_ok = (typ == EV_OK) | (typ == EV_FUSED)
@@ -225,7 +231,7 @@ def plain_wgl(ev_type: torch.Tensor, ev_slot: torch.Tensor,
                 Fc = _apply_slot(Fc, i, rb[:, i], V)
             changed = (Fc != F0).reshape(B, -1).any(1)
             if iters is not None:
-                iters += (active & live_ev).to(iters.dtype)
+                iters += active.to(iters.dtype)
             active &= changed
             if not bool(changed.any()):
                 break
@@ -329,7 +335,7 @@ def get_fused_kernel(members):
 
 
 def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
-               resume: bool = False):
+               resume: bool = False, instrument: bool = False):
     """The WGL step for static bounds (V, W), dispatching by the device
     of the tensors it is called with: a CUDA tensor launches the CUDA
     kernel (which raises on anything it does not take), a CPU tensor
@@ -340,13 +346,21 @@ def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
     a valid row and the latched pre-failure closure of an invalid one.
     ``resume=True`` returns ``check(ev_type, ev_slot, ev_slots, target,
     idx0, F, Fb, valid, bad) -> (valid, bad, F, Fb)``. ``target`` is
-    [K1, V] when every row shares it, else [B, K1, V]."""
+    [K1, V] when every row shares it, else [B, K1, V].
+
+    ``instrument=True`` (check form only, as in the reference) appends a
+    fourth output, each row's closure passes summed over every event
+    (int32 [B], the reference's ``make_kernel(instrument=True)``): the
+    CUDA kernel's instrumented entry, or ``plain_wgl(iters=...)``."""
     if V > MAX_PACKED_STATES:
         raise ValueError(f"V={V} exceeds the packed kernel's "
                          f"{MAX_PACKED_STATES} states; use the host engine")
+    if instrument and resume:
+        raise ValueError("the instrumented kernel has the check form only")
     WL = _w_live(W, w_live)
 
-    def step(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid, bad):
+    def step(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid, bad,
+             iters=None):
         if ev_type.device.type == "cuda":
             fn = cuda_wgl.wgl_frontier
         elif ev_type.device.type == "cpu":
@@ -354,18 +368,61 @@ def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
         else:
             raise ValueError(f"no WGL kernel for device {ev_type.device}")
         return fn(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid,
-                  bad, V=V, W=W, w_live=WL)
+                  bad, V=V, W=W, w_live=WL, iters=iters)
 
     if resume:
         return step
 
     def check(ev_type, ev_slot, ev_slots, target):
         carry = initial_carry(ev_type.shape[0], V, W, ev_type.device)
+        iters = (torch.zeros(ev_type.shape[0], dtype=torch.int32,
+                             device=ev_type.device) if instrument else None)
         valid, bad, F, Fb = step(ev_type, ev_slot, ev_slots, target, 0,
-                                 *carry)
-        return valid, bad, torch.where(valid[:, None, None], F, Fb)
+                                 *carry, iters=iters)
+        out = (valid, bad, torch.where(valid[:, None, None], F, Fb))
+        return out + (iters,) if instrument else out
 
     return check
+
+
+def measure_closure_iters(buckets: Sequence[EncodedBatch], *,
+                          device=None) -> dict:
+    """The measured input of the op-count roofline (the reference bench's
+    instrumented pass, ``bench.py:569-593``): every dispatched narrow
+    bucket (W <= DATA_MAX_SLOTS) runs through the instrumented kernel over
+    its own event axis, chunked by MAX_FRONTIER_ELEMENTS, and each row's
+    closure passes are summed. Returns ``{"iters": total passes,
+    "lane_ops": the vpu_op_model count (passes x per_iteration + rows x
+    events x per_event), "rows", "buckets"}``. ``device=None`` means the
+    card."""
+    device = resolve_device(device)
+    iters_total = 0
+    lane_ops = 0.0
+    rows = n_buckets = 0
+    for b in buckets:
+        if b.W > DATA_MAX_SLOTS or not b.batch:
+            continue
+        kern = get_kernel(b.V, b.W, w_live=b.eff_w_live, instrument=True)
+        per_hist = n_state_words(b.V) << b.W
+        chunk = max(1, MAX_FRONTIER_ELEMENTS // per_hist)
+        tgt = _on(b.target[0], device) if b.shared_target else None
+        iters = 0
+        for lo in range(0, b.batch, chunk):
+            hi = min(lo + chunk, b.batch)
+            out = kern(_on(b.ev_type[lo:hi], device),
+                       _on(b.ev_slot[lo:hi], device),
+                       _on(b.ev_slots[lo:hi], device),
+                       tgt if tgt is not None
+                       else _on(b.target[lo:hi], device))
+            iters += int(out[3].to(torch.int64).sum())
+        m = vpu_op_model(b.V, b.W, b.eff_w_live)
+        lane_ops += (iters * m["per_iteration"]
+                     + b.batch * b.ev_opidx.shape[-1] * m["per_event"])
+        iters_total += iters
+        rows += b.batch
+        n_buckets += 1
+    return {"iters": iters_total, "lane_ops": lane_ops, "rows": rows,
+            "buckets": n_buckets}
 
 
 # ------------------------------------------------- scan-rate probe
@@ -754,18 +811,77 @@ def _result_for(row: int, batch: EncodedBatch, valid: np.ndarray,
 
 # ---------------------------------------------------------- entry points
 
-def _scheduler_opts(faults, journal, scheduler_opts) -> dict:
-    """The BucketScheduler knobs of an entry point's ``scheduler_opts``
-    (``wgl_backend`` among them: "auto", "dc", or "xla" / "pallas", the
-    reference's two TPU forms of the frontier search, which here both
-    name the one CUDA kernel and never the peel pre-filter); refuses
-    what this package does not carry yet."""
-    if faults is not None or journal is not None:
-        raise NotImplementedError(
-            "the checker nemesis (faults=) and the chunk journal "
-            "(journal=) come with the fault-ladder slice, which is not "
-            "part of jepsen_torch yet")
-    return dict(scheduler_opts or {})
+def _rehydrate_verdict(valid: bool, bad: Optional[int],
+                       prov: str) -> dict:
+    """Result dict of a row a previous interrupted run decided (the
+    chunk journal): bare (the journal records verdicts, not frontiers)
+    and marked ``resumed``."""
+    out: dict = {"valid": valid, "provenance": prov, "resumed": True}
+    if valid is False:
+        out["op"] = {"index": bad}
+    return out
+
+
+def _sink_verdict(sink, row: int, r: dict) -> None:
+    """Journal one host-decided row's final verdict through a write
+    callable (a check_columnar sink that remaps sub-batch rows, or
+    ChunkJournal.record): the ONE result-dict-to-record translation of
+    both checkers. A verdict that is not a boolean ("unknown") is not
+    journaled; a resumed run re-derives it."""
+    if r.get("valid") is True:
+        sink([row], [True], [None], ["host-fallback"])
+    elif r.get("valid") is False:
+        sink([row], [False], [r.get("op", {}).get("index")],
+             ["host-fallback"])
+
+
+def _journal_result(journal, i: int, r: dict) -> None:
+    """Journal one host-decided row's final verdict (no-op without a
+    journal)."""
+    if journal is not None:
+        _sink_verdict(journal.record, i, r)
+
+
+def _chunk_recorder(sch, sink, bad_index):
+    """on_chunk hook journaling device chunk verdicts as they retire:
+    ``bad_index(b, row, line)`` maps a row's bad event line to the
+    journaled op index. Rows whose first failure fell inside a fused run
+    and quarantined rows are skipped: they journal when their host
+    verdict lands."""
+    def on_chunk(b, lo, hi, v, bad, fr):
+        rows, vals, bads, provs = [], [], [], []
+        for k in range(hi - lo):
+            rp = lo + k
+            i = b.indices[rp]
+            if i in sch.quarantined:
+                continue
+            vk = bool(v[k])
+            bd = None
+            if not vk:
+                ev = int(bad[k])
+                if b.ev_type[rp, ev] == EV_FUSED:
+                    continue
+                bd = bad_index(i, int(b.ev_opidx[rp, ev]))
+            rows.append(i)
+            vals.append(vk)
+            bads.append(bd)
+            provs.append(sch.row_provenance.get(i, "device"))
+        sink(rows, vals, bads, provs)
+    return on_chunk
+
+
+def _batch_chunk_recorder(sch, journal):
+    """check_batch's recorder: ``bad`` is the history-op index."""
+    return _chunk_recorder(sch, journal.record, lambda i, line: line)
+
+
+def _columnar_chunk_recorder(sch, cols, sink):
+    """check_columnar's recorder: ``bad`` is the caller-level op index,
+    mapped through cols.index."""
+    def bad_index(i, line):
+        return int(cols.index[i, line]) if cols.index is not None \
+            else line
+    return _chunk_recorder(sch, sink, bad_index)
 
 
 def _decided_on_host(r: dict, scheduler: bool, why=None) -> dict:
@@ -799,20 +915,29 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
     ``scheduler=True`` (default) encodes with event fusion and streams
     through the bucket scheduler (ops.schedule: W-class consolidation,
     chunked pipeline, group launches); every result then carries a
-    ``provenance`` tag (``device`` or ``host-fallback``). Rows whose
-    first failure falls inside a fused run re-derive on the host.
-    ``scheduler=False`` keeps one launch per exact (V, W) bucket — the
-    parity oracle. ``scheduler_opts`` forwards BucketScheduler knobs
-    (chunk_rows, max_classes, fuse_width, ...). ``faults`` and
-    ``journal`` are not carried yet and raise NotImplementedError.
+    ``provenance`` tag (``device``, ``device-retried`` or
+    ``host-fallback``: which engine decided the row, and how hard the
+    degradation ladder had to work). Rows whose first failure falls
+    inside a fused run re-derive on the host, and so do the rows the
+    ladder quarantines, so every history gets a verdict under any fault
+    schedule. ``scheduler=False`` keeps one launch per exact (V, W)
+    bucket — the parity oracle. ``scheduler_opts`` forwards
+    BucketScheduler knobs (chunk_rows, max_classes, fuse_width,
+    max_retries, resident, ...). ``faults`` injects the checker nemesis
+    (an ops.faults.FaultInjector; $JT_FAULT_PLAN when None); ``journal``
+    (a store.ChunkJournal) makes retired chunk verdicts durable and
+    resumes from them: rows it holds are never re-dispatched and come
+    back bare, marked ``resumed``.
 
     ``partition`` is the per-key pre-partition (ops.partition): KV-valued
     histories strain into per-key sub-histories before encoding, each
     key checks at its own pending window, and verdicts recombine with
     the witness key (``independent_key``). ``"auto"`` (default) samples
     each history's head for KV values; True forces the strain; False
-    keeps the unpartitioned path."""
-    opts = _scheduler_opts(faults, journal, scheduler_opts)
+    keeps the unpartitioned path. The journal's row namespace is then
+    the sub-history list."""
+    from .encode import take_rows
+    opts = dict(scheduler_opts or {})
     device = resolve_device(device)
     if partition:
         from .partition import partition_histories, recombine_details
@@ -823,7 +948,8 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
                 model, subs, device=device, max_slots=max_slots,
                 max_states=max_states, host_fallback=host_fallback,
                 min_device_batch=min_device_batch, scheduler=scheduler,
-                scheduler_opts=opts, partition=False)
+                faults=faults, journal=journal, scheduler_opts=opts,
+                partition=False)
             return recombine_details(inner, sub_hist, sub_key,
                                      len(histories))
     if host_fallback is None:
@@ -843,13 +969,25 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
                             max_slots=eff_slots, fuse=scheduler)
 
     results: List[Optional[dict]] = [None] * len(histories)
+    decided: dict = {}
+    if journal is not None and scheduler:
+        decided = {i: d for i, d in journal.decided().items()
+                   if 0 <= i < len(histories)}
+        for i, (vl, bd, pv) in decided.items():
+            results[i] = _rehydrate_verdict(vl, bd, pv)
 
     def on_host(i, why=None):
         results[i] = _decided_on_host(host_fallback(model, histories[i]),
                                       scheduler, why)
+        if scheduler:
+            _journal_result(journal, i, results[i])
 
     device_batches = []
     for batch in buckets:
+        if decided:
+            # Resume: rows with journaled verdicts never re-dispatch.
+            batch = take_rows(batch, [r for r, i in enumerate(batch.indices)
+                                      if i not in decided])
         if 0 < batch.batch < min_device_batch and \
                 (not scheduler or batch.W >= DATA_MAX_SLOTS):
             for i in batch.indices:
@@ -857,11 +995,15 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
         elif batch.batch:
             device_batches.append(batch)
         for i, reason in batch.failures:
-            on_host(i, reason)
+            if i not in decided:
+                on_host(i, reason)
     sch = None
     if scheduler:
         from .schedule import BucketScheduler
-        sch = BucketScheduler(return_frontier=True, device=device, **opts)
+        sch = BucketScheduler(return_frontier=True, device=device,
+                              faults=faults, **opts)
+        if journal is not None:
+            sch.on_chunk = _batch_chunk_recorder(sch, journal)
         stream = sch.run(device_batches)
     else:
         stream = run_buckets(device_batches, device=device,
@@ -874,6 +1016,8 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
         valid, bad, front = out
         fused = set(fused_bad_rows(batch, valid, bad).tolist())
         for row, i in enumerate(batch.indices):
+            if sch is not None and i in sch.quarantined:
+                continue           # placeholder; re-decided below
             if row in fused:
                 # The first impossible completion fell inside a fused
                 # run: the device only knows the run's first member.
@@ -882,11 +1026,14 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
             results[i] = _result_for(row, batch, valid, bad, front,
                                      model, prepared[i])
             if sch is not None:
-                # This scheduler has no retry ladder: every row it
-                # decides is decided by the device, by the frontier
-                # search unless its row_provenance says otherwise.
                 results[i]["provenance"] = sch.row_provenance.get(
                     i, "device")
+    if sch is not None:
+        # Rows the ladder quarantined: the exact host oracle decides
+        # them.
+        for i, why in sch.quarantined.items():
+            on_host(i, f"quarantined: {why}")
+            results[i]["provenance"] = "host-fallback"
     return results
 
 
@@ -925,13 +1072,23 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
     encoded exact-W flow, the parity oracle. There is no
     ``min_device_batch``: the reference uses it here only to send small
     wide buckets to its native engine, which this package does not have.
-    ``faults`` and ``journal`` raise NotImplementedError.
+
+    Fault tolerance (scheduler path): chunks run under the degradation
+    ladder (watchdog and retry, row bisection on an out-of-memory,
+    poison-row quarantine to ``host_fallback``), so every row gets a
+    verdict under any single fault; ``faults`` injects the checker
+    nemesis (ops.faults). ``journal`` (a store.ChunkJournal) makes
+    retired chunk verdicts durable: rows it already holds are sliced out
+    BEFORE encoding and never re-dispatched, and fresh verdicts append
+    as chunks retire. Resumed rows' detail dicts are bare verdicts
+    marked ``resumed``.
 
     ``partition`` (default ``"auto"``): a KEYED batch (``cols.key``)
     strains into its per-key sub-batch before encoding (ops.partition)
     and verdicts recombine per history: valid iff every key is, ``bad``
     the smallest original bad-op index over the invalid keys, and
     (details mode) the witness sub's result plus ``independent_key``.
+    The journal then rides the sub-batch's row order.
 
     Rows the encoder cannot bound (a pending window past one card) are
     converted to Op lists and decided by ``host_fallback(model,
@@ -949,7 +1106,7 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
     only)."""
     if details not in (False, True, "invalid"):
         raise ValueError(f"details={details!r}: False, True or 'invalid'")
-    opts = _scheduler_opts(faults, journal, scheduler_opts)
+    opts = dict(scheduler_opts or {})
     device = resolve_device(device)
     if partition and getattr(cols, "key", None) is not None:
         from .partition import (partition_columnar, recombine_details,
@@ -962,8 +1119,9 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
             inner = check_columnar(
                 model, pb.cols, device=device, max_slots=max_slots,
                 host_fallback=host_fallback, details=details,
-                timings=timings, scheduler=scheduler,
-                scheduler_opts=opts, partition=False, stats_out=stats_out)
+                timings=timings, scheduler=scheduler, faults=faults,
+                journal=journal, scheduler_opts=opts, partition=False,
+                stats_out=stats_out)
             if details:
                 return recombine_details(inner, pb.sub_history,
                                          pb.sub_key, cols.batch)
@@ -971,17 +1129,61 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
                                          pb.sub_history, pb.sub_key,
                                          cols.batch)
             return v, b
-    return _check_columnar_impl(model, cols, device=device,
-                                max_slots=max_slots,
-                                host_fallback=host_fallback,
-                                details=details, timings=timings,
-                                scheduler=scheduler, opts=opts,
-                                stats_out=stats_out)
+    impl = dict(device=device, max_slots=max_slots,
+                host_fallback=host_fallback, details=details,
+                timings=timings, faults=faults, opts=opts,
+                stats_out=stats_out)
+    if journal is None or not scheduler:
+        return _check_columnar_impl(model, cols, scheduler=scheduler,
+                                    sink=None, **impl)
+    decided = {r: d for r, d in journal.decided().items()
+               if 0 <= r < cols.batch}
+    keep = [r for r in range(cols.batch) if r not in decided]
+    if len(keep) == cols.batch:
+        sub = cols
+        sink = journal.record
+    else:
+        sub = _cols_take(cols, keep)
+
+        def sink(rows, valid, bad, prov):
+            journal.record([keep[int(r)] for r in rows], valid, bad, prov)
+    inner = _check_columnar_impl(model, sub, scheduler=True, sink=sink,
+                                 **impl)
+    if not decided:
+        return inner
+    if details:
+        results: List[Optional[dict]] = [None] * cols.batch
+        for r, (vl, bd, pv) in decided.items():
+            results[r] = _rehydrate_verdict(vl, bd, pv)
+        for j, r in enumerate(keep):
+            results[r] = inner[j]
+        return results
+    valid = np.ones(cols.batch, bool)
+    bad = np.full(cols.batch, INT32_MAX, np.int32)
+    for r, (vl, bd, pv) in decided.items():
+        valid[r] = vl
+        if vl is False and bd is not None:
+            bad[r] = bd
+    if keep:
+        k = np.asarray(keep)
+        valid[k], bad[k] = inner
+    return valid, bad
+
+
+def _cols_take(cols, rows):
+    """Row subset of a ColumnarOps batch (the journal-resume filter)."""
+    r = np.asarray(rows, np.int64)
+    key = getattr(cols, "key", None)
+    return type(cols)(
+        type=cols.type[r], process=cols.process[r], kind=cols.kind[r],
+        kinds=cols.kinds,
+        index=cols.index[r] if cols.index is not None else None,
+        key=key[r] if key is not None else None)
 
 
 def _check_columnar_impl(model: Model, cols, *, device, max_slots,
-                         host_fallback, details, timings, scheduler, opts,
-                         stats_out):
+                         host_fallback, details, timings, scheduler,
+                         faults, opts, stats_out, sink):
     from ..history.columnar import columnar_to_ops
     from .encode import encode_columnar
     from .statespace import enumerate_statespace
@@ -1003,7 +1205,9 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
                                       failures=failures, fuse=True,
                                       renumber=True)
         sch = BucketScheduler(return_frontier=details, device=device,
-                              **opts)
+                              faults=faults, **opts)
+        if sink is not None:
+            sch.on_chunk = _columnar_chunk_recorder(sch, cols, sink)
         stream = sch.run(groups)
     else:
         buckets, fails = encode_columnar(space, cols, max_slots=eff_slots)
@@ -1032,6 +1236,8 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
         if not details:
             continue
         for bi, row in enumerate(batch.indices):
+            if sch is not None and row in sch.quarantined:
+                continue           # placeholder; host-decided below
             if details == "invalid" and bool(v[bi]):
                 # The bare contract dict; provenance appears only when it
                 # says more than the default (the peel loop decided it).
@@ -1055,9 +1261,12 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
                 results[row]["provenance"] = sch.row_provenance.get(
                     row, "device")
     laps.append(time.perf_counter())
-    # The fused-run rows and the rows the encoder could not bound go to
-    # the host engine (the reference's branch for a missing native
-    # engine).
+    # The fused-run rows, the rows the encoder could not bound and the
+    # rows the ladder quarantined go to the host engine (the reference's
+    # branch for a missing native engine).
+    if sch is not None:
+        failures.extend((i, f"quarantined: {why}")
+                        for i, why in sch.quarantined.items())
     refine = [(i, None) for i in fused_refine] + list(failures)
     for row, reason in refine:
         r = host_fallback(model, columnar_to_ops(cols, row))
@@ -1066,6 +1275,8 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
             bad[row] = r["op"].get("index", -1)
         if details:
             results[row] = _decided_on_host(r, True, reason)
+        if sink is not None:
+            _sink_verdict(sink, row, r)
     laps.append(time.perf_counter())
     if timings is not None:
         encode_s = laps[0] - t_start
@@ -1106,7 +1317,7 @@ def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
 
     if not histories:
         return []
-    opts = _scheduler_opts(faults, journal, scheduler_opts)
+    opts = dict(scheduler_opts or {})
     if partition:
         from .partition import partition_histories, recombine_details
         parts = partition_histories(histories, force=partition is True)
@@ -1116,7 +1327,8 @@ def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
                 model, subs, device=device, max_slots=max_slots,
                 max_states=max_states, host_fallback=host_fallback,
                 details=details, min_device_batch=min_device_batch,
-                scheduler=scheduler, scheduler_opts=opts, partition=False)
+                scheduler=scheduler, faults=faults, journal=journal,
+                scheduler_opts=opts, partition=False)
             return recombine_details(inner, sub_hist, sub_key,
                                      len(histories))
     try:
@@ -1128,12 +1340,14 @@ def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
                            max_states=max_states, max_slots=max_slots,
                            host_fallback=host_fallback,
                            min_device_batch=min_device_batch,
-                           scheduler=scheduler, scheduler_opts=opts)
+                           scheduler=scheduler, faults=faults,
+                           journal=journal, scheduler_opts=opts)
     if details not in (True, "invalid"):    # the contract is List[dict]
         raise ValueError(f"details={details!r}: True or 'invalid'")
     return check_columnar(model, cols, device=device, max_slots=max_slots,
                           details=details, host_fallback=host_fallback,
-                          scheduler=scheduler, scheduler_opts=opts)
+                          scheduler=scheduler, faults=faults,
+                          journal=journal, scheduler_opts=opts)
 
 
 def check_synth(model: Model, spec, *, device=None,
@@ -1144,7 +1358,10 @@ def check_synth(model: Model, spec, *, device=None,
     version on the CPU) and ride ``check_columnar`` — per-key partition
     of keyed specs and the bucket scheduler by default. The cas and wide
     families check here. Returns check_columnar's shapes, plus the
-    SynthMeta when ``return_meta=True``. A ``timings`` dict among ``kw``
+    SynthMeta when ``return_meta=True``. ``faults`` and ``journal``
+    among ``kw`` take check_columnar's fault ladder and resume (a
+    synthesized batch's journal keys on ``store.spec_digest(spec)``: the
+    spec names the batch). A ``timings`` dict among ``kw``
     also gets ``synth_s``, the generation with its copy back."""
     from .synth_device import synthesize
     if spec.family not in ("cas", "wide"):

@@ -52,20 +52,34 @@ kernel pre-warm (the port has no compile step: each CUDA library builds
 once, at first use, into ``build/jepsen_torch/``); the Pallas-versus-
 scan backend choice (one CUDA kernel serves both TPU forms); the
 batch-sharded multi-device route (one card; it waits for the multi-GPU
-slice); the checker-nemesis fault hooks, watchdog and degradation
-ladder, the chunk journal and resident frontiers (the next slice); the
-native-CPU tail diversion (the port has no native engine); and donated
-buffers, which have no meaning for torch tensors.
+slice); resident frontiers (the online slice); the native-CPU tail
+diversion (the port has no native engine); and donated buffers, which
+have no meaning for torch tensors.
 
-``GraphScheduler``, at the end, is the happy path of the reference's
-dependency-graph scheduler (vertex-bucket chunks for the closure
-kernel). Both schedulers read the reference's environment knobs
+The degradation ladder is the reference's. Every chunk is copied back
+on a daemon retire thread (on the stream it was launched on) under a
+watchdog deadline priced by the op model; the checker nemesis
+(ops.faults) fires at the encode, dispatch and decode boundaries of the
+one dispatch sequence (``_ship``) that the pipeline and every retry
+run. A chunk that fails walks retry with backoff → row bisection on an
+out-of-memory (the learned size sticks, ``ResidentState`` carries it
+across batches) → the event-chunked kernel → the poison-row hunt, whose
+rows are quarantined for the caller's host engine. What a real wedge
+does on CUDA: the kernel cannot be cancelled, the abandoned thread's
+copy waits for it, and the retry queues behind it on the same stream;
+that is the reference's threat model too (its DaemonFuture).
+
+``GraphScheduler``, at the end, is the reference's dependency-graph
+scheduler (vertex-bucket chunks for the closure kernel) with the same
+ladder. Both schedulers read the reference's environment knobs
 (``KNOBS``) when they are made.
 """
 from __future__ import annotations
 
 import logging
 import os
+import queue
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -76,12 +90,14 @@ import torch
 from .cuda_wgl import MAX_GROUP_MEMBERS, n_state_words, smem_plan
 from .device import resolve_device
 from .encode import EncodedBatch, merge_batches
-from .faults import INT32_MAX, CorruptOutput
+from .faults import (INT32_MAX, CorruptOutput, FaultInjector,
+                     WatchdogExpired, classify_failure, corrupt_arrays,
+                     validate_decoded)
 from .graph import (N_LEVELS, close_planes, mxu_op_model,
                     validate_graph_decoded)
 from .linearize import (DATA_MAX_SLOTS, DISPATCH_LOG, MAX_FRONTIER_ELEMENTS,
                         WindowOverflow, _on, get_fused_kernel, get_kernel,
-                        run_encoded_batch, run_event_chunked)
+                        run_encoded_batch, run_event_chunked, vpu_op_model)
 
 log = logging.getLogger("jepsen.schedule")
 
@@ -102,7 +118,20 @@ log = logging.getLogger("jepsen.schedule")
 #                       resume kernel, run_event_chunked) instead of one
 #                       long launch (0 = never);
 #   event_chunk         event-axis chunk of that route;
-#   graph_chunk_rows    rows per graph-closure dispatch (GraphScheduler).
+#   graph_chunk_rows    rows per graph-closure dispatch (GraphScheduler);
+# and the degradation ladder's (ops.faults documents the fault model):
+#   retry_max           retries of a failing dispatch past the first try;
+#   retry_backoff_s     backoff base between retries (doubles each time);
+#   watchdog_min_s      the floor of a chunk's decode deadline;
+#   watchdog_lane_ops_per_s, watchdog_mxu_macs_per_s
+#                       the pessimistic sustained rates that price a WGL
+#                       or graph chunk's deadline from its op model;
+#   watchdog_factor     the safety factor over that estimate;
+#   watchdog_compile_grace_s
+#                       the extra allowance of a shape's first wait (its
+#                       first launch builds the CUDA library);
+#   bisect_floor_rows   below this many rows per dispatch an OOM stops
+#                       halving and takes the event-chunked kernel.
 # The reference also reads JT_COMPILE_CACHE=0 as fuse width 1, since a
 # fused XLA program is a compile it would otherwise pay per process; the
 # port compiles nothing per shape, so that variable means nothing here.
@@ -114,22 +143,32 @@ KNOBS = {
     "event_route_events": ("JT_EVENT_ROUTE_EVENTS", 8192, 0),
     "event_chunk": ("JT_EVENT_CHUNK", 2048, 1),
     "graph_chunk_rows": ("JT_GRAPH_CHUNK_ROWS", 2048, 1),
+    "retry_max": ("JT_RETRY_MAX", 3, 0),
+    "retry_backoff_s": ("JT_RETRY_BACKOFF_S", 0.25, 0.0),
+    "watchdog_min_s": ("JT_WATCHDOG_MIN_S", 120.0, 0.0),
+    "watchdog_lane_ops_per_s": ("JT_WATCHDOG_LANE_OPS_PER_S", 1e8, 1.0),
+    "watchdog_mxu_macs_per_s": ("JT_WATCHDOG_MXU_MACS_PER_S", 1e11, 1.0),
+    "watchdog_factor": ("JT_WATCHDOG_FACTOR", 32.0, 0.0),
+    "watchdog_compile_grace_s": ("JT_WATCHDOG_COMPILE_GRACE_S", 900.0, 0.0),
+    "bisect_floor_rows": ("JT_BISECT_FLOOR_ROWS", 16, 1),
 }
 
 
-def knob(name: str) -> int:
+def knob(name: str):
     """The knob's value from its environment variable, read now (so a
-    setting applies to the next scheduler made), else its default. A
-    value that is not an integer is logged and ignored."""
+    setting applies to the next scheduler made), else its default; an
+    integer or a float as the default is. A malformed value is logged
+    and ignored."""
     var, default, least = KNOBS[name]
     env = os.environ.get(var)
     if env is None:
         return default
+    kind = type(default)
     try:
-        return max(least, int(env))
+        return max(least, kind(env))
     except ValueError:
-        log.warning("ignoring malformed %s=%r (want an integer >= %d)",
-                    var, env, least)
+        log.warning("ignoring malformed %s=%r (want %s >= %s)", var, env,
+                    "an integer" if kind is int else "a number", least)
         return default
 
 
@@ -276,6 +315,77 @@ def choose_w_classes(stats: Dict[Tuple[int, int], float], *,
 
 # --------------------------------------------------------------- scheduler
 
+class ChunkAbandoned(WindowOverflow):
+    """A wide bucket the ladder could not decide on the card: as a
+    WindowOverflow, the callers' route to the host engine re-decides its
+    rows."""
+
+
+class _ChunkFailed(Exception):
+    """A dispatch range exhausted its retry budget."""
+
+
+class ResidentState:
+    """Scheduler memory across batches, for long-lived callers (the
+    online checker runs one scheduler per rolling check), passed as
+    ``scheduler_opts={"resident": rs}`` and shared by reference:
+
+      * ``safe_bp`` — the rows-per-dispatch caps an OOM bisection
+        learned, so the next batch plans under them;
+      * ``awaited`` — the kernel shapes already awaited once, so the
+        watchdog's first-wait grace is paid once per process;
+      * ``batches`` — schedulers adopted.
+
+    The reference's carried frontiers (``frontiers``) come with the
+    online slice."""
+
+    def __init__(self):
+        self.safe_bp: Dict = {}
+        self.awaited: set = set()
+        self.batches = 0
+
+    def adopt(self, sch) -> None:
+        """Wire a freshly built scheduler to this resident state."""
+        sch._safe_bp = self.safe_bp
+        sch._awaited_shapes = self.awaited
+        self.batches += 1
+
+
+def _watched(sch, fn, deadline: float, what: str):
+    """Run ``fn()`` on a daemon retire thread, inside the stream the
+    calling thread launches on (so its copies wait for the launch,
+    whatever stream the caller chose), and wait at most ``deadline``
+    seconds; past it count ``watchdog_fired`` in the scheduler's stats,
+    raise WatchdogExpired and abandon the thread. A wedged copy cannot
+    be cancelled on CUDA, and a daemon never blocks the interpreter's
+    exit (the reference's DaemonFuture threat model). A failure inside
+    ``fn`` is re-raised here."""
+    stream = (torch.cuda.current_stream(sch.device)
+              if sch.device.type == "cuda" else None)
+    q: "queue.Queue" = queue.Queue(1)
+
+    def work():
+        try:
+            if stream is not None:
+                with torch.cuda.stream(stream):
+                    q.put((fn(), None))
+            else:
+                q.put((fn(), None))
+        except BaseException as e:   # noqa: BLE001 — relayed below
+            q.put((None, e))
+
+    threading.Thread(target=work, name="jepsen-retire", daemon=True).start()
+    try:
+        r, err = q.get(timeout=deadline)
+    except queue.Empty:
+        sch._inc("watchdog_fired")
+        raise WatchdogExpired(f"{what} exceeded its {deadline:.2f}s decode "
+                              f"deadline") from None
+    if err is not None:
+        raise err
+    return r
+
+
 class _Run:
     """One consolidated bucket's in-flight accounting."""
 
@@ -304,9 +414,17 @@ class BucketScheduler:
     names another); ``return_frontier`` is False, True or "invalid"
     (frontiers of the invalid rows only, as {row: frontier}).
     ``wgl_backend`` is "auto", "dc", "xla" or "pallas" (the module
-    docstring), $JT_WGL_BACKEND when None. ``row_provenance`` maps the
-    caller-level index of each row the peel loop decided alone to
-    ``"wgl-dc"``."""
+    docstring), $JT_WGL_BACKEND when None.
+
+    The degradation ladder: ``faults`` is a FaultInjector (else the
+    ambient $JT_FAULT_PLAN, else none); ``max_retries`` and
+    ``backoff_s`` default to the knobs; ``resident`` a ResidentState.
+    ``quarantined`` maps the caller-level index of each row the ladder
+    gave up on to the reason (its in-band verdict is an inert
+    placeholder the caller must re-decide on the host), and
+    ``row_provenance`` tags every row off the happy path:
+    ``"device-retried"``, ``"host-fallback"``, or ``"wgl-dc"`` for a row
+    the peel loop decided alone."""
 
     def __init__(self, *, return_frontier=False,
                  max_classes: Optional[int] = None,
@@ -316,6 +434,10 @@ class BucketScheduler:
                  on_chunk=None,
                  fuse_width: Optional[int] = None,
                  wgl_backend: Optional[str] = None,
+                 faults: Optional[FaultInjector] = None,
+                 max_retries: Optional[int] = None,
+                 backoff_s: Optional[float] = None,
+                 resident: Optional[ResidentState] = None,
                  device=None):
         self.return_frontier = return_frontier
         self.device = resolve_device(device)
@@ -327,7 +449,6 @@ class BucketScheduler:
             wgl_backend = "auto"
         self.wgl_backend = wgl_backend
         self._backend_choice: Dict[Tuple, bool] = {}
-        self.row_provenance: Dict[int, str] = {}
         self.max_classes = (knob("max_classes") if max_classes is None
                             else max_classes)
         self.chunk_rows = (knob("chunk_rows") if chunk_rows is None
@@ -340,9 +461,25 @@ class BucketScheduler:
         self.max_queue = knob("max_queue")
         self.event_route_events = knob("event_route_events")
         self.event_chunk = knob("event_chunk")
+        self.bisect_floor_rows = knob("bisect_floor_rows")
         self._fuse_buf: List[Tuple] = []
         self.consolidate = consolidate
         self.on_chunk = on_chunk
+        self.faults = faults if faults is not None \
+            else FaultInjector.from_env()
+        self.max_retries = (knob("retry_max") if max_retries is None
+                            else max(0, int(max_retries)))
+        if backoff_s is None and self.faults is not None:
+            backoff_s = self.faults.backoff_s
+        self.backoff_s = (knob("retry_backoff_s") if backoff_s is None
+                          else float(backoff_s))
+        self.quarantined: Dict[int, str] = {}
+        self.row_provenance: Dict[int, str] = {}
+        self._safe_bp: Dict[Tuple[int, int], int] = {}
+        self._awaited_shapes: set = set()
+        if resident is not None:
+            resident.adopt(self)
+        self._stats_lock = threading.Lock()
         self.stats: dict = {
             "input_buckets": 0, "classes": [], "chunks": 0,
             "dispatches": 0, "fused_groups": 0,
@@ -352,6 +489,9 @@ class BucketScheduler:
             "encode_busy_s": 0.0, "dispatch_busy_s": 0.0,
             "device_wait_s": 0.0, "overlap_ratio": None,
             "events": 0, "orig_events": 0, "fusion_ratio": None,
+            "retries": 0, "bisections": 0, "watchdog_fired": 0,
+            "oom_events": 0, "corrupt_chunks": 0, "quarantined_rows": 0,
+            "abandoned_buckets": 0, "faults_injected": 0,
             "event_routed_rows": 0, "event_routed_dispatches": 0,
             "backpressure_events": 0,
             "dc_dispatches": 0, "dc_rows": 0, "dc_decided_rows": 0,
@@ -363,13 +503,18 @@ class BucketScheduler:
         self._last_retire_t = None
 
     def _inc(self, key: str, n=1) -> None:
-        self.stats[key] = self.stats.get(key, 0) + n
+        with self._stats_lock:
+            self.stats[key] = self.stats.get(key, 0) + n
 
     # ------------------------------------------------------------ plumbing
     def _class_chunk(self, V: int, W: int) -> int:
         per_hist = n_state_words(V) << W
-        return max(1, min(self.chunk_rows,
-                          MAX_FRONTIER_ELEMENTS // per_hist))
+        chunk = max(1, min(self.chunk_rows,
+                           MAX_FRONTIER_ELEMENTS // per_hist))
+        # An OOM bisection learned this class's memory wall: plan every
+        # later chunk under it instead of re-entering the ladder.
+        cap = self._safe_bp.get((V, W))
+        return min(chunk, cap) if cap else chunk
 
     def _chunk_plan(self, batch: EncodedBatch) -> Tuple[int, List[Tuple]]:
         """(padded_rows_per_dispatch, [(lo, hi), ...])."""
@@ -431,14 +576,27 @@ class BucketScheduler:
         return (plan is not None
                 and plan.capable_frac >= 1.0 - dc_residue_max_frac())
 
+    def _fire(self, stage: str) -> Optional[str]:
+        return self.faults.fire(stage) if self.faults is not None else None
+
     def _ship(self, batch: EncodedBatch, lo: int, hi: int, Bp: int,
-              Np: int):
-        """Launch one chunk alone (asynchronously): the peel pre-filter
-        first where ``_dc_for`` says so, then, unless it decided every
-        row, the padded chunk through the single-bucket kernel. Returns
-        the device (valid, bad, frontier), or host arrays (all valid, no
-        bad event, no frontier) for a chunk the peel loop decided
-        alone."""
+              Np: int, tag: str = "data1"):
+        """The ONE dispatch sequence of the pipelined path and of every
+        ladder re-dispatch, so a retry cannot drift from what it retries:
+        the encode-stage fault, the pad, the dispatch-stage fault, the
+        peel pre-filter where ``_dc_for`` says so, and (unless the peel
+        loop decided every row) the launch of the padded chunk through
+        the single-bucket kernel, asynchronously. Returns ``(out,
+        delay)``: ``out`` is the device (valid, bad, frontier), or host
+        arrays (all valid, no bad event, no frontier) for a chunk the
+        peel loop decided alone; ``delay`` is a timeout or wedge fault's
+        stall, applied where the watchdog sees it."""
+        self._fire("encode")
+        ev_type, ev_slot, ev_slots, target = self._pad_chunk(
+            batch, lo, hi, Bp, Np)
+        delay = 0.0
+        if self.faults is not None:
+            delay = self.faults.sleep_for(self._fire("dispatch"))
         if self._dc_for(batch):
             from .dc_monitor import dc_prefilter_chunk
             decided = dc_prefilter_chunk(batch, lo, hi, device=self.device)
@@ -455,17 +613,16 @@ class BucketScheduler:
                     for r in range(lo, hi):
                         self.row_provenance[batch.indices[r]] = "wgl-dc"
                     return (np.ones(hi - lo, bool),
-                            np.full(hi - lo, INT32_MAX, np.int32), None)
-        ev_type, ev_slot, ev_slots, target = self._pad_chunk(
-            batch, lo, hi, Bp, Np)
+                            np.full(hi - lo, INT32_MAX, np.int32),
+                            None), delay
         kern = get_kernel(batch.V, batch.W, w_live=batch.eff_w_live)
-        DISPATCH_LOG.append(("data1", batch.V, batch.W, hi - lo))
+        DISPATCH_LOG.append((tag, batch.V, batch.W, hi - lo))
         self._inc("dispatches")
         # Padding rows are not launched: the decode reads the first
         # hi - lo rows only.
         nb = hi - lo
         return kern(ev_type[:nb], ev_slot[:nb], ev_slots[:nb],
-                    target if batch.shared_target else target[:nb])
+                    target if batch.shared_target else target[:nb]), delay
 
     @staticmethod
     def _member_spec(batch: EncodedBatch) -> Tuple:
@@ -487,41 +644,27 @@ class BucketScheduler:
         the group kernel, with any member that cannot join shipped alone
         in member order. A member routed to the peel pre-filter never
         joins: the pre-filter lives in _ship, and a chunk it decides
-        skips the frontier launch a group would make. Returns (members,
-        outs)."""
+        skips the frontier launch a group would make. The fault hooks
+        fire once per MEMBER, in member order, so fault ordinals count
+        chunks whatever the fusion. A failure the classifier knows is
+        carried to retire time as ``outs`` instead of raised, so the
+        pipeline keeps streaming and the ladder runs per member when the
+        group's turn comes. Returns (members, outs, delay)."""
         t0 = time.monotonic()
-        if len(members) == 1:
-            run, lo, hi, Bp = members[0]
-            outs = [self._ship(run.batch, lo, hi, Bp,
-                               _round_up(run.batch.n_events,
-                                         EVENT_QUANTUM))]
-        else:
-            ok = [self._groupable(run.batch) and not self._dc_for(run.batch)
-                  for run, _, _, _ in members]
-            if ok.count(True) < 2:
-                ok = [False] * len(members)
-            outs: List = [None] * len(members)
-            grouped: List[int] = []
-            flat: List = []
-            specs: List[Tuple] = []
-            rows: List[int] = []
-            for pos, (run, lo, hi, Bp) in enumerate(members):
-                b = run.batch
-                Np = _round_up(b.n_events, EVENT_QUANTUM)
-                if not ok[pos]:
-                    outs[pos] = self._ship(b, lo, hi, Bp, Np)
-                    continue
-                flat.extend(self._pad_chunk(b, lo, hi, Bp, Np))
-                specs.append(self._member_spec(b))
-                rows.append(hi - lo)
-                grouped.append(pos)
-                DISPATCH_LOG.append(("data1fused", b.V, b.W, hi - lo))
-            if grouped:
-                out_flat = get_fused_kernel(specs)(*flat, rows=rows)
-                self._inc("dispatches")
-                self._inc("fused_groups")
-                for i, pos in enumerate(grouped):
-                    outs[pos] = tuple(out_flat[3 * i:3 * i + 3])
+        delay = 0.0
+        try:
+            if len(members) == 1:
+                run, lo, hi, Bp = members[0]
+                out, delay = self._ship(run.batch, lo, hi, Bp,
+                                        _round_up(run.batch.n_events,
+                                                  EVENT_QUANTUM))
+                outs = [out]
+            else:
+                outs, delay = self._dispatch_fused(members)
+        except Exception as e:
+            if classify_failure(e) is None:
+                raise
+            outs, delay = e, 0.0
         if self._first_dispatch_t is None:
             self._first_dispatch_t = time.monotonic()
             # Time to first dispatch: how long the card sat idle before
@@ -532,22 +675,89 @@ class BucketScheduler:
         for _, lo, hi, Bp in members:
             self._inc("pad_rows", Bp - (hi - lo))
         self._inc("dispatch_busy_s", time.monotonic() - t0)
-        return members, outs
+        return members, outs, delay
 
-    def _decode_member(self, out, nb: int):
-        """Copy one dispatch's outputs back (the pipeline's block
-        point), slice off pad rows, and shape the frontier per
-        return_frontier. A chunk the peel loop decided alone arrives as
-        host arrays with no frontier (never under return_frontier=True):
-        every row valid."""
+    def _dispatch_fused(self, members: List[Tuple]) -> list:
+        """The group launch of _dispatch_group: (outs per member, the
+        members' summed fault delay)."""
+        ok = [self._groupable(run.batch) and not self._dc_for(run.batch)
+              for run, _, _, _ in members]
+        if ok.count(True) < 2:
+            ok = [False] * len(members)
+        outs: List = [None] * len(members)
+        grouped: List[int] = []
+        flat: List = []
+        specs: List[Tuple] = []
+        rows: List[int] = []
+        delay = 0.0
+        for pos, (run, lo, hi, Bp) in enumerate(members):
+            b = run.batch
+            Np = _round_up(b.n_events, EVENT_QUANTUM)
+            if not ok[pos]:
+                outs[pos], d = self._ship(b, lo, hi, Bp, Np)
+                delay += d
+                continue
+            self._fire("encode")
+            flat.extend(self._pad_chunk(b, lo, hi, Bp, Np))
+            if self.faults is not None:
+                delay += self.faults.sleep_for(self._fire("dispatch"))
+            specs.append(self._member_spec(b))
+            rows.append(hi - lo)
+            grouped.append(pos)
+            DISPATCH_LOG.append(("data1fused", b.V, b.W, hi - lo))
+        if grouped:
+            out_flat = get_fused_kernel(specs)(*flat, rows=rows)
+            self._inc("dispatches")
+            self._inc("fused_groups")
+            for i, pos in enumerate(grouped):
+                outs[pos] = tuple(out_flat[3 * i:3 * i + 3])
+        return outs, delay
+
+    # ------------------------------------------------ watchdog + ladder
+    def _deadline(self, batch: EncodedBatch, rows: int) -> float:
+        """Per-chunk decode deadline from the op model: estimated
+        lane-ops at a pessimistic sustained rate, a wide safety factor,
+        a hard floor, and a one-time grace for shapes this scheduler has
+        not awaited before (a first launch builds its CUDA library). An
+        active fault plan overrides it (test-scale timings)."""
+        if self.faults is not None and self.faults.deadline_s is not None:
+            return self.faults.deadline_s
+        m = vpu_op_model(batch.V, batch.W, batch.eff_w_live)
+        est = rows * batch.n_events * (
+            m["per_event"] + (m["w_live"] + 1) * m["per_iteration"])
+        d = max(knob("watchdog_min_s"),
+                est / knob("watchdog_lane_ops_per_s")
+                * knob("watchdog_factor"))
+        shape = (batch.V, batch.W, batch.eff_w_live, batch.n_events)
+        if shape not in self._awaited_shapes:
+            self._awaited_shapes.add(shape)
+            d += knob("watchdog_compile_grace_s")
+        return d
+
+    def _decode_member(self, out, nb: int, batch: EncodedBatch):
+        """Copy one dispatch's outputs back (on the retire thread): fire
+        the decode-stage fault, slice off pad rows, apply a corrupt
+        fault, validate (corrupt output becomes a retryable fault, never
+        a wrong verdict), and shape the frontier per return_frontier. A
+        chunk the peel loop decided alone arrives as host arrays with no
+        frontier (never under return_frontier=True) and goes through the
+        same fault and validation."""
+        kind = self._fire("decode")
+        if self.faults is not None:
+            s = self.faults.sleep_for(kind)
+            if s:
+                time.sleep(s)
         valid, bad, front = out
-        if isinstance(valid, np.ndarray):
-            return (valid[:nb], bad[:nb],
-                    {} if self.return_frontier == "invalid" else None)
-        v = valid[:nb].cpu().numpy()
-        b = bad[:nb].cpu().numpy()
+        host = isinstance(valid, np.ndarray)
+        v = valid[:nb] if host else valid[:nb].cpu().numpy()
+        b = bad[:nb] if host else bad[:nb].cpu().numpy()
+        if kind == "corrupt":
+            v, b = corrupt_arrays(v, b)
+        validate_decoded(v, b, batch.n_events)
         fr = None
-        if self.return_frontier is True:
+        if host:
+            fr = {} if self.return_frontier == "invalid" else None
+        elif self.return_frontier is True:
             fr = front[:nb].cpu().numpy().view(np.uint32)
         elif self.return_frontier == "invalid":
             rows = np.nonzero(~v)[0]
@@ -558,11 +768,220 @@ class BucketScheduler:
                 fr = {int(r): sel[i] for i, r in enumerate(rows)}
         return v, b, fr
 
+    def _await(self, out, nb: int, batch: EncodedBatch,
+               deadline: float, delay: float = 0.0):
+        """Copy one dispatch back on a daemon retire thread under the
+        watchdog deadline (WatchdogExpired past it)."""
+        def work():
+            if delay:
+                time.sleep(delay)
+            return self._decode_member(out, nb, batch)
+        return _watched(self, work, deadline, f"chunk (V={batch.V}, "
+                        f"W={batch.W}, rows={nb})")
+
+    def _await_group(self, members: List[Tuple], outs, delay: float):
+        """Copy every member of one group launch back on one daemon
+        thread under ONE deadline (the sum of the members' deadlines, or
+        a fault plan's). Decode-stage faults fire once per member; any
+        member failing validation fails the group, and the ladder then
+        re-decides each member alone. Returns [(valid, bad, frontier)]
+        per member."""
+        if self.faults is not None and self.faults.deadline_s is not None:
+            deadline = self.faults.deadline_s
+        else:
+            deadline = sum(self._deadline(run.batch, hi - lo)
+                           for run, lo, hi, _ in members)
+
+        def work():
+            if delay:
+                time.sleep(delay)
+            return [self._decode_member(out, hi - lo, run.batch)
+                    for (run, lo, hi, _), out in zip(members, outs)]
+        rows = sum(hi - lo for _, lo, hi, _ in members)
+        return _watched(self, work, deadline, f"group ({len(members)} "
+                        f"chunks, {rows} rows)")
+
+    def _exec_once(self, batch: EncodedBatch, lo: int, hi: int, Bp: int):
+        """One synchronous guarded pass over rows [lo, hi): dispatch in
+        <= Bp-row sub-ranges, each awaited under the watchdog. Every
+        launch allocates its outputs afresh, so a late worker of an
+        abandoned attempt never shares a buffer with the retry."""
+        Np = _round_up(batch.n_events, EVENT_QUANTUM)
+        pieces = []
+        for s in range(lo, hi, Bp):
+            e = min(s + Bp, hi)
+            out, delay = self._ship(batch, s, e, Bp, Np, "data1retry")
+            pieces.append(
+                (self._await(out, e - s, batch,
+                             self._deadline(batch, Bp), delay), e - s))
+        return _concat_pieces(pieces, self.return_frontier)
+
+    def _exec_retry(self, batch: EncodedBatch, lo: int, hi: int, Bp: int):
+        """Bounded retry with exponential backoff around _exec_once. An
+        OOM escapes at once (halving Bp is its cure, not patience);
+        unclassified errors propagate."""
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            if attempt:
+                self._inc("retries")
+                time.sleep(self.backoff_s * (2 ** (attempt - 1)))
+            try:
+                return self._exec_once(batch, lo, hi, Bp)
+            except Exception as e:
+                c = classify_failure(e)
+                if c is None or c == "oom":
+                    raise
+                if isinstance(e, CorruptOutput):
+                    self._inc("corrupt_chunks")
+                last = e
+        raise _ChunkFailed(last)
+
+    def _exec_event_chunked(self, batch: EncodedBatch, lo: int, hi: int):
+        """The rung past the bisection floor: the event-chunked resume
+        kernel bounds peak memory by the event axis instead."""
+        sub = _slice_rows(batch, lo, hi)
+        v, b, fr = run_event_chunked(sub, self.event_chunk,
+                                     return_frontier=bool(
+                                         self.return_frontier),
+                                     device=self.device)
+        validate_decoded(v, b, batch.n_events)
+        return v, b, self._frontier_mode(v, fr)
+
+    def _placeholder(self, batch: EncodedBatch, n: int):
+        """Inert verdicts for quarantined rows, shaped like a clean
+        chunk; the caller's host engine overwrites them."""
+        v = np.ones(n, bool)
+        b = np.full(n, INT32_MAX, np.int32)
+        if self.return_frontier is True:
+            fr = np.zeros((n, n_state_words(batch.V), 1 << batch.W),
+                          np.uint32)
+        elif self.return_frontier == "invalid":
+            fr = {}
+        else:
+            fr = None
+        return v, b, fr
+
+    def _quarantine(self, batch: EncodedBatch, row: int,
+                    cause: BaseException):
+        i = batch.indices[row]
+        reason = f"{type(cause).__name__}: {cause}"
+        self.quarantined[i] = reason
+        self.row_provenance[i] = "host-fallback"
+        self._inc("quarantined_rows")
+        log.warning("quarantining history %s after exhausting the "
+                    "device ladder (%s); the host engine decides it", i,
+                    reason)
+        return self._placeholder(batch, 1)
+
+    def _hunt_poison(self, batch: EncodedBatch, lo: int, hi: int,
+                     Bp: int):
+        """Binary-search a persistently failing range down to the poison
+        rows. Each level gets ONE attempt (the range already used its
+        retries); a row still failing alone is quarantined."""
+        if hi - lo == 1:
+            try:
+                return self._exec_once(batch, lo, hi, min(Bp, ROW_QUANTUM))
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                return self._quarantine(batch, lo, e)
+        mid = (lo + hi) // 2
+        pieces = []
+        for a, c in ((lo, mid), (mid, hi)):
+            try:
+                piece = self._exec_once(batch, a, c, Bp)
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                piece = self._hunt_poison(batch, a, c, Bp)
+            pieces.append((piece, c - a))
+        return _concat_pieces(pieces, self.return_frontier)
+
+    def _exec_range(self, batch: EncodedBatch, lo: int, hi: int,
+                    Bp: int, first_cause: Optional[BaseException] = None):
+        """The ladder for rows [lo, hi): retry → OOM Bp-bisection (the
+        learned safe size sticks for the run) → event-chunked dispatch
+        → poison-row hunt. Always returns a full (valid, bad, frontier);
+        rows it could not decide are quarantined placeholders."""
+        cls = (batch.V, batch.W)
+        cap = self._safe_bp.get(cls)
+        if cap:
+            Bp = min(Bp, cap)
+        oom = first_cause is not None and \
+            classify_failure(first_cause) == "oom"
+        while True:
+            if not oom:
+                try:
+                    return self._exec_retry(batch, lo, hi, Bp)
+                except _ChunkFailed:
+                    return self._hunt_poison(batch, lo, hi, Bp)
+                except Exception as e:
+                    if classify_failure(e) != "oom":
+                        raise
+                    self._inc("oom_events")
+                    oom = True
+                    continue
+            if Bp > self.bisect_floor_rows:
+                Bp = max(self.bisect_floor_rows, Bp // 2)
+                self._inc("bisections")
+                self._safe_bp[cls] = Bp
+                log.warning("OOM on chunk (V=%s, W=%s): bisecting to "
+                            "%s rows/dispatch", batch.V, batch.W, Bp)
+                oom = False
+                continue
+            try:
+                return self._exec_event_chunked(batch, lo, hi)
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                return self._hunt_poison(batch, lo, hi, Bp)
+
+    def _recover(self, batch: EncodedBatch, lo: int, hi: int, Bp: int,
+                 cause: BaseException):
+        """The ladder's entry from a failed pipelined chunk; tags the
+        surviving rows device-retried (quarantined rows are already
+        host-fallback)."""
+        if classify_failure(cause) == "oom":
+            self._inc("oom_events")
+        if isinstance(cause, CorruptOutput):
+            self._inc("corrupt_chunks")
+        log.warning("chunk (V=%s, W=%s, rows %s:%s) failed in the "
+                    "pipeline (%s: %s); entering the degradation "
+                    "ladder", batch.V, batch.W, lo, hi,
+                    type(cause).__name__, cause)
+        # The ladder's first pass re-dispatches work the pipeline already
+        # shipped once: that is a retry, whatever happens after.
+        self._inc("retries")
+        out = self._exec_range(batch, lo, hi, Bp, first_cause=cause)
+        for r in range(lo, hi):
+            self.row_provenance.setdefault(batch.indices[r],
+                                           "device-retried")
+        return out
+
     def _retire(self, item) -> None:
-        members, outs = item
+        members, outs, delay = item
         t0 = time.monotonic()
-        results = [self._decode_member(out, hi - lo)
-                   for (_, lo, hi, _), out in zip(members, outs)]
+        results = None
+        if isinstance(outs, BaseException):
+            cause = outs           # the dispatch itself failed
+        else:
+            try:
+                if len(members) == 1:
+                    run, lo, hi, _ = members[0]
+                    results = [self._await(
+                        outs[0], hi - lo, run.batch,
+                        self._deadline(run.batch, hi - lo), delay)]
+                else:
+                    results = self._await_group(members, outs, delay)
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                cause = e
+        if results is None:
+            # The group failed as a unit: every member walks the ladder
+            # alone.
+            results = [self._recover(run.batch, lo, hi, Bp, cause)
+                       for run, lo, hi, Bp in members]
         self._inc("device_wait_s", time.monotonic() - t0)
         self._mark_retired()
         for (run, lo, hi, _), (v, b, fr) in zip(members, results):
@@ -585,28 +1004,58 @@ class BucketScheduler:
     def _run_event_routed(self, mb: EncodedBatch):
         """Long-history route: the whole bucket runs through the
         event-chunked resume kernel (carried frontier, ``event_chunk``-
-        step launches)."""
+        step launches). One attempt: a classified failure returns None
+        and the bucket falls through to the chunked pipeline, whose
+        ladder is the retry."""
         n_disp = -(-mb.n_events // self.event_chunk)
-        v, b, fr = run_event_chunked(mb, self.event_chunk,
-                                     return_frontier=bool(
-                                         self.return_frontier),
-                                     device=self.device)
+        try:
+            out = self._exec_event_chunked(mb, 0, mb.batch)
+        except Exception as e:
+            if classify_failure(e) is None:
+                raise
+            log.warning("event-chunked route failed for bucket (V=%s, "
+                        "W=%s, %s rows): %s; falling back to the chunk "
+                        "pipeline", mb.V, mb.W, mb.batch, e)
+            return None
         self._inc("dispatches", n_disp)
         self._inc("event_routed_dispatches", n_disp)
         self._inc("event_routed_rows", mb.batch)
-        return v, b, self._frontier_mode(v, fr)
+        return out
 
     def _run_wide(self, mb: EncodedBatch):
         """Blocking wide-route dispatch (W > DATA_MAX_SLOTS: the kernel
-        keeps such frontiers in device memory). A window past one card
-        returns the WindowOverflow for the caller's host engine."""
-        self._inc("dispatches")
-        try:
-            v, b, fr = run_encoded_batch(mb, bool(self.return_frontier),
-                                         device=self.device)
-        except WindowOverflow as e:
-            return e
-        return v, b, self._frontier_mode(v, fr)
+        keeps such frontiers in device memory) with bounded retry. A
+        window past one card returns the WindowOverflow, and a failure
+        that persists returns ChunkAbandoned: either way the caller's
+        host engine decides the rows."""
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            if attempt:
+                self._inc("retries")
+                time.sleep(self.backoff_s * (2 ** (attempt - 1)))
+            try:
+                self._inc("dispatches")
+                v, b, fr = run_encoded_batch(mb, bool(self.return_frontier),
+                                             device=self.device)
+                if attempt:
+                    for i in mb.indices:
+                        self.row_provenance.setdefault(i, "device-retried")
+                return v, b, self._frontier_mode(v, fr)
+            except WindowOverflow as e:
+                return e
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                last = e
+        self._inc("abandoned_buckets")
+        for i in mb.indices:
+            self.row_provenance[i] = "host-fallback"
+        log.warning("wide bucket (V=%s, W=%s, %s rows) abandoned after %s "
+                    "attempts (%s); its rows go to the host engine", mb.V,
+                    mb.W, mb.batch, self.max_retries + 1, last)
+        return ChunkAbandoned(
+            f"device failure persisted across {self.max_retries + 1} "
+            f"attempts: {last}")
 
     # ---------------------------------------------------------- class plan
     def _freeze_classes(self, group: Sequence[EncodedBatch]) -> Dict:
@@ -705,8 +1154,10 @@ class BucketScheduler:
             if (self.event_route_events
                     and mb.n_events >= self.event_route_events):
                 yield from drain()
-                yield blocking(mb, self._run_event_routed(mb))
-                return
+                out = self._run_event_routed(mb)
+                if out is not None:
+                    yield blocking(mb, out)
+                    return
             Bp, chunks = self._chunk_plan(mb)
             st = _Run(mb, len(chunks))
             order.append(st)
@@ -766,6 +1217,8 @@ class BucketScheduler:
         assert not order, "every dispatched bucket must have retired"
 
         self.stats["wall_s"] = round(time.monotonic() - self._t0, 4)
+        if self.faults is not None:
+            self.stats["faults_injected"] = len(self.faults.log)
         if self.stats["events"]:
             # Scan steps saved by event fusion: original (unfused)
             # events per dispatched step, >= 1.0.
@@ -829,13 +1282,27 @@ def _slice_rows(b: EncodedBatch, lo: int, hi: int) -> EncodedBatch:
 
 # ----------------------------------------- dependency-graph scheduler
 
+def _concat_graph_pieces(pieces):
+    if len(pieces) == 1:
+        return pieces[0]
+    return (np.concatenate([p[0] for p in pieces]),
+            np.concatenate([p[1] for p in pieces]))
+
+
 class GraphScheduler:
     """Vertex-bucket scheduler for the dependency-graph closure kernels
-    (ops.graph, ops.txn_graph): the happy path of the reference's
-    GraphScheduler. Each bucket splits into chunks of ``chunk_rows``
-    graphs (the ``graph_chunk_rows`` knob, JT_GRAPH_CHUNK_ROWS); a chunk
-    is copied to the device, launched (asynchronously), copied back and
-    shape-validated (validate_graph_decoded) before the next one.
+    (ops.graph, ops.txn_graph), the reference's GraphScheduler: the
+    graph twin of BucketScheduler, sharing its fault model end to end.
+    Each bucket splits into chunks of ``chunk_rows`` graphs (the
+    ``graph_chunk_rows`` knob, JT_GRAPH_CHUNK_ROWS); every chunk
+    dispatches through the one sequence ``_ship`` (the encode and
+    dispatch fault hooks, the copy to the device, the launch), is copied
+    back on a daemon retire thread under a watchdog deadline priced by
+    the op model (the decode fault hook there), shape-validated
+    (validate_graph_decoded), and on a classified failure walks the
+    ladder: bounded retry with backoff, row bisection on an
+    out-of-memory (the learned size sticks per vertex bucket), and the
+    poison-row hunt, whose rows are quarantined.
 
     ``family``/``kernel``/``levels``/``op_model`` say which closure
     family it drives: by default the anomaly planes of ops.graph
@@ -846,28 +1313,29 @@ class GraphScheduler:
 
     Contract as in the reference: ``run(buckets)`` yields ``(bucket,
     (cyc, node))`` per non-empty bucket with numpy arrays;
-    ``on_chunk(bucket, lo, hi, cyc, node)`` fires per decided chunk.
-    ``stats`` has the reference's keys: ``closure_matmuls`` and
-    ``mxu_macs`` price each chunk as the reference dispatches it, padded
-    to ``min(chunk_rows, max(8, pow2(rows)))`` graphs, by the same op
-    model, so that both packages' stats compare equal; the padding rows
-    themselves are not launched here. The fault ladder's counters stay
-    0, and ``quarantined`` and ``row_provenance`` stay empty: the
-    checker nemesis (``faults=``) and the degradation ladder come with
-    the fault-ladder slice. ``timings`` holds host-clock seconds of the
-    copy to the device, the launch (its enqueue), the copy back (which
-    waits for the kernel) and the validation.
+    ``quarantined`` maps each row the ladder gave up on to the reason
+    (its in-band verdict is an inert placeholder the caller must
+    re-decide on the host oracle); ``row_provenance`` tags the rows off
+    the happy path (``device-retried`` / ``host-fallback``);
+    ``on_chunk(bucket, lo, hi, cyc, node)`` fires per decided chunk (the
+    chunk journal's hook). ``stats`` has the reference's keys:
+    ``closure_matmuls`` and ``mxu_macs`` price each dispatch as the
+    reference pads it, to ``min(chunk_rows, max(8, pow2(rows)))``
+    graphs, by the same op model (retries included), so that both
+    packages' stats compare equal; the padding rows themselves are not
+    launched here. ``timings`` holds host-clock seconds of the copy to
+    the device, the launch (its enqueue), the copy back (which waits
+    for the kernel) and the validation.
     """
 
     def __init__(self, *, chunk_rows: Optional[int] = None,
-                 faults=None, on_chunk=None, family: str = "graph",
-                 kernel=None, levels: Optional[int] = None,
-                 op_model=None, device=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "the checker nemesis (faults=) comes with the fault-ladder "
-                "slice (ROADMAP item 4b), which is not part of jepsen_torch "
-                "yet")
+                 faults: Optional[FaultInjector] = None,
+                 max_retries: Optional[int] = None,
+                 backoff_s: Optional[float] = None,
+                 on_chunk=None, resident: Optional[ResidentState] = None,
+                 family: str = "graph", kernel=None,
+                 levels: Optional[int] = None, op_model=None,
+                 device=None):
         self.family = family
         self.kernel = close_planes if kernel is None else kernel
         self.levels = N_LEVELS if levels is None else int(levels)
@@ -876,8 +1344,23 @@ class GraphScheduler:
                            else max(1, int(chunk_rows)))
         self.device = resolve_device(device)
         self.on_chunk = on_chunk
+        self.faults = faults if faults is not None \
+            else FaultInjector.from_env()
+        self.max_retries = (knob("retry_max") if max_retries is None
+                            else max(0, int(max_retries)))
+        if backoff_s is None and self.faults is not None:
+            backoff_s = self.faults.backoff_s
+        self.backoff_s = (knob("retry_backoff_s") if backoff_s is None
+                          else float(backoff_s))
         self.quarantined: Dict[int, str] = {}
         self.row_provenance: Dict[int, str] = {}
+        self._safe_bp: Dict[int, int] = {}
+        self._awaited_shapes: set = set()
+        if resident is not None:
+            # Graph buckets key safe_bp by bare V (the WGL side by (V, W)),
+            # so one ResidentState serves both families.
+            resident.adopt(self)
+        self._stats_lock = threading.Lock()
         self.stats: dict = {
             "graphs": 0, "buckets": 0, "chunks": 0,
             "closure_matmuls": 0, "mxu_macs": 0.0, "wall_s": None,
@@ -888,33 +1371,193 @@ class GraphScheduler:
         self.timings = {"upload_s": 0.0, "launch_s": 0.0,
                         "copy_back_s": 0.0, "validate_s": 0.0}
 
+    def _inc(self, key: str, n=1) -> None:
+        with self._stats_lock:
+            self.stats[key] = self.stats.get(key, 0) + n
+
     def _lap(self, key: str, t0: float) -> float:
         t = time.perf_counter()
-        self.timings[key] += t - t0
+        with self._stats_lock:
+            self.timings[key] += t - t0
         return t
 
-    def _exec(self, b, lo: int, hi: int, Bp: int):
-        """One chunk: upload, launch, copy back, validate."""
+    def _fire(self, stage: str) -> Optional[str]:
+        return self.faults.fire(stage) if self.faults is not None else None
+
+    def _deadline(self, b, rows: int) -> float:
+        """As BucketScheduler._deadline, priced in closure MACs."""
+        if self.faults is not None and self.faults.deadline_s is not None:
+            return self.faults.deadline_s
+        est = rows * self.op_model(b.V)["macs"]
+        d = max(knob("watchdog_min_s"),
+                est / knob("watchdog_mxu_macs_per_s")
+                * knob("watchdog_factor"))
+        if b.V not in self._awaited_shapes:
+            self._awaited_shapes.add(b.V)
+            d += knob("watchdog_compile_grace_s")
+        return d
+
+    def _ship(self, b, lo: int, hi: int, Bp: int):
+        """The ONE dispatch sequence of the happy path and every ladder
+        re-dispatch: the encode-stage fault, the copy of rows [lo, hi) to
+        the device, the dispatch-stage fault, the asynchronous launch.
+        Returns (out, delay)."""
         t = time.perf_counter()
+        self._fire("encode")
         adj = torch.from_numpy(np.ascontiguousarray(b.adj[lo:hi],
                                                     np.int32))
         adj = adj.to(self.device)
         t = self._lap("upload_s", t)
-        cyc, node = self.kernel(adj, b.V)
+        delay = 0.0
+        if self.faults is not None:
+            delay = self.faults.sleep_for(self._fire("dispatch"))
+        out = self.kernel(adj, b.V)
         m = self.op_model(b.V)
-        self.stats["chunks"] += 1
-        self.stats["closure_matmuls"] += Bp * int(m["matmuls"])
-        self.stats["mxu_macs"] += Bp * m["macs"]
-        t = self._lap("launch_s", t)
-        c, nd = cyc.cpu().numpy(), node.cpu().numpy()
-        t = self._lap("copy_back_s", t)
-        if c.ndim != 2 or c.shape[1] != self.levels:
-            raise CorruptOutput(f"{self.family} chunk decoded {c.shape}, "
-                                f"expected [rows, {self.levels}]")
-        validate_graph_decoded(c, nd, b.V)
-        self._lap("validate_s", t)
-        return c, nd
+        self._inc("chunks")
+        self._inc("closure_matmuls", Bp * int(m["matmuls"]))
+        self._inc("mxu_macs", Bp * m["macs"])
+        self._lap("launch_s", t)
+        return out, delay
 
+    def _await(self, out, nb: int, b, deadline: float,
+               delay: float = 0.0):
+        """Copy one dispatch back on a daemon retire thread under the
+        watchdog: the decode-stage fault fires there, and the verdicts
+        are shape-validated (corrupt output is a retryable fault, never a
+        wrong verdict)."""
+        def work():
+            if delay:
+                time.sleep(delay)
+            kind = self._fire("decode")
+            if self.faults is not None:
+                s = self.faults.sleep_for(kind)
+                if s:
+                    time.sleep(s)
+            t = time.perf_counter()
+            cyc, node = out
+            c, nd = cyc[:nb].cpu().numpy(), node[:nb].cpu().numpy()
+            t = self._lap("copy_back_s", t)
+            if kind == "corrupt":
+                c, nd = corrupt_arrays(c, nd)
+            if c.ndim != 2 or c.shape[1] != self.levels:
+                raise CorruptOutput(f"{self.family} chunk decoded "
+                                    f"{c.shape}, expected [rows, "
+                                    f"{self.levels}]")
+            validate_graph_decoded(c, nd, b.V)
+            self._lap("validate_s", t)
+            return c, nd
+        return _watched(self, work, deadline,
+                        f"{self.family} chunk (V={b.V}, rows={nb})")
+
+    # ------------------------------------------------ watchdog + ladder
+    def _exec_once(self, b, lo: int, hi: int, Bp: int):
+        pieces = []
+        for s in range(lo, hi, Bp):
+            e = min(s + Bp, hi)
+            out, delay = self._ship(b, s, e, Bp)
+            pieces.append(self._await(out, e - s, b,
+                                      self._deadline(b, Bp), delay))
+        return _concat_graph_pieces(pieces)
+
+    def _exec_retry(self, b, lo: int, hi: int, Bp: int):
+        last: Optional[BaseException] = None
+        for attempt in range(self.max_retries + 1):
+            if attempt:
+                self._inc("retries")
+                time.sleep(self.backoff_s * (2 ** (attempt - 1)))
+            try:
+                return self._exec_once(b, lo, hi, Bp)
+            except Exception as e:
+                c = classify_failure(e)
+                if c is None or c == "oom":
+                    raise
+                if isinstance(e, CorruptOutput):
+                    self._inc("corrupt_chunks")
+                last = e
+        raise _ChunkFailed(last)
+
+    def _placeholder(self, n: int):
+        return (np.zeros((n, self.levels), bool),
+                np.full((n, self.levels), INT32_MAX, np.int32))
+
+    def _quarantine(self, b, row: int, cause: BaseException):
+        i = b.indices[row]
+        reason = f"{type(cause).__name__}: {cause}"
+        self.quarantined[i] = reason
+        self.row_provenance[i] = "host-fallback"
+        self._inc("quarantined_rows")
+        log.warning("quarantining graph %s after exhausting the device "
+                    "ladder (%s); the host oracle decides it", i, reason)
+        return self._placeholder(1)
+
+    def _hunt_poison(self, b, lo: int, hi: int, Bp: int):
+        if hi - lo == 1:
+            try:
+                return self._exec_once(b, lo, hi, min(Bp, 8))
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                return self._quarantine(b, lo, e)
+        mid = (lo + hi) // 2
+        pieces = []
+        for a, c in ((lo, mid), (mid, hi)):
+            try:
+                piece = self._exec_once(b, a, c, Bp)
+            except Exception as e:
+                if classify_failure(e) is None:
+                    raise
+                piece = self._hunt_poison(b, a, c, Bp)
+            pieces.append(piece)
+        return _concat_graph_pieces(pieces)
+
+    def _exec_range(self, b, lo: int, hi: int, Bp: int,
+                    first_cause: Optional[BaseException] = None):
+        """retry → OOM row bisection (the learned size sticks per vertex
+        bucket) → poison-row hunt with quarantine. Always returns a full
+        (cyc, node) for the range."""
+        cap = self._safe_bp.get(b.V)
+        if cap:
+            Bp = min(Bp, cap)
+        oom = first_cause is not None and \
+            classify_failure(first_cause) == "oom"
+        while True:
+            if not oom:
+                try:
+                    return self._exec_retry(b, lo, hi, Bp)
+                except _ChunkFailed:
+                    return self._hunt_poison(b, lo, hi, Bp)
+                except Exception as e:
+                    if classify_failure(e) != "oom":
+                        raise
+                    self._inc("oom_events")
+                    oom = True
+                    continue
+            if Bp > 1:
+                Bp = max(1, Bp // 2)
+                self._inc("bisections")
+                self._safe_bp[b.V] = Bp
+                log.warning("OOM on graph chunk (V=%s): bisecting to %s "
+                            "rows/dispatch", b.V, Bp)
+                oom = False
+                continue
+            return self._hunt_poison(b, lo, hi, 1)
+
+    def _recover(self, b, lo: int, hi: int, Bp: int,
+                 cause: BaseException):
+        if classify_failure(cause) == "oom":
+            self._inc("oom_events")
+        if isinstance(cause, CorruptOutput):
+            self._inc("corrupt_chunks")
+        log.warning("graph chunk (V=%s, rows %s:%s) failed (%s: %s); "
+                    "entering the degradation ladder", b.V, lo, hi,
+                    type(cause).__name__, cause)
+        self._inc("retries")
+        out = self._exec_range(b, lo, hi, Bp, first_cause=cause)
+        for r in range(lo, hi):
+            self.row_provenance.setdefault(b.indices[r], "device-retried")
+        return out
+
+    # ----------------------------------------------------------------- run
     def run(self, buckets):
         """Yield (bucket, (cyc, node)) per vertex bucket — see the class
         docstring for the contract."""
@@ -922,19 +1565,30 @@ class GraphScheduler:
         for b in buckets:
             if not b.batch:
                 continue
-            self.stats["buckets"] += 1
-            self.stats["graphs"] += b.batch
+            self._inc("buckets")
+            self._inc("graphs", b.batch)
             pieces = []
             for lo in range(0, b.batch, self.chunk_rows):
                 hi = min(lo + self.chunk_rows, b.batch)
                 Bp = min(self.chunk_rows, max(8, _pow2_ceil(hi - lo)))
-                cyc, node = self._exec(b, lo, hi, Bp)
+                # A bisection learned this bucket's memory wall: later
+                # chunks dispatch under it.
+                cap = self._safe_bp.get(b.V)
+                if cap:
+                    Bp = min(Bp, cap)
+                try:
+                    cyc, node = self._exec_once(b, lo, hi, Bp)
+                except Exception as e:
+                    if classify_failure(e) is None:
+                        raise
+                    cyc, node = self._recover(b, lo, hi, Bp, e)
                 if self.on_chunk is not None:
                     self.on_chunk(b, lo, hi, cyc, node)
                 pieces.append((cyc, node))
-            yield b, (np.concatenate([p[0] for p in pieces]),
-                      np.concatenate([p[1] for p in pieces]))
+            yield b, _concat_graph_pieces(pieces)
         self.stats["wall_s"] = round(time.monotonic() - t0, 4)
+        if self.faults is not None:
+            self.stats["faults_injected"] = len(self.faults.log)
 
 
 def run_buckets_streamed(batches, return_frontier=False, **kw):

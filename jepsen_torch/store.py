@@ -1,0 +1,192 @@
+"""The checker's write-ahead log: a copy of the reference's
+``store.ChunkJournal`` and the digests that key it.
+
+The file format is the reference's, so a journal written by either
+package resumes in the other: a header line ``{"journal": "JTJRNL1",
+"key": {...}}`` binding the journal to one exact batch, then one
+fsynced JSON line per retired chunk, ``{"rows": [...], "valid": [...],
+"bad": [...], "prov": [...]}``. The online daemon's frontier-checkpoint
+rows (``{"frontier": {...}}``) load, latest wins; writing them comes
+with the online slice. The run store itself is not ported.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+
+JOURNAL_MAGIC = "JTJRNL1"
+
+log = logging.getLogger("jepsen.store")
+
+
+class ChunkJournal:
+    """Durable chunk-verdict journal.
+
+    The streaming checkers append one line per retired chunk as verdicts
+    land: ``rows`` are caller-level history indices, ``bad`` the final
+    bad-op index (null for valid rows), ``prov`` the provenance tag per
+    row. The header's key carries a fingerprint of the batch (model, row
+    count, a content digest), so a stale journal is discarded rather
+    than trusted.
+
+    Every record is flushed and fsynced: an interrupted process leaves
+    every retired chunk on disk, and a torn final line is dropped on
+    load (and cut off before the next append). ``resume=True`` reloads
+    the decided rows so the next run dispatches only the remainder;
+    ``record`` refuses a row decided twice, which makes the journal the
+    enforcement point of the no-row-redispatched rule. ``finish()``
+    deletes the file: a journal only outlives an interrupted run."""
+
+    def __init__(self, path, key: dict, resume: bool = False):
+        self.path = Path(path)
+        self.key = dict(key)
+        self.resume_hits = 0
+        self._decided: Dict[int, tuple] = {}
+        self._frontier: Optional[dict] = None
+        self._good_end = 0     # byte offset past the last clean line
+        if resume and self.path.exists():
+            self._load()
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        if self._decided or self._frontier is not None:
+            # Drop the torn tail BEFORE appending: a record written after
+            # a partial line would weld onto it.
+            with open(self.path, "r+b") as f:
+                f.truncate(self._good_end)
+            self._f = open(self.path, "a")
+        else:
+            self._f = open(self.path, "w")
+            self._f.write(json.dumps(
+                {"journal": JOURNAL_MAGIC, "key": self.key}) + "\n")
+            self._flush()
+
+    def _load(self) -> None:
+        try:
+            data = self.path.read_bytes()
+            pos = 0
+            header_seen = False
+            while pos < len(data):
+                nl = data.find(b"\n", pos)
+                if nl < 0:
+                    break          # torn tail from the interruption
+                try:
+                    e = json.loads(data[pos:nl])
+                    if not header_seen:
+                        if e.get("journal") != JOURNAL_MAGIC or \
+                                e.get("key") != self.key:
+                            log.warning("chunk journal %s belongs to a "
+                                        "different batch (key mismatch); "
+                                        "starting fresh", self.path)
+                            return
+                        header_seen = True
+                    elif "frontier" in e:
+                        self._frontier = e["frontier"]
+                    else:
+                        for r, v, b, p in zip(e["rows"], e["valid"],
+                                              e["bad"], e["prov"]):
+                            self._decided[int(r)] = (
+                                bool(v), None if b is None else int(b), p)
+                except Exception:
+                    break          # malformed line: keep the prefix
+                pos = nl + 1
+                self._good_end = pos
+        except Exception:
+            self._decided = {}
+            self._good_end = 0
+
+    def _flush(self) -> None:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+
+    def decided(self) -> Dict[int, tuple]:
+        """{row: (valid, bad-op-index-or-None, provenance)} recovered
+        from a previous interrupted run."""
+        self.resume_hits = len(self._decided)
+        return dict(self._decided)
+
+    def record(self, rows, valid, bad, prov) -> None:
+        rows = [int(r) for r in rows]
+        if not rows:
+            return
+        dup = [r for r in rows if r in self._decided]
+        if dup:
+            raise ValueError(
+                f"chunk journal: rows decided twice (double dispatch): "
+                f"{dup[:5]}")
+        valid = [bool(v) for v in valid]
+        bad = [None if b is None else int(b) for b in bad]
+        prov = [str(p) for p in prov]
+        for r, v, b, p in zip(rows, valid, bad, prov):
+            self._decided[r] = (v, b, p)
+        self._f.write(json.dumps({"rows": rows, "valid": valid, "bad": bad,
+                                  "prov": prov}) + "\n")
+        self._flush()
+
+    def frontier(self) -> Optional[dict]:
+        """The latest frontier-checkpoint payload recovered on resume,
+        or None."""
+        return self._frontier
+
+    def close(self) -> None:
+        try:
+            self._f.close()
+        except Exception:
+            pass
+
+    def finish(self) -> None:
+        """The run completed: the journal has served its purpose."""
+        self.close()
+        try:
+            self.path.unlink()
+        except FileNotFoundError:
+            pass
+
+
+def columnar_digest(cols) -> str:
+    """Content fingerprint of a ColumnarOps batch: the journal key
+    component that pins a journal to one exact row set and order (the
+    reference's digest, byte for byte)."""
+    h = hashlib.sha256()
+    for arr in (cols.type, cols.process, cols.kind):
+        h.update(np.ascontiguousarray(arr).tobytes())
+    if cols.index is not None:
+        h.update(np.ascontiguousarray(cols.index).tobytes())
+    key = getattr(cols, "key", None)
+    if key is not None:
+        h.update(b"key")
+        h.update(np.ascontiguousarray(key).tobytes())
+    h.update(json.dumps(list(map(list, cols.kinds)), default=str)
+             .encode())
+    return h.hexdigest()[:16]
+
+
+def spec_digest(spec, **extra) -> str:
+    """Fingerprint of a deterministic generator spec (a dataclass such
+    as ops.synth_device.SynthSpec) plus labelling kwargs: the journal
+    key of a synthesized batch, which the spec names completely."""
+    import dataclasses
+
+    d = dataclasses.asdict(spec) if dataclasses.is_dataclass(spec) \
+        else dict(spec)
+    d.update(extra)
+    return hashlib.sha256(
+        json.dumps(d, sort_keys=True, default=str).encode()
+    ).hexdigest()[:16]
+
+
+def atomic_write_json(path, obj, **dump_kwargs) -> None:
+    """Durable small-JSON write: an fsynced temp file (named by the pid,
+    so two writers never share one) and an atomic rename, so a crash
+    never leaves a torn file. ``dump_kwargs`` go to json.dump."""
+    path = Path(path)
+    tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
+    with open(tmp, "w") as f:
+        json.dump(obj, f, **dump_kwargs)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)

@@ -460,11 +460,15 @@ def test_dc_check_batch_matches_reference():
 
 def test_decode_takes_a_decided_chunk():
     """A chunk the peel loop decided alone arrives as host arrays with
-    no frontier: all valid, no bad event, an empty invalid-row map."""
+    no frontier: all valid, no bad event, an empty invalid-row map. It
+    goes through the decode-stage fault and validation like any chunk,
+    so the decode takes the bucket (its event axis)."""
+    from types import SimpleNamespace
+    batch = SimpleNamespace(n_events=8)
     sch = BucketScheduler(return_frontier="invalid", device="cpu")
     out = (np.ones(3, bool), np.full(3, L.INT32_MAX, np.int32), None)
-    v, b, fr = sch._decode_member(out, 3)
+    v, b, fr = sch._decode_member(out, 3, batch)
     assert v.all() and (b == L.INT32_MAX).all() and fr == {}
     sch = BucketScheduler(return_frontier=False, device="cpu")
-    assert sch._decode_member(out, 2)[2] is None
+    assert sch._decode_member(out, 2, batch)[2] is None
 

@@ -411,12 +411,26 @@ def test_empty_history_and_empty_batch():
     assert r["valid"] is True and r["vertices"] == 0
 
 
-@pytest.mark.parametrize("kw", [{"faults": object()},
-                                {"journal": object()}],
-                         ids=["faults", "journal"])
-def test_refuses_the_fault_ladder(kw):
-    with pytest.raises(NotImplementedError, match="4b"):
-        check_graphs_batch([synth_la_history(1)], device="cpu", **kw)
+@pytest.mark.parametrize("what", ["faults", "journal"])
+def test_refuses_the_fault_ladder(what, tmp_path):
+    """The fault ladder is ported (it was refused before): the checker
+    nemesis and the chunk journal are accepted, and the results are the
+    fault-free run's."""
+    from jepsen_torch.ops.faults import FaultInjector, FaultPlan
+    from jepsen_torch.store import ChunkJournal
+    hists = [synth_la_history(s, corrupt=1.0 if s % 2 else 0.0)
+             for s in range(4)]
+    want = check_graphs_batch(hists, device="cpu")
+    kw = ({"faults": FaultInjector(FaultPlan.single("dispatch", "oom"))}
+          if what == "faults" else
+          {"journal": ChunkJournal(tmp_path / "j.jsonl", {"k": 1})})
+    got = check_graphs_batch(hists, device="cpu", **kw)
+    assert [{**g, "provenance": None} for g in got] == \
+        [{**w, "provenance": None} for w in want]
+    if what == "journal":
+        assert len(kw["journal"].decided()) == len(hists)
+    else:
+        assert kw["faults"].log
 
 
 def test_entry_points_need_a_card_unless_told(monkeypatch):

@@ -206,10 +206,23 @@ def test_checker_adapters():
     assert rh["level"] == r["level"] and rh["provenance"] == "host"
 
 
-@pytest.mark.parametrize("kw", [{"faults": object()},
-                                {"journal": object()}],
-                         ids=["faults", "journal"])
-def test_refuses_the_fault_ladder(kw):
-    ops, _ = S.synth_txn_history(S.TxnSpec(n_txns=4), 0)
-    with pytest.raises(NotImplementedError, match="4b"):
-        I.certify_batch([ops], device="cpu", **kw)
+@pytest.mark.parametrize("what", ["faults", "journal"])
+def test_refuses_the_fault_ladder(what, tmp_path):
+    """The fault ladder is ported (it was refused before): the checker
+    nemesis and the chunk journal are accepted, and the results are the
+    fault-free run's."""
+    from jepsen_torch.ops.faults import FaultInjector, FaultPlan
+    from jepsen_torch.store import ChunkJournal
+    hists = [S.synth_txn_history(S.TxnSpec(n_txns=4), i)[0]
+             for i in range(3)]
+    want = I.certify_batch(hists, device="cpu")
+    kw = ({"faults": FaultInjector(FaultPlan.single("decode", "corrupt"))}
+          if what == "faults" else
+          {"journal": ChunkJournal(tmp_path / "j.jsonl", {"k": 1})})
+    got = I.certify_batch(hists, device="cpu", **kw)
+    assert [{**g, "provenance": None} for g in got] == \
+        [{**w, "provenance": None} for w in want]
+    if what == "journal":
+        assert len(kw["journal"].decided()) == len(hists)
+    else:
+        assert kw["faults"].log

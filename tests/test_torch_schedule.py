@@ -10,7 +10,8 @@ reference's ``scheduler=True`` results on the CPU. Also pinned: why
 widening is safe, the W-class DP's budget and boundary contract (with
 the dispatch-overhead term pinned to 0 by tests/conftest.py, as for the
 reference), group launches (fuse_width 1 vs 4), the frontier-only
-backend names, and the refusals of what the port does not carry yet.
+backend names, and the checker nemesis and chunk journal accepted by
+both entry points.
 Tolerance: none (exact equality).
 """
 from types import SimpleNamespace
@@ -278,16 +279,28 @@ def test_fuse_width_one_vs_four(shared_cols):
         scheduler_opts={**opts, "fuse_width": 4, "shard_min_rows": 1 << 30})
 
 
-@pytest.mark.parametrize("kw", [
-    {"faults": object()}, {"journal": object()}],
-    ids=["faults", "journal"])
-def test_refuses_what_is_not_ported(shared_cols, kw):
+@pytest.mark.parametrize("what", ["faults", "journal"])
+def test_refuses_what_is_not_ported(shared_cols, what, tmp_path):
+    """The checker nemesis and the chunk journal are ported (they were
+    refused before): both entry points accept them and return the
+    fault-free results."""
+    from jepsen_torch.ops.faults import FaultInjector, FaultPlan
+    from jepsen_torch.store import ChunkJournal
     _, pc = shared_cols
-    hists = mixed_w_histories(n=2)
-    with pytest.raises(NotImplementedError):
-        L.check_columnar(MODEL, pc, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        L.check_batch(MODEL, hists, device="cpu", **kw)
+    hists = mixed_w_histories(n=6)
+
+    def kw(tag):
+        if what == "faults":
+            return {"faults": FaultInjector(FaultPlan.single("decode",
+                                                             "corrupt"))}
+        return {"journal": ChunkJournal(tmp_path / f"{tag}.jsonl", {})}
+    want_v, want_b = L.check_columnar(MODEL, pc, device="cpu")
+    got_v, got_b = L.check_columnar(MODEL, pc, device="cpu", **kw("c"))
+    assert np.array_equal(got_v, want_v) and np.array_equal(got_b, want_b)
+    want = L.check_batch(MODEL, hists, device="cpu")
+    got = L.check_batch(MODEL, hists, device="cpu", **kw("b"))
+    assert [{**g, "provenance": None} for g in got] == \
+        [{**w, "provenance": None} for w in want]
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])

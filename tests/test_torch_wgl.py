@@ -347,5 +347,129 @@ def test_plain_counts_the_operations_the_step_needs():
     # close: expand (0, {}) once; pad: nothing; ok: the same expansion
     # plus one kept-mask test; ok on the sentinel: the test alone.
     assert int(ops[0]) == 1 + 0 + 2 + 1
-    # close takes two sweeps (one to converge, one to see it), each ok one
-    assert int(iters[0]) == 2 + 1 + 1
+    # close takes two sweeps (one to converge, one to see it); the pad's
+    # closure (counted, then dropped) and each ok take one
+    assert int(iters[0]) == 2 + 1 + 1 + 1
+
+
+# ------------------------------------------- K2 instrument: closure passes
+
+def ref_instrumented(V, W, shared, w_live=None):
+    kern = ref.make_kernel(V, W, w_live=w_live, instrument=True)
+    return jax.jit(jax.vmap(kern, in_axes=(0, 0, 0, None if shared else 0)))
+
+
+def port_instrumented(ev_type, ev_slot, ev_slots, target, V, W,
+                      w_live=None):
+    v, b, f, it = L.get_kernel(V, W, w_live=w_live, instrument=True)(
+        t(ev_type), t(ev_slot), t(ev_slots), t(target))
+    return v.numpy(), b.numpy(), f.numpy().view(np.uint32), it.numpy()
+
+
+INSTRUMENT_CASES = {
+    # pads carry live slot kinds: their closures count and are dropped
+    "pads_with_live_kinds": dict(B=6, N=24, V=8, W=4, K1=6, shared=True,
+                                 n_pad=8),
+    "per_row_target": dict(B=6, N=20, V=8, W=5, K1=7, shared=False),
+    "w_live_below_W": dict(B=5, N=20, V=8, W=6, K1=6, shared=True,
+                           w_live=3),
+    # slot and kind indices past both ends: rows fail early, and every
+    # event after the first failure counts one pass
+    "early_failures": dict(B=8, N=24, V=8, W=4, K1=7, shared=False,
+                           wild=True),
+    "two_words": dict(B=4, N=16, V=40, W=3, K1=9, shared=True),
+    "one_slot": dict(B=5, N=18, V=3, W=1, K1=3, shared=False, n_pad=5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INSTRUMENT_CASES))
+def test_instrumented_matches_make_kernel_instrument(case):
+    """get_kernel(instrument=True) — plain_wgl(iters=) on the CPU — gives
+    the reference's four outputs bit for bit, the pass count included."""
+    kw = dict(INSTRUMENT_CASES[case])
+    w_live = kw.pop("w_live", None)
+    args = random_inputs(11, **kw)
+    want = ref_instrumented(kw["V"], kw["W"], kw["shared"], w_live)(*args)
+    got = port_instrumented(*args, kw["V"], kw["W"], w_live)
+    assert_same(got, want)
+    if case == "early_failures":
+        assert (~got[0]).sum() >= 1
+    # the three check outputs are the uninstrumented kernel's
+    assert_same(got[:3], port_check(*args, kw["V"], kw["W"], w_live))
+
+
+@pytest.mark.parametrize("corpus", ["sweep", "info"])
+def test_instrumented_matches_make_kernel_on_encoded_buckets(corpus):
+    for b in ref_buckets(**CORPORA[corpus]):
+        want = ref_instrumented(b.V, b.W, False, b.eff_w_live)(
+            b.ev_type, b.ev_slot, b.ev_slots, b.target)
+        got = port_instrumented(b.ev_type, b.ev_slot, b.ev_slots, b.target,
+                                b.V, b.W, b.eff_w_live)
+        assert_same(got, want)
+
+
+def test_instrumented_counts_a_pad_row():
+    """A row of four pad events (V 2, W 1): the first three carry a kind
+    that sends state 0 to 1, so each closure of the initial frontier
+    takes two passes, and none advances the frontier; the fourth's kind
+    reaches no state: one pass. The reference counts 7."""
+    target = np.array([[1, -1], [-1, -1]], np.int32)
+    args = (np.zeros((1, 4), np.int8), np.zeros((1, 4), np.int8),
+            np.array([[[0], [0], [0], [1]]], np.int8), target)
+    want = ref_instrumented(2, 1, True)(*args)
+    got = port_instrumented(*args, 2, 1)
+    assert_same(got, want)
+    assert int(got[3][0]) == 7
+    assert got[2][0, 0].tolist() == [1, 0]   # the frontier never moved
+
+
+def test_measure_closure_iters_matches_the_reference_bench_loop():
+    """measure_closure_iters is bench.py's instrumented pass: the same
+    total passes and vpu_op_model lane-ops over the same buckets."""
+    buckets = ref_buckets(**CORPORA["sweep"])
+    want_iters, want_ops = 0, 0.0
+    for b in buckets:
+        out = ref.get_kernel(b.V, b.W, shared_target=False,
+                             w_live=b.eff_w_live, instrument=True)(
+            b.ev_type, b.ev_slot, b.ev_slots, b.target)
+        it = int(np.asarray(out[3]).sum())
+        m = ref.vpu_op_model(b.V, b.W, b.eff_w_live)
+        want_ops += (it * m["per_iteration"]
+                     + b.batch * b.ev_opidx.shape[-1] * m["per_event"])
+        want_iters += it
+    got = L.measure_closure_iters(
+        [batch_from_arrays(b) for b in buckets], device="cpu")
+    assert got["iters"] == want_iters and got["lane_ops"] == want_ops
+    assert got["buckets"] == len(buckets)
+
+
+def test_instrumented_has_the_check_form_only():
+    with pytest.raises(ValueError, match="check form"):
+        L.get_kernel(8, 4, instrument=True, resume=True)
+
+
+def test_instrument_plan_runs_the_block_body_at_every_width():
+    """The instrumented entry never takes the warp tier, and keeps a
+    scratch frontier beside the frontier: in shared memory while both
+    fit, in device memory past that."""
+    for W in range(1, 19):
+        for V in (8, 40):
+            plan = cuda_wgl.smem_plan(V, W, instrument=True)
+            assert plan["tier"] in ("block", "device")
+            words = cuda_wgl.n_state_words(V)
+            assert plan["frontier_bytes"] == 2 * words * (4 << W)
+            assert plan["frontier_in_smem"] == (
+                plan["rows_bytes"] + plan["frontier_bytes"]
+                <= cuda_wgl.SMEM_LIMIT_BYTES)
+    assert cuda_wgl.smem_plan(8, 14, instrument=True)["tier"] == "block"
+    assert cuda_wgl.smem_plan(8, 15, instrument=True)["tier"] == "device"
+    assert cuda_wgl.smem_plan(8, 15)["tier"] == "block"
+
+
+def test_instrumented_wrapper_refuses_cpu_tensors():
+    args = [t(a) for a in random_inputs(1, B=2, N=8, V=8, W=4, K1=4,
+                                        shared=True)]
+    carry = L.initial_carry(2, 8, 4, CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_wgl.wgl_frontier(*args, 0, *carry, V=8, W=4,
+                              iters=torch.zeros(2, dtype=torch.int32))
