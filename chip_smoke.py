@@ -4,7 +4,8 @@
 
 Builds the five CUDA libraries from the checkout's sources (one nvcc
 each, in parallel) and holds each kernel bit for bit against its plain
-PyTorch version on the card: the WGL frontier kernel in each of its
+PyTorch version on the card (the list-append generator with its own
+phases, below): the WGL frontier kernel in each of its
 three tiers (warp, block, device memory) with cases at every tier edge,
 two state words, tables staged on chip and left in device memory,
 padding rows and tile-edge rows, and the event-chunked resume entry; its
@@ -18,7 +19,7 @@ paths, each with the launch counts set to 0 just before and read just
 after:
 
   * the Op-list path, ``check_batch(scheduler=False)`` on seeded
-    CAS-register histories of 1,000 invocations each (1,000 of them: cut
+    CAS-register histories of 1,000 invocations each (500 of them: cut
     in count, never in length, to keep the run short), with the host
     oracle on sampled rows;
   * the columnar exact path, ``check_synth(scheduler=False)`` on the
@@ -50,7 +51,7 @@ after:
     their plain versions on seeded random lines at every width edge and
     in both tiers (``fold_kernel_parity``), then each of the seven fold
     checkers' ``check_*_batch`` on the reference bench's total-queue
-    batch and on a full-width batch per family, 64 histories of 10,000
+    batch and on a full-width batch per family, 32 histories of 10,000
     elements with seeded violations, every history held against its host
     oracle in ``checkers.simple`` and the kernel against its plain
     version on the batch (``fold_path``);
@@ -67,7 +68,18 @@ after:
     ``wgl_check``, and K4 measured on the plans the path gave it; then
     ``fleet.route_check`` on a mixed corpus (cas, rw, list-append and
     transactional histories at the bench's shapes), every row held to
-    its host oracle (``route_check``).
+    its host oracle (``route_check``);
+  * the list-append generator (K8c, ``cuda_synth.synth_la``) against its
+    plain version bit for bit over processes, keys (past the kernel's
+    local array), op counts, corruption rates, a row slice and explicit
+    stream keys (``la_synth_parity``); then the la path on the card,
+    ``synthesize`` -> ``decode_la`` -> ``check_graphs_batch(family=
+    "list-append")``, on a full-width batch (32 histories of 1,000 ops
+    over 8 keys, half corrupted: V 1,024) and the reference bench's
+    shape (2,000 of 30 ops), every corrupted row invalid with a G2
+    cycle and every clean one valid, sampled rows against the host
+    oracle on the worker pool, and K8c timed alone on 10,000 histories
+    of 1,000 ops (``la_path``).
 
 Then the fault ladder's phases, after every kernel is built:
 
@@ -86,7 +98,15 @@ Then the fault ladder's phases, after every kernel is built:
   * the graph and isolation bench batches under each single-fault
     schedule, and killed and resumed (``graph_faults``);
   * the failure classifier on the card's real failures: an allocation
-    far past its memory and a refused launch (``real_oom``).
+    far past its memory and a refused launch (``real_oom``);
+  * the seed campaign, ``runtime.run_synth_seeds``, over three seeds of
+    a faulted keyed cas spec, then killed mid seed 1 by the checker
+    nemesis and resumed from its checkpoint and journals: the same
+    summaries, no completed seed run again, only undecided rows
+    dispatched (``campaign``);
+  * the fuzz loop, ``fuzz.fuzz_campaign``, two rounds over the same spec
+    with every eighth neighbour re-checked by the host engine: no
+    disagreement and at least one invalid neighbourhood (``fuzz``).
 
 ``python3 chip_smoke.py --headline TREE [TREE ...]`` instead times the
 default ``check_synth`` on the keyed headline spec in each checkout
@@ -128,7 +148,9 @@ NS_SPEC = dict(family="cas", n=10_000, seed=0, n_procs=5, n_ops=1_000,
 HEADLINE_SPEC = dict(family="cas", n=10_000, seed=1, n_procs=5,
                      n_ops=1_000, n_values=5, corrupt=0.1, p_info=0.01,
                      n_keys=8)
-OPLIST_HISTORIES = 1_000  # the Op-list path's count (its length is uncut)
+# The Op-list path's count, cut from 2,000 (to 1,000, then to 500 when
+# the la phases joined the script); its length is uncut.
+OPLIST_HISTORIES = 500
 SCHED_OPLIST_HISTORIES = 500
 ORACLE_ROWS = 64
 DETAIL_ROWS = 256
@@ -465,9 +487,14 @@ def outputs_err(a: dict, b: dict) -> int:
                     .abs().max()) if a[n].numel() else 0) for n in b)
 
 
-def synth_case(S, cuda_synth, spec, dev, rows=None, key_meta=True):
-    """The generator kernel and its plain version on the same inputs on
-    the card: (kernel outputs, plain outputs)."""
+def synth_case(S, cuda_synth, spec, dev, rows=None, key_meta=True,
+               keys=None):
+    """The generator kernel of ``spec``'s family and its plain version on
+    the same inputs on the card: (kernel outputs, plain outputs)."""
+    if spec.family == "la":
+        args = S.la_inputs(spec, rows=rows, keys=keys, device=dev)
+        st = S.la_static(spec)
+        return cuda_synth.synth_la(*args, **st), S.plain_la_core(*args, **st)
     if spec.family == "wide":
         vk = S.wide_inputs(spec, rows=rows, device=dev)
         st = dict(width=spec.width, n_values=spec.n_values,
@@ -1147,8 +1174,21 @@ def group_measure(dev, L, groups):
                        reps=3)
     got = replay()
     torch.cuda.synchronize()
+    # The plain version, member by member as plain_fused_wgl runs it, each
+    # counting the operations its data needs in the same run.
+    needed = [[torch.zeros(nb, dtype=torch.int64, device=dev) for nb in r]
+              for _, _, r in groups]
     t0 = time.perf_counter()
-    want = [L.plain_fused_wgl(m, real_rows(m, f, r)) for m, f, r in groups]
+    want = []
+    for (m, f, r), nd in zip(groups, needed):
+        flat = real_rows(m, f, r)
+        out = []
+        for i, ((V, W, wl, _), nb) in enumerate(zip(m, r)):
+            valid, bad, F, Fb = L.plain_wgl(
+                *flat[4 * i:4 * i + 4], 0, *L.initial_carry(nb, V, W, dev),
+                V=V, W=W, w_live=wl, ops=nd[i])
+            out += [valid, bad, torch.where(valid[:, None, None], F, Fb)]
+        want.append(out)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, equal = 0, True
@@ -1158,16 +1198,13 @@ def group_measure(dev, L, groups):
             equal = equal and torch.equal(gj, w[j])
             err = max(err, tensors_err(gj, w[j]))
     del got, want
-    ops = nbytes = 0
+    ops = sum(int(t.sum()) for nd in needed for t in nd)
+    nbytes = 0
     tiers: dict = {}
     for m, f, r in groups:
         flat = real_rows(m, f, r)
         for i, ((V, W, wl, shared), nb) in enumerate(zip(m, r)):
             ev = flat[4 * i:4 * i + 4]
-            needed = torch.zeros(nb, dtype=torch.int64, device=dev)
-            L.plain_wgl(*ev, 0, *L.initial_carry(nb, V, W, dev), V=V, W=W,
-                        w_live=wl, ops=needed)
-            ops += int(needed.sum())
             nbytes += frontier_bytes(L, ev[0], ev[2], ev[3], V, W, wl)
             t = tier_of(L, V, W, wl, ev[3].shape[-2], shared)["tier"]
             require(t == "warp" or W > L.cuda_wgl.W_WARP,
@@ -1195,18 +1232,19 @@ def singles_measure(dev, L, singles):
     ms = time_launches([prepared_single(L, *a, **kw) for a, kw in singles],
                        reps=3)
     got = replay()
+    needed = [torch.zeros(a[0].shape[0], dtype=torch.int64, device=dev)
+              for a, _ in singles]
     t0 = time.perf_counter()
-    want = [L.plain_wgl(*a, **kw) for a, kw in singles]
+    want = [L.plain_wgl(*a, **kw, ops=nd) for (a, kw), nd in
+            zip(singles, needed)]
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = max((tensors_err(x, y) for g, w in zip(got, want)
                for x, y in zip(g, w)), default=0)
-    ops = nbytes = 0
+    ops = sum(int(nd.sum()) for nd in needed)
+    nbytes = 0
     tiers = []
     for a, kw in singles:
-        needed = torch.zeros(a[0].shape[0], dtype=torch.int64, device=dev)
-        L.plain_wgl(*a, **kw, ops=needed)
-        ops += int(needed.sum())
         nbytes += frontier_bytes(L, a[0], a[2], a[3], kw["V"], kw["W"],
                                  kw["w_live"])
         tiers.append({"V": kw["V"], "W": kw["W"], "rows": a[0].shape[0],
@@ -1386,20 +1424,22 @@ GRAPH_DENSITIES = (0.002, 0.05, 0.5)
 
 # The graph path's batches: the reference bench's (bench.py:849-852) and
 # a full-width one, Elle-style list-append histories of 1,000 ops over
-# 8 keys (V 1024). The full-width count is cut from 128 to 32: the
+# 8 keys (V 1024). The full-width count is cut from 128 to 16 (32 until
+# the la path's batch of the same width joined the script): the
 # checker's host refinement of each cyclic graph's witness (a BFS per
 # vertex over about 500,000 realtime edges, seconds each) and the host
 # oracle, not the card, set its time. Host-oracle rows: every row of the
 # bench batch, GRAPH_ORACLE_ROWS evenly spaced rows of the wide one.
 GRAPH_BENCH_HISTORIES = 2_000
-GRAPH_WIDE = dict(n=32, n_ops=1_000, n_keys=8)
+GRAPH_WIDE = dict(n=16, n_ops=1_000, n_keys=8)
 GRAPH_WIDE_CUT_FROM = 128
 GRAPH_ORACLE_ROWS = 16
 # The isolation path's batches: the bench's (bench.py:899, V 16) and a
-# wide one (V 256), its count cut from 256 to 128 for the same reason
-# (the host refinement and the oracle, about 0.7 s a history).
+# wide one (V 256), its count cut from 256 to 64 (128 until the la
+# phases joined the script) for the same reason (the host refinement and
+# the oracle, about 0.2 s a history).
 ISO_BENCH = dict(n=512, seed=7, anomaly="mix")
-ISO_WIDE = dict(n=128, seed=7, anomaly="mix", n_txns=250)
+ISO_WIDE = dict(n=64, seed=7, anomaly="mix", n_txns=250)
 ISO_WIDE_CUT_FROM = 256
 
 
@@ -1666,12 +1706,13 @@ FOLD_COUNT_CASES = tuple((V, 24 if V <= 4096 else 6, 3000)
 
 # The fold path's batches: the reference bench's total-queue batch
 # (bench.py:805-826: 2,000 histories of 100 elements) and, per family, a
-# full-width batch of 64 histories of 10,000 elements over 10 processes,
-# what a Jepsen set, queue, unique-id or counter run records over its
-# time limit. Seeded violations by seed % 8 (see fold_history).
+# full-width batch of 32 histories (cut from 64 when the la phases
+# joined the script) of 10,000 elements over 10 processes, what a Jepsen
+# set, queue, unique-id or counter run records over its time limit.
+# Seeded violations by seed % 8 (see fold_history).
 FOLD_BENCH_HISTORIES = 2_000
 FOLD_BENCH_ELEMENTS = 100
-FOLD_WIDE = dict(n=64, elements=10_000, procs=10)
+FOLD_WIDE = dict(n=32, elements=10_000, procs=10)
 FOLD_CHECKS = {"set": "check_sets_batch", "crdb": "check_crdb_sets_batch",
                "tq": "check_total_queues_batch",
                "queue": "check_queues_batch",
@@ -2880,8 +2921,9 @@ INSTRUMENT_CASES = ((1, 1, None, 3, True), (8, 1, None, 5, False),
                     (8, 15, 5, 9, True), (8, 16, 3, 6, True))
 
 # Rows of each real bucket whose pass count the plain version replays
-# (the north-star bucket is replayed whole, to time the plain version).
-INSTRUMENT_HELD_ROWS = 32
+# (the north-star bucket is replayed whole, to time the plain version);
+# 16, cut from 32 when the la phases joined the script.
+INSTRUMENT_HELD_ROWS = 16
 
 
 def instrument_vs(args, V, W, w_live, dev, L, held=None):
@@ -3308,6 +3350,347 @@ def phase_real_oom(dev, L):
     return out
 
 
+# The list-append generator (K8c) and the campaign engines.
+# Parity cases vary one axis of LA_BASE at a time (processes, keys, ops,
+# corruption), then the la path's two batches: the full-width one
+# (V 1,024, as GRAPH_WIDE) and the reference bench's shape (V 32).
+LA_BASE = dict(family="la", n=256, seed=4, n_procs=5, n_ops=300, n_keys=2,
+               corrupt=0.6)
+LA_WIDE = dict(family="la", n=32, n_ops=1_000, n_keys=8, corrupt=0.5)
+LA_BENCH = dict(family="la", n=2_000, n_ops=30, corrupt=0.15)
+# K8c is timed alone on 10,000 histories of 1,000 ops (the north-star
+# batch's size) at the full-width batch's keys and corruption.
+LA_TIMING = dict(LA_WIDE, n=10_000)
+# Host-oracle rows of the full-width batch: this many corrupted and this
+# many clean ones (each cyclic graph's oracle takes seconds); every row
+# of the bench batch.
+LA_ORACLE_ROWS = 4
+# Bytes a line of a la batch: int8 type and fn, int16 process, int32 key
+# and val.
+LA_LINE_BYTES = 1 + 2 + 1 + 4 + 4
+# The seed campaign and the fuzz loop: the keyed headline's shape at
+# 1,000 histories with a crash window on top of its timeouts.
+CAMPAIGN_SPEC = dict(FAULT_SPEC, crash_lo=100, crash_hi=900, p_crash=0.05)
+CAMPAIGN_SEEDS = (0, 1, 2)
+FUZZ_ROUNDS = 2
+FUZZ_NEIGHBORHOOD = 4
+FUZZ_WITNESSES = 8
+# Every FUZZ_VERIFY-th neighbour is re-checked by the host engine.
+FUZZ_VERIFY = 8
+
+
+def phase_la_synth_parity(dev, S, cuda_synth):
+    """K8c against plain_la_core on the card, bit for bit, every output:
+    each axis of LA_BASE at its edges (one process: an empty line-decode
+    window; one op; keys past the kernel's local array), the la path's
+    two shapes, a row slice and explicit stream keys."""
+    import dataclasses
+    t_phase = time.perf_counter()
+    base = S.SynthSpec(**LA_BASE)
+    rep = dataclasses.replace
+    cases = [(f"n_procs_{p}", rep(base, n_procs=p))
+             for p in (1, 2, 4, 5, 12)]
+    cases += [(f"n_keys_{k}", rep(base, n_keys=k))
+              for k in (1, 2, 8, 16, 17, 33)]
+    cases += [(f"n_ops_{n}", rep(base, n_ops=n)) for n in (1, 2, 1000)]
+    cases += [(f"corrupt_{c}", rep(base, corrupt=c)) for c in (0, 0.6, 1.0)]
+    cases += [("keys_33_procs_12_ops_1000",
+               rep(base, n_keys=33, n_procs=12, n_ops=1000, corrupt=1.0)),
+              ("wide", S.SynthSpec(**LA_WIDE)),
+              ("bench", S.SynthSpec(**LA_BENCH))]
+    out = {"phase": "la_synth_parity", "cases": []}
+    err = 0
+    for label, sp in cases:
+        k, p = synth_case(S, cuda_synth, sp, dev)
+        torch.cuda.synchronize()
+        require(set(k) == set(p), f"{label}: outputs {sorted(k)} != "
+                                  f"{sorted(p)}")
+        equal = all(torch.equal(k[n], p[n]) for n in p)
+        err = max(err, outputs_err(k, p))
+        out["cases"].append({"case": label, "rows": sp.n,
+                             "lines": 2 * sp.n_ops, "n_procs": sp.n_procs,
+                             "n_keys": sp.n_keys, "corrupt": sp.corrupt,
+                             "corrupted": int(p["corrupted"].sum()),
+                             "equal": equal})
+        require(equal, f"la kernel != plain on {label}")
+    require(all(c["corrupted"] > 0 for c in out["cases"]
+                if c["corrupt"] > 0 and c["lines"] > 4),
+            "a corrupt case hit no row: the pick is untested")
+    sp = rep(base, n=300, n_keys=4)
+    full, _ = synth_case(S, cuda_synth, sp, dev)
+    part, plain = synth_case(S, cuda_synth, sp, dev, rows=(100, 250))
+    torch.cuda.synchronize()
+    sliced = all(torch.equal(full[n][100:250], part[n])
+                 and torch.equal(part[n], plain[n]) for n in plain)
+    require(sliced, "a la row slice differs from the full batch")
+    rows = np.array([5, 5, 17, 40, 2, 255], np.uint32)
+    keys = S.history_keys_for(base.seed, rows)
+    keys["sched"][1] = S.fold_in(keys["sched"][1], np.uint32(0xF00D))
+    k, p = synth_case(S, cuda_synth, base, dev, keys=keys)
+    kfull, _ = synth_case(S, cuda_synth, base, dev)
+    torch.cuda.synchronize()
+    keyed = (all(torch.equal(k[n], p[n]) for n in p)
+             and all(torch.equal(k[n][2], kfull[n][17]) for n in p))
+    require(keyed, "la kernel with explicit keys != plain or the batch")
+    err = max(err, outputs_err(k, p))
+    out.update(row_slice_equal=sliced, explicit_keys_equal=keyed,
+               max_abs_err=err, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    return err
+
+
+def la_bound(spec) -> dict:
+    """Least time of K8c on ``spec``'s batch: the bytes it must move (the
+    three stream keys read once; type, process, fn, key and val written
+    once a line, corrupted once a row) and the integer operations of its
+    schedule and value draws (the corruption draws and every other
+    operation come on top), whichever is larger."""
+    B, n = spec.n, spec.n_ops
+    nbytes = B * 3 * 4 + B * 2 * n * LA_LINE_BYTES + B
+    ops = (B * n * 2 + B * 2) * FOLD_IN_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "draw_ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def la_kernel_measure(dev, S, cuda_synth) -> dict:
+    """K8c on the kernel-timing batch: alone by CUDA events (prepared
+    launch, outputs allocated outside the window), through its wrapper,
+    and the plain version on the card, held bit for bit."""
+    spec = S.SynthSpec(**LA_TIMING)
+    args = S.la_inputs(spec, device=dev)
+    st = S.la_static(spec)
+    launch, out = cuda_synth.prepare_la(*args, **st)
+    ms = time_launches([(lambda: None, launch)], reps=5)
+    wrapper_ms = time_cuda(lambda: cuda_synth.synth_la(*args, **st), reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = S.plain_la_core(*args, **st)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = outputs_err(out, plain)
+    require(err == 0, "la kernel != plain on the kernel-timing batch")
+    return {"spec": LA_TIMING, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "max_abs_err": err,
+            "corrupted": int(plain["corrupted"].sum()), **la_bound(spec)}
+
+
+def la_batch(dev, pool, S, cuda_synth, label, fields, oracle_rows):
+    """The la path on one spec: synthesize on the card, decode_la each
+    row, check_graphs_batch(family="list-append") on the card; every
+    corrupted row invalid with a G2 cycle and every clean row valid, and
+    ``oracle_rows(batch)`` against check_graph_host on the worker pool."""
+    from jepsen_torch.checkers.cycle import check_graphs_batch
+    from jepsen_torch.ops import cuda_graph
+    from jepsen_torch.ops.graph import (check_graph_host, encode_graphs,
+                                        extract_graph)
+    spec = S.SynthSpec(**fields)
+    cuda_synth.LA_LAUNCHES = 0
+    cuda_graph.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch, meta = S.synthesize(spec)
+    t1 = time.perf_counter()
+    hists = [S.decode_la(batch, r) for r in range(batch.batch)]
+    t2 = time.perf_counter()
+    timings, stats = {}, {}
+    res = check_graphs_batch(hists, family="list-append", timings=timings,
+                             stats_out=stats)
+    t3 = time.perf_counter()
+    launches = {"synth_la": cuda_synth.LA_LAUNCHES,
+                "graph_closure": cuda_graph.LAUNCHES}
+    require(all(launches.values()), f"{label}: a kernel of the la path "
+                                    f"was not launched: {launches}")
+    require(meta is None and len(res) == spec.n, f"{label}: shapes")
+    corrupted = batch.corrupted
+    require(0 < corrupted.sum() < spec.n, f"{label}: corrupted rows "
+                                          f"{int(corrupted.sum())}")
+    for r, x in enumerate(res):
+        want = (False, "G2") if corrupted[r] else (True, None)
+        require((x["valid"], x["anomaly"]) == want,
+                f"{label}: row {r} (corrupted {bool(corrupted[r])}): "
+                f"{x['valid']}, {x['anomaly']}")
+    graphs = [extract_graph(h, "list-append") for h in hists]
+    rows = oracle_rows(corrupted)
+    t4 = time.perf_counter()
+    want = host_oracle(pool, check_graph_host, [graphs[i] for i in rows])
+    oracle_s = time.perf_counter() - t4
+    for i, w in zip(rows, want):
+        require({**res[i], "provenance": "host"} == w,
+                f"{label}: row {i} differs from check_graph_host")
+    # K5 on this batch's graphs, alone, against its plain version: with
+    # K8c's time it gives the card's busy share of the path.
+    closure = closure_measure(dev, "graph", encode_graphs(graphs))
+    require(closure["equal"], f"{label}: closure kernel != plain")
+    total = t3 - t0
+    return {"batch": label, "spec": fields, "launches": launches,
+            "synth_s": t1 - t0, "decode_s": t2 - t1,
+            "check_graphs_batch_s": t3 - t2, "split_s": timings,
+            "path_s": total, "histories_per_s": spec.n / total,
+            "corrupted": int(corrupted.sum()), "stats": stats,
+            "oracle_rows": len(rows), "oracle_s": oracle_s,
+            "graph_closure": closure}
+
+
+def phase_la_path(dev, pool, S, cuda_synth):
+    """The la path at full width and at the bench's shape on the card,
+    then K8c alone on the kernel-timing batch."""
+    t_phase = time.perf_counter()
+
+    def wide_rows(corrupted):
+        bad = np.flatnonzero(corrupted)[:LA_ORACLE_ROWS]
+        good = np.flatnonzero(~corrupted)[:LA_ORACLE_ROWS]
+        return sorted(bad.tolist() + good.tolist())
+
+    wide = la_batch(dev, pool, S, cuda_synth, "wide", LA_WIDE, wide_rows)
+    bench = la_batch(dev, pool, S, cuda_synth, "bench", LA_BENCH,
+                     lambda c: list(range(len(c))))
+    out = {"phase": "la_path", "batches": [wide, bench],
+           "kernel": la_kernel_measure(dev, S, cuda_synth),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def counted(L, cuda_synth, fn):
+    """fn() with the WGL and generator launch counts set to 0 just
+    before; returns (result, launches)."""
+    cuda_synth.LAUNCHES = 0
+    L.cuda_wgl.LAUNCHES = 0
+    L.cuda_wgl.GROUP_LAUNCHES = 0
+    torch.cuda.synchronize()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {"synth_device": cuda_synth.LAUNCHES,
+                 "wgl_frontier": L.cuda_wgl.LAUNCHES,
+                 "wgl_frontier_group": L.cuda_wgl.GROUP_LAUNCHES}
+
+
+def phase_campaign(dev, L, S, cuda_synth):
+    """run_synth_seeds over CAMPAIGN_SEEDS on the card: seed by seed
+    (each seed's dispatches and rows), then the whole campaign killed
+    mid seed 1 by the checker nemesis and resumed from its checkpoint and
+    journals: the summaries equal the uninterrupted run's, seed 0 is not
+    run again, and only seed 1's undecided rows and seed 2's are
+    dispatched."""
+    import tempfile
+    from pathlib import Path
+
+    from jepsen_torch.ops.faults import FaultInjector, FaultPlan, InjectedKill
+    from jepsen_torch.runtime import run_synth_seeds
+    from jepsen_torch.store import Store
+    t_phase = time.perf_counter()
+    spec = S.SynthSpec(**CAMPAIGN_SPEC)
+    want, per_seed = {}, []
+
+    def seed_by_seed():
+        for s in CAMPAIGN_SEEDS:
+            L.DISPATCH_LOG.clear()
+            r = run_synth_seeds(spec, [s], checkpoint=False)
+            want[str(s)] = r["seeds"][str(s)]
+            require(len(L.DISPATCH_LOG) < L.DISPATCH_LOG.maxlen,
+                    f"seed {s}: the dispatch log overflowed")
+            per_seed.append({"seed": s, "dispatches": len(L.DISPATCH_LOG),
+                             "rows": sum(n for *_, n in L.DISPATCH_LOG)})
+
+    t0 = time.perf_counter()
+    _, launches = counted(L, cuda_synth, seed_by_seed)
+    seeds_s = time.perf_counter() - t0
+    require(launches["synth_device"] == len(CAMPAIGN_SEEDS)
+            and launches["wgl_frontier"] + launches["wgl_frontier_group"],
+            f"run_synth_seeds missed a kernel: {launches}")
+    require(any(w["invalid"] for w in want.values()),
+            "the campaign found no invalid history")
+    d0, d1 = per_seed[0]["dispatches"], per_seed[1]["dispatches"]
+    require(d1 >= 2, f"seed 1 takes {d1} dispatches: no mid-seed kill")
+    kill_at = d0 + d1 // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        st = Store(tmp)
+        inj = FaultInjector(FaultPlan.single("dispatch", "kill",
+                                             chunk=kill_at, deadline_s=5.0))
+        killed = False
+        try:
+            run_synth_seeds(spec, CAMPAIGN_SEEDS, store_root=st, name="c",
+                            check_kwargs={"faults": inj})
+        except InjectedKill:
+            killed = True
+        require(killed, f"the kill at dispatch {kill_at} never fired")
+        cdir = Path(tmp) / "c"
+        decided = 0
+        jp = cdir / "seed-1.journal.jsonl"
+        if jp.exists():
+            for line in jp.read_text().splitlines()[1:]:
+                try:
+                    decided += len(json.loads(line)["rows"])
+                except ValueError:
+                    pass
+        require((cdir / "seed-0.json").exists()
+                and not (cdir / "seed-1.json").exists(),
+                "the kill did not land in seed 1")
+        L.DISPATCH_LOG.clear()
+        t0 = time.perf_counter()
+        got = run_synth_seeds(spec, CAMPAIGN_SEEDS, store_root=st, name="c",
+                              resume=True)
+        resume_s = time.perf_counter() - t0
+        logged = sum(n for *_, n in L.DISPATCH_LOG)
+        left = not (cdir / "campaign.jsonl").exists()
+    require(got["seeds"]["0"].pop("resumed", False) is True,
+            "seed 0 was run again")
+    require(not any("resumed" in v for v in got["seeds"].values()),
+            "an unfinished seed came back resumed")
+    require(got["seeds"] == want, "resumed summaries != uninterrupted")
+    undecided = per_seed[1]["rows"] - decided + per_seed[2]["rows"]
+    require(logged == undecided, f"resume dispatched {logged} rows, "
+                                 f"{undecided} undecided")
+    require(left, "the checkpoint outlived the campaign")
+    n = spec.n * len(CAMPAIGN_SEEDS)
+    out = {"phase": "campaign", "spec": CAMPAIGN_SPEC,
+           "seeds": list(CAMPAIGN_SEEDS), "summaries": want,
+           "per_seed": per_seed, "launches": launches, "seeds_s": seeds_s,
+           "histories_per_s": n / seeds_s, "kill_at_dispatch": kill_at,
+           "seed1_journaled": decided, "resume_rows_dispatched": logged,
+           "resume_s": resume_s, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def phase_fuzz(dev, L, S, cuda_synth):
+    """fuzz_campaign on the card over CAMPAIGN_SPEC, every FUZZ_VERIFY-th
+    neighbour re-checked by the host engine: no disagreement, and at
+    least one invalid neighbourhood."""
+    from jepsen_torch.fuzz import fuzz_campaign
+    t_phase = time.perf_counter()
+    spec = S.SynthSpec(**CAMPAIGN_SPEC)
+    t0 = time.perf_counter()
+    res, launches = counted(L, cuda_synth, lambda: fuzz_campaign(
+        spec, rounds=FUZZ_ROUNDS, neighborhood=FUZZ_NEIGHBORHOOD,
+        max_witnesses=FUZZ_WITNESSES, name=None, verify=FUZZ_VERIFY))
+    fuzz_s = time.perf_counter() - t0
+    require(launches["synth_device"] >= 2 * FUZZ_ROUNDS
+            and launches["wgl_frontier"] + launches["wgl_frontier_group"],
+            f"fuzz_campaign missed a kernel: {launches}")
+    require(res["disagreements"] == 0,
+            f"device and host disagree: {res['round_results']}")
+    require(res["neighborhood_invalid"] >= 1 and res["verified"] > 0,
+            f"vacuous fuzz run: {res['neighborhood_invalid']} invalid "
+            f"neighbours, {res['verified']} verified")
+    histories = res["checked"] + res["neighborhoods"]
+    out = {"phase": "fuzz", "spec": CAMPAIGN_SPEC,
+           **{k: res[k] for k in ("rounds", "modes", "checked", "invalid",
+                                  "neighborhoods", "neighborhood_invalid",
+                                  "verified", "disagreements",
+                                  "min_anomaly_lines")},
+           "invalid_by_mode": [r.get("invalid_by_mode")
+                               for r in res["round_results"]],
+           "launches": launches, "fuzz_s": fuzz_s,
+           "histories_per_s": histories / fuzz_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def build_kernels(L, cuda_synth):
     """Build the five kernel libraries at once (one nvcc each, in
     parallel)."""
@@ -3328,6 +3711,23 @@ def build_kernels(L, cuda_synth):
                                              "registers"))]
              for name, log in _build.BUILD_LOGS.items()}
     return build_s, ptxas
+
+
+def la_entry(la, parity_err) -> dict:
+    """The kernels-line entry of K8c: launches on the la path's two
+    batches, times and bound on the kernel-timing batch."""
+    k = la["kernel"]
+    by_path = {f"la_path_{b['batch']}": b["launches"]["synth_la"]
+               for b in la["batches"]}
+    return {"name": "synth_la", "route": "cuda",
+            "source": "jepsen_torch/ops/csrc/synth_device.cu",
+            "replaces": "jepsen_tpu/ops/synth_device.py:620",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "parity": True, "max_abs_err": max(parity_err,
+                                               k["max_abs_err"]),
+            **{f: k[f] for f in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                 "bound_by")},
+            "library_ms": None, "timing_batch": k["spec"]}
 
 
 def closure_entry(name, replaces, path, bench, wide, parity_err) -> dict:
@@ -3449,6 +3849,8 @@ def main() -> int:
         oracle = RwOracle(pool)
         probe, dch, dcf, dcw = phase_dc_path(dev, L, oracle)
         route = phase_route_check(dev, L, pool, oracle)
+        la_err = phase_la_synth_parity(dev, S, cuda_synth)
+        la = phase_la_path(dev, pool, S, cuda_synth)
     # The fault ladder's phases, after every kernel is built.
     inst = phase_instrument_parity(dev, L, main_k.pop("buckets"),
                                    sched.pop("buckets"),
@@ -3456,6 +3858,8 @@ def main() -> int:
     phase_wgl_faults(dev, L, S, cas_register)
     phase_graph_faults(dev)
     phase_real_oom(dev, L)
+    camp = phase_campaign(dev, L, S, cuda_synth)
+    fz = phase_fuzz(dev, L, S, cuda_synth)
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
 
     def dc_launches(entry):
@@ -3494,7 +3898,10 @@ def main() -> int:
         "replaces": "jepsen_tpu/ops/synth_device.py:361,735",
         "launches": sk["launches"],
         "launches_by_path": {"check_synth": sk["launches"],
-                             "check_synth_scheduler": sl["synth_device"]},
+                             "check_synth_scheduler": sl["synth_device"],
+                             "run_synth_seeds":
+                                 camp["launches"]["synth_device"],
+                             "fuzz": fz["launches"]["synth_device"]},
         "parity": True,
         "max_abs_err": max(synth_err, sk["max_abs_err"]),
         "ms": sk["ms"], "plain_ms": sk["plain_ms"],
@@ -3538,7 +3945,8 @@ def main() -> int:
         "ms": inst["ms"], "wrapper_ms": inst["wrapper_ms"],
         "plain_ms": inst["plain_ms"], "bound_ms": inst["bound_ms"],
         "bound_by": inst["bound_by"], "library_ms": None,
-        "k1_ms": inst["k1_ms"], "headline": inst["headline"]}]})
+        "k1_ms": inst["k1_ms"], "headline": inst["headline"]},
+        la_entry(la, la_err)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

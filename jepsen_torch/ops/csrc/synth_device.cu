@@ -1,11 +1,11 @@
-// synth_device.cu — seeded CAS/register and wide-window history
-// generators, emitting batches in the prepared columnar layout, for Hopper
-// (sm_90a).
+// synth_device.cu — seeded CAS/register, list-append and wide-window
+// history generators, emitting batches in the prepared columnar layout, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU device programs jepsen_tpu/ops/synth_device.py::_cas_core
-// (jitted by _jitted) and ::_wide_core. The arrays are the same, bit for
-// bit: the plain PyTorch versions plain_cas_core / plain_wide_core in
-// jepsen_torch/ops/synth_device.py are the yardstick.
+// (jitted by _jitted), ::_la_core and ::_wide_core. The arrays are the same,
+// bit for bit: the plain PyTorch versions plain_cas_core / plain_la_core /
+// plain_wide_core in jepsen_torch/ops/synth_device.py are the yardstick.
 //
 // What it computes. Every draw is fold_in(key, counter) =
 // mix(key + (counter + 1) * GOLD), a splitmix32 finalizer in wrapping
@@ -32,6 +32,8 @@
 //     the row's completion lines and payloads, and stores type, process,
 //     kind and key; neighbouring threads hold neighbouring lines, so the
 //     stores coalesce.
+//   * la_ops_kernel / la_lines_kernel: the list-append family in the same
+//     two passes (below).
 //   * wide_kernel: one thread per (row, line), elementwise.
 //
 // What bounds it on this card. The outputs: 7 bytes per line (int8 type,
@@ -43,6 +45,25 @@
 // row walk's latency, not the bytes, is the likely limit; its per-thread
 // scratch stores are strided by n (one row per thread), which a later
 // version can transpose.
+//
+// The list-append family (la). Op i appends a fresh element (row-unique
+// ids 1, 2, ...) to one of K keys with probability 0.55, else reads one;
+// every op completes ok, so the line grid has no PAD lines. An ok read
+// observes its key's append count at op i (obs_len); the corruption (one
+// stale read per hit row, the eligible read with the largest draw, first
+// index on ties) makes it observe only the first db % len_inv elements,
+// where len_inv is the key's append count at op j_i - 1, the last op
+// completed before the read's invoke. la_ops_kernel: one thread per row
+// walks the ops once, keeping per-key counts (in a local array up to
+// kLaLocalKeys keys, past that in a [B, K] device scratch); len_inv of a
+// read is its count minus the appends to its key among ops j_i..i-1, at
+// most P-1 ops back, read from the row's own scratch. It writes each op's
+// key and append bit, its value (element id or observed length) and its
+// lag, patches the picked read at the end, then turns lags into
+// completion lines as the CAS kernel does. la_lines_kernel: one thread per
+// (row, line), the CAS line decode. Bound on this card: the outputs, 12
+// bytes a line (int8 type and fn, int16 process, int32 key and val); the
+// row walk's dependent chain is the likely limit, as for CAS.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,6 +102,41 @@ __device__ __forceinline__ bool pay_ok(uint32_t p) {
   return ((p >> 24) & 7u) == 0u;
 }
 
+// One step of the lag walk: d clipped to [0, min(i, P-1)].
+__device__ __forceinline__ int walk_step(int d, uint32_t bits_s, int i,
+                                         int P) {
+  const int step = static_cast<int>(bits_s % 3u) - 1;
+  return min(max(d + step, 0), min(i, P - 1));
+}
+
+// Op i's completion line from the row's lags (crow[i + off] for off >= 1
+// must still hold lags): 2i + 1 + #{off in 1..P-1 : d_{i+off} >= off}.
+__device__ __forceinline__ int comp_line_at(const int32_t* crow, int i, int n,
+                                            int P) {
+  int ahead = 0;
+  for (int off = 1; off < P && i + off < n; ++off)
+    ahead += crow[i + off] >= off ? 1 : 0;
+  return 2 * i + 1 + ahead;
+}
+
+// Line t's op from the row's completion lines, and whether t is the op's
+// completion line. base = clip(floor((t - P + 1) / 2), 0, n): every op
+// below it surely completed before line t; count the P/2-wide window above
+// it. The closed form keeps op in [0, n); the clamp only guards memory.
+__device__ __forceinline__ int line_op(const int32_t* crow, int t, int n,
+                                       int P, bool* is_comp) {
+  const int x = t - P + 1;
+  const int floor_half = x >= 0 ? x / 2 : -((1 - x) / 2);
+  const int base = min(max(floor_half, 0), n);
+  int n_comp = base;
+  for (int off = 0; off < P / 2; ++off) {
+    const int cand = base + off;
+    if (cand < n && crow[cand] < t) ++n_comp;
+  }
+  *is_comp = n_comp < n && crow[n_comp] == t;
+  return min(max(*is_comp ? n_comp : t - n_comp, 0), n - 1);
+}
+
 __global__ void cas_ops_kernel(
     const uint32_t* __restrict__ k_sched, const uint32_t* __restrict__ k_vals,
     const uint32_t* __restrict__ k_fault, const uint32_t* __restrict__ k_corr,
@@ -110,7 +166,6 @@ __global__ void cas_ops_kernel(
   for (int i = 0; i < n; ++i) {
     const uint32_t ui = static_cast<uint32_t>(i);
     const uint32_t bs = fold_in(ks, ui), bv = fold_in(kv, ui);
-    const int step = static_cast<int>(bs % 3u) - 1;
     const int f = static_cast<int>((bv >> 2) % 3u);
     const int a = static_cast<int>((bv >> 4) % uV);
     const int b2 = static_cast<int>((bv >> 12) % uV);
@@ -131,7 +186,7 @@ __global__ void cas_ops_kernel(
     const bool eff_w = is_w && (ok || applies);
     const bool eff_c = is_c && (ok || applies);
 
-    d = min(max(d + step, 0), min(i, P - 1));
+    d = walk_step(d, bs, i, P);
     const int cur = reg[k];
     const bool match = cur == a;
     reg[k] = eff_w ? a : ((eff_c && match) ? b2 : cur);
@@ -179,10 +234,7 @@ __global__ void cas_ops_kernel(
   int q = 0, inv_all = 0, ok_all = 0, peak = 1;
   for (int i = 0; i < n; ++i) {
     const int di = crow[i];
-    int ahead = 0;
-    for (int off = 1; off < P && i + off < n; ++off)
-      ahead += crow[i + off] >= off ? 1 : 0;
-    crow[i] = 2 * i + 1 + ahead;
+    crow[i] = comp_line_at(crow, i, n, P);
     const int j = i - di;
     for (; q < j; ++q) {
       const uint32_t pq = prow[q];
@@ -225,19 +277,8 @@ __global__ void cas_lines_kernel(const uint32_t* __restrict__ pay,
   const int b = static_cast<int>(idx / N2);
   const int t = static_cast<int>(idx - b * N2);
   const int32_t* crow = comp + static_cast<size_t>(b) * n;
-  // base = clip(floor((t - P + 1) / 2), 0, n): every op below it surely
-  // completed before line t; count the P/2-wide window above it.
-  const int x = t - P + 1;
-  const int floor_half = x >= 0 ? x / 2 : -((1 - x) / 2);
-  const int base = min(max(floor_half, 0), n);
-  int n_comp = base;
-  for (int off = 0; off < P / 2; ++off) {
-    const int cand = base + off;
-    if (cand < n && crow[cand] < t) ++n_comp;
-  }
-  const bool is_comp = n_comp < n && crow[n_comp] == t;
-  // The closed form keeps op in [0, n); the clamp only guards memory.
-  const int op = min(max(is_comp ? n_comp : t - n_comp, 0), n - 1);
+  bool is_comp;
+  const int op = line_op(crow, t, n, P, &is_comp);
   const uint32_t p = pay[static_cast<size_t>(b) * n + op];
   const bool dead = pay_drop(p) || (is_comp && pay_crash(p));
   type[idx] = dead ? kPad : (!is_comp ? kInvoke : (pay_info(p) ? kInfo : kOk));
@@ -275,6 +316,103 @@ __global__ void wide_kernel(const uint32_t* __restrict__ k_vals, int B,
   if (t == 0) peak_w[b] = width;
 }
 
+// ------------------------------------------------------------ list-append
+
+constexpr uint32_t kLaAppendT = 9227468u;   // int(0.55 * 2^24)
+constexpr uint32_t kLaDropCtr = 0xD00Du;
+constexpr int kLaLocalKeys = 16;
+constexpr uint32_t kLaAppendBit = 0x80000000u;
+
+__global__ void la_ops_kernel(
+    const uint32_t* __restrict__ k_sched, const uint32_t* __restrict__ k_vals,
+    const uint32_t* __restrict__ k_corr, uint32_t corrupt_t, int B, int n,
+    int P, int K, uint32_t* __restrict__ opk, int32_t* __restrict__ opv,
+    int32_t* __restrict__ comp, int32_t* __restrict__ key_counts,
+    uint8_t* __restrict__ corrupted) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const uint32_t ks = k_sched[b], kv = k_vals[b], kc = k_corr[b];
+  uint32_t* krow = opk + static_cast<size_t>(b) * n;
+  int32_t* vrow = opv + static_cast<size_t>(b) * n;
+  int32_t* crow = comp + static_cast<size_t>(b) * n;
+  int local[kLaLocalKeys];
+  int* cnt = K <= kLaLocalKeys ? local
+                               : key_counts + static_cast<size_t>(b) * K;
+  for (int k = 0; k < K; ++k) cnt[k] = 0;
+  const bool corr_on = corrupt_t > 0u;
+
+  int d = 0, elem = 0, pick = 0, pick_len = 0;
+  uint32_t best = 0u;          // 0: no eligible read yet
+  for (int i = 0; i < n; ++i) {
+    const uint32_t ui = static_cast<uint32_t>(i);
+    const uint32_t bs = fold_in(ks, ui), bv = fold_in(kv, ui);
+    d = walk_step(d, bs, i, P);
+    const bool app = (bv >> 8) < kLaAppendT;
+    const int k = K > 1 ? static_cast<int>((bv >> 4) % static_cast<uint32_t>(K))
+                        : 0;
+    int v;
+    if (app) {
+      ++cnt[k];
+      v = ++elem;
+    } else {
+      v = cnt[k];
+      if (corr_on) {
+        // The key's count at op j - 1: this read's count less the
+        // appends to the key among ops j..i-1.
+        int len_inv = v;
+        for (int q = i - d; q < i; ++q)
+          len_inv -= krow[q] == (kLaAppendBit | static_cast<uint32_t>(k));
+        if (len_inv >= 1) {
+          const uint32_t m = (fold_in(kc, ui + 1u) >> 1) + 1u;
+          if (m > best) {
+            best = m;
+            pick = i;
+            pick_len = len_inv;
+          }
+        }
+      }
+    }
+    krow[i] = (app ? kLaAppendBit : 0u) | static_cast<uint32_t>(k);
+    vrow[i] = v;
+    crow[i] = d;
+  }
+  bool hit = false;
+  if (best > 0u && (fold_in(kc, 0u) >> 8) < corrupt_t) {
+    hit = true;
+    vrow[pick] = static_cast<int32_t>(
+        fold_in(kc, kLaDropCtr) % static_cast<uint32_t>(max(pick_len, 1)));
+  }
+  corrupted[b] = hit ? 1 : 0;
+  for (int i = 0; i < n; ++i) crow[i] = comp_line_at(crow, i, n, P);
+}
+
+__global__ void la_lines_kernel(const uint32_t* __restrict__ opk,
+                                const int32_t* __restrict__ opv,
+                                const int32_t* __restrict__ comp, int B,
+                                int n, int P, int8_t* __restrict__ type,
+                                int16_t* __restrict__ proc,
+                                int8_t* __restrict__ fn,
+                                int32_t* __restrict__ key,
+                                int32_t* __restrict__ val) {
+  const long long N2 = 2LL * n;
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(B) * N2) return;
+  const int b = static_cast<int>(idx / N2);
+  const int t = static_cast<int>(idx - b * N2);
+  bool is_comp;
+  const int op = line_op(comp + static_cast<size_t>(b) * n, t, n, P,
+                         &is_comp);
+  const size_t at = static_cast<size_t>(b) * n + op;
+  const uint32_t kp = opk[at];
+  const bool app = (kp & kLaAppendBit) != 0u;
+  type[idx] = is_comp ? kOk : kInvoke;
+  proc[idx] = static_cast<int16_t>(op % P);
+  fn[idx] = app ? int8_t{0} : int8_t{1};
+  key[idx] = static_cast<int32_t>(kp & ~kLaAppendBit);
+  val[idx] = (app || is_comp) ? opv[at] : -1;
+}
+
 inline unsigned blocks_for(long long threads, int per_block) {
   return static_cast<unsigned>((threads + per_block - 1) / per_block);
 }
@@ -310,6 +448,33 @@ extern "C" int synth_cas_launch(
       static_cast<const uint32_t*>(pay), static_cast<const int32_t*>(comp), B,
       n, P, static_cast<int8_t*>(type), static_cast<int16_t*>(proc),
       static_cast<int32_t*>(kind), static_cast<int32_t*>(key));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int synth_la_launch(const void* k_sched, const void* k_vals,
+                               const void* k_corr, unsigned corrupt_t, int B,
+                               int n, int P, int K, void* opk, void* opv,
+                               void* comp, void* key_counts, void* type,
+                               void* proc, void* fn, void* key, void* val,
+                               void* corrupted, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kRowThreads = 64;
+  la_ops_kernel<<<blocks_for(B, kRowThreads), kRowThreads, 0, s>>>(
+      static_cast<const uint32_t*>(k_sched),
+      static_cast<const uint32_t*>(k_vals),
+      static_cast<const uint32_t*>(k_corr), corrupt_t, B, n, P, K,
+      static_cast<uint32_t*>(opk), static_cast<int32_t*>(opv),
+      static_cast<int32_t*>(comp), static_cast<int32_t*>(key_counts),
+      static_cast<uint8_t*>(corrupted));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr int kLineThreads = 256;
+  la_lines_kernel<<<blocks_for(2LL * n * B, kLineThreads), kLineThreads, 0,
+                    s>>>(
+      static_cast<const uint32_t*>(opk), static_cast<const int32_t*>(opv),
+      static_cast<const int32_t*>(comp), B, n, P, static_cast<int8_t*>(type),
+      static_cast<int16_t*>(proc), static_cast<int8_t*>(fn),
+      static_cast<int32_t*>(key), static_cast<int32_t*>(val));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,15 @@
 """Build, load and launch the hand-written CUDA history generators.
 
 The counterpart of the reference's jitted generator programs
-(``ops/synth_device.py`` ``_cas_core`` and ``_wide_core``):
+(``ops/synth_device.py`` ``_cas_core``, ``_la_core`` and ``_wide_core``):
 ``csrc/synth_device.cu`` holds the kernels and this module is their
-wrapper. ``synth_cas`` launches the CAS/register pair (one thread per
-history row walks its ops; one thread per (row, line) assembles the line
-grid), ``synth_wide`` the elementwise wide-window kernel. Each checks
-device, dtype, shape and contiguity, raises on anything the kernels do
-not take, allocates outputs and scratch, launches on PyTorch's current
-stream, and adds one to ``LAUNCHES``. The library is built at first use
+wrapper. ``synth_cas`` launches the CAS/register pair and ``synth_la``
+the list-append pair (one thread per history row walks its ops; one
+thread per (row, line) assembles the line grid), ``synth_wide`` the
+elementwise wide-window kernel. Each checks device, dtype, shape and
+contiguity, raises on anything the kernels do not take, allocates
+outputs and scratch, launches on PyTorch's current stream, and adds one
+to ``LAUNCHES`` (``LA_LAUNCHES`` for ``synth_la``). The library is built at first use
 by ``_build.build_library``; nothing here runs when the module is
 imported.
 """
@@ -26,8 +27,13 @@ SRC = Path(__file__).resolve().parent / "csrc" / "synth_device.cu"
 
 # Launches of the generator kernels in this process (one per wrapper
 # call); callers reset it to 0 and read it back to show that a path ran
-# on the card.
+# on the card. ``LA_LAUNCHES`` counts the list-append pair apart.
 LAUNCHES = 0
+LA_LAUNCHES = 0
+
+# Keys whose append counts the la row walk keeps in a local array
+# (kLaLocalKeys in the source); more go to a [B, K] device scratch.
+LA_LOCAL_KEYS = 16
 
 _LIB = None
 
@@ -41,6 +47,9 @@ def _library():
             "synth_cas_launch": (
                 [p, p, p, p, p, p, u, u, u, i, i, i, i, i, i, i, i,
                  p, p, p, p, p, p, p, p, p, p], ctypes.c_int),
+            "synth_la_launch": (
+                [p, p, p, u, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p],
+                ctypes.c_int),
             "synth_wide_launch": ([p, i, i, i, i, p, p, p, p, p],
                                   ctypes.c_int),
             "synth_device_error": ([ctypes.c_int], ctypes.c_char_p)})
@@ -71,11 +80,9 @@ def _check_rows(tensors: Dict[str, torch.Tensor]) -> torch.device:
 
 
 def _raise_on(err: int) -> None:
-    global LAUNCHES
     if err != 0:
         raise CudaLaunchError("synth_device", err,
                               _library().synth_device_error(err).decode())
-    LAUNCHES += 1
 
 
 def synth_cas(keys: Dict[str, torch.Tensor], crash_lo: torch.Tensor,
@@ -132,6 +139,70 @@ def synth_cas(keys: Dict[str, torch.Tensor], crash_lo: torch.Tensor,
             ptr("peak_w"), ptr("key_peak_w"), ptr("key_present"),
             ptr("type"), ptr("process"), ptr("kind"), ptr("key"), stream)
     _raise_on(err)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def prepare_la(keys: Dict[str, torch.Tensor], corrupt_t: int, *,
+               n_procs: int, n_ops: int, n_keys: int):
+    """``synth_la``'s checks and allocations, without the launch: returns
+    ``(launch, out)``, where each ``launch()`` runs the list-append pair
+    into ``out`` (counted in ``LA_LAUNCHES``)."""
+    from .synth_device import LA_STREAMS, check_la_bounds
+    P, n, K = n_procs, n_ops, n_keys
+    check_la_bounds(P, n, K)
+    dev = _check_rows({s: keys[s] for s in LA_STREAMS})
+    _check(0 <= int(corrupt_t) <= (1 << 24),
+           f"corrupt_t={corrupt_t} outside 0..2^24")
+    B = keys["sched"].shape[0]
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {"type": empty((B, 2 * n), torch.int8),
+           "process": empty((B, 2 * n), torch.int16),
+           "fn": empty((B, 2 * n), torch.int8),
+           "key": empty((B, 2 * n), torch.int32),
+           "val": empty((B, 2 * n), torch.int32),
+           "corrupted": empty((B,), torch.bool)}
+    # Per-op scratch: key and append bit, value, and the lag walk
+    # overwritten in place by each op's completion line; per-key counts
+    # past the kernel's local array.
+    opk = empty((B, n), torch.int32)
+    opv = empty((B, n), torch.int32)
+    comp = empty((B, n), torch.int32)
+    counts = empty((B, K), torch.int32) if K > LA_LOCAL_KEYS else None
+    lib = _library()
+    args = (*(keys[s].data_ptr() for s in LA_STREAMS), int(corrupt_t), B, n,
+            P, K, opk.data_ptr(), opv.data_ptr(), comp.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            *(out[f].data_ptr() for f in ("type", "process", "fn", "key",
+                                          "val", "corrupted")))
+
+    # The default argument keeps the inputs and scratch alive as long as
+    # the launch is.
+    def launch(_alive=(keys, opk, opv, comp, counts)):
+        global LA_LAUNCHES
+        if B == 0:
+            return
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _raise_on(lib.synth_la_launch(*args, stream))
+        LA_LAUNCHES += 1
+    return launch, out
+
+
+def synth_la(keys: Dict[str, torch.Tensor], corrupt_t: int, *,
+             n_procs: int, n_ops: int, n_keys: int
+             ) -> Dict[str, torch.Tensor]:
+    """Generate B list-append histories on the card. The same contract as
+    ``ops.synth_device.plain_la_core``, bit for bit: ``keys`` are int32
+    bit patterns [B] for the sched, vals and corr streams, ``corrupt_t``
+    a threshold below 2^24."""
+    launch, out = prepare_la(keys, corrupt_t, n_procs=n_procs, n_ops=n_ops,
+                             n_keys=n_keys)
+    launch()
     return out
 
 
@@ -157,4 +228,6 @@ def synth_wide(vals_key: torch.Tensor, *, width: int, n_values: int,
             out["type"].data_ptr(), out["process"].data_ptr(),
             out["kind"].data_ptr(), out["peak_w"].data_ptr(), stream)
     _raise_on(err)
+    global LAUNCHES
+    LAUNCHES += 1
     return out

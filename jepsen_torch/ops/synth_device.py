@@ -33,18 +33,33 @@ Two implementations of the generator body exist, and the entry points
 pick by device: on the card ``cuda_synth`` launches the hand-written
 kernel (``csrc/synth_device.cu``) or raises; on the CPU
 ``plain_cas_core``/``plain_wide_core``, the plain PyTorch version, runs.
-Both give the reference's arrays bit for bit. The list-append family
-feeds the graph checker and is not part of this package yet.
+Both give the reference's arrays bit for bit.
+
+  * **List-append.** The la family shares the schedule and the lag walk;
+    op ``i`` appends a fresh element (ids 1, 2, ... per row) to one key
+    or reads it, every op completes ok, and a read observes the key's
+    append count at its completion. The corruption is a stale read: a
+    read whose invoke came after some append to its key completed
+    observes a shorter prefix, an anti-dependency cycle (G2) the graph
+    checker convicts. Batches are ``LaBatch``; ``decode_la`` gives Op
+    lists for ``checkers.cycle.check_graphs_batch(family="list-append")``.
+
+  * **Fuzz neighbourhoods.** ``neighbor_keys`` perturbs one stream of a
+    row's keys (the schedule, the values, or the fault stream with a
+    shifted crash window); ``synth_cas_neighbors`` generates such rows
+    in one batch for the fuzz loop.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..history.columnar import PAD, C_INVOKE, C_OK, C_INFO, ColumnarOps
+from ..history.core import index as index_history
+from ..history.ops import Op, invoke_op, ok_op
 from ..workloads.synth import cas_kind_vocabulary
 from . import cuda_synth
 from .device import resolve_device
@@ -62,6 +77,8 @@ MASK32 = 0xFFFFFFFF
 # draws, and the applied? coin.
 _S_SCHED, _S_VALS, _S_FAULT, _S_CORR = 0x51, 0x52, 0x54, 0x55
 STREAMS = ("sched", "vals", "fault", "corr")
+# The streams the list-append family draws from (it has no faults).
+LA_STREAMS = ("sched", "vals", "corr")
 
 
 # ------------------------------------------------ host half (numpy keys)
@@ -393,6 +410,96 @@ def plain_wide_core(vals_key: torch.Tensor, *, width: int, n_values: int,
                                  device=dev)}
 
 
+# Append coin of the la family: an op appends when its value draw's top
+# 24 bits fall below this threshold (the reference's 0.55 * 2^24).
+_LA_APPEND_T = int(0.55 * (1 << 24))
+# The corruption stream's counter for the dropped-prefix draw.
+_LA_DROP_CTR = 0xD00D
+
+
+def check_la_bounds(n_procs: int, n_ops: int, n_keys: int) -> None:
+    """The la generator's shapes: at least one process, op and key."""
+    if not (n_procs >= 1 and n_ops >= 1 and n_keys >= 1):
+        raise ValueError(f"n_procs={n_procs}, n_ops={n_ops}, "
+                         f"n_keys={n_keys}: each must be at least 1")
+
+
+def plain_walk(step: torch.Tensor, P: int) -> torch.Tensor:
+    """The lag walk alone (the twin of the reference's ``_walk_scan``):
+    ``d_t = clip(d_{t-1} + step_t, 0, min(t, P-1))`` from ``d = 0``."""
+    B, n = step.shape
+    d = torch.zeros(B, dtype=step.dtype, device=step.device)
+    d_out = torch.empty_like(step)
+    for t in range(n):
+        d = (d + step[:, t]).clamp(0, min(t, P - 1))
+        d_out[:, t] = d
+    return d_out
+
+
+def plain_la_core(keys: Dict[str, torch.Tensor], corrupt_t: int, *,
+                  n_procs: int, n_ops: int,
+                  n_keys: int) -> Dict[str, torch.Tensor]:
+    """The plain PyTorch version of the list-append generator, the twin
+    of the reference's ``_la_core``: ``keys`` are int32 bit patterns [B]
+    for the sched, vals and corr streams, ``corrupt_t`` a 24-bit
+    threshold. Returns ``type`` int8, ``process`` int16, ``fn`` int8 (0
+    append, 1 read), ``key`` int32, ``val`` int32 [B, 2n] and
+    ``corrupted`` bool [B]. ``val`` is the element id on append lines,
+    the observed prefix length on ok reads and -1 on read invokes. uint32
+    values ride in int64, so shifts and remainders are unsigned."""
+    P, n, K = n_procs, n_ops, n_keys
+    check_la_bounds(P, n, K)
+    dev = keys["sched"].device
+    B = keys["sched"].shape[0]
+    i = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+
+    bits_s = _fold_in_t(_u32(keys["sched"])[:, None], i)
+    bits_v = _fold_in_t(_u32(keys["vals"])[:, None], i)
+    d = plain_walk(bits_s % 3 - 1, P)
+    comp_line, j = _op_positions(d, n, P)
+
+    is_app = (bits_v >> 8) < _LA_APPEND_T
+    key = (bits_v >> 4) % K if K > 1 else torch.zeros_like(bits_v)
+    elem = torch.cumsum(is_app.to(torch.int64), 1)     # 1-based ids
+
+    # Per-key append counts: the observed length at each op (inclusive;
+    # a read is not an append, so a read counts only earlier appends)
+    # and at op j - 1, the last op completed before its invoke block.
+    obs_len = torch.zeros_like(bits_v)
+    len_inv = torch.zeros_like(bits_v)
+    jm1 = (j - 1).clamp(0, n - 1)
+    for kk in range(K):
+        mine = key == kk
+        ac = torch.cumsum((is_app & mine).to(torch.int64), 1)
+        obs_len += torch.where(mine, ac, 0)
+        at_inv = torch.where(j > 0, ac.gather(1, jm1), 0)
+        len_inv += torch.where(mine, at_inv, 0)
+
+    corr = _u32(keys["corr"])
+    hb = _fold_in_t(corr, 0)
+    db = _fold_in_t(corr, _LA_DROP_CTR)
+    sc = _fold_in_t(corr[:, None], i + 1)
+    eligible = ~is_app & (len_inv >= 1)
+    m = torch.where(eligible, (sc >> 1) + 1, 0)
+    pick = m.argmax(1)
+    do = ((hb >> 8) < corrupt_t) & eligible.any(1)
+    lai = len_inv.gather(1, pick[:, None])[:, 0].clamp(min=1)
+    j_drop = db % lai
+    at_pick = (i == pick[:, None]) & do[:, None]
+    obs_len = torch.where(at_pick, j_drop[:, None], obs_len)
+
+    # Line assembly: every la op invokes and completes ok.
+    op_t, is_comp = _line_decode(comp_line, n, P)
+    app_t = is_app.gather(1, op_t)
+    val = torch.where(app_t, elem.gather(1, op_t),
+                      torch.where(is_comp, obs_len.gather(1, op_t), -1))
+    return {"type": torch.where(is_comp, C_OK, C_INVOKE).to(torch.int8),
+            "process": (op_t % P).to(torch.int16),
+            "fn": torch.where(app_t, 0, 1).to(torch.int8),
+            "key": key.gather(1, op_t).to(torch.int32),
+            "val": val.to(torch.int32), "corrupted": do}
+
+
 # ------------------------------------------------ dispatch by device
 
 def cas_core(keys, crash_lo, crash_hi, p_info_t, corrupt_t, p_crash_t,
@@ -421,6 +528,16 @@ def wide_core(vals_key, **static) -> Dict[str, torch.Tensor]:
     raise ValueError(f"no generator kernel for device {dev}")
 
 
+def la_core(keys, corrupt_t, **static) -> Dict[str, torch.Tensor]:
+    """As ``cas_core``, for the list-append family."""
+    dev = keys["sched"].device
+    if dev.type == "cuda":
+        return cuda_synth.synth_la(keys, corrupt_t, **static)
+    if dev.type == "cpu":
+        return plain_la_core(keys, corrupt_t, **static)
+    raise ValueError(f"no generator kernel for device {dev}")
+
+
 def _bits_on(a: np.ndarray, device) -> torch.Tensor:
     """uint32 or int32 numpy values as int32 bit patterns on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
@@ -443,6 +560,20 @@ def wide_inputs(spec: SynthSpec, *, rows=None, device) -> torch.Tensor:
     """The wide generator's input on ``device``: the per-row value-stream
     keys, for ``wide_core``."""
     return _bits_on(_resolve_keys(spec, rows, None)["vals"], device)
+
+
+def la_inputs(spec: SynthSpec, *, rows=None, keys=None, device) -> tuple:
+    """The la generator's inputs on ``device``: ``(keys, corrupt_t)``,
+    for ``la_core``."""
+    kd = _resolve_keys(spec, rows, keys)
+    return ({s: _bits_on(kd[s], device) for s in LA_STREAMS},
+            int(_thresh24(spec.corrupt)))
+
+
+def la_static(spec: SynthSpec) -> dict:
+    """The la generator's static shape for ``spec``."""
+    return dict(n_procs=spec.n_procs, n_ops=spec.n_ops,
+                n_keys=spec.n_keys)
 
 
 def cas_static(spec: SynthSpec, key_meta: bool = True) -> dict:
@@ -509,18 +640,153 @@ def synth_wide_device(spec: SynthSpec, *, rows=None,
     return cols, meta
 
 
+@dataclass
+class LaBatch:
+    """A batch of list-append histories in a compact layout: ``fn`` 0 =
+    append / 1 = read; ``val`` carries the row-unique element on append
+    lines, the observed prefix length on ok-read lines (lists are
+    append-only, so every observation, the corrupted stale read too, is
+    a prefix of the key's final list), and -1 on read invokes.
+    ``decode_la`` recovers the Op lists. The reference's LaBatch, field
+    for field."""
+
+    type: np.ndarray      # [B, N] int8
+    process: np.ndarray   # [B, N] int16
+    fn: np.ndarray        # [B, N] int8
+    key: np.ndarray       # [B, N] int32
+    val: np.ndarray       # [B, N] int32
+    n_keys: int
+    corrupted: np.ndarray = None   # [B] bool
+
+    @property
+    def batch(self) -> int:
+        return int(self.type.shape[0])
+
+    @property
+    def n_lines(self) -> int:
+        return int(self.type.shape[1])
+
+
+def synth_la_device(spec: SynthSpec, *, rows=None, keys=None,
+                    device=None) -> LaBatch:
+    """Seeded list-append batch (``synth_la_history`` semantics: unique
+    elements, reads observe the key's full list at completion, and the
+    corruption is a stale read: a truncation that drops an element whose
+    append completed before the read invoked, a G2 anti-dependency
+    cycle). Device rules as ``synth_cas_device``; the arrays equal the
+    reference's ``synth_la_device`` bit for bit."""
+    if spec.family != "la":
+        raise ValueError(f"synth_la_device takes the la family, not "
+                         f"{spec.family!r}")
+    out = _numpy(la_core(*la_inputs(spec, rows=rows, keys=keys,
+                                    device=resolve_device(device)),
+                         **la_static(spec)))
+    return LaBatch(type=out["type"], process=out["process"], fn=out["fn"],
+                   key=out["key"], val=out["val"], n_keys=spec.n_keys,
+                   corrupted=out["corrupted"])
+
+
+def decode_la(batch: LaBatch, row: int) -> List[Op]:
+    """One row back to the host Op-list form the graph checker takes
+    (``synth_la_history`` value shapes): append ``[k, elem]``, read
+    invoke ``[k, None]``, ok read ``[k, [elements...]]``."""
+    lists: Dict[int, list] = {k: [] for k in range(batch.n_keys)}
+    out: List[Op] = []
+    for jl in range(batch.n_lines):
+        t = int(batch.type[row, jl])
+        if t == PAD:
+            continue
+        p = int(batch.process[row, jl])
+        k = int(batch.key[row, jl])
+        v = int(batch.val[row, jl])
+        append = batch.fn[row, jl] == 0
+        if t == C_INVOKE:
+            out.append(invoke_op(p, "append", [k, v]) if append
+                       else invoke_op(p, "read", [k, None]))
+        elif append:
+            lists[k].append(v)
+            out.append(ok_op(p, "append", [k, v]))
+        else:
+            out.append(ok_op(p, "read", [k, list(lists[k][:v])]))
+    return index_history(out)
+
+
 def synthesize(spec: SynthSpec, *, rows=None, key_meta: bool = True,
-               device=None) -> Tuple[ColumnarOps, SynthMeta]:
-    """The batch source the check path shares: ``(ColumnarOps,
-    SynthMeta)`` for the cas and wide families. The list-append family
-    lowers to dependency graphs, which this package does not check yet."""
+               device=None):
+    """The batch source the check, campaign and fuzz paths share:
+    ``(ColumnarOps, SynthMeta)`` for the cas and wide families,
+    ``(LaBatch, None)`` for list-append, whose rows lower to dependency
+    graphs (``decode_la``, then ``checkers.cycle``)."""
     if spec.family == "cas":
         return synth_cas_device(spec, rows=rows, key_meta=key_meta,
                                 device=device)
     if spec.family == "wide":
         return synth_wide_device(spec, rows=rows, device=device)
     if spec.family == "la":
-        raise NotImplementedError(
-            "list-append synthesis feeds the graph checker, which is not "
-            "part of jepsen_torch yet")
+        return synth_la_device(spec, rows=rows, device=device), None
     raise ValueError(f"unknown synth family {spec.family!r}")
+
+
+# ------------------------------------------------ fuzz neighbourhoods
+
+NEIGHBOR_MODES = ("order", "values", "nemesis")
+
+
+def neighbor_keys(spec: SynthSpec,
+                  neighbors: Sequence[Tuple[int, str, int]]):
+    """Stream keys and crash windows for a neighbourhood batch: each
+    entry is ``(history_row, mode, variant)`` around ``spec``'s batch.
+    ``order`` perturbs only the schedule stream (same ops, new
+    interleavings), ``values`` only the op-value stream (value
+    collisions against the same schedule), ``nemesis`` re-draws the
+    fault stream and shifts the crash window. Deterministic: the same
+    (spec, row, mode, variant) always names the same history, in both
+    packages."""
+    rows = np.asarray([r for r, _, _ in neighbors], np.uint32)
+    base = history_keys_for(spec.seed, rows)
+    keys = {s: np.array(base[s], np.uint32, copy=True) for s in STREAMS}
+    lo = np.full(len(neighbors), spec.crash_lo, np.int32)
+    hi = np.full(len(neighbors), spec.crash_hi, np.int32)
+    step = max(1, spec.n_ops // 16)
+    for i, (_, mode, variant) in enumerate(neighbors):
+        salt = np.uint32(0xF00D + variant)
+        if mode == "order":
+            keys["sched"][i] = fold_in(keys["sched"][i], salt)
+        elif mode == "values":
+            keys["vals"][i] = fold_in(keys["vals"][i], salt)
+        elif mode == "nemesis":
+            keys["fault"][i] = fold_in(keys["fault"][i], salt)
+            shift = ((variant // 2) + 1) * step * (1 if variant % 2 else -1)
+            lo[i] = max(0, int(lo[i]) + shift)
+            hi[i] = max(int(lo[i]), int(hi[i]) + shift)
+        else:
+            raise ValueError(f"unknown neighborhood mode {mode!r}")
+    return keys, lo, hi
+
+
+def synth_cas_neighbors(spec: SynthSpec,
+                        neighbors: Sequence[Tuple[int, str, int]], *,
+                        device=None) -> Tuple[ColumnarOps, SynthMeta]:
+    """One batch holding every neighbourhood history (row i of the
+    output is ``neighbors[i]``): the fuzz loop's re-dispatch unit. The
+    generator batch pads to a power of two and slices back, as the
+    reference's does, so the rows and metadata are the reference's."""
+    keys, lo, hi = neighbor_keys(spec, neighbors)
+    R = len(neighbors)
+    Rp = 1 << max(R - 1, 1).bit_length()
+    if Rp != R:
+        pad = Rp - R
+        keys = {s: np.concatenate([v, np.zeros(pad, np.uint32)])
+                for s, v in keys.items()}
+        lo = np.concatenate([lo, np.zeros(pad, np.int32)])
+        hi = np.concatenate([hi, np.zeros(pad, np.int32)])
+    cols, meta = synth_cas_device(spec, keys=keys, crash_lo=lo, crash_hi=hi,
+                                  key_meta=False, device=device)
+    if cols.batch != R:
+        meta = SynthMeta(peak_w=meta.peak_w[:R], spec=meta.spec)
+        cols = ColumnarOps(
+            type=cols.type[:R], process=cols.process[:R],
+            kind=cols.kind[:R], kinds=cols.kinds,
+            key=cols.key[:R] if cols.key is not None else None,
+            meta=meta)
+    return cols, meta

@@ -1,5 +1,6 @@
-"""The checker's write-ahead log: a copy of the reference's
-``store.ChunkJournal`` and the digests that key it.
+"""The checker's write-ahead logs: copies of the reference's
+``store.ChunkJournal`` and ``store.CampaignCheckpoint``, the digests that
+key them, and the store root campaigns write under.
 
 The file format is the reference's, so a journal written by either
 package resumes in the other: a header line ``{"journal": "JTJRNL1",
@@ -7,7 +8,11 @@ package resumes in the other: a header line ``{"journal": "JTJRNL1",
 fsynced JSON line per retired chunk, ``{"rows": [...], "valid": [...],
 "bad": [...], "prov": [...]}``. The online daemon's frontier-checkpoint
 rows (``{"frontier": {...}}``) load, latest wins; writing them comes
-with the online slice. The run store itself is not ported.
+with the online slice. A campaign checkpoint has the reference's format
+too (``{"campaign": "JTCAMP1", "key": {...}}``, then ``started`` and
+``done`` lines per seed), so a campaign killed under one package resumes
+under the other. Of the run store only its root (``Store.base``) is
+ported.
 """
 from __future__ import annotations
 
@@ -21,8 +26,29 @@ from typing import Dict, Optional
 import numpy as np
 
 JOURNAL_MAGIC = "JTJRNL1"
+# Campaign-checkpoint header magic (CampaignCheckpoint).
+CAMPAIGN_MAGIC = "JTCAMP1"
+BASE = Path("store")
 
 log = logging.getLogger("jepsen.store")
+
+
+class CampaignMismatch(ValueError):
+    """An explicit campaign resume named a checkpoint belonging to a
+    different campaign (key mismatch): refused rather than clobbered,
+    because the checkpoint is the only resume point."""
+
+
+class Store:
+    """The store root campaigns keep their state under (``base/<name>``).
+    The reference's Store also creates and loads runs; the port keeps
+    only the root."""
+
+    def __init__(self, base=BASE):
+        self.base = Path(base)
+
+
+DEFAULT = Store()
 
 
 class ChunkJournal:
@@ -140,6 +166,118 @@ class ChunkJournal:
 
     def finish(self) -> None:
         """The run completed: the journal has served its purpose."""
+        self.close()
+        try:
+            self.path.unlink()
+        except FileNotFoundError:
+            pass
+
+
+class CampaignCheckpoint:
+    """Durable seed-campaign progress: the campaign's write-ahead log.
+
+    One fsynced JSON line per transition: line 1 a header binding the
+    checkpoint to one campaign (``{"campaign": "JTCAMP1", "key":
+    {...}}``; resuming against a mismatched checkpoint raises
+    CampaignMismatch rather than clobbering the only resume point), then
+    ``{"seed": s, "dir": ..., "status": "started"}`` when a seed starts
+    and ``{"seed": s, "status": "done"}`` when it completes. A killed
+    campaign resumes only the remaining seeds. Torn final lines are
+    dropped and cut off before appending (the ChunkJournal discipline).
+    ``finish()`` deletes the file: a checkpoint only outlives an
+    interrupted campaign."""
+
+    def __init__(self, path, key: dict, resume: bool = False):
+        self.path = Path(path)
+        self.key = dict(key)
+        self._runs: Dict[int, dict] = {}   # seed -> {"dir", "done"}
+        self._good_end = 0
+        if resume and self.path.exists():
+            self._load()
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        if self._runs:
+            with open(self.path, "r+b") as f:
+                f.truncate(self._good_end)
+            self._f = open(self.path, "a")
+        else:
+            self._f = open(self.path, "w")
+            self._f.write(json.dumps(
+                {"campaign": CAMPAIGN_MAGIC, "key": self.key}) + "\n")
+            self._flush()
+
+    def _load(self) -> None:
+        try:
+            data = self.path.read_bytes()
+            pos = 0
+            header_seen = False
+            while pos < len(data):
+                nl = data.find(b"\n", pos)
+                if nl < 0:
+                    break
+                try:
+                    e = json.loads(data[pos:nl])
+                    if not header_seen:
+                        if e.get("campaign") != CAMPAIGN_MAGIC or \
+                                e.get("key") != self.key:
+                            raise CampaignMismatch(
+                                f"campaign checkpoint {self.path} "
+                                f"belongs to a different campaign: "
+                                f"stored key {e.get('key')!r} != "
+                                f"{self.key!r}; start a fresh campaign "
+                                f"(without resume) to replace it")
+                        header_seen = True
+                    elif e.get("status") == "started":
+                        self._runs[int(e["seed"])] = {
+                            "dir": e["dir"], "done": False}
+                    elif e.get("status") == "done":
+                        r = self._runs.get(int(e["seed"]))
+                        if r is not None:
+                            r["done"] = True
+                except CampaignMismatch:
+                    raise
+                except Exception:
+                    break
+                pos = nl + 1
+                self._good_end = pos
+        except CampaignMismatch:
+            raise
+        except Exception:
+            self._runs = {}
+            self._good_end = 0
+
+    def _flush(self) -> None:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+
+    def seed_state(self, seed: int) -> Optional[dict]:
+        """{"dir": ..., "done": bool} for a seed a prior campaign
+        already touched, else None."""
+        r = self._runs.get(int(seed))
+        return dict(r) if r is not None else None
+
+    def started(self, seed: int, dir) -> None:
+        self._runs[int(seed)] = {"dir": str(dir), "done": False}
+        self._f.write(json.dumps(
+            {"seed": int(seed), "dir": str(dir), "status": "started"})
+            + "\n")
+        self._flush()
+
+    def done(self, seed: int) -> None:
+        r = self._runs.get(int(seed))
+        if r is not None:
+            r["done"] = True
+        self._f.write(json.dumps(
+            {"seed": int(seed), "status": "done"}) + "\n")
+        self._flush()
+
+    def close(self) -> None:
+        try:
+            self._f.close()
+        except Exception:
+            pass
+
+    def finish(self) -> None:
+        """The campaign completed: every seed ran."""
         self.close()
         try:
             self.path.unlink()

@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
             "jepsen_torch.ops.cuda_folds", "jepsen_torch.checkers.simple",
             "jepsen_torch.utils.core", "jepsen_torch.ops.dc_monitor",
             "jepsen_torch.ops.cuda_dc", "jepsen_torch.fleet",
-            "jepsen_torch.store"} <= set(MODULES)
+            "jepsen_torch.store", "jepsen_torch.runtime",
+            "jepsen_torch.fuzz"} <= set(MODULES)
 
 
 def _imports(path: Path):

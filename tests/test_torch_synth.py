@@ -134,10 +134,14 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     assert S.synthesize(cas, device="cpu")[0].batch == cas.n
 
 
-def test_la_family_is_not_ported():
+def test_la_family_synthesizes_but_check_synth_refuses_it():
+    """The la family generates (its rows lower to dependency graphs for
+    checkers.cycle), but check_synth takes only the columnar families,
+    as the reference's does."""
     la = S.SynthSpec(family="la", n=4, n_ops=8)
-    with pytest.raises(NotImplementedError):
-        S.synthesize(la, device="cpu")
+    batch, meta = S.synthesize(la, device="cpu")
+    assert isinstance(batch, S.LaBatch) and meta is None
+    assert batch.batch == 4 and batch.n_lines == 16
     with pytest.raises(ValueError):
         L.check_synth(cas_register(), la, device="cpu")
 
