@@ -5,10 +5,12 @@
 Builds the five CUDA libraries from the checkout's sources (one nvcc
 each, in parallel) and holds each kernel bit for bit against its plain
 PyTorch version on the card (the list-append generator with its own
-phases, below): the WGL frontier kernel in each of its
-three tiers (warp, block, device memory) with cases at every tier edge,
-two state words, tables staged on chip and left in device memory,
-padding rows and tile-edge rows, and the event-chunked resume entry; its
+phases, below): the WGL frontier kernel in each of its tiers (warp;
+block, cluster and device memory, the wide tiers, at every W 9-18 at one
+and two state words) with cases at every tier edge, tables staged on
+chip and left in device memory, padding rows, mostly-padding rows and
+tile-edge rows, and the event-chunked resume entry against the one-shot
+launch; its
 group entry (several bucket chunks of mixed shapes and tiers in one
 launch, padding rows skipped, against ``plain_fused_wgl`` and against
 single-bucket launches); and the history generators (CAS/register cases over
@@ -65,7 +67,10 @@ after:
     ``wgl_backend`` "dc", "xla" (the frontier search alone) and "auto"
     (on the probed rates), verdicts and bad ops equal across the three,
     the certified rows equal to the host twin, a sample against
-    ``wgl_check``, and K4 measured on the plans the path gave it; then
+    ``wgl_check``, K4 measured on the plans the path gave it, and each
+    dc run's frontier launches replayed alone, once a batch also one by
+    one with their plans and the bound from the operations their data
+    needs (``k1_launches_measure``); then
     ``fleet.route_check`` on a mixed corpus (cas, rw, list-append and
     transactional histories at the bench's shapes), every row held to
     its host oracle (``route_check``);
@@ -111,6 +116,11 @@ Then the fault ladder's phases, after every kernel is built:
 ``python3 chip_smoke.py --headline TREE [TREE ...]`` instead times the
 default ``check_synth`` on the keyed headline spec in each checkout
 given, in that order (for example parent, change, change, parent).
+``python3 chip_smoke.py --kernels TREE [TREE ...]`` times the frontier
+kernel (K1) over every launch of the dc batches' dc runs and the count
+fold (K7a) on each family's full-width batch, the same inputs in each
+checkout given, with the bound, each K1 launch's plan and time, and
+K7a's library route measured once in this checkout.
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -240,6 +250,54 @@ def random_cases(w_warp: int) -> tuple:
 # Events per random row: three 32-event tiles of the warp tier.
 RANDOM_EVENTS = 96
 
+# The wide tiers' random cases (V, W, w_live, K1, shared target): every W
+# from W_WARP + 1 to 18 at one state word (V 8) and two (V 40), shared
+# and per-row targets, w_live < W on even W; so the block tier, clusters
+# of 2, 4 and 8 CTAs and the device-memory tier (V 40 at W 18); then a
+# table past shared memory beside the frontier (read from device
+# memory), and two words at V 48 and 64. Rows 4-7 are mostly padding.
+def wide_cases(w_warp: int) -> tuple:
+    out = []
+    for W in range(w_warp + 1, 19):
+        for V in (8, 40):
+            shared = (W + V) % 2 == 0
+            out.append((V, W, W - 2 if W % 2 == 0 else None,
+                        9 if shared else 130, shared))
+    return tuple(out) + ((64, 13, None, 3000, True), (64, 18, 5, 6, True),
+                         (48, 17, None, 12, False))
+
+
+# Rows of a wide case: fewer where the plain version's frontier is large.
+def wide_rows(W: int) -> int:
+    return 8 if W <= 15 else 4
+
+
+def pad_heavy(rng, args, rows=range(4, 8)):
+    """Make most events of ``rows`` padding (EV_PAD), in place."""
+    ev_type = args[0]
+    for r in rows:
+        if r < ev_type.shape[0]:
+            keep = torch.from_numpy(rng.random(ev_type.shape[1]) < 0.15)
+            ev_type[r] = torch.where(keep.to(ev_type.device), ev_type[r],
+                                     torch.zeros_like(ev_type[r]))
+    return args
+
+
+def chunked_vs_one_shot(L, args, V, W, wl, dev, cut=40) -> bool:
+    """The resume entry over events [0, cut) then [cut, N) against one
+    launch over all N, from a fresh carry: all four outputs equal."""
+    kern = L.get_kernel(V, W, w_live=wl, resume=True)
+    carry = L.initial_carry(args[0].shape[0], V, W, dev)
+    one = kern(*args, 0, *carry)
+    head = [a[:, :cut] for a in args[:3]]
+    tail = [a[:, cut:].contiguous() for a in args[:3]]
+    mid = kern(*[h.contiguous() for h in head], args[3], 0, *carry)
+    # kern returns (valid, bad, F, Fb); the carry order is (F, Fb, valid,
+    # bad)
+    two = kern(*tail, args[3], cut, mid[2], mid[3], mid[0], mid[1])
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(one, two))
+
 
 def random_tables(rng, B, N, V, W, w_live, K1, shared, dev):
     """Seeded random tables for B rows of N events. The first rows are
@@ -273,7 +331,8 @@ def tier_of(L, V, W, w_live, K1, shared) -> dict:
     """The kernel's plan for a bucket, as the wrappers pick it."""
     plan = L.cuda_wgl.smem_plan(V, W, w_live, K1=K1, shared_target=shared)
     return {"tier": plan["tier"], "rows_per_block": plan["rows_per_block"],
-            "table_form": plan["table_form"]}
+            "table_form": plan["table_form"],
+            "cluster_ctas": plan["cluster_ctas"]}
 
 
 def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
@@ -327,8 +386,40 @@ def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
         max_err = max(max_err, err)
     require({("warp", "nibble", False), ("warp", "int8", False),
              ("warp", "int8", True), ("warp", "device", False),
-             ("block", "device", False), ("device", "device", False)}
+             ("block", "int8", False), ("cluster", "int8", False)}
             <= tiers, f"the random cases missed a tier: {sorted(tiers)}")
+    # The wide tiers at every W, both word counts, with mostly-padding
+    # rows, rows that fail (the latch) and rows that stay valid; and the
+    # event-chunked resume against the one-shot launch at each plan.
+    wide, seen, resumed_wide = [], set(), 0
+    for V, W, wl, K1, shared in wide_cases(L.cuda_wgl.W_WARP):
+        B = wide_rows(W)
+        args = pad_heavy(rng, random_tables(rng, B, RANDOM_EVENTS, V, W, wl,
+                                            K1, shared, dev))
+        eq, err, inv = kernel_vs_plain(args, V, W, wl, dev, L, idx0=1000)
+        plan = L.cuda_wgl.smem_plan(V, W, wl, K1=K1, shared_target=shared)
+        chunked = chunked_vs_one_shot(L, args, V, W, wl, dev)
+        resumed_wide += 1
+        wide.append({"V": V, "W": W, "w_live": wl, "K1": K1,
+                     "shared_target": shared, "rows": B,
+                     "events": RANDOM_EVENTS, "invalid": inv, "equal": eq,
+                     "chunked_equal": chunked, "tier": plan["tier"],
+                     "cluster_ctas": plan["cluster_ctas"],
+                     "table_form": plan["table_form"]})
+        require(eq, f"kernel != plain on wide tables V={V} W={W}")
+        require(chunked, f"chunked != one-shot on wide tables V={V} W={W}")
+        max_err = max(max_err, err)
+        seen.add((plan["tier"], plan["cluster_ctas"], plan["table_form"]))
+    out["wide"] = wide
+    require({("block", 1, "int8"), ("block", 1, "device"),
+             ("cluster", 2, "int8"), ("cluster", 4, "int8"),
+             ("cluster", 8, "int8"), ("device", 1, "int8")} <= seen,
+            f"the wide cases missed a plan: {sorted(seen)}")
+    require({(c["W"], c["V"] > 32) for c in wide}
+            >= {(W, two) for W in range(L.cuda_wgl.W_WARP + 1, 19)
+                for two in (False, True)}, "a wide W or word count missed")
+    require(0 < sum(c["invalid"] for c in wide)
+            < sum(c["rows"] for c in wide), "no failing or no valid row")
     # (c) the resume entry: event-chunked equals one-shot.
     resumed = 0
     for b in [x for x in ba if x.batch and x.W <= 12] + bb:
@@ -338,7 +429,7 @@ def phase_kernel_parity(dev, L, synth, cas, prep, bucket_encode):
             require(np.array_equal(x, y),
                     f"chunked != one-shot at V={b.V} W={b.W}")
         resumed += 1
-    out["resume_buckets"] = resumed
+    out["resume_buckets"] = resumed + resumed_wide
     out["max_abs_err"] = max_err
     emit(out)
     return max_err
@@ -860,25 +951,35 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
         require(g.get("configs") == w.get("configs"),
                 f"details configs differ at {r}")
 
-    # Two wide specs at W = 17: the frontier in device memory.
+    # Two wide specs at W = 17: a cluster tier; their K1 launches
+    # replayed alone.
     wide = []
     for inv in (False, True):
         ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2,
                          invalid=inv)
         cuda_synth.LAUNCHES = 0
-        L.cuda_wgl.LAUNCHES = 0
-        t0 = time.perf_counter()
-        wv, _ = L.check_synth(cas(), ws, scheduler=False)
-        wide_s = time.perf_counter() - t0
+        L.cuda_wgl.LAUNCHES = L.cuda_wgl.WIDE_LAUNCHES = 0
+        with LaunchRecorder(L.cuda_wgl) as k1:
+            t0 = time.perf_counter()
+            wv, _ = L.check_synth(cas(), ws, scheduler=False)
+            wide_s = time.perf_counter() - t0
         counts = {"synth_device": cuda_synth.LAUNCHES,
-                  "wgl_frontier": L.cuda_wgl.LAUNCHES}
+                  "wgl_frontier": L.cuda_wgl.LAUNCHES,
+                  "wgl_frontier_wide": L.cuda_wgl.WIDE_LAUNCHES}
         require(all(v > 0 for v in counts.values()),
                 f"a wide check_synth missed a kernel: {counts}")
         require(bool((wv == (not inv)).all()),
                 f"wide W=17 invalid={inv}: rows not as built")
         wide.append({"invalid": inv, "rows": WIDE_ROWS, "s": wide_s,
                      "valid_rows": int(wv.sum()), "launches": counts,
-                     "route": L.DISPATCH_LOG[-1][0]})
+                     "route": L.DISPATCH_LOG[-1][0],
+                     "k1_ms": time_launches([prepared_single(L, *a, **kw)
+                                             for a, kw in k1.singles],
+                                            reps=3),
+                     "k1_plans": [tier_of(L, kw["V"], kw["W"], kw["w_live"],
+                                          a[3].shape[-2], a[3].dim() == 2)
+                                  for a, kw in k1.singles]})
+        del k1
     # The wide generator alone at that shape.
     vk = S.wide_inputs(ws, device=dev)
     st = dict(width=ws.width, n_values=ws.n_values, invalid=ws.invalid)
@@ -915,7 +1016,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
           "synth_bound": synth_bound(spec)})
     sb = synth_bound(spec)
     return {
-        "buckets": buckets,
+        "buckets": buckets, "wide": wide,
         "wgl_frontier": {"launches": launches["wgl_frontier"],
                          "max_abs_err": wgl_err, "ms": wgl["kernel_ms"],
                          "wrapper_ms": wgl["wrapper_ms"],
@@ -1702,7 +1803,22 @@ FOLD_FIFO_CASES = ((1, 1), (5, 8), (33, 64), (600, 1024), (600, 8),
                    (4000, 4096), (10_000, 16384), (4000, 65536))
 FOLD_COUNT_FAMILIES = ("set", "crdb", "tq", "ids")
 FOLD_COUNT_CASES = tuple((V, 24 if V <= 4096 else 6, 3000)
-                         for V in FOLD_VS) + ((16384, 64, 40_000),)
+                         for V in FOLD_VS) + ((16384, 64, 40_000),
+                                              (1024, 24, 3000),
+                                              (1025, 24, 3000))
+
+
+def count_edge_cases(family: str) -> tuple:
+    """fold_counts' slice edges for a family at a batch whose rows alone
+    fill the card (one slice a row while it fits): the widest one-slice
+    vocabulary and one value past it. (1024, 1025 at 24 rows in
+    FOLD_COUNT_CASES are the other edge: where rows too few to fill the
+    card start to take more slices.)"""
+    from jepsen_torch.ops import cuda_folds as K
+    C = K.FAMILIES[family][1]
+    widest = K.COUNT_SLICE_BYTES // (4 * C) // 32 * 32
+    rows = K.COUNT_TARGET_BLOCKS
+    return ((widest, rows, 600), (widest + 1, rows, 600))
 
 # The fold path's batches: the reference bench's total-queue batch
 # (bench.py:805-826: 2,000 histories of 100 elements) and, per family, a
@@ -1805,16 +1921,16 @@ def phase_fold_kernel_parity(dev):
         want = run_p(cpu)
         equal, e = fold_outputs_equal(got, want)
         err = max(err, e)
-        tier = K.tier(entry, width, info.get("family"))
-        tiers.add((entry, info.get("family"), tier))
         B, N = args_np[0].shape
+        tier = K.tier(entry, width, info.get("family"), rows=B)
+        tiers.add((entry, info.get("family"), tier))
         out["cases"].append({"entry": entry, **info, "width": width,
                              "B": B, "N": N, "tier": tier, "equal": equal})
         require(equal, f"{entry} {info} width {width}: kernel != plain")
         return want
 
     for fam in FOLD_COUNT_FAMILIES:
-        for V, B, N in FOLD_COUNT_CASES:
+        for V, B, N in FOLD_COUNT_CASES + count_edge_cases(fam):
             lines = fold_lines(rng, B, N, V)
             final = ((rng.random((B, V)) < 0.5).astype(np.uint8)
                      if fam in ("set", "crdb") else None)
@@ -1856,8 +1972,13 @@ def phase_fold_kernel_parity(dev):
         verdicts |= set(want[0].tolist())
     require(verdicts == {0, 1}, f"FIFO verdicts seen: {verdicts}")
     seen = {(e, t) for e, _, t in tiers}
-    require(seen == {(e, t) for e in K.ENTRIES for t in ("smem", "global")},
+    require(seen == {(e, t) for e in K.ENTRIES
+                     for t in (("smem", "sliced") if e == "fold_counts"
+                               else ("smem", "global"))},
             f"tiers seen: {sorted(seen)}")
+    for fam in FOLD_COUNT_FAMILIES:
+        require({("fold_counts", fam, t) for t in ("smem", "sliced")}
+                <= tiers, f"fold_counts {fam}: a plan was not run")
     out["max_abs_err"] = err
     emit(out)
     return err
@@ -2117,7 +2238,8 @@ def fold_measure(dev, lw, ts):
     per_line, per_elem = FOLD_OPS[lw.entry]
     ops = per_line * B * N + per_elem * sum(w.numel() for w in want
                                             if w is not None)
-    library_ms = None
+    library_ms = library_hist_ms = None
+    extra = {}
     if lw.entry == "fold_counts":
         C = K.FAMILIES[lw.family][1]
         V = lw.width
@@ -2129,14 +2251,70 @@ def fold_measure(dev, lw, ts):
                           torch.zeros_like(code))
         ones = mask.to(torch.int32)
         hist = torch.zeros((B, C * V), dtype=torch.int32, device=dev)
-        library_ms = time_cuda(lambda: hist.zero_().scatter_add_(1, idx,
-                                                                 ones),
-                               reps=5)
+        library_hist_ms = time_cuda(
+            lambda: hist.zero_().scatter_add_(1, idx, ones), reps=5)
+        # The whole function by the library route, lines to planes.
+        library_ms = time_cuda(lambda: fold_counts_library(
+            lw.family, ts, V), reps=5)
+        lib = fold_counts_library(lw.family, ts, V)
+        require(fold_outputs_equal(lib, want)[0],
+                f"{lw.family}: the library route != plain")
+        plan = K.count_plan(lw.family, V, B)
+        extra = {"library_hist_ms": library_hist_ms,
+                 "library_call": "scatter_add_ of the histograms and the "
+                                 "family's plane ops in torch",
+                 "slices": plan["slices"],
+                 "slice_width": plan["slice_width"]}
     return {"entry": lw.entry, "family": lw.family, "width": lw.width,
-            "B": B, "N": N, "tier": K.tier(lw.entry, lw.width, lw.family),
+            "B": B, "N": N, "tier": K.tier(lw.entry, lw.width, lw.family,
+                                           rows=B),
             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "plain_on": "cpu", "library_ms": library_ms, "equal": equal,
-            "max_abs_err": err, **launch_bound(in_bytes + out_bytes, ops)}
+            "plain_on": "cpu", "library_ms": library_ms, **extra,
+            "equal": equal, "max_abs_err": err,
+            **launch_bound(in_bytes + out_bytes, ops)}
+
+
+def fold_counts_library(family, ts, V):
+    """fold_counts by the library route on the card: each line's
+    histogram index from its (type, f) code, one scatter_add_ of every
+    histogram, then the family's planes by torch ops (the formulas of
+    ``plain_fold_counts``). Returns (planes, attempted)."""
+    typ, f, val = ts[:3]
+    B = typ.shape[0]
+    C = len(FOLD_CODES[family])
+    code = torch.full(typ.shape, -1, dtype=torch.int64, device=typ.device)
+    for c, (t, fc) in enumerate(FOLD_CODES[family]):
+        code[(typ == t) & (f == fc)] = c
+    mask = (code >= 0) & (val >= 0)
+    idx = torch.where(mask, code * V + val.clamp(0, V - 1).long(),
+                      torch.zeros_like(code))
+    h = torch.zeros((B, C * V), dtype=torch.int32, device=typ.device
+                    ).scatter_add_(1, idx, mask.to(torch.int32))
+    h = h.view(B, C, V)
+    attempted = None
+    if family in ("set", "crdb"):
+        fr = ts[3].to(torch.bool)
+        att, add = h[:, 0] > 0, h[:, 1] > 0
+        if family == "set":
+            ok = fr & att
+            planes = (att, ok, fr & ~att, add & ~fr, ok & ~add)
+        else:
+            failed, unsure = h[:, 2] > 0, h[:, 3] > 0
+            planes = (att, failed, fr & add, fr & ~att, fr & failed,
+                      add & ~fr, fr & unsure)
+        out = torch.stack(planes, 1).to(torch.uint8)
+    elif family == "tq":
+        att, enq, deq = h[:, 0], h[:, 1], h[:, 2]
+        zero = torch.zeros_like(att)
+        ok = torch.minimum(deq, att)
+        out = torch.stack((
+            att, ok, torch.where(att == 0, deq, zero),
+            torch.where(att > 0, torch.clamp_min(deq - att, 0), zero),
+            torch.clamp_min(enq - deq, 0), torch.clamp_min(ok - enq, 0)), 1)
+    else:
+        out = h[:, :1].clone()
+        attempted = ((typ == 0) & (f == 0)).sum(1, dtype=torch.int32)
+    return out, attempted
 
 
 # (type, f) of each fold_counts histogram, in the kernel's order.
@@ -2489,23 +2667,126 @@ class DcRecorder:
 def counts(L):
     from jepsen_torch.ops import cuda_dc
     return {"dc_peel": cuda_dc.LAUNCHES, "wgl_frontier": L.cuda_wgl.LAUNCHES,
+            "wgl_frontier_wide": L.cuda_wgl.WIDE_LAUNCHES,
             "wgl_frontier_group": L.cuda_wgl.GROUP_LAUNCHES}
 
 
 def zero_counts(L):
     from jepsen_torch.ops import cuda_dc
     cuda_dc.LAUNCHES = L.cuda_wgl.LAUNCHES = L.cuda_wgl.GROUP_LAUNCHES = 0
+    L.cuda_wgl.WIDE_LAUNCHES = 0
 
 
-def dc_run(L, cas, hists, backend):
+def closure_ops(L, args, kw) -> torch.Tensor:
+    """What ``plain_wgl(ops=)`` counts for one recorded launch, per row
+    (int64 [B]), from the closures of the kernel under test: each live
+    event is run twice from the previous event's carry, once as EV_CLOSE
+    (its closure Fc, the count's input) and once as itself. Per live
+    event of a row still valid: NW ORs for each configuration of Fc
+    under each slot whose kind reaches a state and whose bit its mask
+    lacks, and on an OK one word test per kept mask."""
+    from jepsen_torch.ops.encode import EV_CLOSE, EV_FUSED, EV_OK
+    ev_type, ev_slot, ev_slots, target, idx0 = args[:5]
+    V, W, WL = kw["V"], kw["W"], kw["w_live"]
+    B, N = ev_type.shape
+    NW, M, K1 = L.n_state_words(V), 1 << W, target.shape[-2]
+    dev = ev_type.device
+    kern = L.get_kernel(V, W, w_live=WL, resume=True)
+    kinds = ev_slots[:, :, :WL].long()
+    kinds = torch.where(kinds < 0, kinds + K1, kinds).clamp(0, K1 - 1)
+    reach_k = ((target >= 0) & (target < 32 * NW)).any(-1)
+    reach = (reach_k[kinds] if target.dim() == 2 else torch.gather(
+        reach_k, 1, kinds.reshape(B, -1)).reshape(B, N, WL)).long()
+    masks = torch.arange(M, device=dev)
+    lacks = [((masks >> i) & 1 == 0).long() for i in range(WL)]
+    octet = torch.tensor([bin(v).count("1") for v in range(256)],
+                         dtype=torch.int64, device=dev)
+    ops = torch.zeros(B, dtype=torch.int64, device=dev)
+    F, Fb, valid, bad = (t.clone() for t in args[5:9])
+    for e in range(N):
+        typ = ev_type[:, e]
+        live = (typ == EV_OK) | (typ == EV_FUSED) | (typ == EV_CLOSE)
+        if not bool(live.any()):
+            continue
+        ev = [t[:, e:e + 1].contiguous() for t in (ev_slot, ev_slots)]
+        close = torch.where(live, EV_CLOSE, 0).to(torch.int8)[:, None]
+        Fc = kern(close, *ev, target, idx0 + e, F, Fb, valid, bad)[2]
+        pc = octet[Fc.contiguous().view(torch.uint8).long()].view(
+            B, NW, M, 4).sum((1, 3))
+        weight = sum(reach[:, e, i, None] * lacks[i] for i in range(WL))
+        need = NW * (pc * weight).sum(1) + (
+            (typ == EV_OK) | (typ == EV_FUSED)).long() * (NW * (M >> 1))
+        ops += torch.where(live & valid, need, torch.zeros_like(need))
+        valid, bad, F, Fb = kern(ev_type[:, e:e + 1].contiguous(), *ev,
+                                 target, idx0 + e, F, Fb, valid, bad)
+    return ops
+
+
+# Rows of each recorded launch the plain version runs on to hold
+# closure_ops to plain_wgl(ops=) (the plain version over a whole dc
+# batch takes minutes on the card).
+PLAIN_SAMPLE_ROWS = 2
+
+
+def k1_launches_measure(L, singles) -> dict:
+    """A run's recorded single-bucket launches, once per batch: each
+    launch's plan (tier, CTAs per row, table form),
+    W, V, rows, events and time alone (``time_launches``, 3 runs), and
+    the bound of the whole run from the operations its data needs
+    (``closure_ops``) and the bytes the launches must move
+    (``frontier_bytes``). The plain version runs on the first
+    PLAIN_SAMPLE_ROWS rows of each launch (its time there is
+    ``plain_ms``), which must give the same verdicts, frontiers and
+    operation counts as the kernel and closure_ops there."""
+    detail, nbytes, ops, plain_ms, sampled = [], 0, 0, 0.0, 0
+    for a, kw in singles:
+        V, W, wl = kw["V"], kw["W"], kw["w_live"]
+        plan = L.cuda_wgl.smem_plan(V, W, wl, K1=a[3].shape[-2],
+                                    shared_target=a[3].dim() == 2)
+        nbytes += frontier_bytes(L, a[0], a[2], a[3], V, W, wl)
+        counted = closure_ops(L, a, kw)
+        ops += int(counted.sum())
+        detail.append({"V": V, "W": W, "w_live": wl,
+                       "rows": int(a[0].shape[0]),
+                       "events": int(a[0].shape[1]), "tier": plan["tier"],
+                       "cluster_ctas": plan["cluster_ctas"],
+                       "table_form": plan["table_form"],
+                       "threads": plan["threads"],
+                       "needed_ops": int(counted.sum()),
+                       "ms": time_launches([prepared_single(L, *a, **kw)],
+                                           reps=3)})
+        n = min(PLAIN_SAMPLE_ROWS, a[0].shape[0])
+        part = [t[:n] for t in a[:3]] + [a[3] if a[3].dim() == 2
+                                         else a[3][:n]]
+        carry = [t[:n] for t in a[5:9]]
+        got = L.cuda_wgl.wgl_frontier(*part, a[4], *carry, **kw)
+        nd = torch.zeros(n, dtype=torch.int64, device=a[0].device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = L.plain_wgl(*part, a[4], *carry, **kw, ops=nd)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        sampled += n
+        require(all(torch.equal(x, y) for x, y in zip(got, want))
+                and torch.equal(nd, counted[:n]),
+                f"W={W} V={V}: kernel or closure_ops != plain on the "
+                "sampled rows")
+    return {"launches": detail, "plain_ms": plain_ms, "plain_on": "cuda",
+            "plain_rows": sampled,
+            "plain_rows_of": sum(d["rows"] for d in detail),
+            **launch_bound(nbytes, ops)}
+
+
+def dc_run(L, cas, hists, backend, measure=False):
     """check_batch_columnar(details="invalid") of an unkeyed batch under
     one backend, as its two steps (the columnar conversion, then
     check_columnar) so that the host clock splits them: launch counts
     set to 0 just before and read just after, the scheduler's stats, the
     peel plan's and pre-filter's host time, and the frontier launches
-    (K1, K2f) of the run replayed alone by CUDA events (``k1_ms``).
-    After the clock stops, every chunk's certified rows are held to the
-    host twin."""
+    (K1, K2f) of the run replayed alone by CUDA events (``k1_ms``); with
+    ``measure``, also each launch's plan and time and the run's K1 bound
+    (``k1``, ``k1_launches_measure``). After the clock stops, every
+    chunk's certified rows are held to the host twin."""
     from jepsen_torch.history.columnar import ops_to_columnar
     from jepsen_torch.ops.statespace import enumerate_statespace
     split, stats = {}, {}
@@ -2527,6 +2808,10 @@ def dc_run(L, cas, hists, backend):
     k1_ms = time_launches(
         [prepared_single(L, *a, **kw) for a, kw in k1.singles]
         + [prepared_group(L, m, f, r) for m, f, r in k1.groups], reps=5)
+    k1_detail = None
+    if measure:
+        require(not k1.groups, "a measured dc run made group launches")
+        k1_detail = k1_launches_measure(L, k1.singles)
     del k1
     host_checked, plans = rec.check_host(), rec.padded_plans()
     split["dc_plan_s"], split["dc_prefilter_s"] = rec.plan_s, rec.peel_s
@@ -2539,6 +2824,7 @@ def dc_run(L, cas, hists, backend):
            "launches": launches,
            "k1_launches": launches["wgl_frontier"]
            + launches["wgl_frontier_group"], "k1_ms": k1_ms,
+           **({"k1": k1_detail} if measure else {}),
            "split_s": split, "certified_rows": rec.certified,
            "host_checked_rows": host_checked,
            "stats": {k: stats.get(k) for k in (
@@ -2629,7 +2915,8 @@ def dc_batch(dev, L, cas, oracle, label, stale_rows):
     hists = [rw_history(j) for j in jobs]
     runs, verdicts, plans = {}, {}, None
     for backend in ("dc", "xla", "auto"):
-        res, run, p, at = dc_run(L, cas, hists, backend)
+        res, run, p, at = dc_run(L, cas, hists, backend,
+                                 measure=backend == "dc")
         require(run["fallback_rows"] == 0,
                 f"{label} {backend}: rows went to the host")
         require(all(r["valid"] is True or "op" in r for r in res),
@@ -3792,13 +4079,131 @@ def headline_compare(trees, reps: int = 2) -> None:
     emit(out)
 
 
+# The redesigned kernels timed alone in another checkout of the package
+# (its own build and import) on inputs saved by kernels_compare: K1 over
+# every launch of the dc batches' dc runs, K7a over each count family's
+# full-width batch. Uses that checkout's own chip_smoke helpers.
+KERNELS_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as CS
+from jepsen_torch.ops import cuda_folds
+from jepsen_torch.ops import linearize as L
+saved, reps = torch.load(sys.argv[1]), int(sys.argv[2])
+dev = torch.device("cuda")
+out = {"k1_ms": {}, "k7a_ms": {}}
+for label, launches in saved["k1"].items():
+    prepared = []
+    for ev, kw in launches:
+        ev = [t.to(dev) for t in ev]
+        carry = L.initial_carry(ev[0].shape[0], kw["V"], kw["W"], dev)
+        prepared.append(CS.prepared_single(L, *ev, 0, *carry, **kw))
+    out["k1_ms"][label] = CS.time_launches(prepared, reps=reps)
+for fam, (ts, V) in saved["k7a"].items():
+    ts = [None if t is None else t.to(dev) for t in ts]
+    launch = cuda_folds.prepare_counts(fam, *ts, V)[0]
+    out["k7a_ms"][fam] = CS.time_launches([(lambda: None, launch)],
+                                          reps=reps)
+print(json.dumps(out))
+"""
+
+
+def kernels_compare(trees, reps: int = 5) -> None:
+    """K1 on the dc headline and K7a on the full-width fold batches, the
+    same inputs timed in each checkout of ``trees`` in the order given
+    (for example parent, change, change, parent), each in a process of
+    its own that builds that tree's kernels. This checkout records the
+    inputs (the K1 launches of each dc batch's dc run and of the two
+    wide W 17 check_synth specs, each from a fresh carry; each count
+    family's lowered batch) and measures, on them, the
+    K1 bound and each launch's plan and time (``k1_launches_measure``)
+    and K7a's whole-function library route and bound
+    (``fold_measure``)."""
+    from jepsen_torch.history.columnar import ops_to_columnar
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.ops import folds as F
+    from jepsen_torch.ops import linearize as L
+    from jepsen_torch.ops import synth_device as S
+    out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "runs": []}
+    saved = {"k1": {}, "k7a": {}}
+
+    def keep(label, k1):
+        require(k1.singles and not k1.groups,
+                f"{label}: no single-bucket launch, or a group launch")
+        for a, kw in k1.singles:
+            fresh = L.initial_carry(a[0].shape[0], kw["V"], kw["W"],
+                                    a[0].device)
+            require(a[4] == 0 and all(torch.equal(x, y) for x, y in
+                                      zip(a[5:], fresh)),
+                    f"{label}: a launch did not start from a fresh carry")
+        saved["k1"][label] = [([t.cpu() for t in a[:4]], kw)
+                              for a, kw in k1.singles]
+        out["k1"][label] = k1_launches_measure(L, k1.singles)
+
+    for label, stale_rows in (("healthy", set()),
+                              ("faulty", set(range(0, DC_ROWS, 8)))):
+        hists = [rw_history(rw_job(s, DC_STALE if s in stale_rows else 0.0))
+                 for s in range(DC_ROWS)]
+        with LaunchRecorder(L.cuda_wgl) as k1:
+            cols = ops_to_columnar(cas_register(), hists, max_states=64)
+            L.check_columnar(cas_register(), cols, details="invalid",
+                             scheduler_opts={"wgl_backend": "dc"})
+        keep(label, k1)
+    for inv in (False, True):
+        with LaunchRecorder(L.cuda_wgl) as k1:
+            L.check_synth(cas_register(), S.SynthSpec(
+                family="wide", n=WIDE_ROWS, width=17, n_values=2,
+                invalid=inv), scheduler=False)
+        keep(f"wide_w17_{'invalid' if inv else 'valid'}", k1)
+    w = FOLD_WIDE
+    for family in FOLD_COUNT_FAMILIES:
+        hists = [fold_history(family, s, w["elements"], w["procs"])
+                 for s in range(w["n"])]
+        seen = []
+        run_kernel = F.run_kernel
+
+        def recording(lw, ts):
+            seen.append((lw, ts))
+            return run_kernel(lw, ts)
+        F.run_kernel = recording
+        try:
+            getattr(F, FOLD_CHECKS[family])(hists)
+        finally:
+            F.run_kernel = run_kernel
+        require(len(seen) == 1, f"{family}: {len(seen)} kernel calls")
+        lw, ts = seen[0]
+        m = fold_measure(ts[0].device, lw, ts)
+        require(m["equal"], f"{family}: kernel != plain")
+        out["k7a"][family] = m
+        saved["k7a"][family] = ([None if t is None else t.cpu()
+                                 for t in ts], lw.width)
+    path = os.path.abspath(os.path.join("build", "kernels_compare.pt"))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(saved, path)
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        p = subprocess.run(
+            [sys.executable, "-c", KERNELS_CHILD, path, str(reps)],
+            cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
+            capture_output=True, text=True, timeout=1200)
+        require(p.returncode == 0, f"{tree}: {p.stderr[-2000:]}")
+        out["runs"].append({"tree": tree, **json.loads(
+            p.stdout.strip().splitlines()[-1])})
+    os.remove(path)
+    emit(out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--headline"]:
+    if sys.argv[1:2] in (["--headline"], ["--kernels"]):
         smi = nvidia_smi()
-        headline_compare(sys.argv[2:])
+        if sys.argv[1] == "--headline":
+            headline_compare(sys.argv[2:])
+        else:
+            kernels_compare(sys.argv[2:])
         print(smi, flush=True)
         return 0
     from jepsen_torch.checkers.linearizable import prepare_history, wgl_check
@@ -3872,6 +4277,15 @@ def main() -> int:
 
     wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
     sl, gk = sched["launches"], sched["group"]
+    # K1's wide tiers: the dc headline's dc runs (the healthy batch's
+    # times and bound, the faulty batch's beside them) and the wide W 17
+    # check_synth specs.
+    dk = {b: x["runs"]["dc"] for b, x in (("healthy", dch),
+                                          ("faulty", dcf))}
+    wide_by_path = {
+        "check_synth_wide_w17": sum(w["launches"]["wgl_frontier_wide"]
+                                    for w in main_k["wide"]),
+        **dc_launches("wgl_frontier_wide")}
     emit({"kernels": [{
         "name": "wgl_frontier", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
@@ -3893,6 +4307,25 @@ def main() -> int:
         "tier": wk["tier"], "w_warp": L.cuda_wgl.W_WARP,
         "scheduler_path": {k: sched["single"][k] for k in (
             "launches", "ms", "wrapper_ms", "bound_ms", "bound_by")}}, {
+        "name": "wgl_frontier_wide", "route": "cuda",
+        "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
+        "replaces": "jepsen_tpu/ops/pallas_wgl.py:190",
+        "launches": sum(wide_by_path.values()),
+        "launches_by_path": wide_by_path, "parity": True,
+        "max_abs_err": wgl_err, "ms": dk["healthy"]["k1_ms"],
+        "plain_ms": dk["healthy"]["k1"]["plain_ms"], "plain_on": "cuda",
+        "plain_rows": dk["healthy"]["k1"]["plain_rows"],
+        "plain_rows_of": dk["healthy"]["k1"]["plain_rows_of"],
+        "bound_ms": dk["healthy"]["k1"]["bound_ms"],
+        "bound_by": dk["healthy"]["k1"]["bound_by"], "library_ms": None,
+        "timing_batch": "dc headline, healthy, every K1 launch of its dc "
+                        "run",
+        "dc_runs": {b: {"k1_ms": r["k1_ms"], **{k: r["k1"][k] for k in (
+            "plain_ms", "plain_rows", "bound_ms", "bound_by", "needed_ops",
+            "bytes", "launches")}} for b, r in dk.items()},
+        "check_synth_wide_w17": [{k: w[k] for k in ("invalid", "k1_ms",
+                                                    "k1_plans")}
+                                 for w in main_k["wide"]]}, {
         "name": "synth_device", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/synth_device.cu",
         "replaces": "jepsen_tpu/ops/synth_device.py:361,735",

@@ -23,16 +23,24 @@
 // INT_MIN for none) and, for the counter, proc (a process densified per
 // row into [0, P)).
 //
-// Design: right and simple first.
-//   * fold_counts: one block a row. Its threads stride over the row's
-//     lines and add 1 to histogram c at min(val, V-1) for each line whose
-//     (type, f) is code c and whose val >= 0 (the reference's mask and
-//     clip), with atomicAdd. The C histograms of the row live in shared
-//     memory while C·V·4 bytes fit, else in the row's slice of a
-//     device-memory scratch; the block zeroes them first. After a
-//     barrier (which also orders the block's global atomics), the same
-//     threads stride over V and write the family's planes: the
-//     combination is the kernel's epilogue, not torch ops after it.
+// Design.
+//   * fold_counts: S blocks a row, each owning a slice of Vs values of
+//     the vocabulary (the wrapper's plan, ops/cuda_folds.py count_plan:
+//     a slice's C histograms fit in COUNT_SLICE_BYTES of shared memory,
+//     and a row takes more slices, up to one per COUNT_MIN_SLICE values,
+//     until the batch has about two blocks an SM). Every block of a row reads
+//     all the row's lines (from L2 after the first), 16 bytes a load
+//     where the row is aligned, and adds 1 to histogram c at
+//     min(val, V-1) for each line whose (type, f) is code c, whose
+//     val >= 0 (the reference's mask and clip) and whose clipped value
+//     falls in its slice, with a shared-memory atomicAdd. After a
+//     barrier it writes its slice of the family's planes: the
+//     combination is the kernel's epilogue, not torch ops after it. No
+//     block merges with another, and no histogram leaves shared memory.
+//     The first design ran one block a row over the whole
+//     vocabulary, with histograms past shared memory in device-memory
+//     scratch: 32 rows left most SMs idle, and a cockroach set at V
+//     16,384 fell to global atomics.
 //   * the scans: one thread a row, walking its lines in order, as the
 //     reference's scan does; a row is a dependent walk. The carry lives
 //     in shared memory where it fits (the counter's per-process pending
@@ -47,11 +55,10 @@
 //
 // What bounds it on this card. fold_counts reads 12 bytes a line and
 // writes P planes of V elements a row, a few int32 operations a line and
-// a plane element: at the full-width batch (64 rows of 40,000 lines, V
-// 16,384) about 30.7 MB in and 4–25 MB out, 0.01 ms at 3.35 TB/s, so it
-// is bound by bytes. Only B blocks run, one a row, so at 64 rows half the
-// SMs idle; a later version would split a row's lines over several
-// blocks. The scans are bound by each row's chain of dependent
+// a plane element: at the full-width batch (32 rows of 40,000 lines, V
+// 16,384) about 15 MB in and 2–12 MB out, 0.008 ms at 3.35 TB/s, so it
+// is bound by bytes; the slices read the lines S times, from L2. The
+// scans are bound by each row's chain of dependent
 // shared-memory or device-memory accesses (a line every few hundred
 // cycles at best), not by bytes or operations: one thread a row leaves
 // the card nearly empty at B = 64. A later version would cut a row into
@@ -100,23 +107,37 @@ __device__ __forceinline__ int code_of(int t, int fc) {
   return t == kOk ? 0 : -1;  // kIds
 }
 
-// One block a row. `hist` is the row's C·V words: shared memory when
-// `scratch` is null, else the row's slice of `scratch`. `planes` is
-// [B, L, V] (uint8 for set and crdb, int32 for tq and ids); `attempted`
-// [B] int32 for ids.
+// Block b takes row b / S and the values lo .. lo + w - 1 of its slice
+// (lo = (b % S)·Vs, w = min(Vs, V - lo)); its C histograms of w words
+// each are in shared memory. `planes` is [B, L, V] (uint8 for set and
+// crdb, int32 for tq and ids); `attempted` [B] int32 for ids, written by
+// each row's first slice. `vec` says the three line tensors' rows start
+// on 16-byte boundaries (N a multiple of 4).
 template <int F>
-__global__ void fold_counts_kernel(const int32_t* __restrict__ typ,
-                                   const int32_t* __restrict__ fcol,
-                                   const int32_t* __restrict__ val,
-                                   const uint8_t* __restrict__ final_read,
-                                   int N, int V, int32_t* scratch,
-                                   void* planes, int32_t* attempted) {
+__device__ __forceinline__ void count_line(int32_t* hist, int t, int fc,
+                                           int v, int V, int lo, int w) {
+  const int c = code_of<F>(t, fc);
+  if (c < 0 || v < 0) return;
+  const int x = min(v, V - 1) - lo;
+  if (static_cast<unsigned>(x) < static_cast<unsigned>(w))
+    atomicAdd(&hist[c * w + x], 1);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kCountThreads)
+fold_counts_kernel(const int32_t* __restrict__ typ,
+                   const int32_t* __restrict__ fcol,
+                   const int32_t* __restrict__ val,
+                   const uint8_t* __restrict__ final_read, int N, int V,
+                   int S, int Vs, int vec, void* planes,
+                   int32_t* attempted) {
   constexpr int C = Fam<F>::C, L = Fam<F>::L;
-  extern __shared__ int32_t smem_hist[];
+  extern __shared__ int32_t hist[];
   __shared__ int att_count;
-  const long long r = blockIdx.x;
-  int32_t* hist = scratch ? scratch + r * C * V : smem_hist;
-  for (int i = threadIdx.x; i < C * V; i += blockDim.x) hist[i] = 0;
+  const long long r = blockIdx.x / S;
+  const int lo = (blockIdx.x - static_cast<int>(r) * S) * Vs;
+  const int w = min(Vs, V - lo);
+  for (int i = threadIdx.x; i < C * w; i += blockDim.x) hist[i] = 0;
   if (threadIdx.x == 0) att_count = 0;
   __syncthreads();
 
@@ -124,20 +145,36 @@ __global__ void fold_counts_kernel(const int32_t* __restrict__ typ,
   const int32_t* f_row = fcol + r * N;
   const int32_t* v_row = val + r * N;
   int att = 0;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    const int t = t_row[j], fc = f_row[j], v = v_row[j];
-    const int c = code_of<F>(t, fc);
-    if (c >= 0 && v >= 0) atomicAdd(&hist[c * V + min(v, V - 1)], 1);
-    if (F == kIds) att += (t == kInvoke && fc == 0);
+  if (vec) {
+    const int4* t4 = reinterpret_cast<const int4*>(t_row);
+    const int4* f4 = reinterpret_cast<const int4*>(f_row);
+    const int4* v4 = reinterpret_cast<const int4*>(v_row);
+    for (int j = threadIdx.x; j < N / 4; j += blockDim.x) {
+      const int4 a = t4[j], b = f4[j], c = v4[j];
+      count_line<F>(hist, a.x, b.x, c.x, V, lo, w);
+      count_line<F>(hist, a.y, b.y, c.y, V, lo, w);
+      count_line<F>(hist, a.z, b.z, c.z, V, lo, w);
+      count_line<F>(hist, a.w, b.w, c.w, V, lo, w);
+      if (F == kIds)
+        att += (a.x == kInvoke && b.x == 0) + (a.y == kInvoke && b.y == 0)
+               + (a.z == kInvoke && b.z == 0) + (a.w == kInvoke && b.w == 0);
+    }
+  } else {
+    for (int j = threadIdx.x; j < N; j += blockDim.x) {
+      const int t = t_row[j], fc = f_row[j];
+      count_line<F>(hist, t, fc, v_row[j], V, lo, w);
+      if (F == kIds) att += (t == kInvoke && fc == 0);
+    }
   }
   if (F == kIds && att) atomicAdd(&att_count, att);
   __syncthreads();
 
-  const uint8_t* fr = final_read ? final_read + r * V : nullptr;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) {
+  const uint8_t* fr = final_read ? final_read + r * V + lo : nullptr;
+  for (int v = threadIdx.x; v < w; v += blockDim.x) {
+    const long long at = r * L * V + lo + v;
     if (F == kSet) {
-      uint8_t* out = static_cast<uint8_t*>(planes) + r * L * V + v;
-      const bool a = hist[v] > 0, add = hist[V + v] > 0, f = fr[v] != 0;
+      uint8_t* out = static_cast<uint8_t*>(planes) + at;
+      const bool a = hist[v] > 0, add = hist[w + v] > 0, f = fr[v] != 0;
       const bool ok = f && a;
       out[0] = a;
       out[V] = ok;
@@ -145,9 +182,9 @@ __global__ void fold_counts_kernel(const int32_t* __restrict__ typ,
       out[3 * V] = add && !f;    // lost
       out[4 * V] = ok && !add;   // recovered
     } else if (F == kCrdb) {
-      uint8_t* out = static_cast<uint8_t*>(planes) + r * L * V + v;
-      const bool a = hist[v] > 0, add = hist[V + v] > 0;
-      const bool failed = hist[2 * V + v] > 0, unsure = hist[3 * V + v] > 0;
+      uint8_t* out = static_cast<uint8_t*>(planes) + at;
+      const bool a = hist[v] > 0, add = hist[w + v] > 0;
+      const bool failed = hist[2 * w + v] > 0, unsure = hist[3 * w + v] > 0;
       const bool f = fr[v] != 0;
       out[0] = a;
       out[V] = failed;
@@ -157,8 +194,8 @@ __global__ void fold_counts_kernel(const int32_t* __restrict__ typ,
       out[5 * V] = add && !f;    // lost
       out[6 * V] = f && unsure;  // recovered
     } else if (F == kTq) {
-      int32_t* out = static_cast<int32_t*>(planes) + r * L * V + v;
-      const int a = hist[v], enq = hist[V + v], deq = hist[2 * V + v];
+      int32_t* out = static_cast<int32_t*>(planes) + at;
+      const int a = hist[v], enq = hist[w + v], deq = hist[2 * w + v];
       const int ok = min(deq, a);
       out[0] = a;
       out[V] = ok;
@@ -167,10 +204,10 @@ __global__ void fold_counts_kernel(const int32_t* __restrict__ typ,
       out[4 * V] = max(enq - deq, 0);             // lost
       out[5 * V] = max(ok - enq, 0);              // recovered
     } else {
-      static_cast<int32_t*>(planes)[r * V + v] = hist[v];  // acks
+      static_cast<int32_t*>(planes)[at] = hist[v];  // acks
     }
   }
-  if (F == kIds && threadIdx.x == 0) attempted[r] = att_count;
+  if (F == kIds && lo == 0 && threadIdx.x == 0) attempted[r] = att_count;
 }
 
 // One thread a row: the counter's bounds. Per line, before the update:
@@ -365,17 +402,23 @@ int set_smem(K kernel, long long bytes) {
 
 template <int F>
 int launch_counts(const void* typ, const void* f, const void* val,
-                  const void* final_read, int B, int N, int V,
-                  void* scratch, void* planes, void* attempted,
-                  cudaStream_t s) {
-  const long long smem =
-      scratch ? 0 : static_cast<long long>(Fam<F>::C) * V * 4;
+                  const void* final_read, int B, int N, int V, int S,
+                  int Vs, void* planes, void* attempted, cudaStream_t s) {
+  const long long smem = static_cast<long long>(Fam<F>::C) * Vs * 4;
+  if (S < 1 || Vs < 1 || static_cast<long long>(S) * Vs < V
+      || static_cast<long long>(S - 1) * Vs >= V
+      || static_cast<long long>(B) * S > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (const int e = set_smem(fold_counts_kernel<F>, smem)) return e;
-  fold_counts_kernel<F><<<B, kCountThreads, static_cast<size_t>(smem), s>>>(
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+  };
+  const int vec = N % 4 == 0 && aligned(typ) && aligned(f) && aligned(val);
+  fold_counts_kernel<F><<<B * S, kCountThreads, static_cast<size_t>(smem),
+                          s>>>(
       static_cast<const int32_t*>(typ), static_cast<const int32_t*>(f),
       static_cast<const int32_t*>(val),
-      static_cast<const uint8_t*>(final_read), N, V,
-      static_cast<int32_t*>(scratch), planes,
+      static_cast<const uint8_t*>(final_read), N, V, S, Vs, vec, planes,
       static_cast<int32_t*>(attempted));
   return static_cast<int>(cudaGetLastError());
 }
@@ -391,28 +434,29 @@ int scan_rows(long long words) {
 
 // fold_counts: family 0 set, 1 crdb, 2 total queue, 3 ids. typ, f, val
 // int32 [B, N]; final_read uint8 [B, V] for set and crdb (null
-// otherwise); scratch null when the C histograms fit in shared memory,
-// else B·C·V int32 words; planes [B, L, V] (uint8 for set and crdb,
-// int32 otherwise); attempted int32 [B] for ids (null otherwise).
+// otherwise); S slices of Vs values a row (S·Vs >= V > (S-1)·Vs, the
+// C histograms of a slice within shared memory); planes [B, L, V]
+// (uint8 for set and crdb, int32 otherwise); attempted int32 [B] for
+// ids (null otherwise).
 extern "C" int fold_counts(int family, const void* typ, const void* f,
                            const void* val, const void* final_read, int B,
-                           int N, int V, void* scratch, void* planes,
+                           int N, int V, int S, int Vs, void* planes,
                            void* attempted, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
   if (N < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (family) {
     case kSet:
-      return launch_counts<kSet>(typ, f, val, final_read, B, N, V, scratch,
+      return launch_counts<kSet>(typ, f, val, final_read, B, N, V, S, Vs,
                                  planes, attempted, s);
     case kCrdb:
-      return launch_counts<kCrdb>(typ, f, val, final_read, B, N, V,
-                                  scratch, planes, attempted, s);
+      return launch_counts<kCrdb>(typ, f, val, final_read, B, N, V, S, Vs,
+                                  planes, attempted, s);
     case kTq:
-      return launch_counts<kTq>(typ, f, val, final_read, B, N, V, scratch,
+      return launch_counts<kTq>(typ, f, val, final_read, B, N, V, S, Vs,
                                 planes, attempted, s);
     case kIds:
-      return launch_counts<kIds>(typ, f, val, final_read, B, N, V, scratch,
+      return launch_counts<kIds>(typ, f, val, final_read, B, N, V, S, Vs,
                                  planes, attempted, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

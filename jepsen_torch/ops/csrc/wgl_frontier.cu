@@ -1,5 +1,5 @@
 // wgl_frontier.cu — the packed-frontier Wing–Gong linearizability search
-// for Hopper (sm_90a), in three tiers by window width.
+// for Hopper (sm_90a), in tiers by window width.
 //
 // Replaces the TPU kernel jepsen_tpu/ops/pallas_wgl.py::_kernel_body (built
 // by make_pallas_kernel, pl.pallas_call at pallas_wgl.py:411) and its XLA
@@ -68,23 +68,34 @@
 //       - occupancy: blocks of R x 32 threads, one kernel per masks-per-
 //         lane and state-word count, each held to 64 registers so that
 //         four blocks (32 warps) share an SM.
-//   * Block tier, W_warp < W <= 15 (14 at two state words): one block per
-//     row, one thread per mask pair, the frontier in shared memory for the
-//     whole row, the closure swept slot by slot in place to a fixpoint
-//     with block barriers, the event's transition rows staged per event
-//     (wgl_row below).
-//   * Device-memory tier, W = 16..18 (the data1wide route): the block
-//     tier's body with the frontier in the row's slice of the output
-//     tensor, for frontiers past the 227 KB a block may use.
+//   * The wide tiers, W > W_warp, a delta closure over groups of 32 masks
+//     (wgl_wide_row below, where the design is set out):
+//       - block tier, W <= 15 (14 at two state words): one block a row,
+//         the frontier in its shared memory;
+//       - cluster tier, W = 16..18 (15..17 at two words): a thread-block
+//         cluster of 2, 4 or 8 CTAs a row, the frontier split over their
+//         shared memory by its top mask bits, a step on a top slot bit
+//         reaching the partner CTA's words through distributed shared
+//         memory;
+//       - device-memory tier, W = 18 at two words: one block a row, the
+//         frontier in the row's slice of the output tensor.
+//     They replace the first block and device-memory tiers, which swept every
+//     mask pair of every live slot per pass with a block barrier after
+//     each slot, confirmed the fixpoint with one more whole pass,
+//     re-staged the event's transition rows every event, and past one
+//     block's shared memory (W 16 at one word, 15 at two) walked a
+//     frontier in device memory.
 //
 // The instrumented entry (wgl_instrument_kernel) replaces the fourth
 // output of make_kernel(instrument=True) (jepsen_tpu/ops/linearize.py:158,
 // :243): each row's closure while_loop passes, summed over EVERY event of
 // its event axis. That count depends on the reference's schedule, slots
 // 0..WL-1 applied in place in order and then one whole-frontier change
-// test, which is the block tier's closure; the warp tier propagates only
-// new configurations and skips pads, so it cannot count it. The entry is
-// the block tier's row body with the counter switched on: a pad event's
+// test; the warp tier and the delta closure propagate only new
+// configurations and skip pads, so neither can count it. The entry keeps
+// the first block-tier body (wgl_row, one block a row, one thread a mask
+// pair, dense in-place slot sweeps) with the counter switched on: a pad
+// event's
 // closure runs on a scratch copy of the frontier (beside it in shared
 // memory, or the row's scratch slice in device memory) and is dropped, a
 // closure whose slots reach no state counts one pass, and a failed row's
@@ -97,12 +108,13 @@
 // one launch over up to kMaxMembers member chunks (different V, W, w_live,
 // event lengths, slot dtypes, shared or per-row targets). Each member has
 // a tier and a block count (ceil(rows / R) in the warp tier, one block per
-// row in the block tier); block b finds its member by scanning the
-// members' block prefix sums in a __grid_constant__ descriptor. Blocks are
-// R x 32 threads for every member, and shared memory is the largest
-// member's need. What it saves is launches, not work: the scheduler's many
-// small chunks stop paying a launch and a host round trip each. The
-// scheduler ships a member that needs the device-memory tier alone. A
+// row in the block tier, which runs the wide delta closure); block b finds
+// its member by scanning the members' block prefix sums in a
+// __grid_constant__ descriptor. Blocks are kWarpRows x 32 threads for
+// every member, and shared memory is the largest member's need. What it
+// saves is launches, not work: the scheduler's many small chunks stop
+// paying a launch and a host round trip each. The scheduler ships a
+// member that needs the cluster or device-memory tier alone. A
 // row's latched pre-failure closure is written straight into its frontier
 // output, which therefore holds the check form's where(valid, F, Fb) when
 // the row ends. Padding rows of a member are not launched: their outputs
@@ -111,11 +123,13 @@
 // Why the updates are race-free. Applying slot i reads only masks without
 // bit i and writes only masks with bit i: in the warp tier a lane updates
 // only its own registers from a shuffled copy of its partner's, in the
-// block tier each mask pair (m, m | 1<<i) belongs to one thread. The
-// closure is a monotone OR to a unique least fixpoint, so the order of
-// slots and lanes does not change Fc. Completion moves each pair's upper
-// word down and clears it.
+// instrumented body each mask pair (m, m | 1<<i) belongs to one thread,
+// and the wide tiers OR into destinations atomically. The closure is a
+// monotone OR to a unique least fixpoint, so the order of slots, lanes
+// and pushes does not change Fc. Completion moves each pair's upper word
+// down and clears it.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -128,6 +142,8 @@ constexpr int kEvFused = 4;
 // Tiers, as ops/cuda_wgl.py numbers them.
 constexpr int kTierWarp = 0;
 constexpr int kTierBlock = 1;
+constexpr int kTierDevice = 2;
+constexpr int kTierCluster = 3;
 
 // Widest window the warp tier's per-lane slot registers hold, and the most
 // rows (warps) one warp-tier block walks.
@@ -210,18 +226,16 @@ __device__ __forceinline__ int block_closure(uint32_t* Fw,
   return passes;
 }
 
-// The block and device-memory tiers: one row's walk over its N events by
-// a whole block, under both entries. `et`, `es` and `ev_slots` are the
-// row's event tables (its slot table at element offset `slots_base`, Wt
-// entries per event), `tg` its [K1][V] transition table, Fg and Fbg its
-// carry frontiers in device memory, valid_p and bad_p its verdict. With
-// frontier_in_smem the frontier lives in shared memory after the staged
-// transition rows and is copied back to Fg at the end, unless Fbg aliases
-// Fg and the row has failed: then Fg keeps the latched closure (the group
-// entry's output). kInstrument is the instrumented entry's body: Sg is the
-// row's scratch frontier in device memory (used when the frontier is not
-// in shared memory) and *iters_p gets the row's closure passes.
-template <bool kInstrument>
+// The first block-tier body, kept for the instrumented entry: one row's walk
+// over its N events by a whole block, counting its closure passes. `et`,
+// `es` and `ev_slots` are the row's event tables (its slot table at
+// element offset `slots_base`, Wt entries per event), `tg` its [K1][V]
+// transition table, Fg and Fbg its carry frontiers in device memory,
+// valid_p and bad_p its verdict. With frontier_in_smem the frontier lives
+// in shared memory after the staged transition rows and is copied back to
+// Fg at the end; Sg is the row's scratch frontier in device memory (used
+// when the frontier is not in shared memory) and *iters_p gets the row's
+// closure passes.
 __device__ void wgl_row(const int8_t* __restrict__ et,
                         const int8_t* __restrict__ es,
                         const void* __restrict__ ev_slots,
@@ -261,11 +275,10 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
     const bool is_ok = typ == kEvOk || typ == kEvFused;
     const bool is_close = typ == kEvClose;
     const bool is_live = is_ok || is_close;
-    // EV_PAD: a no-op, block-uniform (the instrumented body counts it).
-    if (!kInstrument && !is_live) continue;
+    // EV_PAD changes nothing, but its closure's passes count (below).
     if (dead) {
       if (is_ok) first_bad = min(first_bad, idx0 + e);
-      if (kInstrument) sweeps += 1;  // the closure of an empty frontier
+      sweeps += 1;  // the closure of an empty frontier
       continue;
     }
 
@@ -290,7 +303,7 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
     __syncthreads();
     const uint32_t live = live_slots;
 
-    if (kInstrument && !is_live) {
+    if (!is_live) {
       // A pad event: close a scratch copy, count its passes, drop it.
       int passes = 1;
       if (live) {
@@ -307,7 +320,7 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
     // no slot reaches a state).
     const int passes =
         live ? block_closure(Fw, rows, live, WL, NW, V, M, P, tid, nt) : 1;
-    if (kInstrument) sweeps += passes;
+    sweeps += passes;
 
     if (is_ok) {
       // The reference selects among WL static branches, so the slot index
@@ -351,7 +364,7 @@ __device__ void wgl_row(const int8_t* __restrict__ et,
   if (tid == 0) {
     *valid_p = ok ? 1 : 0;
     *bad_p = first_bad;
-    if (kInstrument) *iters_p = sweeps;
+    *iters_p = sweeps;
   }
 }
 
@@ -889,20 +902,418 @@ wgl_warp_kernel(const int8_t* __restrict__ ev_type,
                           B, N, Wt, K1, V, W, WL, idx0, R, table_form);
 }
 
-__global__ void wgl_frontier_kernel(
-    const int8_t* __restrict__ ev_type, const int8_t* __restrict__ ev_slot,
-    const void* __restrict__ ev_slots, int slots_i32,
-    const int32_t* __restrict__ target, long long target_row_stride,
-    uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad,
-    int N, int Wt, int K1, int V, int NW, int W, int WL, int idx0,
-    int frontier_in_smem) {
-  const long long row = blockIdx.x;
+// ---- The wide tiers (W > W_warp): a delta closure over mask groups.
+//
+// A row's mask axis is cut into groups of 32 masks (one word of each
+// bitmap below, one lane a mask), and, in the cluster tier, split by its
+// top `clog` bits over the 2^clog CTAs of a thread-block cluster: CTA
+// `rank` holds the masks rank·Ml .. rank·Ml + Ml - 1 (Ml = 2^(W - clog))
+// in its shared memory, as [NW][Ml] words. Beside the frontier each CTA
+// keeps three bitmaps of one word per group: NZ (masks whose words are
+// not empty) and D[0], D[1] (masks whose words changed in the last
+// round, read and written by alternate rounds).
+//
+// The closure of an event runs in rounds, one barrier (a cluster barrier
+// when clog > 0) each. A round expands only source masks that are dirty:
+// the warps take the CTA's groups a few at a time from a shared counter
+// (the dirty masks gather unevenly, and a warp that owned a fixed share
+// left the others waiting at the barrier), read and clear their bitmap
+// words, and for each dirty group expand its dirty masks' words under
+// each slot of the round's set,
+// OR-ing the images into the destination masks (atomicOr, in its own
+// shared memory, or in the partner CTA's through distributed shared
+// memory for a top slot bit) and marking the destinations that gained a
+// configuration in the next round's bitmap and in NZ. The closure ends
+// after the first round that adds nothing: no confirming sweep, and no
+// visit to a group that did not change. Round 0 takes its sources from
+// NZ (every configuration) but applies only the slots whose kind changed
+// since the row's previous live event (all slots at the launch's first
+// one, and the slot an OK just freed): the frontier is already closed
+// under every other slot, because closure and completion both keep it
+// so. The closure is a monotone OR to a unique least fixpoint, so the
+// order of the pushes, and whether a read sees a push of the same round,
+// cannot change Fc: a source whose words grow in a round is dirty for the
+// next one.
+//
+// Each warp votes "something changed" and, on an OK event, "a mask with
+// bit q is not empty" (from NZ, which is exact once a round adds
+// nothing) by stamping a per-round flag in every CTA of the cluster; the
+// barrier then makes both votes cluster-uniform, so every CTA takes the
+// same path. Completion is two dense passes over the CTA's masks with a
+// barrier between: masks without bit q take their partner's words (from
+// the partner CTA when q is a top bit), recomputing NZ, then masks with
+// bit q are cleared. The row's transition table is staged once per row
+// (int8 targets and reach flags, as the warp tier's int8 form) where it
+// fits, else read from device memory; event types, slots and wrapped,
+// clamped kinds are staged 32 events at a time.
+//
+// Tiers (ops/cuda_wgl.py smem_plan picks one per bucket): block, clog 0,
+// the frontier in one block's shared memory; cluster, clog 1..3, the
+// frontier split over 2..8 CTAs' shared memory; device, clog 0, the
+// frontier in the row's slice of the output tensor (two state words at
+// W 18) with the bitmaps in shared memory.
+//
+// What bounds it. At the dc headline's shapes (W 11-16, V 32-56) a row's
+// closure needs 10^4-10^6 integer operations an event, most of them
+// chains of dependent shared-memory lookups (a set bit of a word at a
+// time), against a round's barrier and, per dirty group and slot, a
+// shuffle, the lookups, two atomics and a vote: the walk is bound by that
+// latency, hidden only by the rows running beside it, not by bytes or the
+// integer rate (PERF.md §6 has the measured gap).
+
+// Events staged per tile, the widest window the wide tiers take, and the
+// most warps of a wide block.
+constexpr int kWideTile = 32;
+constexpr int kWideMaxW = 18;
+constexpr int kWideMaxWarps = 32;
+constexpr int kWideMaxClusterLog = 3;
+// Groups a warp takes at a time from its CTA's round counter.
+constexpr int kWideGrab = 4;
+
+namespace cg = cooperative_groups;
+
+__device__ __forceinline__ void wide_sync(int clog) {
+  if (clog > 0) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// A pointer into CTA `rank`'s shared memory at the same offset as `p` in
+// this CTA's (a cluster launch only).
+template <typename T>
+__device__ __forceinline__ T* on_rank(T* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+// Words of shared memory a wide-tier CTA keeps besides its frontier and
+// table: three bitmaps of Gl words, the event tile, the vote flags and
+// the two rounds' group counters.
+__host__ __device__ __forceinline__ int wide_fixed_words(int Gl) {
+  return 3 * Gl + kWideTile * kWideMaxW + 2 * kWideTile + 6;
+}
+
+// Expand dirty group g (bits `dbits` of its 32 masks) under the slots of
+// `slots`: each lane's mask pushes T_i of its words to its partner with
+// bit i. Returns "some destination gained a configuration" (warp-
+// uniform). `so_lane` holds, at lane i, slot i's table offset.
+template <int NW>
+__device__ __forceinline__ bool wide_group(uint32_t* Fl, uint32_t* NZ,
+                                           uint32_t* nxt, int g,
+                                           uint32_t dbits, uint32_t slots,
+                                           int so_lane, const WarpTable& t,
+                                           int Wl, uint32_t Ml, int rank,
+                                           int lane) {
+  const uint32_t m = static_cast<uint32_t>(g) * 32u + lane;
+  const bool mine = (dbits >> lane) & 1u;
+  uint32_t x[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) x[w] = mine ? Fl[w * Ml + m] : 0u;
+  const bool has = mine && (x[0] | x[NW - 1]) != 0u;
+  bool changed = false;
+  for (uint32_t sl = slots; sl;) {
+    const int i = __ffs(sl) - 1;
+    sl &= sl - 1u;
+    const int so = __shfl_sync(kFullMask, so_lane, i);
+    uint32_t* dF = Fl;
+    uint32_t* dD = nxt;
+    uint32_t* dNZ = NZ;
+    uint32_t dm = m;
+    int dg = g;
+    int up = 0;             // destination lane - source lane
+    bool src = has;
+    if (i < 5) {
+      const uint32_t bit = 1u << i;
+      if (!(dbits & slot_reads(i))) continue;
+      src = has && !(lane & bit);
+      dm = m | bit;
+      up = static_cast<int>(bit);
+    } else if (i < Wl) {
+      const int J = 1 << (i - 5);
+      if (g & J) continue;
+      dg = g | J;
+      dm = static_cast<uint32_t>(dg) * 32u + lane;
+    } else {
+      const int rb = 1 << (i - Wl);
+      if (rank & rb) continue;
+      const int pr = rank | rb;
+      dF = on_rank(Fl, pr);
+      dD = on_rank(nxt, pr);
+      dNZ = on_rank(NZ, pr);
+    }
+    bool c = false;
+    if (src) {
+      uint32_t n[NW];
+      image<NW>(t, so, x, n);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        uint32_t* at = dF + w * Ml + dm;
+        if (n[w] & ~*at) c |= (n[w] & ~atomicOr(at, n[w])) != 0u;
+      }
+    }
+    const uint32_t b = __ballot_sync(kFullMask, c) << up;
+    if (b) {
+      changed = true;
+      if (lane == 0) {
+        atomicOr(dD + dg, b);
+        atomicOr(dNZ + dg, b);
+      }
+    }
+  }
+  return changed;
+}
+
+// The masks of local group g that have bit q (the OK's slot), as a lane
+// bitmap.
+__device__ __forceinline__ uint32_t q_lanes(int q, int g, int Wl,
+                                            int rank) {
+  if (q < 5) return ~slot_reads(q);
+  if (q < Wl) return (g >> (q - 5)) & 1 ? kFullMask : 0u;
+  return (rank >> (q - Wl)) & 1 ? kFullMask : 0u;
+}
+
+// One row's walk in a wide tier by one CTA (of 2^clog, this one `rank`).
+// Arguments as wgl_row's; Fg and Fbg are the row's whole [NW][2^W] carry
+// frontiers. `table_staged` stages the int8 table in shared memory (else
+// it is read from device memory, every slot counted live).
+template <int NW>
+__device__ __noinline__ void wgl_wide_row(
+    const int8_t* __restrict__ et, const int8_t* __restrict__ es,
+    const void* __restrict__ ev_slots, long long slots_base, int slots_i32,
+    const int32_t* __restrict__ tg, uint32_t* Fg, uint32_t* Fbg,
+    uint8_t* valid_p, int32_t* bad_p, int N, int Wt, int K1, int V, int W,
+    int WL, int idx0, int clog, int rank, int frontier_in_smem,
+    int table_staged) {
+  extern __shared__ uint32_t smem[];
+  const int C = 1 << clog;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nt >> 5;
+  const int Wl = W - clog;
+  const uint32_t Ml = 1u << Wl;
+  const uint32_t M = 1u << W;
+  const uint32_t off = static_cast<uint32_t>(rank) * Ml;  // first mask
+  const int Gl = static_cast<int>(Ml >> 5);
+
+  uint32_t* cur = smem;
+  uint32_t* Fl = frontier_in_smem ? cur : Fg;   // [NW][Ml]
+  if (frontier_in_smem) cur += NW * Ml;
+  uint32_t* NZ = cur;
+  uint32_t* Dbuf = cur + Gl;                    // D[0], D[1]
+  cur += 3 * Gl;
+  int* tk = reinterpret_cast<int*>(cur);        // [kWideTile][kWideMaxW]
+  int* ttyp = tk + kWideTile * kWideMaxW;
+  int* tq = ttyp + kWideTile;
+  int* flags = tq + kWideTile;                  // [parity][change, any]
+  int* grab = flags + 4;                        // [parity] next group
+  int8_t* tab = reinterpret_cast<int8_t*>(flags + 6);
+
+  if (table_staged) stage_table(tg, tab, kTableInt8, K1, V, NW, tid, nt);
+  const uint8_t* reach =
+      table_staged ? reinterpret_cast<const uint8_t*>(tab) + K1 * V
+                   : nullptr;
+  const WarpTable t{nullptr, table_staged ? tab : nullptr, tg, NW, V,
+                    V >= 64 ? ~0ull : (1ull << V) - 1ull};
+
+  if (frontier_in_smem) {
+    for (int w = 0; w < NW; ++w)
+      for (uint32_t m = tid; m < Ml; m += nt)
+        Fl[w * Ml + m] = Fg[static_cast<long long>(w) * M + off + m];
+  }
+  for (int x = tid; x < 2 * Gl; x += nt) Dbuf[x] = 0u;
+  if (tid < 6) flags[tid] = tid < 4 ? -1 : 0;
+  __syncthreads();
+  for (int g = warp; g < Gl; g += nwarps) {
+    const uint32_t m = static_cast<uint32_t>(g) * 32u + lane;
+    bool nz = false;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) nz |= Fl[w * Ml + m] != 0u;
+    const uint32_t b = __ballot_sync(kFullMask, nz);
+    if (lane == 0) NZ[g] = b;
+  }
+  // Every CTA's bitmaps and flags are set before any CTA pushes.
+  wide_sync(clog);
+
+  bool ok = *valid_p != 0;
+  int32_t first_bad = *bad_p;
+  bool dead = false;
+  int prevk = -1;       // lane i: slot i's kind at the last live event
+  int stamp = 0;        // rounds so far, cluster-uniform
+
+  for (int e0 = 0; e0 < N && !dead; e0 += kWideTile) {
+    const int ne = min(kWideTile, N - e0);
+    __syncthreads();    // the last tile is consumed
+    for (int x = tid; x < ne * WL; x += nt) {
+      const int ev = x / WL;
+      const int i = x - ev * WL;
+      int k = load_kind(ev_slots,
+                        slots_base + static_cast<long long>(e0 + ev) * Wt
+                            + i, slots_i32);
+      if (k < 0) k += K1;
+      tk[ev * kWideMaxW + i] = min(max(k, 0), K1 - 1);
+    }
+    for (int x = tid; x < ne; x += nt) {
+      ttyp[x] = et[e0 + x];
+      tq[x] = es[e0 + x];
+    }
+    __syncthreads();
+
+    for (int j = 0; j < ne; ++j) {
+      const int typ = ttyp[j];
+      const bool is_ok = typ == kEvOk || typ == kEvFused;
+      if (!is_ok && typ != kEvClose) continue;   // EV_PAD: a no-op
+      const int k = lane < WL ? tk[j * kWideMaxW + lane] : 0;
+      const bool lv = lane < WL && (reach == nullptr || reach[k]);
+      const uint32_t live = __ballot_sync(kFullMask, lv);
+      const uint32_t fresh =
+          live & __ballot_sync(kFullMask, lane < WL && k != prevk);
+      if (lane < WL) prevk = k;
+      const int so_lane = k * V;
+      // The reference selects among WL static branches, so the slot
+      // index clamps into [0, WL).
+      const int q = min(max(tq[j], 0), WL - 1);
+
+      bool any_q = false;
+      for (int r = 0;; ++r) {
+        ++stamp;
+        const uint32_t slots = r == 0 ? fresh : live;
+        uint32_t* src = r == 0 ? NZ : Dbuf + (r & 1) * Gl;
+        uint32_t* nxt = Dbuf + ((r + 1) & 1) * Gl;
+        bool wch = false, wany = false;
+        // Warps take kWideGrab groups at a time from this round's counter
+        // (the next round's is reset meanwhile: its last use ended at the
+        // previous barrier), so a warp whose groups changed little helps
+        // the others instead of waiting at the barrier.
+        int* gc = grab + (stamp & 1);
+        if (tid == 0) grab[(stamp + 1) & 1] = 0;
+        for (;;) {
+          int gb = 0;
+          if (lane == 0) gb = atomicAdd(gc, kWideGrab);
+          gb = __shfl_sync(kFullMask, gb, 0);
+          if (gb >= Gl) break;
+          const int gl = gb + lane;
+          uint32_t word = 0u;
+          if (lane < kWideGrab && gl < Gl) {
+            word = src[gl];
+            if (r > 0 && word) src[gl] = 0u;
+            if (is_ok) wany |= (NZ[gl] & q_lanes(q, gl, Wl, rank)) != 0u;
+          }
+          if (!slots) continue;
+          for (uint32_t pend = __ballot_sync(kFullMask, word != 0u); pend;) {
+            const int jl = __ffs(pend) - 1;
+            pend &= pend - 1u;
+            const uint32_t dbits = __shfl_sync(kFullMask, word, jl);
+            wch |= wide_group<NW>(Fl, NZ, nxt, gb + jl, dbits, slots,
+                                  so_lane, t, Wl, Ml, rank, lane);
+          }
+        }
+        const bool vch = __any_sync(kFullMask, wch);
+        const bool vany = __any_sync(kFullMask, wany);
+        int* fl = flags + 2 * (stamp & 1);
+        if (lane == 0 && (vch || vany)) {
+          for (int c = 0; c < C; ++c) {
+            volatile int* to = clog > 0 ? on_rank(fl, c) : fl;
+            if (vch) to[0] = stamp;
+            if (vany) to[1] = stamp;
+          }
+        }
+        wide_sync(clog);
+        const volatile int* seen = fl;
+        if (seen[0] != stamp) {
+          any_q = seen[1] == stamp;
+          break;
+        }
+      }
+      if (!is_ok) continue;
+
+      if (any_q) {
+        // Masks without bit q take their partner's words, then masks
+        // with bit q are cleared; NZ follows.
+        const uint32_t qb = 1u << q;
+        const uint32_t* P = Fl;
+        if (q >= Wl && !((rank >> (q - Wl)) & 1))
+          P = on_rank(Fl, rank | (1 << (q - Wl)));
+        for (int g = warp; g < Gl; g += nwarps) {
+          const uint32_t m = static_cast<uint32_t>(g) * 32u + lane;
+          const bool has_q = ((off + m) & qb) != 0u;
+          bool nz = false;
+          if (!has_q) {
+            const uint32_t pm = q < Wl ? (m | qb) : m;
+#pragma unroll
+            for (int w = 0; w < NW; ++w) {
+              const uint32_t v = P[w * Ml + pm];
+              Fl[w * Ml + m] = v;
+              nz |= v != 0u;
+            }
+          }
+          const uint32_t b = __ballot_sync(kFullMask, nz);
+          if (lane == 0) NZ[g] = b;
+        }
+        wide_sync(clog);
+        for (int g = warp; g < Gl; g += nwarps) {
+          const uint32_t m = static_cast<uint32_t>(g) * 32u + lane;
+          if ((off + m) & qb) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w) Fl[w * Ml + m] = 0u;
+          }
+        }
+        if (lane == q) prevk = -1;   // the freed slot is not closed
+        wide_sync(clog);
+      } else {
+        // No config survives: latch the closure on the row's first
+        // failure; the frontier becomes empty, and nothing after it can
+        // change the row (a later bad index is larger).
+        for (int w = 0; w < NW; ++w)
+          for (uint32_t m = tid; m < Ml; m += nt) {
+            if (ok) Fbg[static_cast<long long>(w) * M + off + m] =
+                Fl[w * Ml + m];
+            Fl[w * Ml + m] = 0u;
+          }
+        ok = false;
+        dead = true;
+        first_bad = min(first_bad, idx0 + e0 + j);
+        break;
+      }
+    }
+  }
+
+  if (frontier_in_smem && (ok || Fbg != Fg)) {
+    for (int w = 0; w < NW; ++w)
+      for (uint32_t m = tid; m < Ml; m += nt)
+        Fg[static_cast<long long>(w) * M + off + m] = Fl[w * Ml + m];
+  }
+  if (rank == 0 && tid == 0) {
+    *valid_p = ok ? 1 : 0;
+    *bad_p = first_bad;
+  }
+  // No CTA leaves while another may still read its shared memory.
+  if (clog > 0) cg::this_cluster().sync();
+}
+
+// The single-bucket entry's wide tiers: 2^clog CTAs a row (a cluster
+// when clog > 0), `threads` each.
+template <int NW>
+__global__ void __launch_bounds__(kWideMaxWarps * 32, 1)
+wgl_wide_kernel(const int8_t* __restrict__ ev_type,
+                const int8_t* __restrict__ ev_slot,
+                const void* __restrict__ ev_slots, int slots_i32,
+                const int32_t* __restrict__ target,
+                long long target_row_stride, uint32_t* F, uint32_t* Fb,
+                uint8_t* valid, int32_t* bad, int N, int Wt, int K1, int V,
+                int W, int WL, int idx0, int clog, int frontier_in_smem,
+                int table_staged) {
+  const long long row = blockIdx.x >> clog;
+  const int rank =
+      clog > 0 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   const long long NWM = static_cast<long long>(NW) << W;
-  wgl_row<false>(ev_type + row * N, ev_slot + row * N, ev_slots,
-                 row * static_cast<long long>(N) * Wt, slots_i32,
-                 target + row * target_row_stride, F + row * NWM,
-                 Fb + row * NWM, valid + row, bad + row, N, Wt, K1, V, NW,
-                 W, WL, idx0, frontier_in_smem, nullptr, nullptr);
+  wgl_wide_row<NW>(ev_type + row * N, ev_slot + row * N, ev_slots,
+                   row * static_cast<long long>(N) * Wt, slots_i32,
+                   target + row * target_row_stride, F + row * NWM,
+                   Fb + row * NWM, valid + row, bad + row, N, Wt, K1, V, W,
+                   WL, idx0, clog, rank, frontier_in_smem, table_staged);
 }
 
 // The instrumented entry: the block tier's body with the pass counter on,
@@ -917,13 +1328,12 @@ __global__ void wgl_instrument_kernel(
     int W, int WL, int idx0, int frontier_in_smem) {
   const long long row = blockIdx.x;
   const long long NWM = static_cast<long long>(NW) << W;
-  wgl_row<true>(ev_type + row * N, ev_slot + row * N, ev_slots,
-                row * static_cast<long long>(N) * Wt, slots_i32,
-                target + row * target_row_stride, F + row * NWM,
-                Fb + row * NWM, valid + row, bad + row, N, Wt, K1, V, NW, W,
-                WL, idx0, frontier_in_smem,
-                frontier_in_smem ? nullptr : scratch + row * NWM,
-                iters + row);
+  wgl_row(ev_type + row * N, ev_slot + row * N, ev_slots,
+          row * static_cast<long long>(N) * Wt, slots_i32,
+          target + row * target_row_stride, F + row * NWM, Fb + row * NWM,
+          valid + row, bad + row, N, Wt, K1, V, NW, W, WL, idx0,
+          frontier_in_smem, frontier_in_smem ? nullptr : scratch + row * NWM,
+          iters + row);
 }
 
 // One member chunk of a group launch. Layout shared with the ctypes
@@ -940,7 +1350,7 @@ struct WglMember {
   int slots_i32, N, Wt, K1, V, NW, W, WL;
   int tier;                // kTierWarp or kTierBlock
   int rows_per_block;      // R of the warp tier, 1 in the block tier
-  int table_form;          // warp tier: kTableDevice, Int8 or Nibble
+  int table_form;          // kTableDevice, Int8 or (warp) Nibble
   int block_start;         // prefix sum of the blocks before it
   int rows;                // real rows launched (<= Bp)
 };
@@ -982,13 +1392,20 @@ wgl_frontier_group_kernel(const __grid_constant__ WglGroup g) {
 #undef WGL_GROUP_WARP
     return;
   }
+  // A wide member: the block tier's delta closure, one block a row, the
+  // frontier in shared memory.
   const long long NWM = static_cast<long long>(mb.NW) << mb.W;
   uint32_t* Fg = mb.frontier + blk * NWM;
-  wgl_row<false>(mb.ev_type + blk * mb.N, mb.ev_slot + blk * mb.N,
-                 mb.ev_slots, blk * static_cast<long long>(mb.N) * mb.Wt,
-                 mb.slots_i32, mb.target + blk * mb.target_row_stride, Fg,
-                 Fg, mb.valid + blk, mb.bad + blk, mb.N, mb.Wt, mb.K1, mb.V,
-                 mb.NW, mb.W, mb.WL, 0, 1, nullptr, nullptr);
+#define WGL_GROUP_WIDE(NW)                                                  \
+  wgl_wide_row<NW>(mb.ev_type + blk * mb.N, mb.ev_slot + blk * mb.N,        \
+                   mb.ev_slots, blk * static_cast<long long>(mb.N) * mb.Wt, \
+                   mb.slots_i32, mb.target + blk * mb.target_row_stride,   \
+                   Fg, Fg, mb.valid + blk, mb.bad + blk, mb.N, mb.Wt,       \
+                   mb.K1, mb.V, mb.W, mb.WL, 0, 0, 0, 1,                    \
+                   mb.table_form == kTableInt8)
+  if (mb.NW == 1) WGL_GROUP_WIDE(1);
+  else WGL_GROUP_WIDE(2);
+#undef WGL_GROUP_WIDE
 }
 
 template <typename Kernel>
@@ -1005,17 +1422,37 @@ bool warp_tier_ok(int W, int V, int NW, int R, int form) {
              || (form == kTableNibble && NW == 1 && V <= 8));
 }
 
+// Does a wide tier take this window, cluster (clog, -1 when the CTA
+// count is not a power of two up to 8), block and table form? Every CTA
+// holds whole 32-mask groups (the plan takes the wide tiers past W_warp;
+// chip_smoke's tier_cut also runs them from W 5); the block and device
+// tiers run one CTA a row.
+bool wide_tier_ok(int W, int NW, int tier, int clog, int threads,
+                  int form) {
+  const bool tier_ok = tier == kTierCluster
+                           ? clog >= 1 && clog <= kWideMaxClusterLog
+                           : (tier == kTierBlock || tier == kTierDevice)
+                                 && clog == 0;
+  return tier_ok && W - clog >= 5 && W <= kWideMaxW
+         && (NW == 1 || NW == 2) && threads >= 32
+         && threads <= 32 * kWideMaxWarps && threads % 32 == 0
+         && (form == kTableDevice || form == kTableInt8);
+}
+
 }  // namespace
 
 // One bucket of B rows. tier 0 (warp): ceil(B / R) blocks of `threads` =
-// R x 32; tier 1 (block) and 2 (device memory): B blocks of `threads`,
-// the frontier in shared memory in tier 1 only.
+// R x 32; tier 1 (block), 2 (device memory) and 3 (cluster): B clusters
+// of `cluster_ctas` CTAs (1 but in tier 3) of `threads`, the frontier in
+// shared memory but in tier 2. A cluster launch CUDA refuses returns
+// its error; nothing drops to another tier.
 extern "C" int wgl_frontier_launch(
     const void* ev_type, const void* ev_slot, const void* ev_slots,
     int slots_i32, const void* target, long long target_row_stride,
     void* F, void* Fb, void* valid, void* bad, int B, int N, int Wt, int K1,
     int V, int NW, int W, int WL, int idx0, int tier, int rows_per_block,
-    int table_form, int threads, int smem_bytes, void* stream) {
+    int table_form, int cluster_ctas, int threads, int smem_bytes,
+    void* stream) {
   const auto* et = static_cast<const int8_t*>(ev_type);
   const auto* es = static_cast<const int8_t*>(ev_slot);
   const auto* tg = static_cast<const int32_t*>(target);
@@ -1048,11 +1485,37 @@ extern "C" int wgl_frontier_launch(
         et, es, ev_slots, slots_i32, tg, target_row_stride, f, fb, v, bd, B,
         N, Wt, K1, V, W, WL, idx0, rows_per_block, table_form);
   } else {
-    const cudaError_t e = allow_smem(wgl_frontier_kernel, smem_bytes);
+    const int clog = cluster_ctas == 1 ? 0 : cluster_ctas == 2 ? 1
+                     : cluster_ctas == 4 ? 2 : cluster_ctas == 8 ? 3 : -1;
+    const int in_smem = tier == kTierDevice ? 0 : 1;
+    const int staged = table_form == kTableInt8 ? 1 : 0;
+    const long long Ml = 1LL << (W - (clog > 0 ? clog : 0));
+    const long long need =
+        4 * (in_smem * NW * Ml + wide_fixed_words(static_cast<int>(Ml >> 5)))
+        + (staged ? table_bytes(K1, V, kTableInt8) : 0);
+    if (!wide_tier_ok(W, NW, tier, clog, threads, table_form)
+        || smem_bytes < need)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = NW == 1 ? wgl_wide_kernel<1> : wgl_wide_kernel<2>;
+    const cudaError_t e = allow_smem(kernel, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
-    wgl_frontier_kernel<<<B, threads, smem_bytes, st>>>(
-        et, es, ev_slots, slots_i32, tg, target_row_stride, f, fb, v, bd, N,
-        Wt, K1, V, NW, W, WL, idx0, tier == kTierBlock ? 1 : 0);
+    if (B == 0) return 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(B) << clog, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1u << clog;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t le = cudaLaunchKernelEx(
+        &cfg, kernel, et, es, ev_slots, slots_i32, tg, target_row_stride, f,
+        fb, v, bd, N, Wt, K1, V, W, WL, idx0, clog, in_smem, staged);
+    if (le != cudaSuccess) return static_cast<int>(le);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1091,10 +1554,15 @@ extern "C" int wgl_frontier_group_launch(const void* group, int threads,
     return static_cast<int>(cudaErrorInvalidValue);
   for (int j = 0; j < g->n_members; ++j) {
     const WglMember& mb = g->m[j];
-    if (mb.tier == kTierWarp
-        && !warp_tier_ok(mb.W, mb.V, mb.NW, mb.rows_per_block,
-                         mb.table_form))
-      return static_cast<int>(cudaErrorInvalidValue);
+    const bool ok =
+        mb.tier == kTierWarp
+            ? warp_tier_ok(mb.W, mb.V, mb.NW, mb.rows_per_block,
+                           mb.table_form)
+            : mb.rows_per_block == 1
+                  && wide_tier_ok(mb.W, mb.NW, mb.tier, 0, threads,
+                                  mb.table_form)
+                  && mb.tier == kTierBlock;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t e = allow_smem(wgl_frontier_group_kernel, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);

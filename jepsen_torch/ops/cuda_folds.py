@@ -12,7 +12,8 @@ counts its launches in ``LAUNCHES[entry]``, checks device, dtype, shape
 and contiguity, raises on anything its kernel does not take, allocates
 the outputs and, past shared memory, the rows' scratch, and launches on
 PyTorch's current stream. ``tier`` says where a kernel keeps its
-per-row state. ``prepare_*`` do a wrapper's checks and allocations and
+per-row state, and ``count_plan`` how ``fold_counts`` cuts each row's
+vocabulary into slices, one block each. ``prepare_*`` do a wrapper's checks and allocations and
 return the launch itself, so that a caller can time the kernel alone.
 
 The library is built at first use by ``_build.build_library``; nothing
@@ -48,6 +49,17 @@ SMEM_LIMIT_BYTES = 232448 - 64
 SCAN_ROWS = 32
 COUNTER_SMEM_P = 64
 
+# fold_counts' slices: each block holds its slice's C histograms in at
+# most COUNT_SLICE_BYTES of shared memory (four blocks of COUNT_THREADS
+# to an SM); a row is cut into more slices, up to one per
+# COUNT_MIN_SLICE values, until the batch has COUNT_TARGET_BLOCKS blocks
+# (two for each of an H100's 132 SMs). Slice widths are whole multiples
+# of 32 values.
+COUNT_THREADS = 256
+COUNT_SLICE_BYTES = 48 * 1024
+COUNT_MIN_SLICE = 1024
+COUNT_TARGET_BLOCKS = 264
+
 # Launches of each entry in this process; callers reset them to 0 and
 # read them back to show that a path ran on the card.
 LAUNCHES = dict.fromkeys(ENTRIES, 0)
@@ -61,7 +73,7 @@ def _library():
     if _LIB is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _LIB = build_library(SRC, {
-            "fold_counts": ([i, p, p, p, p, i, i, i, p, p, p, p], i),
+            "fold_counts": ([i, p, p, p, p, i, i, i, i, i, p, p, p], i),
             "counter_scan": ([p, p, p, p, i, i, i, p, p, p, p, p, p], i),
             "queue_scan": ([p, p, p, i, i, i, p, p, p, p], i),
             "fifo_scan": ([p, p, p, i, i, i, p, p, p, p, p, p, p], i),
@@ -75,17 +87,37 @@ def build() -> None:
     _library()
 
 
-def tier(entry: str, width: int, family: Optional[str] = None) -> str:
+def count_plan(family: str, V: int, rows: int = 1) -> dict:
+    """How ``fold_counts`` cuts a batch of ``rows`` rows at vocabulary
+    width V: ``slices`` blocks a row, each counting ``slice_width``
+    values (the last one the rest) in ``smem_bytes`` of shared memory
+    with ``threads`` threads; ``blocks`` in all. One slice is the
+    ``smem`` tier, more the ``sliced`` tier."""
+    C = FAMILIES[family][1]
+    widest = COUNT_SLICE_BYTES // (4 * C) // 32 * 32
+    fit = -(-V // widest)
+    fill = min(-(-COUNT_TARGET_BLOCKS // max(rows, 1)),
+               -(-V // COUNT_MIN_SLICE))
+    width = -(-V // max(fit, fill, 1))
+    width = -(-width // 32) * 32
+    slices = -(-V // width)
+    return {"tier": "smem" if slices == 1 else "sliced", "slices": slices,
+            "slice_width": width, "threads": COUNT_THREADS,
+            "smem_bytes": 4 * C * width, "blocks": rows * slices}
+
+
+def tier(entry: str, width: int, family: Optional[str] = None,
+         rows: int = 1) -> str:
     """Where ``entry`` keeps a row's state at ``width`` (V for the counts
     and the queue, P for the counter, Nmax for the FIFO): ``smem``
-    (shared memory) or ``global`` (device memory)."""
+    (shared memory) or ``global`` (device memory); for ``fold_counts``
+    (always in shared memory) ``smem`` when one block counts a row and
+    ``sliced`` when several do (``count_plan`` over ``rows`` rows)."""
     if entry == "fold_counts":
-        words = FAMILIES[family][1] * width
-    elif entry == "counter_scan":
+        return count_plan(family, width, rows)["tier"]
+    if entry == "counter_scan":
         return "smem" if width <= COUNTER_SMEM_P else "global"
-    else:
-        words = width
-    return "smem" if words * 4 <= SMEM_LIMIT_BYTES else "global"
+    return "smem" if width * 4 <= SMEM_LIMIT_BYTES else "global"
 
 
 def _check(entry: str, cond: bool, msg: str) -> None:
@@ -157,13 +189,14 @@ def prepare_counts(family: str, typ: torch.Tensor, f: torch.Tensor,
     planes = torch.empty((B, L, V), dtype=dtype, device=dev)
     attempted = (torch.empty(B, dtype=torch.int32, device=dev)
                  if family == "ids" else None)
-    scratch = None
-    if tier(entry, V, family) == "global" and B:
-        scratch = torch.empty(B * C * V, dtype=torch.int32, device=dev)
+    plan = count_plan(family, V, B)
+    _check(entry, B * plan["slices"] < 2**31,
+           f"{B} rows of {plan['slices']} slices exceed the grid")
     fn = _library().fold_counts
     launch = _launcher(entry, dev, B, lambda s: fn(
         code, typ.data_ptr(), f.data_ptr(), val.data_ptr(), _ptr(final), B,
-        N, V, _ptr(scratch), planes.data_ptr(), _ptr(attempted), s))
+        N, V, plan["slices"], plan["slice_width"], planes.data_ptr(),
+        _ptr(attempted), s))
     return launch, planes, attempted
 
 

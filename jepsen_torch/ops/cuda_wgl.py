@@ -6,12 +6,15 @@ The counterpart of the reference's Pallas module (``ops/pallas_wgl.py``):
 ``ctypes`` and launches it on PyTorch's current stream. ``smem_plan``
 picks the kernel's tier for a window and says where a row's frontier and
 transition table live (the role ``vmem_plan`` plays for the TPU kernel):
-the warp tier (one warp per row, ``W <= W_WARP``), the block tier (one
-block per row, frontier in shared memory) or the device-memory tier (W =
-16..18). ``wgl_frontier`` is the wrapper of the single-bucket entry: it
-checks device, dtype, shape and contiguity, raises on anything the
-kernel does not take, and counts its launches in ``LAUNCHES``.
-``wgl_frontier_group`` wraps the group entry, which checks several bucket
+the warp tier (one warp per row, ``W <= W_WARP``), or one of the wide
+tiers, which run a delta closure over groups of 32 masks: the block tier
+(one block per row, frontier in shared memory), the cluster tier (a
+thread-block cluster of 2..8 CTAs per row, the frontier split over their
+shared memory by its top mask bits) or the device-memory tier (two state
+words at W = 18). ``wgl_frontier`` is the wrapper of the single-bucket
+entry: it checks device, dtype, shape and contiguity, raises on anything
+the kernel does not take, and counts its launches in ``LAUNCHES`` (those
+of a wide tier also in ``WIDE_LAUNCHES``). ``wgl_frontier_group`` wraps the group entry, which checks several bucket
 chunks of different shapes in one launch (the counterpart of the
 reference's ``make_fused_kernel``), and counts its launches in
 ``GROUP_LAUNCHES``. ``wgl_frontier(..., iters=)`` launches the
@@ -69,7 +72,15 @@ TABLE_FORMS = {"device": 0, "int8": 1, "nibble": 2}
 NIBBLE_MAX_V = 8
 
 # Tier codes, as the source numbers them.
-TIERS = {"warp": 0, "block": 1, "device": 2}
+TIERS = {"warp": 0, "block": 1, "device": 2, "cluster": 3}
+
+# The wide tiers (kWide* in the source): events staged per tile, the
+# widest window, the most warps a CTA and the most CTAs a cluster (the
+# portable cluster size).
+WIDE_TILE = 32
+WIDE_MAX_W = 18
+WIDE_MAX_WARPS = 32
+MAX_CLUSTER_CTAS = 8
 
 # Launches of the single-bucket and the group entry in this process;
 # callers reset them to 0 and read them back to show that a path ran on
@@ -77,6 +88,8 @@ TIERS = {"warp": 0, "block": 1, "device": 2}
 LAUNCHES = 0
 GROUP_LAUNCHES = 0
 INSTRUMENT_LAUNCHES = 0
+# Of LAUNCHES, those of a wide tier (block, cluster or device memory).
+WIDE_LAUNCHES = 0
 
 # Members one group launch takes (kMaxMembers in the source).
 MAX_GROUP_MEMBERS = 8
@@ -102,20 +115,72 @@ def table_bytes(K1: int, V: int, form: Optional[str] = None) -> int:
     return (entries + K1 + 15) & ~15
 
 
+def wide_fixed_words(groups: int) -> int:
+    """Shared-memory words a wide-tier CTA keeps beside its frontier and
+    table for ``groups`` 32-mask groups: three bitmaps of a word a group
+    (NZ, and the two rounds' dirty masks), the staged event tile (a kind
+    per slot, the type and the slot of each of WIDE_TILE events), four
+    vote flags and two group counters (wide_fixed_words in the
+    source)."""
+    return 3 * groups + WIDE_TILE * WIDE_MAX_W + 2 * WIDE_TILE + 6
+
+
+def wide_threads(groups: int) -> int:
+    """Threads of a wide-tier CTA holding ``groups`` groups: a warp per
+    8 groups, 4 to WIDE_MAX_WARPS warps."""
+    return 32 * min(WIDE_MAX_WARPS, max(4, groups // 8))
+
+
+def _wide_plan(V: int, W: int, K1: int) -> dict:
+    """The wide tiers' plan (W > W_WARP): the fewest CTAs per row, 1, 2,
+    4 or 8, whose shared memory holds the row's frontier split by its top
+    mask bits ([words(V), 2^W / CTAs] uint32 each) beside the bitmaps and
+    tile, with the int8 table staged when it fits too, else read from
+    device memory; past 8 CTAs (two state words at W = 18) the
+    device-memory tier, one block a row, the frontier in the output
+    tensor and only the bitmaps on chip."""
+    NW, M = n_state_words(V), 1 << W
+    tb = table_bytes(K1, V, "int8")
+
+    def plan(tier, clog, form, cta_frontier):
+        groups = (M >> clog) // 32
+        rows = tb if form == "int8" else 0
+        return {"tier": tier, "rows_per_block": 1, "table_form": form,
+                "cluster_ctas": 1 << clog, "rows_bytes": rows,
+                "frontier_bytes": NW * M * 4,
+                "frontier_in_smem": tier != "device",
+                "cta_frontier_bytes": cta_frontier,
+                "bitmap_bytes": 3 * groups * 4,
+                "smem_bytes": cta_frontier + 4 * wide_fixed_words(groups)
+                + rows,
+                "threads": wide_threads(groups),
+                "limit_bytes": SMEM_LIMIT_BYTES}
+
+    for clog in range(MAX_CLUSTER_CTAS.bit_length()):
+        cta = NW * (M >> clog) * 4
+        for form in ("int8", "device"):
+            p = plan("block" if clog == 0 else "cluster", clog, form, cta)
+            if p["smem_bytes"] <= SMEM_LIMIT_BYTES:
+                return p
+    p = plan("device", 0, "int8", 0)
+    return p if p["smem_bytes"] <= SMEM_LIMIT_BYTES else plan(
+        "device", 0, "device", 0)
+
+
 def smem_plan(V: int, W: int, w_live: Optional[int] = None, *,
               K1: int = 1, shared_target: bool = True,
               instrument: bool = False) -> dict:
     """Static launch plan of one bucket: its tier, rows per block,
-    threads and shared memory per block.
+    CTAs per row, threads and shared memory per block.
 
-    Block and device-memory tiers (W > W_WARP): one block per row. The
-    block stages the packed transition rows of its event's ``w_live``
-    slots (``[w_live, words(V), V]`` uint32) and, when it fits beside
-    them in the 227 KB a block may use, the row's whole frontier
-    ``[words(V), 2^W]`` uint32 (the block tier); otherwise the frontier
-    stays in the row's slice of the output tensor in device memory (the
-    device-memory tier, W = 16..18 at one word). ``threads`` is one per
-    mask pair, at least a warp, at most 512.
+    Wide tiers (W > W_WARP, ``_wide_plan``): a delta closure over groups
+    of 32 masks, the frontier in the shared memory of one block (the
+    block tier: W <= 15 at one state word, 14 at two) or of a cluster of
+    ``cluster_ctas`` CTAs (the cluster tier: W = 16..18 at one word,
+    15..17 at two), or in device memory (the device-memory tier: W = 18
+    at two words). ``smem_bytes`` and ``threads`` are per CTA;
+    ``rows_bytes`` is the staged int8 table (``table_form`` "int8"), 0
+    when it is read from device memory.
 
     Warp tier (W <= W_WARP): one warp per row, ``rows_per_block`` rows
     per block, the frontier in the warp's registers (``frontier_in_smem``
@@ -126,28 +191,32 @@ def smem_plan(V: int, W: int, w_live: Optional[int] = None, *,
     WARP_SMEM_BYTES, and a table that fits no block stays in device
     memory (``table_form`` "device", R = 8).
 
-    ``instrument=True`` plans the instrumented entry, which runs the block
-    tier's body at every W (the warp tier cannot count the reference's
-    closure passes) and keeps a scratch copy of the frontier beside it:
-    ``frontier_bytes`` counts both, in shared memory (block tier) or in
-    device memory (device-memory tier)."""
+    ``instrument=True`` plans the instrumented entry, which runs the
+    first block tier's body at every W (dense slot sweeps: neither the
+    warp tier nor the delta closure can count the reference's closure
+    passes), one block a row with one thread a mask pair (at most 512),
+    the packed rows of its event's slots staged, and a scratch copy of
+    the frontier beside it: ``frontier_bytes`` counts both, in shared
+    memory (block tier) or in device memory (device-memory tier)."""
     NW, M = n_state_words(V), 1 << int(W)
     WL = W if w_live is None else max(1, min(int(w_live), W))
     frontier = NW * M * 4 * (2 if instrument else 1)
-    if W > W_WARP or instrument:
+    if instrument:
         rows = WL * NW * V * 4
         resident = rows + frontier <= SMEM_LIMIT_BYTES
         return {"tier": "block" if resident else "device",
                 "rows_per_block": 1, "table_form": "device",
-                "rows_bytes": rows, "frontier_bytes": frontier,
-                "frontier_in_smem": resident,
+                "cluster_ctas": 1, "rows_bytes": rows,
+                "frontier_bytes": frontier, "frontier_in_smem": resident,
                 "smem_bytes": rows + (frontier if resident else 0),
                 "threads": min(max(M // 2, 32), 512),
                 "limit_bytes": SMEM_LIMIT_BYTES}
+    if W > W_WARP:
+        return _wide_plan(V, int(W), int(K1))
     form = table_form(V)
     tb = table_bytes(int(K1), V, form)
     plan = {"tier": "warp", "rows_per_block": WARP_ROWS,
-            "table_form": "device", "rows_bytes": 0,
+            "table_form": "device", "cluster_ctas": 1, "rows_bytes": 0,
             "frontier_bytes": frontier, "frontier_in_smem": True,
             "smem_bytes": WARP_ROWS * TILE_BYTES,
             "threads": WARP_ROWS * 32, "limit_bytes": SMEM_LIMIT_BYTES}
@@ -188,7 +257,7 @@ def _library():
         lib = build_library(SRC, {
             "wgl_frontier_launch": (
                 [p, p, p, i, p, ctypes.c_longlong, p, p, p, p]
-                + [i] * 14 + [p], ctypes.c_int),
+                + [i] * 15 + [p], ctypes.c_int),
             "wgl_frontier_instrument_launch": (
                 [p, p, p, i, p, ctypes.c_longlong, p, p, p, p, p, p]
                 + [i] * 12 + [p], ctypes.c_int),
@@ -306,7 +375,7 @@ def prepare_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
     plan = smem_plan(V, W, WL, K1=K1, shared_target=shared)
 
     def launch() -> None:
-        global LAUNCHES
+        global LAUNCHES, WIDE_LAUNCHES
         if B == 0 or N == 0:
             return
         lib = _library()
@@ -318,10 +387,11 @@ def prepare_frontier(ev_type: torch.Tensor, ev_slot: torch.Tensor,
                 valid.data_ptr(), bad.data_ptr(), B, N,
                 int(ev_slots.shape[2]), K1, V, NW, W, WL, int(idx0),
                 TIERS[plan["tier"]], plan["rows_per_block"],
-                TABLE_FORMS[plan["table_form"]], plan["threads"],
-                plan["smem_bytes"], _stream(dev))
+                TABLE_FORMS[plan["table_form"]], plan["cluster_ctas"],
+                plan["threads"], plan["smem_bytes"], _stream(dev))
         _raise_on(lib, err, "wgl_frontier")
         LAUNCHES += 1
+        WIDE_LAUNCHES += plan["tier"] != "warp"
 
     return launch
 
@@ -429,8 +499,8 @@ def prepare_group(members, flat, rows=None):
         _check(0 <= nb <= B, f"{what}rows={nb} outside 0..{B}")
         K1 = int(target.shape[-2])
         plan = smem_plan(V, W, WL, K1=K1, shared_target=shared)
-        _check(plan["frontier_in_smem"],
-               f"{what}W={W} at V={V} needs the device-memory frontier; "
+        _check(plan["tier"] in ("warp", "block"),
+               f"{what}W={W} at V={V} needs the {plan['tier']} tier; "
                "launch it alone")
         NW, M = n_state_words(V), 1 << W
         frontier = torch.zeros((B, NW, M), dtype=torch.int32, device=dev)
@@ -481,8 +551,9 @@ def wgl_frontier_group(members, flat, rows=None):
     [B, words(V), 2^W] (the final frontier of a valid row, the latched
     pre-failure closure of an invalid one) — the same, bit for bit, as
     a single-bucket check of each member (ops.linearize.get_kernel) and
-    as the plain version ``ops.linearize.plain_fused_wgl``. No member
-    may need the device-memory tier (smem_plan)."""
+    as the plain version ``ops.linearize.plain_fused_wgl``. Every member
+    must plan the warp or the block tier (smem_plan): a cluster or
+    device-memory member launches alone."""
     launch, outs = prepare_group(members, flat, rows)
     launch()
     return outs

@@ -631,11 +631,12 @@ class BucketScheduler:
     @staticmethod
     def _groupable(batch: EncodedBatch) -> bool:
         """May this chunk ride a group launch? The group kernel keeps
-        every member's frontier in shared memory; a window whose
-        frontier does not fit there (W = 16 at one state word, 15..16 at
-        two) launches alone."""
+        every member's frontier in one block's shared memory; a window
+        whose frontier does not fit there (W >= 16 at one state word, >=
+        15 at two: the cluster and device-memory tiers) launches
+        alone."""
         return smem_plan(batch.V, batch.W,
-                         batch.eff_w_live)["frontier_in_smem"]
+                         batch.eff_w_live)["tier"] in ("warp", "block")
 
     def _dispatch_group(self, members: List[Tuple]):
         """Asynchronous dispatch of one group: ``members`` is [(run, lo,

@@ -696,23 +696,64 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
     assert cuda_folds.LAUNCHES == dict.fromkeys(cuda_folds.ENTRIES, 0)
 
 
-@pytest.mark.parametrize("entry,family,width,tier", [
-    ("fold_counts", "set", 29048, "smem"),
-    ("fold_counts", "set", 29049, "global"),
-    ("fold_counts", "crdb", 14524, "smem"),
-    ("fold_counts", "crdb", 16384, "global"),
-    ("fold_counts", "tq", 16384, "smem"),
-    ("fold_counts", "ids", 58096, "smem"),
-    ("fold_counts", "ids", 65536, "global"),
-    ("counter_scan", None, 64, "smem"),
-    ("counter_scan", None, 65, "global"),
-    ("queue_scan", None, 58096, "smem"),
-    ("queue_scan", None, 58097, "global"),
-    ("fifo_scan", None, 16384, "smem"),
-    ("fifo_scan", None, 65536, "global"),
+@pytest.mark.parametrize("entry,family,width,rows,tier", [
+    ("fold_counts", "set", 6144, 264, "smem"),
+    ("fold_counts", "set", 6145, 264, "sliced"),
+    ("fold_counts", "crdb", 3072, 264, "smem"),
+    ("fold_counts", "crdb", 16384, 32, "sliced"),
+    ("fold_counts", "tq", 16384, 32, "sliced"),
+    ("fold_counts", "ids", 12288, 264, "smem"),
+    ("fold_counts", "ids", 65536, 6, "sliced"),
+    ("fold_counts", "tq", 1024, 24, "smem"),
+    ("fold_counts", "tq", 1025, 24, "sliced"),
+    ("fold_counts", "tq", 128, 2000, "smem"),
+    ("counter_scan", None, 64, 1, "smem"),
+    ("counter_scan", None, 65, 1, "global"),
+    ("queue_scan", None, 58096, 1, "smem"),
+    ("queue_scan", None, 58097, 1, "global"),
+    ("fifo_scan", None, 16384, 1, "smem"),
+    ("fifo_scan", None, 65536, 1, "global"),
 ])
-def test_tier_edges(entry, family, width, tier):
-    assert cuda_folds.tier(entry, width, family) == tier
+def test_tier_edges(entry, family, width, rows, tier):
+    """Each entry's tier at both sides of its edges: fold_counts counts a
+    row in one block (``smem``) until its histograms pass a slice's
+    shared memory or the batch has too few rows to fill the card, then
+    in several (``sliced``); the scans keep their state in shared memory
+    to the widths that fit."""
+    assert cuda_folds.tier(entry, width, family, rows=rows) == tier
+
+
+@pytest.mark.parametrize("family", sorted(cuda_folds.FAMILIES))
+def test_count_plan_slices_cover_the_vocabulary(family):
+    """Every slice plan: S slices of Vs values (a multiple of 32) cover
+    V exactly once (S·Vs >= V > (S-1)·Vs), each slice's C histograms
+    within COUNT_SLICE_BYTES, no more slices than the histograms' fit or
+    V / COUNT_MIN_SLICE asks for, and the width that gives the batch
+    COUNT_TARGET_BLOCKS blocks where V allows that many (rounded up to
+    32 values, which may cost the last slice)."""
+    C = cuda_folds.FAMILIES[family][1]
+    widest = cuda_folds.COUNT_SLICE_BYTES // (4 * C) // 32 * 32
+    for V in (1, 2, 31, 32, 33, 1023, 1024, 1025, 4096, 4097, widest,
+              widest + 1, 16384, 65536, 1 << 20):
+        for rows in (1, 6, 24, 32, 64, 264, 2000):
+            p = cuda_folds.count_plan(family, V, rows)
+            S, Vs = p["slices"], p["slice_width"]
+            assert Vs % 32 == 0 and S * Vs >= V > (S - 1) * Vs
+            assert p["smem_bytes"] == 4 * C * Vs
+            assert p["smem_bytes"] <= cuda_folds.COUNT_SLICE_BYTES
+            assert p["blocks"] == rows * S
+            assert p["tier"] == ("smem" if S == 1 else "sliced")
+            assert p["threads"] == cuda_folds.COUNT_THREADS
+            fit = -(-V // widest)
+            assert S <= max(fit, -(-V // cuda_folds.COUNT_MIN_SLICE), 1)
+            fill = -(-cuda_folds.COUNT_TARGET_BLOCKS // rows)
+            want = max(fit, min(fill, -(-V // cuda_folds.COUNT_MIN_SLICE)))
+            assert Vs == -(-(-(-V // want)) // 32) * 32
+    # The bench batch takes one block a row, the full-width one 9.
+    assert cuda_folds.count_plan("tq", 128, 2000)["slices"] == 1
+    assert (cuda_folds.count_plan("tq", 16384, 32)["slices"],
+            cuda_folds.count_plan("tq", 16384, 32)["slice_width"]) == (9,
+                                                                       1824)
 
 
 def test_dispatch_takes_the_plain_version_for_cpu_tensors():

@@ -8,6 +8,8 @@ the kernel itself is held against it on the card by chip_smoke.py).
 Tolerance: none — valid, bad and the packed frontier viewed as uint32
 must be bit-identical.
 """
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -18,11 +20,12 @@ from jepsen_tpu.models.core import cas_register
 from jepsen_tpu.ops import linearize as ref
 from jepsen_tpu.ops import pallas_wgl
 from jepsen_tpu.ops.encode import bucket_encode
-from jepsen_tpu.workloads.synth import synth_cas_batch
+from jepsen_tpu.workloads.synth import synth_cas_batch, synth_rw_history
 
 from jepsen_torch.convert import batch_from_arrays
 from jepsen_torch.ops import cuda_wgl
 from jepsen_torch.ops import linearize as L
+from jepsen_torch.ops.schedule import BucketScheduler
 
 # One intra-op thread: the plain versions run many small ops, and test
 # processes running side by side must not oversubscribe the cores.
@@ -92,6 +95,33 @@ def test_plain_matches_make_kernel_on_encoded_buckets(corpus):
     assert invalid >= 1, "corpus must exercise the failure latch"
     if corpus == "two_words":
         assert any(b.V > 32 for b in buckets)
+
+
+# A seed per process count whose history's vocabulary takes one state
+# word (11 processes) or two (12, 13).
+DC_SEEDS = {11: 77, 12: 84, 13: 93}
+
+
+@pytest.mark.parametrize("n_procs", sorted(DC_SEEDS))
+def test_plain_matches_make_kernel_on_dc_rw_buckets(n_procs):
+    """The dc headline's shape (chip_smoke.py's dc path): an unkeyed
+    read/write history of 80 ops over 11-13 processes, stale reads
+    seeded, encoded as the reference encodes it (88 events, W =
+    n_procs; one state word at 11 processes, two at 12 and 13)."""
+    hist = synth_rw_history(DC_SEEDS[n_procs], n_procs=n_procs, n_ops=80,
+                            stale=0.3)
+    buckets = [b for b in bucket_encode(cas_register(),
+                                        [prepare_history(hist)],
+                                        max_states=64, max_slots=16)
+               if b.batch]
+    assert [(b.W, b.V > 32, b.n_events) for b in buckets] == [
+        (n_procs, n_procs > 11, 88)]
+    for b in buckets:
+        want = ref_kernel(b.V, b.W, False)(b.ev_type, b.ev_slot,
+                                          b.ev_slots, b.target)
+        got = port_check(b.ev_type, b.ev_slot, b.ev_slots, b.target,
+                         b.V, b.W)
+        assert_same(got, want)
 
 
 def random_inputs(seed, *, B, N, V, W, K1, shared, n_pad=0, wild=False):
@@ -201,42 +231,73 @@ def test_plain_matches_pallas_interpret_mode():
     assert_same(got, want)
 
 
-@pytest.mark.parametrize("V,W,resident", [
-    (8, 15, True), (8, 16, False), (8, 18, False),
-    (48, 14, True), (48, 15, False), (64, 4, True),
-    (8, 1, True), (8, cuda_wgl.W_WARP, True), (8, cuda_wgl.W_WARP + 1, True),
-    (64, cuda_wgl.W_WARP, True), (64, 14, True), (32, 16, False),
-    (33, 15, False)])
-def test_smem_plan_places_the_frontier(V, W, resident):
+@pytest.mark.parametrize("V,W,tier,ctas", [
+    (8, 15, "block", 1), (8, 16, "cluster", 2), (8, 18, "cluster", 8),
+    (48, 14, "block", 1), (48, 15, "cluster", 2), (64, 4, "warp", 1),
+    (8, 1, "warp", 1), (8, cuda_wgl.W_WARP, "warp", 1),
+    (8, cuda_wgl.W_WARP + 1, "block", 1), (64, cuda_wgl.W_WARP, "warp", 1),
+    (64, 14, "block", 1), (32, 16, "cluster", 2), (33, 15, "cluster", 2),
+    (8, 17, "cluster", 4), (40, 16, "cluster", 4), (64, 17, "cluster", 8),
+    (40, 18, "device", 1)])
+def test_smem_plan_places_the_frontier(V, W, tier, ctas):
+    """Where a row's frontier lives: in the warp's registers, one block's
+    shared memory, a cluster's (split by its top mask bits, as few CTAs
+    as hold it), or, for two state words at W 18, device memory."""
     plan = cuda_wgl.smem_plan(V, W)
-    assert plan["frontier_in_smem"] is resident
+    assert (plan["tier"], plan["cluster_ctas"]) == (tier, ctas)
+    assert plan["frontier_in_smem"] is (tier != "device")
     assert plan["smem_bytes"] <= plan["limit_bytes"]
     assert plan["frontier_bytes"] == L.n_state_words(V) * 4 << W
-    assert 32 <= plan["threads"] <= 512
-    want = ("warp" if W <= cuda_wgl.W_WARP
-            else "block" if resident else "device")
-    assert plan["tier"] == want
+    assert 32 <= plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    if tier in ("block", "cluster"):
+        assert plan["cta_frontier_bytes"] * ctas == plan["frontier_bytes"]
 
 
 def block_tier_plan(V, W, w_live=None):
-    """The one-block-per-row plan as it stood before the warp tier: the
-    block and device-memory tiers must keep it."""
+    """The first block tier's plan (one block per row, one thread per
+    mask pair, the packed rows of an event's slots staged, a scratch
+    frontier beside the frontier): the instrumented entry keeps it."""
     NW, M = L.n_state_words(V), 1 << W
     WL = W if w_live is None else max(1, min(w_live, W))
-    rows, frontier = WL * NW * V * 4, NW * M * 4
+    rows, frontier = WL * NW * V * 4, 2 * NW * M * 4
     resident = rows + frontier <= 232448
-    return {"rows_bytes": rows, "frontier_bytes": frontier,
-            "frontier_in_smem": resident,
+    return {"tier": "block" if resident else "device", "rows_per_block": 1,
+            "cluster_ctas": 1, "rows_bytes": rows,
+            "frontier_bytes": frontier, "frontier_in_smem": resident,
             "smem_bytes": rows + (frontier if resident else 0),
             "threads": min(max(M // 2, 32), 512), "limit_bytes": 232448}
 
 
+def wide_plan(V, W, K1):
+    """The wide tiers' plan, written out: the fewest CTAs (1, 2, 4, 8)
+    whose shared memory holds the split frontier, three bitmap words a
+    32-mask group, the event tile (32 events of a kind per slot up to 18
+    slots, a type and a slot), four flags and two counters, with the int8
+    table staged when it fits too; else the device-memory tier."""
+    NW, M = L.n_state_words(V), 1 << W
+    table = (K1 * V + K1 + 15) & ~15
+    for ctas in (1, 2, 4, 8):
+        groups = M // ctas // 32
+        base = NW * M // ctas * 4 + 4 * (3 * groups + 32 * 18 + 64 + 6)
+        for form, extra in (("int8", table), ("device", 0)):
+            if base + extra <= 232448:
+                return ("block" if ctas == 1 else "cluster", ctas, form,
+                        base + extra, groups)
+    groups = M // 32
+    base = 4 * (3 * groups + 32 * 18 + 64 + 6)
+    form = "int8" if base + table <= 232448 else "device"
+    return ("device", 1, form, base + (table if form == "int8" else 0),
+            groups)
+
+
 @pytest.mark.parametrize("V", [1, 8, 31, 32, 33, 48, 64])
 def test_smem_plan_tiers_and_limits(V):
-    """Every window W 1..18 at every table size: the tier by W, the block
+    """Every window W 1..18 at every table size: the tier by W, each CTA
     within the shared memory a block may use (and the warp tier within
-    its budget), threads a whole number of warps, and the block and
-    device-memory tiers exactly as before the warp tier."""
+    its budget), threads a whole number of warps, the wide tiers as
+    wide_plan writes them out (w_live and a shared target change
+    nothing there), and the instrumented entry on the first block
+    tier's plan."""
     for W in range(1, cuda_wgl.MAX_W + 1):
         for w_live in (None, 1, 3):
             for K1 in (1, 37, 200, 800, 5000):
@@ -245,15 +306,23 @@ def test_smem_plan_tiers_and_limits(V):
                                               shared_target=shared)
                     assert plan["smem_bytes"] <= plan["limit_bytes"]
                     assert plan["threads"] % 32 == 0
+                    inst = cuda_wgl.smem_plan(V, W, w_live, K1=K1,
+                                              shared_target=shared,
+                                              instrument=True)
+                    assert {k: inst[k] for k in block_tier_plan(
+                        V, W, w_live)} == block_tier_plan(V, W, w_live)
                     if W > cuda_wgl.W_WARP:
-                        assert plan["tier"] in ("block", "device")
+                        tier, ctas, form, smem, groups = wide_plan(V, W, K1)
+                        assert (plan["tier"], plan["cluster_ctas"],
+                                plan["table_form"], plan["smem_bytes"]) == (
+                            tier, ctas, form, smem)
                         assert plan["rows_per_block"] == 1
-                        assert plan["table_form"] == "device"
-                        assert {k: plan[k] for k in block_tier_plan(
-                            V, W, w_live)} == block_tier_plan(V, W, w_live)
+                        assert plan["threads"] == 32 * min(
+                            32, max(4, groups // 8))
                         continue
                     R = plan["rows_per_block"]
                     assert plan["tier"] == "warp" and plan["frontier_in_smem"]
+                    assert plan["cluster_ctas"] == 1
                     assert plan["threads"] == 32 * R
                     assert plan["smem_bytes"] <= cuda_wgl.WARP_SMEM_BYTES
                     form = "nibble" if V <= 8 else "int8"
@@ -271,6 +340,42 @@ def test_smem_plan_tiers_and_limits(V):
                         assert (cuda_wgl.TILE_BYTES
                                 + cuda_wgl.table_bytes(K1, V, form)
                                 > cuda_wgl.WARP_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("V", range(1, 65))
+def test_smem_plan_every_width_and_vocabulary(V):
+    """Every W 1..18 at this V: the tier by W and word count (warp to
+    W_WARP; then the block tier while one block holds the frontier, W
+    <= 15 at one state word and <= 14 at two; a cluster of 2, 4 or 8
+    CTAs to 18 at one word and 17 at two; device memory at 18 and two
+    words), each CTA's bytes within 227 KB and whole 32-mask groups,
+    threads a whole number of warps up to 1024, the group entry taking
+    exactly the warp and block tiers, and the instrumented plan on the
+    first block tier's body at every W."""
+    NW = L.n_state_words(V)
+    for W in range(1, cuda_wgl.MAX_W + 1):
+        plan = cuda_wgl.smem_plan(V, W, K1=40)
+        ctas = plan["cluster_ctas"]
+        if W <= cuda_wgl.W_WARP:
+            want = ("warp", 1)
+        elif W <= 16 - NW:
+            want = ("block", 1)
+        elif W <= 19 - NW:
+            want = ("cluster", 1 << (W - 16 + NW))
+        else:
+            want = ("device", 1)
+        assert (plan["tier"], ctas) == want, (V, W)
+        assert plan["smem_bytes"] <= cuda_wgl.SMEM_LIMIT_BYTES
+        assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
+        if W > cuda_wgl.W_WARP:
+            assert ((1 << W) // ctas) % 32 == 0
+            assert plan["table_form"] == "int8"
+        batch = SimpleNamespace(V=V, W=W, eff_w_live=W)
+        assert BucketScheduler._groupable(batch) is (
+            plan["tier"] in ("warp", "block"))
+        inst = cuda_wgl.smem_plan(V, W, instrument=True)
+        assert inst["tier"] in ("block", "device")
+        assert inst == {**inst, **block_tier_plan(V, W)}
 
 
 @pytest.mark.parametrize("V,W,K1,shared,R,form", [
