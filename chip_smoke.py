@@ -117,10 +117,11 @@ Then the fault ladder's phases, after every kernel is built:
 default ``check_synth`` on the keyed headline spec in each checkout
 given, in that order (for example parent, change, change, parent).
 ``python3 chip_smoke.py --kernels TREE [TREE ...]`` times the frontier
-kernel (K1) over every launch of the dc batches' dc runs and the count
-fold (K7a) on each family's full-width batch, the same inputs in each
-checkout given, with the bound, each K1 launch's plan and time, and
-K7a's library route measured once in this checkout.
+kernel (K1) over every launch of the dc batches' dc runs, the count
+fold (K7a) on each family's full-width batch and the counter and FIFO
+scans (K7b, K7d) on theirs, the same inputs in each checkout given,
+with the bound, each K1 launch's plan and time, and the folds' library
+routes measured once in this checkout.
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -517,8 +518,10 @@ def time_cuda(fn, reps: int) -> float:
 
 # GPU cycles the card sleeps before each timed launch, so that the host
 # enqueues the launch and its closing event while the card is still busy
-# and the window holds the kernel alone (about 50 us at 1.98 GHz).
-SLEEP_CYCLES = 100_000
+# and the window holds the kernel alone (about 200 us at 1.98 GHz: an
+# entry of several kernels, enqueued while the host oracles' workers
+# load the CPU, took more than 50 us).
+SLEEP_CYCLES = 400_000
 
 
 def time_launches(launches, reps: int) -> float:
@@ -1801,6 +1804,17 @@ FOLD_PS = (1, 2, 5, 16, 64, 128)
 FOLD_QUEUE_VS = (1, 2, 31, 33, 4096, 16384, 65536)
 FOLD_FIFO_CASES = ((1, 1), (5, 8), (33, 64), (600, 1024), (600, 8),
                    (4000, 4096), (10_000, 16384), (4000, 65536))
+# The segmented scans' edges, (B, N, P or Nmax, segment; None for the
+# plan's): rows of 40,002 lines (many segments and tiles; P 128 with its
+# device-memory carry; FIFO rings staged, in device memory, and clipped
+# at Nmax < N), one-line segments, segments just past a tile and longer
+# than the row, one row alone.
+FOLD_COUNTER_EDGES = ((4, 40_002, 16, None), (3, 40_002, 128, None),
+                      (1, 3_000, 5, 1), (40, 600, 64, 33),
+                      (40, 600, 65, 33), (7, 600, 3, 1_000))
+FOLD_FIFO_EDGES = ((40_002, 65_536, None), (40_002, 16_384, None),
+                   (40_002, 1_024, None), (600, 1_024, 1), (600, 8, 33),
+                   (600, 1_024, 5_000))
 FOLD_COUNT_FAMILIES = ("set", "crdb", "tq", "ids")
 FOLD_COUNT_CASES = tuple((V, 24 if V <= 4096 else 6, 3000)
                          for V in FOLD_VS) + ((16384, 64, 40_000),
@@ -1888,6 +1902,56 @@ def fold_lines(rng, B, N, V, P=None, queue=False):
     return [np.ascontiguousarray(a, np.int32) for a in out]
 
 
+def fifo_edge_row(N, bad_lines=(), bad_deqs=(), every=0, V=None):
+    """One FIFO row of N lines (enqueue, enqueue, dequeue, dequeue, ... of
+    0, 1, 2, ..., mod V where given, so that values repeat) with a wrong
+    ok dequeue (a value never enqueued, or with V the value one past the
+    head's) at each line of ``bad_lines``, at each dequeue rank of
+    ``bad_deqs`` and, with ``every``, at every ``every``-th rank: each a
+    failure run of one between success runs."""
+    typ = np.zeros(N, np.int32)
+    f = np.zeros(N, np.int32)
+    val = np.zeros(N, np.int32)
+    at, ranks = set(bad_lines), set(bad_deqs)
+    enq = deq = rank = 0
+    for j in range(N):
+        if (j in at or rank in ranks
+                or (every and rank % every == every - 1)):
+            typ[j], f[j] = 1, 1
+            val[j] = -1 if V is None else (deq + 1) % V
+            rank += 1
+        elif j % 4 < 2 or deq >= enq:
+            val[j] = enq if V is None else enq % V
+            enq += 1
+        else:
+            typ[j], f[j] = 1, 1
+            val[j] = deq if V is None else deq % V
+            deq += 1
+            rank += 1
+    return typ, f, val
+
+
+def fifo_edge_lines(N, seg):
+    """Rows of N lines whose first failure sits at every edge the walk
+    and the compaction have: line 0, the last line, each side of a
+    segment edge, each side of the walk's tile edges (dequeue ranks),
+    a wrong dequeue every 37 (alternating runs), repeated values with a
+    wrong one among them, and a healthy row."""
+    from jepsen_torch.ops import cuda_folds as K
+    tile = K.FIFO_WALK_TILE
+    rows = [fifo_edge_row(N, bad_lines=(0,)),
+            fifo_edge_row(N, bad_lines=(N - 1,)),
+            fifo_edge_row(N, bad_lines=(seg - 1, 3 * seg + 1)),
+            fifo_edge_row(N, bad_lines=(seg,)),
+            fifo_edge_row(N, bad_deqs=(tile - 1,)),
+            fifo_edge_row(N, bad_deqs=(tile, 2 * tile + 1)),
+            fifo_edge_row(N, bad_deqs=(2 * tile - 1,)),
+            fifo_edge_row(N, every=37),
+            fifo_edge_row(N, bad_lines=(N // 2,), V=7),
+            fifo_edge_row(N)]
+    return [np.ascontiguousarray(np.stack(a), np.int32) for a in zip(*rows)]
+
+
 def fold_outputs_equal(a, b) -> tuple:
     """(all equal, largest absolute difference) of two output tuples,
     kernel on the card and plain on the CPU (None where a family has no
@@ -1970,6 +2034,31 @@ def phase_fold_kernel_parity(dev):
                     lambda ts, Nmax=Nmax: K.fifo_scan(*ts, Nmax),
                     lambda ts, Nmax=Nmax: F.plain_fifo_scan(*ts, Nmax))
         verdicts |= set(want[0].tolist())
+    require(verdicts == {0, 1}, f"FIFO verdicts seen: {verdicts}")
+    for B, N, P, seg in FOLD_COUNTER_EDGES:
+        args = fold_lines(rng, B, N, None, P=P)
+        args[2][:, 3::17] = 2**31 - 1          # sums past INT32_MAX wrap
+        want = case("counter_scan", args, P,
+                    lambda ts, P=P, seg=seg: K.counter_scan(*ts, P, seg),
+                    lambda ts, P=P: F.plain_counter_scan(*ts, P),
+                    segment=K.scan_plan(N, B, seg)["segment"])
+        require(0 < int(want[3].sum()), f"counter P={P}: no read emitted")
+    verdicts = set()
+    for N, Nmax, seg in FOLD_FIFO_EDGES:
+        seg_n = K.scan_plan(N, 10)["segment"]
+        args = (fifo_edge_lines(N, seg_n) if N > 600
+                else fold_lines(rng, 40, N, 97, queue=True))
+        want = case("fifo_scan", args, Nmax,
+                    lambda ts, Nmax=Nmax, seg=seg: K.fifo_scan(*ts, Nmax,
+                                                               seg),
+                    lambda ts, Nmax=Nmax: F.plain_fifo_scan(*ts, Nmax),
+                    segment=K.scan_plan(N, args[0].shape[0], seg)[
+                        "segment"])
+        verdicts |= set(want[0].tolist())
+        # Unclipped, each edge row's first failure is where it was put.
+        require(N <= 600 or Nmax < N or want[1][:4].tolist() == [
+            0, N - 1, seg_n - 1, seg_n],
+            f"FIFO edge rows fail at {want[1].tolist()}")
     require(verdicts == {0, 1}, f"FIFO verdicts seen: {verdicts}")
     seen = {(e, t) for e, _, t in tiers}
     require(seen == {(e, t) for e in K.ENTRIES
@@ -2211,10 +2300,11 @@ def fold_measure(dev, lw, ts):
     lowered batch ``lw`` and device tensors ``ts``): the kernel alone
     (``time_launches``, 5 runs after a warm-up) and through its wrapper,
     the plain version's time on CPU copies (host clock, one run) and
-    parity with it, for fold_counts one ``scatter_add_`` of its
-    histograms on the card (``library_ms``), and the bound: inputs read
-    once and outputs written once over the memory rate, against FOLD_OPS
-    over the int32 rate."""
+    parity with it, the whole function by the library route on the card
+    where there is one (``library_ms``: fold_counts with one
+    ``scatter_add_`` of its histograms beside it, ``counter_scan``), and
+    the bound: inputs read once and outputs written once over the memory
+    rate, against FOLD_OPS over the int32 rate."""
     from jepsen_torch.ops import cuda_folds as K
     from jepsen_torch.ops import folds as F
     cpu = [None if t is None else t.cpu() for t in ts]
@@ -2240,7 +2330,21 @@ def fold_measure(dev, lw, ts):
                                             if w is not None)
     library_ms = library_hist_ms = None
     extra = {}
-    if lw.entry == "fold_counts":
+    if lw.entry in ("counter_scan", "fifo_scan"):
+        plan = K.scan_plan(N, B)
+        extra = {"segment": plan["segment"], "blocks": plan["blocks"]}
+    if lw.entry == "counter_scan":
+        library_ms = time_cuda(lambda: counter_scan_library(ts, lw.width),
+                               reps=5)
+        lib = counter_scan_library(ts, lw.width)
+        require(fold_outputs_equal(lib, want)[0],
+                "counter: the library route != plain")
+        extra["library_call"] = ("cumsum of the two bounds, a per-process "
+                                 "cummax of read lines, gathers")
+    elif lw.entry == "fifo_scan":
+        extra["library_call"] = ("none: the final head after a first "
+                                 "failure is a dependent walk")
+    elif lw.entry == "fold_counts":
         C = K.FAMILIES[lw.family][1]
         V = lw.width
         code = torch.full((B, N), -1, dtype=torch.int64, device=dev)
@@ -2272,6 +2376,40 @@ def fold_measure(dev, lw, ts):
             "plain_on": "cpu", "library_ms": library_ms, **extra,
             "equal": equal, "max_abs_err": err,
             **launch_bound(in_bytes + out_bytes, ops)}
+
+
+def counter_scan_library(ts, P):
+    """counter_scan by the library route on the card: the two bounds by
+    cumsum, and each line's nearest earlier invoke-read and read of its
+    process by a cummax of line indices over a [B, P, N] one-hot, with
+    gathers. Returns (lows, vals, ups, emits) as the kernel does."""
+    from jepsen_torch.ops.folds import NONE_SENTINEL
+    typ, f, val, proc = ts
+    B, N = typ.shape
+    none = int(NONE_SENTINEL)
+    add = torch.where(val == none, 0, val).long()
+    up = torch.where((typ == 0) & (f == 0), add, 0)
+    lo = torch.where((typ == 1) & (f == 0), add, 0)
+    ups = torch.cumsum(up, 1) - up
+    lowp = torch.cumsum(lo, 1) - lo
+    inv = (typ == 0) & (f == 1)
+    read = inv | ((typ == 1) & (f == 1))
+    p = proc.long().clamp(0, P - 1)
+    mine = p[:, None, :] == torch.arange(P, device=typ.device)[None, :, None]
+    j = torch.arange(N, device=typ.device)
+
+    def last_before(mask):
+        last = torch.where(mine & mask[:, None, :], j, -1).cummax(2).values
+        last = torch.nn.functional.pad(last, (1, 0), value=-1)[:, :, :N]
+        return last.gather(1, p[:, None, :]).squeeze(1)
+    ki, kr = last_before(inv), last_before(read)
+    has = ki >= 0
+    kic = ki.clamp_min(0)
+    lows = torch.where(has, lowp.gather(1, kic), 0).to(torch.int32)
+    vals = torch.where(has, val.gather(1, kic), none).to(torch.int32)
+    emits = ((typ == 1) & (f == 1) & (kr >= 0)
+             & inv.gather(1, kr.clamp_min(0)))
+    return lows, vals, ups.to(torch.int32), emits.to(torch.uint8)
 
 
 def fold_counts_library(family, ts, V):
@@ -4082,12 +4220,15 @@ def headline_compare(trees, reps: int = 2) -> None:
 # The redesigned kernels timed alone in another checkout of the package
 # (its own build and import) on inputs saved by kernels_compare: K1 over
 # every launch of the dc batches' dc runs, K7a over each count family's
-# full-width batch. Uses that checkout's own chip_smoke helpers.
+# full-width batch, K7b and K7d over the counter's and the FIFO's. The
+# timing helpers are this script's (its path is the third argument), so
+# that every checkout is timed by one harness.
 KERNELS_CHILD = r"""
-import json, sys
+import importlib.util, json, sys
 import torch
-sys.path.insert(0, ".")
-import chip_smoke as CS
+spec = importlib.util.spec_from_file_location("harness", sys.argv[3])
+CS = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(CS)
 from jepsen_torch.ops import cuda_folds
 from jepsen_torch.ops import linearize as L
 saved, reps = torch.load(sys.argv[1]), int(sys.argv[2])
@@ -4105,28 +4246,36 @@ for fam, (ts, V) in saved["k7a"].items():
     launch = cuda_folds.prepare_counts(fam, *ts, V)[0]
     out["k7a_ms"][fam] = CS.time_launches([(lambda: None, launch)],
                                           reps=reps)
+out["scans_ms"] = {}
+for entry, (ts, width) in saved.get("scans", {}).items():
+    ts = [t.to(dev) for t in ts]
+    prepare = getattr(cuda_folds, "prepare_" + entry.split("_")[0])
+    launch = prepare(*ts, width)[0]
+    out["scans_ms"][entry] = CS.time_launches([(lambda: None, launch)],
+                                              reps=reps)
 print(json.dumps(out))
 """
 
 
 def kernels_compare(trees, reps: int = 5) -> None:
-    """K1 on the dc headline and K7a on the full-width fold batches, the
-    same inputs timed in each checkout of ``trees`` in the order given
-    (for example parent, change, change, parent), each in a process of
-    its own that builds that tree's kernels. This checkout records the
-    inputs (the K1 launches of each dc batch's dc run and of the two
-    wide W 17 check_synth specs, each from a fresh carry; each count
-    family's lowered batch) and measures, on them, the
-    K1 bound and each launch's plan and time (``k1_launches_measure``)
-    and K7a's whole-function library route and bound
-    (``fold_measure``)."""
+    """K1 on the dc headline, and K7a, K7b and K7d on the full-width fold
+    batches, the same inputs timed in each checkout of ``trees`` in the
+    order given (for example parent, change, change, parent), each in a
+    process of its own that builds that tree's kernels. This checkout
+    records the inputs (the K1 launches of each dc batch's dc run and of
+    the two wide W 17 check_synth specs, each from a fresh carry; each
+    count family's, the counter's and the FIFO's lowered batch) and
+    measures, on them, the K1 bound and each launch's plan and time
+    (``k1_launches_measure``) and the folds' bound, plain time and
+    whole-function library route (``fold_measure``)."""
     from jepsen_torch.history.columnar import ops_to_columnar
     from jepsen_torch.models.core import cas_register
     from jepsen_torch.ops import folds as F
     from jepsen_torch.ops import linearize as L
     from jepsen_torch.ops import synth_device as S
-    out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "runs": []}
-    saved = {"k1": {}, "k7a": {}}
+    out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
+           "runs": []}
+    saved = {"k1": {}, "k7a": {}, "scans": {}}
 
     def keep(label, k1):
         require(k1.singles and not k1.groups,
@@ -4157,7 +4306,7 @@ def kernels_compare(trees, reps: int = 5) -> None:
                 invalid=inv), scheduler=False)
         keep(f"wide_w17_{'invalid' if inv else 'valid'}", k1)
     w = FOLD_WIDE
-    for family in FOLD_COUNT_FAMILIES:
+    for family in FOLD_COUNT_FAMILIES + ("counter", "fifo"):
         hists = [fold_history(family, s, w["elements"], w["procs"])
                  for s in range(w["n"])]
         seen = []
@@ -4175,16 +4324,21 @@ def kernels_compare(trees, reps: int = 5) -> None:
         lw, ts = seen[0]
         m = fold_measure(ts[0].device, lw, ts)
         require(m["equal"], f"{family}: kernel != plain")
-        out["k7a"][family] = m
-        saved["k7a"][family] = ([None if t is None else t.cpu()
-                                 for t in ts], lw.width)
+        if lw.entry == "fold_counts":
+            out["k7a"][family] = m
+            saved["k7a"][family] = ([None if t is None else t.cpu()
+                                     for t in ts], lw.width)
+        else:
+            out["scans"][lw.entry] = m
+            saved["scans"][lw.entry] = ([t.cpu() for t in ts], lw.width)
     path = os.path.abspath(os.path.join("build", "kernels_compare.pt"))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
     for tree in trees:
         tree = os.path.abspath(tree)
         p = subprocess.run(
-            [sys.executable, "-c", KERNELS_CHILD, path, str(reps)],
+            [sys.executable, "-c", KERNELS_CHILD, path, str(reps),
+             os.path.abspath(__file__)],
             cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
             capture_output=True, text=True, timeout=1200)
         require(p.returncode == 0, f"{tree}: {p.stderr[-2000:]}")

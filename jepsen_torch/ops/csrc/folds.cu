@@ -41,30 +41,53 @@
 //     vocabulary, with histograms past shared memory in device-memory
 //     scratch: 32 rows left most SMs idle, and a cockroach set at V
 //     16,384 fell to global atomics.
-//   * the scans: one thread a row, walking its lines in order, as the
-//     reference's scan does; a row is a dependent walk. The carry lives
-//     in shared memory where it fits (the counter's per-process pending
-//     reads to P = 64, the queue's multiset to V words a row, the FIFO's
-//     ring to Nmax words a row), laid out thread-interleaved (word i of
-//     thread t at i·R + t) so that the block's threads never share a
-//     bank; otherwise in device memory (the queue's in its `counts`
-//     output, the others in a scratch slice the wrapper allocates).
-//     Arithmetic on the counter's bounds is done in uint32 so that it
-//     wraps as the reference's int32 does; the host detours rows whose
-//     sums could leave int32, so no wrap happens on the path.
+//   * queue_scan: one thread a row, walking its lines in order, as the
+//     reference's scan does. The multiset lives in shared memory where
+//     it fits (V words a row, word i of thread t at i·R + t, so that the
+//     block's threads never share a bank), else in its `counts` output.
+//   * counter_scan and fifo_scan cut each row into segments of `seg`
+//     lines, a warp each, eight warps a block (ops/cuda_folds.py
+//     scan_plan: segments of whole 32-line tiles, at least 256 lines,
+//     until the batch has about two blocks an SM), because what each
+//     line needs of the lines before it is a prefix sum, a count or the
+//     last occurrence of something, all of which compose by segments.
+//     The counter: a summary pass (each warp's segment summarised from an
+//     empty carry, then each block's eight folded in order), and a fill
+//     pass in which each warp folds the summaries before it, the row's
+//     earlier blocks' and then its block's earlier warps', into the
+//     reference's carry at its first line, and walks its segment again,
+//     writing every line, pad lines included. The FIFO: a count pass, a
+//     compaction (the enqueued values by rank, the ok dequeues with
+//     their lines, values and enqueue counts), and a walk of each row's
+//     dequeue list by one block in alternating success and failure
+//     runs. The segments' summaries are combined by the fill launch
+//     itself rather than by a launch of their own or a decoupled
+//     look-back: a warp's fold is at most blocks_per_row + 7 steps of
+//     independent loads, no block waits on another, and the result
+//     does not depend on the order blocks run in. Arithmetic on the
+//     counter's bounds is done in uint32 so that it wraps as the
+//     reference's int32 does; the host detours rows whose sums could
+//     leave int32, so no wrap happens on the path.
 //
 // What bounds it on this card. fold_counts reads 12 bytes a line and
 // writes P planes of V elements a row, a few int32 operations a line and
 // a plane element: at the full-width batch (32 rows of 40,000 lines, V
 // 16,384) about 15 MB in and 2–12 MB out, 0.008 ms at 3.35 TB/s, so it
 // is bound by bytes; the slices read the lines S times, from L2. The
-// scans are bound by each row's chain of dependent
-// shared-memory or device-memory accesses (a line every few hundred
-// cycles at best), not by bytes or operations: one thread a row leaves
-// the card nearly empty at B = 64. A later version would cut a row into
-// segments and combine them (the counter's bounds are prefix sums, the
-// queue's counts a multiset sum), or run a warp a row.
+// counter and FIFO scans move 16 + 13 and 12 bytes a line (0.005 ms at
+// the full-width batches), so they too are bound by bytes; what holds
+// them back is latency, not bandwidth: the counter reads its lines
+// twice (the second time mostly from L2), each 32-line tile is a chain
+// of shuffles, a match and ballots, and the fill's fold of earlier
+// summaries is a short serial chain before the first tile; the FIFO
+// makes three launches, writes 16 bytes a line of scratch, and its walk
+// is one block a row whose every run ends at a block barrier (one run a
+// tile on a healthy row, two more a wrong dequeue). queue_scan is bound
+// by each row's chain of dependent shared-memory or device-memory
+// accesses (a line every few hundred cycles at best): one thread a row
+// leaves the card nearly empty; its multiset composes by segments too.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,7 +100,7 @@ constexpr int32_t kNone = INT_MIN;
 // kernels keep statically.
 constexpr int kSmemLimit = 232448 - 64;
 constexpr int kCountThreads = 256;
-// Rows (threads) of a scan block, at most.
+// Rows (threads) of a queue_scan block, at most.
 constexpr int kScanRows = 32;
 // The counter keeps its per-process carry in shared memory to P words.
 constexpr int kCounterSmemP = 64;
@@ -210,67 +233,242 @@ fold_counts_kernel(const int32_t* __restrict__ typ,
   if (F == kIds && lo == 0 && threadIdx.x == 0) attempted[r] = att_count;
 }
 
-// One thread a row: the counter's bounds. Per line, before the update:
-// lows = p_low[p], vals = p_val[p], ups = upper, emits = (ok read) and
-// p_act[p]. The per-process carry (p_low, p_val, p_act, P words each)
-// is in shared memory, word i of thread t at i·R + t, or, with
-// `scratch`, in the row's 3·P words there.
-__global__ void counter_scan_kernel(const int32_t* __restrict__ typ,
-                                    const int32_t* __restrict__ fcol,
-                                    const int32_t* __restrict__ val,
-                                    const int32_t* __restrict__ proc,
-                                    int B, int N, int P, int32_t* scratch,
-                                    int32_t* __restrict__ lows,
-                                    int32_t* __restrict__ vals,
-                                    int32_t* __restrict__ ups,
-                                    uint8_t* __restrict__ emits) {
-  extern __shared__ int32_t smem_carry[];
-  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (r >= B) return;
-  int32_t* carry;
-  int stride;
-  if (scratch) {
-    carry = scratch + r * 3 * P;
-    stride = 1;
-  } else {
-    carry = smem_carry + threadIdx.x;
-    stride = blockDim.x;
-  }
-  int32_t* p_low = carry;
-  int32_t* p_val = carry + P * stride;
-  int32_t* p_act = carry + 2 * P * stride;
-  for (int p = 0; p < P; ++p) {
-    p_low[p * stride] = 0;
-    p_val[p * stride] = kNone;
-    p_act[p * stride] = 0;
-  }
-  uint32_t lower = 0, upper = 0;
-  const long long base = r * N;
-  for (int j = 0; j < N; ++j) {
-    const int t = typ[base + j], fc = fcol[base + j];
-    const int32_t v = val[base + j];
-    // The encoder gives 0 <= p < P; the clamp only keeps an index that
-    // breaks that contract inside the row's carry.
-    const int p = min(max(proc[base + j], 0), P - 1) * stride;
+// ---- counter_scan (K7b): segments of a row, summarised, then filled.
+//
+// Warp w of block b takes segment s = b·kScanWarps + w of its row, the
+// lines [s·seg, min(N, (s+1)·seg)), and walks it in tiles of 32 lines,
+// a line a lane (counter_walk). A lane finds the nearest earlier
+// invoke-read and read of its process inside the tile from
+// __match_any_sync on the process and two ballots; before the tile they
+// come from the warp's carry, three words a process: a state word
+// (bit 0: the process's last read is an invoke-read; bit 1: a read
+// occurred; bit 2: an invoke-read occurred), and the low bound and raw
+// value of its last invoke-read. An inclusive shuffle scan gives the
+// two sums (uint32, wrapping as the reference's int32). After the tile
+// the last lane of each process updates its carry.
+//
+// A summary is kSumHead + 3·P words: the segment's sums of invoke-add
+// and ok-add values, then the carry after a walk from an empty one
+// (low bounds relative to the segment's first line).
+
+constexpr int kScanWarps = 8;
+constexpr int kScanThreads = 32 * kScanWarps;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSumHead = 2;
+
+__device__ __forceinline__ long long seg_start(int s, int seg, int N) {
+  return min(static_cast<long long>(s) * seg, static_cast<long long>(N));
+}
+
+// One warp's walk over a row's lines [start, end): with kFill, writes
+// lows, vals, ups and emits of each line. st, lo_c and va_c are the
+// carry's three P-word arrays; lower and upper, the sums before the
+// segment, leave as the sums after it.
+template <bool kFill>
+__device__ __forceinline__ void counter_walk(
+    const int32_t* __restrict__ typ, const int32_t* __restrict__ fcol,
+    const int32_t* __restrict__ val, const int32_t* __restrict__ proc,
+    long long start, long long end, int P, int32_t* st, int32_t* lo_c,
+    int32_t* va_c, uint32_t& lower, uint32_t& upper, int32_t* lows,
+    int32_t* vals, int32_t* ups, uint8_t* emits) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned above = lane == 31 ? 0u : kFull << (lane + 1);
+  for (long long j0 = start; j0 < end; j0 += 32) {
+    const long long j = j0 + lane;
+    const bool in = j < end;
+    int t = -1, fc = 0, p = 0;
+    int32_t v = 0;
+    if (in) {
+      t = typ[j];
+      fc = fcol[j];
+      v = val[j];
+      // The encoder gives 0 <= p < P; the clamp only keeps an index
+      // that breaks that contract inside the carry.
+      p = min(max(proc[j], 0), P - 1);
+    }
     const bool inv_read = t == kInvoke && fc == 1;
     const bool ok_read = t == kOk && fc == 1;
-    const int32_t act = p_act[p];
-    lows[base + j] = p_low[p];
-    vals[base + j] = p_val[p];
-    ups[base + j] = static_cast<int32_t>(upper);
-    emits[base + j] = ok_read && act;
-    if (inv_read) {
-      p_low[p] = static_cast<int32_t>(lower);
-      p_val[p] = v;
-      p_act[p] = 1;
-    } else if (ok_read) {
-      p_act[p] = 0;
-    }
+    const bool read = inv_read || ok_read;
     const uint32_t add = v == kNone ? 0u : static_cast<uint32_t>(v);
-    if (t == kInvoke && fc == 0) upper += add;
-    if (t == kOk && fc == 0) lower += add;
+    const uint32_t a_up = t == kInvoke && fc == 0 ? add : 0u;
+    const uint32_t a_lo = t == kOk && fc == 0 ? add : 0u;
+    uint32_t x_up = a_up, x_lo = a_lo;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t u = __shfl_up_sync(kFull, x_up, d);
+      const uint32_t l = __shfl_up_sync(kFull, x_lo, d);
+      if (lane >= d) {
+        x_up += u;
+        x_lo += l;
+      }
+    }
+    const uint32_t my_low = lower + (x_lo - a_lo);
+    const unsigned same = __match_any_sync(kFull, p);
+    const unsigned rm = __ballot_sync(kFull, read);
+    const unsigned im = __ballot_sync(kFull, inv_read);
+    const unsigned ri = same & im & below, rr = same & rm & below;
+    const int ki = ri ? 31 - __clz(ri) : lane;
+    const uint32_t low_k = __shfl_sync(kFull, my_low, ki);
+    const int32_t val_k = __shfl_sync(kFull, v, ki);
+    const int32_t old_st = in ? st[p] : 0;
+    if (kFill && in) {
+      const bool act = rr ? (im >> (31 - __clz(rr))) & 1u : old_st & 1;
+      lows[j] = ri ? static_cast<int32_t>(low_k) : lo_c[p];
+      vals[j] = ri ? val_k : va_c[p];
+      ups[j] = static_cast<int32_t>(upper + (x_up - a_up));
+      emits[j] = ok_read && act;
+    }
+    __syncwarp();
+    if (inv_read && !(same & im & above)) {
+      lo_c[p] = static_cast<int32_t>(my_low);
+      va_c[p] = v;
+    }
+    if (read && !(same & rm & above))
+      st[p] = (old_st & 4) | (same & im ? 4 : 0) | 2 | (inv_read ? 1 : 0);
+    __syncwarp();
+    upper += __shfl_sync(kFull, x_up, 31);
+    lower += __shfl_sync(kFull, x_lo, 31);
   }
+}
+
+// Pass 1: every segment's summary into ws [B, S, kSumHead + 3P], then
+// each block's (its kScanWarps segments folded in order, low bounds
+// relative to the block's first line) into bs [B, blocks_per_row, ...].
+// The walk's carry is in shared memory (3P words a warp), or, with
+// `global_carry`, the summary's own words in ws.
+__global__ void __launch_bounds__(kScanThreads)
+counter_summary_kernel(const int32_t* __restrict__ typ,
+                       const int32_t* __restrict__ fcol,
+                       const int32_t* __restrict__ val,
+                       const int32_t* __restrict__ proc, int N, int P,
+                       int seg, int blocks_per_row, bool global_carry,
+                       int32_t* ws, int32_t* bs) {
+  extern __shared__ int32_t smem_carry[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = blockIdx.x / blocks_per_row;
+  const int b = blockIdx.x - static_cast<int>(r) * blocks_per_row;
+  const int S = blocks_per_row * kScanWarps;
+  const int s = b * kScanWarps + warp;
+  const long long W = kSumHead + 3LL * P;
+  int32_t* mine = ws + (r * S + s) * W;
+  int32_t* c = global_carry ? mine + kSumHead : smem_carry + warp * 3 * P;
+  for (int p = lane; p < P; p += 32) {
+    c[p] = 0;
+    c[P + p] = 0;
+    c[2 * P + p] = kNone;
+  }
+  __syncwarp();
+  const long long base = r * N;
+  const long long start = seg_start(s, seg, N);
+  const long long end = seg_start(s + 1, seg, N);
+  uint32_t lower = 0, upper = 0;
+  counter_walk<false>(typ + base, fcol + base, val + base, proc + base,
+                      start, end, P, c, c + P, c + 2 * P, lower, upper,
+                      nullptr, nullptr, nullptr, nullptr);
+  if (!global_carry)
+    for (int i = lane; i < 3 * P; i += 32) mine[kSumHead + i] = c[i];
+  if (lane == 0) {
+    mine[0] = static_cast<int32_t>(upper);
+    mine[1] = static_cast<int32_t>(lower);
+  }
+  __syncthreads();
+  const int32_t* first = ws + (r * S + b * kScanWarps) * W;
+  int32_t* out = bs + (r * blocks_per_row + b) * W;
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    int32_t acc = 0, low = 0, v = kNone;
+    uint32_t lo = 0;
+    for (int w = 0; w < kScanWarps; ++w) {
+      const int32_t* x = first + w * W;
+      const int32_t xs = x[kSumHead + p];
+      if (xs & 4) {
+        low = static_cast<int32_t>(lo + static_cast<uint32_t>(
+                                            x[kSumHead + P + p]));
+        v = x[kSumHead + 2 * P + p];
+      }
+      if (xs & 2) acc = (acc & 4) | (xs & 3);
+      acc |= xs & 4;
+      lo += static_cast<uint32_t>(x[1]);
+    }
+    out[kSumHead + p] = acc;
+    out[kSumHead + P + p] = low;
+    out[kSumHead + 2 * P + p] = v;
+  }
+  if (threadIdx.x == 0) {
+    uint32_t up = 0, lo = 0;
+    for (int w = 0; w < kScanWarps; ++w) {
+      up += static_cast<uint32_t>(first[w * W]);
+      lo += static_cast<uint32_t>(first[w * W + 1]);
+    }
+    out[0] = static_cast<int32_t>(up);
+    out[1] = static_cast<int32_t>(lo);
+  }
+}
+
+// Pass 2: each warp folds the summaries before its segment (the row's
+// earlier blocks', then its block's earlier warps') into its incoming
+// carry and sums, the reference's carry at the segment's first line,
+// and walks the segment again, writing every line. The carry is in
+// shared memory, or in `gcarry` (3P words a segment).
+__global__ void __launch_bounds__(kScanThreads)
+counter_fill_kernel(const int32_t* __restrict__ typ,
+                    const int32_t* __restrict__ fcol,
+                    const int32_t* __restrict__ val,
+                    const int32_t* __restrict__ proc, int N, int P, int seg,
+                    int blocks_per_row, const int32_t* __restrict__ ws,
+                    const int32_t* __restrict__ bs, int32_t* gcarry,
+                    int32_t* __restrict__ lows, int32_t* __restrict__ vals,
+                    int32_t* __restrict__ ups,
+                    uint8_t* __restrict__ emits) {
+  extern __shared__ int32_t smem_carry[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = blockIdx.x / blocks_per_row;
+  const int b = blockIdx.x - static_cast<int>(r) * blocks_per_row;
+  const int S = blocks_per_row * kScanWarps;
+  const int s = b * kScanWarps + warp;
+  const long long start = seg_start(s, seg, N);
+  const long long end = seg_start(s + 1, seg, N);
+  if (start >= end) return;
+  const long long W = kSumHead + 3LL * P;
+  int32_t* c = gcarry ? gcarry + (r * S + s) * 3LL * P
+                      : smem_carry + warp * 3 * P;
+  const int32_t* bs_row = bs + r * blocks_per_row * W;
+  const int32_t* ws_blk = ws + (r * S + b * kScanWarps) * W;
+  const int n = b + warp;
+  const auto summary = [&](int i) {
+    return i < b ? bs_row + i * W : ws_blk + (i - b) * W;
+  };
+  uint32_t lower = 0, upper = 0;
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    const int32_t* x = summary(i);
+    upper += static_cast<uint32_t>(x[0]);
+    lower += static_cast<uint32_t>(x[1]);
+  }
+  for (int p = lane; p < P; p += 32) {
+    int32_t act = 0, low = 0, v = kNone;
+    uint32_t lo = 0;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const int32_t* x = summary(i);
+      const int32_t xs = x[kSumHead + p];
+      if (xs & 4) {
+        low = static_cast<int32_t>(lo + static_cast<uint32_t>(
+                                            x[kSumHead + P + p]));
+        v = x[kSumHead + 2 * P + p];
+      }
+      if (xs & 2) act = xs & 1;
+      lo += static_cast<uint32_t>(x[1]);
+    }
+    c[p] = act;
+    c[P + p] = low;
+    c[2 * P + p] = v;
+  }
+  __syncwarp();
+  const long long base = r * N;
+  counter_walk<true>(typ + base, fcol + base, val + base, proc + base,
+                     start, end, P, c, c + P, c + 2 * P, lower, upper,
+                     lows + base, vals + base, ups + base, emits + base);
 }
 
 // One thread a row: the unordered queue's multiset. counts [B, V] is the
@@ -332,62 +530,234 @@ __global__ void queue_scan_kernel(const int32_t* __restrict__ typ,
   }
 }
 
-// One thread a row: the FIFO queue's ring of enqueued values (Nmax words
-// a row, in shared memory with word i of thread t at i·R + t, or in the
-// row's slice of `scratch`), with head and tail. A wrong dequeue (empty,
-// or not the value at the head) leaves head where it is; the first one
-// records its line and the head.
-__global__ void fifo_scan_kernel(const int32_t* __restrict__ typ,
-                                 const int32_t* __restrict__ fcol,
-                                 const int32_t* __restrict__ val, int B,
-                                 int N, int Nmax, int32_t* scratch,
-                                 uint8_t* __restrict__ valid_out,
-                                 int32_t* __restrict__ bad_out,
-                                 int32_t* __restrict__ bad_head_out,
-                                 int32_t* __restrict__ head_out,
-                                 int32_t* __restrict__ tail_out) {
-  extern __shared__ int32_t smem_ring[];
-  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (r >= B) return;
-  int32_t* buf;
-  int stride;
-  if (scratch) {
-    buf = scratch + r * Nmax;
-    stride = 1;
-  } else {
-    buf = smem_ring + threadIdx.x;
-    stride = blockDim.x;
-  }
-  int32_t head = 0, tail = 0, bad = -1, bad_head = -1;
-  bool valid = true;
+// ---- fifo_scan (K7d): compaction, then a run-length walk of the
+// dequeues.
+//
+// The tail only grows, so slot k < Nmax - 1 of the reference's ring
+// holds the k-th invoke-enqueue's value from its enqueue on, and the
+// clipped last slot, read at any head >= Nmax - 1, holds the latest
+// enqueue's: an ok dequeue seeing head h with tail T (the enqueues
+// before it) succeeds iff h < T and v == (h < Nmax - 1 ? E[h] :
+// E[T - 1]), E the row's enqueued values in order. Pass A lists E and
+// the ok dequeues (line, value, T) by segments as the counter cuts a
+// row (fifo_count_kernel, fifo_compact_kernel); pass B (fifo_walk_kernel)
+// walks the dequeue list.
+
+// Tiles whose lines the compaction loads at once, so that a warp waits
+// on memory once a group rather than once a tile (the counter's walk,
+// whose tiles are longer chains, ran slower with it on an H100). Threads
+// of a walk block, dequeues a thread takes in a tile, and the shared
+// memory the walk keeps beside the staged ring (the two reduction
+// buffers).
+constexpr int kAhead = 8;
+constexpr int kWalkThreads = 1024;
+constexpr int kWalkPer = 4;
+constexpr int kWalkTile = kWalkThreads * kWalkPer;
+constexpr int kWalkRedBytes = 2 * (kWalkThreads / 32) * 4;
+
+// Each warp's segment's invoke-enqueues and ok dequeues into counts
+// [B, S, 2].
+__global__ void __launch_bounds__(kScanThreads)
+fifo_count_kernel(const int32_t* __restrict__ typ,
+                  const int32_t* __restrict__ fcol, int N, int seg,
+                  int blocks_per_row, int32_t* __restrict__ counts) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = blockIdx.x / blocks_per_row;
+  const int b = blockIdx.x - static_cast<int>(r) * blocks_per_row;
+  const int S = blocks_per_row * kScanWarps;
+  const int s = b * kScanWarps + warp;
   const long long base = r * N;
-  for (int j = 0; j < N; ++j) {
+  const long long end = seg_start(s + 1, seg, N);
+  int e = 0, d = 0;
+#pragma unroll 8
+  for (long long j = seg_start(s, seg, N) + lane; j < end; j += 32) {
     const int t = typ[base + j], fc = fcol[base + j];
-    const int32_t v = val[base + j];
-    if (t == kInvoke && fc == 0) {
-      buf[min(max(tail, 0), Nmax - 1) * stride] = v;
-      tail += 1;
-    }
-    if (t == kOk && fc == 1) {
-      const bool wrong =
-          head >= tail || buf[min(max(head, 0), Nmax - 1) * stride] != v;
-      if (wrong) {
-        if (valid) {
-          bad = j;
-          bad_head = head;
-        }
-        valid = false;
-      } else {
-        head += 1;
+    e += t == kInvoke && fc == 0;
+    d += t == kOk && fc == 1;
+  }
+  e = __reduce_add_sync(kFull, e);
+  d = __reduce_add_sync(kFull, d);
+  if (lane == 0) {
+    counts[(r * S + s) * 2] = e;
+    counts[(r * S + s) * 2 + 1] = d;
+  }
+}
+
+// Each warp's segment: the earlier segments' counts give its first
+// enqueue and dequeue ranks; ballots rank the tile's lines. Writes
+// E[rank] = v of each invoke-enqueue, and of each ok dequeue its line,
+// value and enqueue count (dj, dv, dt at its rank), all [B, N]; the
+// row's last warp writes the row's enqueues (tail) and dequeues (deqs).
+__global__ void __launch_bounds__(kScanThreads)
+fifo_compact_kernel(const int32_t* __restrict__ typ,
+                    const int32_t* __restrict__ fcol,
+                    const int32_t* __restrict__ val, int N, int seg,
+                    int blocks_per_row, const int32_t* __restrict__ counts,
+                    int32_t* __restrict__ E, int32_t* __restrict__ dj,
+                    int32_t* __restrict__ dv, int32_t* __restrict__ dt,
+                    int32_t* __restrict__ deqs,
+                    int32_t* __restrict__ tail_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r = blockIdx.x / blocks_per_row;
+  const int b = blockIdx.x - static_cast<int>(r) * blocks_per_row;
+  const int S = blocks_per_row * kScanWarps;
+  const int s = b * kScanWarps + warp;
+  const long long start = seg_start(s, seg, N);
+  const long long end = seg_start(s + 1, seg, N);
+  if (start >= end && s != S - 1) return;
+  int e = 0, d = 0;
+  for (int i = lane; i < s; i += 32) {
+    e += counts[(r * S + i) * 2];
+    d += counts[(r * S + i) * 2 + 1];
+  }
+  int be = __reduce_add_sync(kFull, e), bd = __reduce_add_sync(kFull, d);
+  const long long base = r * N;
+  const unsigned below = (1u << lane) - 1u;
+  for (long long g0 = start; g0 < end; g0 += 32 * kAhead) {
+    int tq[kAhead], fq[kAhead];
+    int32_t vq[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      const long long j = g0 + 32 * q + lane;
+      tq[q] = -1;
+      fq[q] = vq[q] = 0;
+      if (j < end) {
+        tq[q] = typ[base + j];
+        fq[q] = fcol[base + j];
+        vq[q] = val[base + j];
       }
     }
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+      const long long j0 = g0 + 32 * q;
+      if (j0 >= end) break;
+      const long long j = j0 + lane;
+      const int32_t v = vq[q];
+      const bool enq = tq[q] == kInvoke && fq[q] == 0;
+      const bool deq = tq[q] == kOk && fq[q] == 1;
+      const unsigned em = __ballot_sync(kFull, enq);
+      const unsigned dm = __ballot_sync(kFull, deq);
+      const int re = be + __popc(em & below);
+      if (enq) E[base + re] = v;
+      if (deq) {
+        const long long at = base + bd + __popc(dm & below);
+        dj[at] = static_cast<int32_t>(j);
+        dv[at] = v;
+        dt[at] = re;
+      }
+      be += __popc(em);
+      bd += __popc(dm);
+    }
   }
-  valid_out[r] = valid;
-  bad_out[r] = bad;
-  bad_head_out[r] = bad_head;
-  head_out[r] = head;
-  tail_out[r] = tail;
+  if (s == S - 1 && lane == 0) {
+    tail_out[r] = be;
+    deqs[r] = bd;
+  }
+}
+
+// A block a row walks its dequeue list from head 0 in tiles of
+// kWalkTile, in runs. In a success run from dequeue i0 at head h,
+// dequeue i is taken to see head h + (i - i0); the first that fails (a
+// block-wide minimum) ends the run, with the head advanced by the
+// successes before it. In a failure run at head h, the first dequeue
+// that succeeds at h ends it. The first failure gives valid, bad and
+// bad_head; the walk goes on to the end for the final head. With
+// `stage`, the ring's unclipped slots E[0 .. min(Nmax - 1, tail)) are
+// copied to shared memory first.
+__global__ void __launch_bounds__(kWalkThreads)
+fifo_walk_kernel(const int32_t* __restrict__ E,
+                 const int32_t* __restrict__ dj,
+                 const int32_t* __restrict__ dv,
+                 const int32_t* __restrict__ dt,
+                 const int32_t* __restrict__ deqs,
+                 const int32_t* __restrict__ tail_out, int N, int Nmax,
+                 bool stage, uint8_t* __restrict__ valid_out,
+                 int32_t* __restrict__ bad_out,
+                 int32_t* __restrict__ bad_head_out,
+                 int32_t* __restrict__ head_out) {
+  extern __shared__ int32_t smem_ring[];
+  __shared__ int red[2][kWalkThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r = blockIdx.x, base = r * N;
+  const int m = deqs[r];
+  const int32_t* e_row = E + base;
+  const int32_t* ring = e_row;
+  if (stage) {
+    const int n = min(Nmax - 1, tail_out[r]);
+    for (int i = tid; i < n; i += kWalkThreads) smem_ring[i] = e_row[i];
+    __syncthreads();
+    ring = smem_ring;
+  }
+  int h = 0, bad_i = -1, bad_head = -1, parity = 0;
+  bool succ = true;
+  // Each tile's dequeues are loaded while the tile before is walked.
+  int v[kWalkPer] = {}, tl[kWalkPer] = {}, nv[kWalkPer], ntl[kWalkPer];
+  const auto load = [&](int i0, int* lv, int* lt) {
+#pragma unroll
+    for (int q = 0; q < kWalkPer; ++q) {
+      const int i = i0 + q * kWalkThreads + tid;
+      if (i < m) {
+        lv[q] = dv[base + i];
+        lt[q] = dt[base + i];
+      }
+    }
+  };
+  load(0, v, tl);
+  for (int i0 = 0; i0 < m; i0 += kWalkTile) {
+    const int n = min(kWalkTile, m - i0);
+    load(i0 + kWalkTile, nv, ntl);
+    int pos = 0;
+    while (pos < n) {
+      int first = n;
+#pragma unroll
+      for (int q = 0; q < kWalkPer; ++q) {
+        const int i = q * kWalkThreads + tid;
+        if (first == n && i >= pos && i < n) {
+          const int hh = succ ? h + (i - pos) : h;
+          const bool ok =
+              hh < tl[q] && (hh < Nmax - 1 ? ring[hh] : e_row[tl[q] - 1])
+                                == v[q];
+          if (ok != succ) first = i;
+        }
+      }
+      first = __reduce_min_sync(kFull, first);
+      if (lane == 0) red[parity][warp] = first;
+      __syncthreads();
+#pragma unroll 8
+      for (int w = 0; w < kWalkThreads / 32; ++w)
+        first = min(first, red[parity][w]);
+      parity ^= 1;
+      if (succ) {
+        h += first - pos;
+        if (first < n) {
+          if (bad_i < 0) {
+            bad_i = i0 + first;
+            bad_head = h;
+          }
+          succ = false;
+          pos = first + 1;
+        } else {
+          pos = n;
+        }
+      } else if (first < n) {
+        succ = true;
+        pos = first;
+      } else {
+        pos = n;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kWalkPer; ++q) {
+      v[q] = nv[q];
+      tl[q] = ntl[q];
+    }
+  }
+  if (tid == 0) {
+    valid_out[r] = bad_i < 0;
+    bad_out[r] = bad_i < 0 ? -1 : dj[base + bad_i];
+    bad_head_out[r] = bad_head;
+    head_out[r] = h;
+  }
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory (needed above
@@ -423,8 +793,8 @@ int launch_counts(const void* typ, const void* f, const void* val,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows a shared-memory scan block takes when each keeps `words` words of
-// carry: up to kScanRows, 0 when not even one row fits.
+// Rows a shared-memory queue_scan block takes when each keeps `words`
+// words of carry: up to kScanRows, 0 when not even one row fits.
 int scan_rows(long long words) {
   const long long fit = kSmemLimit / (words * 4);
   return static_cast<int>(fit < kScanRows ? fit : kScanRows);
@@ -464,24 +834,43 @@ extern "C" int fold_counts(int family, const void* typ, const void* f,
 }
 
 // counter_scan: typ, f, val, proc int32 [B, N] (proc in [0, P)) ->
-// lows, vals, ups int32 [B, N], emits uint8 [B, N]. scratch null when
-// P <= 64 (the carry in shared memory), else B·3·P int32 words.
+// lows, vals, ups int32 [B, N], emits uint8 [B, N]. seg lines a warp;
+// scratch of scratch_words int32 words: the segments' summaries, the
+// blocks' and, past P = kCounterSmemP, each segment's carry.
 extern "C" int counter_scan(const void* typ, const void* f, const void* val,
-                            const void* proc, int B, int N, int P,
-                            void* scratch, void* lows, void* vals,
-                            void* ups, void* emits, void* stream) {
+                            const void* proc, int B, int N, int P, int seg,
+                            void* scratch, long long scratch_words,
+                            void* lows, void* vals, void* ups, void* emits,
+                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
-  if (N < 1 || P < 1 || (scratch == nullptr && P > kCounterSmemP))
+  if (N < 1 || P < 1 || seg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int R = kScanRows;
-  const long long smem = scratch ? 0 : 3LL * P * R * 4;
-  counter_scan_kernel<<<(B + R - 1) / R, R, static_cast<size_t>(smem), s>>>(
-      static_cast<const int32_t*>(typ), static_cast<const int32_t*>(f),
-      static_cast<const int32_t*>(val), static_cast<const int32_t*>(proc), B,
-      N, P, static_cast<int32_t*>(scratch), static_cast<int32_t*>(lows),
-      static_cast<int32_t*>(vals), static_cast<int32_t*>(ups),
-      static_cast<uint8_t*>(emits));
+  const long long segs = (static_cast<long long>(N) + seg - 1) / seg;
+  const long long bpr = (segs + kScanWarps - 1) / kScanWarps;
+  const long long S = bpr * kScanWarps, W = kSumHead + 3LL * P;
+  const bool global_carry = P > kCounterSmemP;
+  const long long words =
+      B * (S + bpr) * W + (global_carry ? B * S * 3LL * P : 0);
+  if (B * bpr > INT_MAX || words > scratch_words || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int32_t* ws = static_cast<int32_t*>(scratch);
+  int32_t* bs = ws + B * S * W;
+  int32_t* gcarry = global_carry ? bs + B * bpr * W : nullptr;
+  const size_t smem =
+      global_carry ? 0 : static_cast<size_t>(kScanWarps) * 3 * P * 4;
+  const auto* t = static_cast<const int32_t*>(typ);
+  const auto* fc = static_cast<const int32_t*>(f);
+  const auto* v = static_cast<const int32_t*>(val);
+  const auto* pr = static_cast<const int32_t*>(proc);
+  const int grid = static_cast<int>(B * bpr);
+  counter_summary_kernel<<<grid, kScanThreads, smem, s>>>(
+      t, fc, v, pr, N, P, seg, static_cast<int>(bpr), global_carry, ws, bs);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  counter_fill_kernel<<<grid, kScanThreads, smem, s>>>(
+      t, fc, v, pr, N, P, seg, static_cast<int>(bpr), ws, bs, gcarry,
+      static_cast<int32_t*>(lows), static_cast<int32_t*>(vals),
+      static_cast<int32_t*>(ups), static_cast<uint8_t*>(emits));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -508,27 +897,51 @@ extern "C" int queue_scan(const void* typ, const void* f, const void* val,
 }
 
 // fifo_scan: typ, f, val int32 [B, N] -> valid uint8 [B], bad, bad_head,
-// head, tail int32 [B]. scratch null when a row's Nmax-word ring fits in
-// shared memory, else B·Nmax int32 words.
+// head, tail int32 [B]. seg lines a warp; scratch of scratch_words int32
+// words: E, dj, dv, dt (B·N each), the segments' counts and the rows'
+// dequeue counts.
 extern "C" int fifo_scan(const void* typ, const void* f, const void* val,
-                         int B, int N, int Nmax, void* scratch, void* valid,
-                         void* bad, void* bad_head, void* head, void* tail,
+                         int B, int N, int Nmax, int seg, void* scratch,
+                         long long scratch_words, void* valid, void* bad,
+                         void* bad_head, void* head, void* tail,
                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
-  if (N < 1 || Nmax < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int fit = scan_rows(Nmax);
-  if (scratch == nullptr && fit == 0)
+  if (N < 1 || Nmax < 1 || seg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int R = scratch ? kScanRows : fit;
-  const long long smem = scratch ? 0 : static_cast<long long>(R) * Nmax * 4;
-  if (const int e = set_smem(fifo_scan_kernel, smem)) return e;
-  fifo_scan_kernel<<<(B + R - 1) / R, R, static_cast<size_t>(smem), s>>>(
-      static_cast<const int32_t*>(typ), static_cast<const int32_t*>(f),
-      static_cast<const int32_t*>(val), B, N, Nmax,
-      static_cast<int32_t*>(scratch), static_cast<uint8_t*>(valid),
-      static_cast<int32_t*>(bad), static_cast<int32_t*>(bad_head),
-      static_cast<int32_t*>(head), static_cast<int32_t*>(tail));
+  const long long segs = (static_cast<long long>(N) + seg - 1) / seg;
+  const long long bpr = (segs + kScanWarps - 1) / kScanWarps;
+  const long long S = bpr * kScanWarps, BN = static_cast<long long>(B) * N;
+  if (B * bpr > INT_MAX || B * (4LL * N + 2 * S + 1) > scratch_words
+      || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int32_t* E = static_cast<int32_t*>(scratch);
+  int32_t* dj = E + BN;
+  int32_t* dv = dj + BN;
+  int32_t* dt = dv + BN;
+  int32_t* counts = dt + BN;
+  int32_t* deqs = counts + B * S * 2;
+  // The ring's unclipped slots are staged where they fit beside the
+  // walk's own shared memory (cuda_folds.tier's "smem").
+  const bool stage = 4LL * (Nmax - 1) + kWalkRedBytes <= kSmemLimit;
+  const long long ring = stage ? 4LL * std::max(std::min(Nmax - 1, N), 1)
+                               : 0;
+  if (const int e = set_smem(fifo_walk_kernel, ring)) return e;
+  const auto* t = static_cast<const int32_t*>(typ);
+  const auto* fc = static_cast<const int32_t*>(f);
+  const int grid = static_cast<int>(B * bpr);
+  fifo_count_kernel<<<grid, kScanThreads, 0, s>>>(
+      t, fc, N, seg, static_cast<int>(bpr), counts);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  fifo_compact_kernel<<<grid, kScanThreads, 0, s>>>(
+      t, fc, static_cast<const int32_t*>(val), N, seg,
+      static_cast<int>(bpr), counts, E, dj, dv, dt, deqs,
+      static_cast<int32_t*>(tail));
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  fifo_walk_kernel<<<B, kWalkThreads, static_cast<size_t>(ring), s>>>(
+      E, dj, dv, dt, deqs, static_cast<const int32_t*>(tail), N, Nmax,
+      stage, static_cast<uint8_t*>(valid), static_cast<int32_t*>(bad),
+      static_cast<int32_t*>(bad_head), static_cast<int32_t*>(head));
   return static_cast<int>(cudaGetLastError());
 }
 

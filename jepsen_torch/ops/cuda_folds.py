@@ -8,13 +8,16 @@ their wrapper. ``fold_counts`` launches the count kernel of a family
 ``_crdb_set_kernel``, ``_tq_kernel`` and ``_ids_kernel``);
 ``counter_scan``, ``queue_scan`` and ``fifo_scan`` launch the per-row
 scans (``_counter_kernel``, ``_queue_kernel``, ``_fifo_kernel``). Each
-counts its launches in ``LAUNCHES[entry]``, checks device, dtype, shape
-and contiguity, raises on anything its kernel does not take, allocates
-the outputs and, past shared memory, the rows' scratch, and launches on
-PyTorch's current stream. ``tier`` says where a kernel keeps its
-per-row state, and ``count_plan`` how ``fold_counts`` cuts each row's
-vocabulary into slices, one block each. ``prepare_*`` do a wrapper's checks and allocations and
-return the launch itself, so that a caller can time the kernel alone.
+counts its launches in ``LAUNCHES[entry]`` (one a call, whatever number
+of kernels the call runs), checks device, dtype, shape and contiguity,
+raises on anything its kernels do not take, allocates the outputs and
+the scratch, and launches on PyTorch's current stream. ``tier`` says
+where a kernel keeps its per-row state, ``count_plan`` how
+``fold_counts`` cuts each row's vocabulary into slices, one block each,
+and ``scan_plan`` how ``counter_scan`` and ``fifo_scan`` cut each row's
+lines into segments, one warp each. ``prepare_*`` do a wrapper's checks
+and allocations and return the launch itself, so that a caller can time
+the kernels alone.
 
 The library is built at first use by ``_build.build_library``; nothing
 here runs when the module is imported.
@@ -43,11 +46,25 @@ FAMILIES = {
 }
 
 # Dynamic shared memory one block may use (kSmemLimit in the source);
-# rows a scan block takes at most (kScanRows); the counter's carry stays
-# in shared memory to P words (kCounterSmemP).
+# rows a queue_scan block takes at most (kScanRows); the counter's
+# carry stays in shared memory to P words (kCounterSmemP); the FIFO
+# walk's block keeps WALK_RED_BYTES of its own beside the ring it stages
+# (kWalkRedBytes).
 SMEM_LIMIT_BYTES = 232448 - 64
 SCAN_ROWS = 32
 COUNTER_SMEM_P = 64
+WALK_RED_BYTES = 256
+
+# counter_scan's and fifo_scan's segments: a warp takes SEGMENT lines of
+# a row, SCAN_WARPS warps a block (kScanWarps). A row is cut into more
+# segments, down to SCAN_MIN_SEGMENT lines each, until the batch has
+# SCAN_TARGET_BLOCKS blocks (two for each of an H100's 132 SMs); the
+# segment is a whole number of 32-line tiles. FIFO_WALK_TILE dequeues
+# (kWalkThreads x kWalkPer) is the tile of fifo_scan's walk.
+SCAN_WARPS = 8
+SCAN_MIN_SEGMENT = 256
+SCAN_TARGET_BLOCKS = 264
+FIFO_WALK_TILE = 1024 * 4
 
 # fold_counts' slices: each block holds its slice's C histograms in at
 # most COUNT_SLICE_BYTES of shared memory (four blocks of COUNT_THREADS
@@ -71,12 +88,14 @@ def _library():
     """Build (once per source hash) and load the kernel library."""
     global _LIB
     if _LIB is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _LIB = build_library(SRC, {
             "fold_counts": ([i, p, p, p, p, i, i, i, i, i, p, p, p], i),
-            "counter_scan": ([p, p, p, p, i, i, i, p, p, p, p, p, p], i),
+            "counter_scan": ([p, p, p, p, i, i, i, i, p, ll, p, p, p, p, p],
+                             i),
             "queue_scan": ([p, p, p, i, i, i, p, p, p, p], i),
-            "fifo_scan": ([p, p, p, i, i, i, p, p, p, p, p, p, p], i),
+            "fifo_scan": ([p, p, p, i, i, i, i, p, ll, p, p, p, p, p, p],
+                          i),
             "folds_error": ([i], ctypes.c_char_p)})
     return _LIB
 
@@ -106,17 +125,40 @@ def count_plan(family: str, V: int, rows: int = 1) -> dict:
             "smem_bytes": 4 * C * width, "blocks": rows * slices}
 
 
+def scan_plan(N: int, rows: int = 1, segment: Optional[int] = None
+              ) -> dict:
+    """How ``counter_scan`` and ``fifo_scan`` cut a batch of ``rows``
+    rows of N lines: ``segment`` lines a warp (the plan's own unless
+    given), ``segments`` warps a row (whole blocks of ``warps``, the
+    last ones possibly empty), ``blocks_per_row`` and ``blocks`` in
+    all."""
+    if segment is None:
+        want = -(-SCAN_TARGET_BLOCKS * SCAN_WARPS // max(rows, 1))
+        segment = max(SCAN_MIN_SEGMENT, -(-N // want))
+        segment = -(-segment // 32) * 32
+    per_row = -(-max(-(-N // segment), 1) // SCAN_WARPS)
+    return {"segment": segment, "warps": SCAN_WARPS,
+            "segments": per_row * SCAN_WARPS, "blocks_per_row": per_row,
+            "blocks": rows * per_row}
+
+
 def tier(entry: str, width: int, family: Optional[str] = None,
          rows: int = 1) -> str:
     """Where ``entry`` keeps a row's state at ``width`` (V for the counts
     and the queue, P for the counter, Nmax for the FIFO): ``smem``
     (shared memory) or ``global`` (device memory); for ``fold_counts``
     (always in shared memory) ``smem`` when one block counts a row and
-    ``sliced`` when several do (``count_plan`` over ``rows`` rows)."""
+    ``sliced`` when several do (``count_plan`` over ``rows`` rows). The
+    counter's state is each warp's per-process carry, the FIFO's the
+    ring of enqueued values its walk reads (staged in shared memory, or
+    read where the compaction wrote it)."""
     if entry == "fold_counts":
         return count_plan(family, width, rows)["tier"]
     if entry == "counter_scan":
         return "smem" if width <= COUNTER_SMEM_P else "global"
+    if entry == "fifo_scan":
+        return ("smem" if 4 * (width - 1) + WALK_RED_BYTES
+                <= SMEM_LIMIT_BYTES else "global")
     return "smem" if width * 4 <= SMEM_LIMIT_BYTES else "global"
 
 
@@ -211,34 +253,53 @@ def fold_counts(family: str, typ: torch.Tensor, f: torch.Tensor,
     return planes, attempted
 
 
+def counter_scratch_words(B: int, N: int, P: int,
+                          segment: Optional[int] = None) -> int:
+    """int32 words of ``counter_scan``'s scratch: a summary (two sums
+    and three words a process) of every segment and of every block of
+    segments, and in the ``global`` tier each segment's carry."""
+    plan = scan_plan(N, B, segment)
+    words = B * (plan["segments"] + plan["blocks_per_row"]) * (2 + 3 * P)
+    if tier("counter_scan", P) == "global":
+        words += B * plan["segments"] * 3 * P
+    return words
+
+
 def prepare_counter(typ: torch.Tensor, f: torch.Tensor, val: torch.Tensor,
-                    proc: torch.Tensor, P: int
+                    proc: torch.Tensor, P: int,
+                    segment: Optional[int] = None
                     ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
     """The checks and allocations of ``counter_scan``: returns
-    ``(launch, (lows, vals, ups, emits))``."""
+    ``(launch, (lows, vals, ups, emits))``. ``segment`` overrides the
+    plan's lines a warp (``scan_plan``)."""
     entry = "counter_scan"
     B, N = _check_lines(entry, typ, f, val, proc)
     _check(entry, 1 <= P and 3 * P < 2**31, f"P={P} out of range")
+    _check(entry, segment is None or 1 <= segment < 2**31,
+           f"segment={segment} out of range")
+    plan = scan_plan(N, B, segment)
+    _check(entry, plan["blocks"] < 2**31,
+           f"{B} rows of {plan['blocks_per_row']} blocks exceed the grid")
     dev = typ.device
     outs = tuple(torch.empty((B, N), dtype=torch.int32, device=dev)
                  for _ in range(3))
     emits = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    scratch = None
-    if tier(entry, P) == "global" and B:
-        scratch = torch.empty(B * 3 * P, dtype=torch.int32, device=dev)
+    words = counter_scratch_words(B, N, P, segment)
+    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
     fn = _library().counter_scan
     launch = _launcher(entry, dev, B, lambda s: fn(
         typ.data_ptr(), f.data_ptr(), val.data_ptr(), proc.data_ptr(), B, N,
-        P, _ptr(scratch), *(o.data_ptr() for o in outs), emits.data_ptr(),
-        s))
+        P, plan["segment"], scratch.data_ptr(), words,
+        *(o.data_ptr() for o in outs), emits.data_ptr(), s))
     return launch, (*outs, emits)
 
 
-def counter_scan(typ, f, val, proc, P: int) -> Tuple[torch.Tensor, ...]:
+def counter_scan(typ, f, val, proc, P: int, segment: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, ...]:
     """The counter's bounds on the card: (lows, vals, ups int32 [B, N],
     emits uint8 [B, N]), bit for bit ``plain_counter_scan``. ``proc``
     holds each row's densified processes, in [0, P)."""
-    launch, outs = prepare_counter(typ, f, val, proc, P)
+    launch, outs = prepare_counter(typ, f, val, proc, P, segment)
     launch()
     return outs
 
@@ -270,33 +331,49 @@ def queue_scan(typ, f, val, V: int) -> Tuple[torch.Tensor, ...]:
     return outs
 
 
+def fifo_scratch_words(B: int, N: int, segment: Optional[int] = None
+                       ) -> int:
+    """int32 words of ``fifo_scan``'s scratch: each row's enqueued
+    values and its dequeues' lines, values and enqueue counts (N words
+    each: ranks stay below N), two counts a segment and the row's
+    dequeue count."""
+    return B * (4 * N + 2 * scan_plan(N, B, segment)["segments"] + 1)
+
+
 def prepare_fifo(typ: torch.Tensor, f: torch.Tensor, val: torch.Tensor,
-                 Nmax: int
+                 Nmax: int, segment: Optional[int] = None
                  ) -> Tuple[Callable[[], None], Tuple[torch.Tensor, ...]]:
     """The checks and allocations of ``fifo_scan``: returns
-    ``(launch, (valid, bad, bad_head, head, tail))``."""
+    ``(launch, (valid, bad, bad_head, head, tail))``. ``segment``
+    overrides the plan's lines a warp (``scan_plan``)."""
     entry = "fifo_scan"
     B, N = _check_lines(entry, typ, f, val)
     _check(entry, 1 <= Nmax < 2**31, f"Nmax={Nmax} out of range")
+    _check(entry, segment is None or 1 <= segment < 2**31,
+           f"segment={segment} out of range")
+    plan = scan_plan(N, B, segment)
+    _check(entry, plan["blocks"] < 2**31,
+           f"{B} rows of {plan['blocks_per_row']} blocks exceed the grid")
     dev = typ.device
     valid = torch.empty(B, dtype=torch.uint8, device=dev)
     outs = tuple(torch.empty(B, dtype=torch.int32, device=dev)
                  for _ in range(4))
-    scratch = None
-    if tier(entry, Nmax) == "global" and B:
-        # Only ring slots below the tail are ever read, and each is
-        # written first: the scratch needs no zeroing.
-        scratch = torch.empty(B * Nmax, dtype=torch.int32, device=dev)
+    # Every scratch word the walk reads is written first by the
+    # compaction: the scratch needs no zeroing.
+    words = fifo_scratch_words(B, N, segment)
+    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=dev)
     fn = _library().fifo_scan
     launch = _launcher(entry, dev, B, lambda s: fn(
         typ.data_ptr(), f.data_ptr(), val.data_ptr(), B, N, Nmax,
-        _ptr(scratch), valid.data_ptr(), *(o.data_ptr() for o in outs), s))
+        plan["segment"], scratch.data_ptr(), words, valid.data_ptr(),
+        *(o.data_ptr() for o in outs), s))
     return launch, (valid, *outs)
 
 
-def fifo_scan(typ, f, val, Nmax: int) -> Tuple[torch.Tensor, ...]:
+def fifo_scan(typ, f, val, Nmax: int, segment: Optional[int] = None
+              ) -> Tuple[torch.Tensor, ...]:
     """The FIFO queue's fold on the card: (valid uint8 [B], bad,
     bad_head, head, tail int32 [B]), bit for bit ``plain_fifo_scan``."""
-    launch, outs = prepare_fifo(typ, f, val, Nmax)
+    launch, outs = prepare_fifo(typ, f, val, Nmax, segment)
     launch()
     return outs
