@@ -41,17 +41,25 @@ after:
     ``scheduler=False``;
   * the dependency-graph closure kernel's two entries (``graph_closure``,
     ``txn_closure``) against their plain versions at every vertex bucket
-    from 8 to 2048 (``graph_kernel_parity``), then the cycle checker,
+    from 8 to 2048, in each tier (``graph_kernel_parity``: a warp a
+    plane to V 32, blocked Warshall on 32 x 32 bit tiles in shared
+    memory to V 1024, over batches that the plan spreads over 1, 2, 4
+    and 8 CTAs a plane, and in device memory from V 2048), then the cycle
+    checker,
     ``check_graphs_batch``, on the reference bench's list-append batch
     and on a full-width one of 1,000-op histories (``graph_path``), and
     the isolation certifier, ``certify_batch``, on the bench's
     transactional mix and a wide one (``isolation_path``), each held
     against its host oracle (run on a pool of worker processes) and the
-    kernel against its plain version on the batch;
+    kernel against its plain version and its library route (bfloat16
+    matmul squarings) on the batch;
   * the fold kernels' four entries (``fold_counts`` in each of its four
     families, ``counter_scan``, ``queue_scan``, ``fifo_scan``) against
     their plain versions on seeded random lines at every width edge and
-    in both tiers (``fold_kernel_parity``), then each of the seven fold
+    in both tiers, and ``queue_scan`` on rows of 40,002 lines at V 1,
+    16,384 and 65,536 with misses at line 0, the last line and each
+    side of a tile and a warp's chunk edge, and of two values that one
+    thread of the fold takes (``fold_kernel_parity``), then each of the seven fold
     checkers' ``check_*_batch`` on the reference bench's total-queue
     batch and on a full-width batch per family, 32 histories of 10,000
     elements with seeded violations, every history held against its host
@@ -118,10 +126,12 @@ default ``check_synth`` on the keyed headline spec in each checkout
 given, in that order (for example parent, change, change, parent).
 ``python3 chip_smoke.py --kernels TREE [TREE ...]`` times the frontier
 kernel (K1) over every launch of the dc batches' dc runs, the count
-fold (K7a) on each family's full-width batch and the counter and FIFO
-scans (K7b, K7d) on theirs, the same inputs in each checkout given,
-with the bound, each K1 launch's plan and time, and the folds' library
-routes measured once in this checkout.
+fold (K7a) on each family's full-width batch, the counter, queue and
+FIFO scans (K7b, K7c, K7d) on theirs, and the closure's two entries
+(K5 on 32 and on 16 full-width list-append graphs, V 1024; K6 on 128
+wide transactional graphs, V 256), the same inputs in each checkout
+given, with the bound, each K1 launch's plan and time, and the folds'
+and closures' library routes measured once in this checkout.
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -134,6 +144,7 @@ Exits 2 without a result when no CUDA device is available.
 """
 from __future__ import annotations
 
+import collections
 import json
 import multiprocessing
 import os
@@ -1585,47 +1596,101 @@ def closure_fns(entry):
             plain_graph_closure if entry == "graph" else plain_txn_closure)
 
 
+def graph_cluster_batches(V, B, l_out):
+    """Graphs of a B-graph batch to run at V: all of them, and in the
+    shared-memory tier the most that lead the plan to spread a plane
+    over each wider cluster of CTAs that V/32 allows."""
+    from jepsen_torch.ops import cuda_graph
+    batches = [B]
+    if cuda_graph.tier(V) == "smem":
+        for c in (8, 4, 2):
+            n = min(B, cuda_graph.TARGET_CTAS // (c * l_out))
+            if c <= V // 32 and n not in batches:
+                batches.append(n)
+    return batches
+
+
 def phase_graph_kernel_parity(dev):
     """Both closure entries against their plain versions on the card, bit
-    for bit, at every vertex bucket from 8 to 2048."""
+    for bit, at every vertex bucket from 8 to 2048; in the shared-memory
+    tier also on evenly spaced subsets of the batch small enough that
+    the plan spreads each plane over every cluster of CTAs it can take
+    (``graph_cluster_batches``)."""
     from jepsen_torch.ops import cuda_graph
     rng = np.random.default_rng(31)
     out = {"phase": "graph_kernel_parity", "cases": []}
     err = 0
-    tiers = set()
-    for entry, (l_in, _) in cuda_graph.ENTRIES.items():
+    tiers, spread = set(), set()
+    for entry, (l_in, l_out) in cuda_graph.ENTRIES.items():
         kern, plain = closure_fns(entry)
         for V in GRAPH_VS:
             rows = 8 if V <= 256 else max(1, 2048 // V)
             adj = on(graph_planes(rng, V, l_in, rows), dev)
-            kc, kn = kern(adj, V)
             pc, pn = plain(adj, V)
-            torch.cuda.synchronize()
-            equal = torch.equal(kc, pc) and torch.equal(kn, pn)
-            err = max(err, tensors_err(kc, pc), tensors_err(kn, pn))
             tier = cuda_graph.tier(V)
             tiers.add(tier)
-            out["cases"].append({
-                "entry": entry, "V": V, "tier": tier,
-                "graphs": adj.shape[0], "planes": int(pc.numel()),
-                "cyclic_planes": int(pc.sum()), "equal": equal})
-            require(equal, f"{entry}_closure != plain at V={V}")
+            B = adj.shape[0]
+            for n in graph_cluster_batches(V, B, l_out):
+                idx = torch.from_numpy(np.unique(np.linspace(
+                    0, B - 1, n).round()).astype(np.int64)).to(adj.device)
+                kc, kn = kern(adj[idx].contiguous(), V)
+                torch.cuda.synchronize()
+                wc, wn = pc[idx], pn[idx]
+                equal = torch.equal(kc, wc) and torch.equal(kn, wn)
+                err = max(err, tensors_err(kc, wc), tensors_err(kn, wn))
+                ctas = (cuda_graph.tile_plan(V, n * l_out)["cluster"]
+                        if tier != "warp" else 0)
+                spread.add(ctas)
+                out["cases"].append({
+                    "entry": entry, "V": V, "tier": tier,
+                    "ctas_a_plane": ctas, "graphs": n,
+                    "planes": int(wc.numel()),
+                    "cyclic_planes": int(wc.sum()), "equal": equal})
+                require(equal, f"{entry}_closure != plain at V={V}, "
+                               f"{n} graphs")
             require(0 < int(pc.sum()) < pc.numel(),
                     f"{entry} V={V}: the cases must give both verdicts")
     require(tiers == {"warp", "smem", "global"}, f"tiers seen: {tiers}")
+    require({1, 2, 4, 8} <= spread, f"CTAs a plane seen: {spread}")
     out["max_abs_err"] = err
     emit(out)
     return err
+
+
+def closure_library(adj, V, entry):
+    """A closure entry by the library route on the card: the reference's
+    own algorithm, the packed planes unpacked to bfloat16 0/1 matrices
+    (the txn entry's SI plane derived as min(N + RW·N, 1)), then
+    bitlen(V - 1) squarings min(A + A·A, 1) by torch.matmul, which sums
+    in float32 on the card: exact, since a sum of non-negative terms is
+    positive exactly when one of them is. Returns (cyc, node) as the
+    kernel does."""
+    from jepsen_torch.ops.graph import closure_iters
+    col = torch.arange(V, device=adj.device)
+    a = ((adj[..., col // 32] >> (col % 32).to(torch.int32)) & 1
+         ).to(torch.bfloat16)
+    if entry == "txn":
+        n = a[:, 1]
+        rw = torch.clamp_min(a[:, 3] - n, 0)
+        si = torch.clamp_max(n + torch.matmul(rw, n), 1)
+        a = torch.cat([a, si[:, None]], dim=1)
+    for _ in range(closure_iters(V)):
+        a = torch.clamp_max(a + torch.matmul(a, a), 1)
+    diag = torch.diagonal(a, dim1=-2, dim2=-1) > 0
+    cyc = diag.any(dim=-1)
+    first = torch.argmax(diag.to(torch.int32), dim=-1).to(torch.int32)
+    return cyc, torch.where(cyc, first, torch.full_like(first, 2**31 - 1))
 
 
 def closure_measure(dev, entry, buckets):
     """A closure entry over a path's buckets: kernel time alone
     (``time_launches``, 5 runs after a warm-up) and through the wrapper
     (output allocation included), the plain version's time, parity with
-    it on every row, and the bound: the packed planes read once and
-    cyc/node written once over the memory rate, against L·V²·words(V)
-    word ORs a graph (plus V²·words(V) for the txn entry's SI plane) over
-    the int32 rate."""
+    it on every row, the library route's time (``closure_library``, held
+    equal to the plain version), and the bound: the packed planes read
+    once and cyc/node written once over the memory rate, against
+    L·V²·words(V) word ORs a graph (plus V²·words(V) for the txn entry's
+    SI plane) over the int32 rate."""
     from jepsen_torch.ops import cuda_graph
     kern, plain = closure_fns(entry)
     l_out = cuda_graph.ENTRIES[entry][1]
@@ -1634,20 +1699,32 @@ def closure_measure(dev, entry, buckets):
                         for V, a in adjs], reps=5)
     wrapper_ms = time_cuda(lambda: [kern(a, V) for V, a in adjs], reps=5)
     plain_ms = time_cuda(lambda: [plain(a, V) for V, a in adjs], reps=2)
+    library_ms = time_cuda(
+        lambda: [closure_library(a, V, entry) for V, a in adjs], reps=3)
     got = [kern(a, V) for V, a in adjs]
     want = [plain(a, V) for V, a in adjs]
+    lib = [closure_library(a, V, entry) for V, a in adjs]
     torch.cuda.synchronize()
     err = max(max(tensors_err(g[0], w[0]), tensors_err(g[1], w[1]))
               for g, w in zip(got, want))
+    require(all(torch.equal(x[0], w[0]) and torch.equal(x[1], w[1])
+                for x, w in zip(lib, want)),
+            f"{entry}: the library route != plain")
     nbytes = ops = 0
     for V, a in adjs:
         wd = cuda_graph.words(V)
         nbytes += a.numel() * 4 + a.shape[0] * l_out * (1 + 4)
         ops += a.shape[0] * V * V * wd * (l_out + (entry == "txn"))
     return {"buckets": [{"V": V, "graphs": a.shape[0],
-                         "tier": cuda_graph.tier(V)}
+                         "tier": cuda_graph.tier(V),
+                         "ctas_a_plane": cuda_graph.tile_plan(
+                             V, a.shape[0] * l_out)["cluster"]
+                         if V > cuda_graph.WARP_MAX_V else 0}
                         for V, a in adjs],
             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "bfloat16 torch.matmul squarings, float32 "
+                            "sums",
             "equal": err == 0, "max_abs_err": err,
             **launch_bound(nbytes, ops)}
 
@@ -1815,6 +1892,13 @@ FOLD_COUNTER_EDGES = ((4, 40_002, 16, None), (3, 40_002, 128, None),
 FOLD_FIFO_EDGES = ((40_002, 65_536, None), (40_002, 16_384, None),
                    (40_002, 1_024, None), (600, 1_024, 1), (600, 8, 33),
                    (600, 1_024, 5_000))
+# queue_scan's edges, (N, V): rows of 40,002 lines at V 1 (one run as
+# long as the row), 16,384 and 65,536 (16 and 64 slices a row) with
+# misses at line 0, the last line, each side of a tile and a chunk edge,
+# and of two values that one thread of the fold takes; one slice of 224
+# values and two slices, the second of one value.
+FOLD_QUEUE_EDGES = ((40_002, 1), (40_002, 16_384), (40_002, 65_536),
+                    (600, 200), (600, 1_025))
 FOLD_COUNT_FAMILIES = ("set", "crdb", "tq", "ids")
 FOLD_COUNT_CASES = tuple((V, 24 if V <= 4096 else 6, 3000)
                          for V in FOLD_VS) + ((16384, 64, 40_000),
@@ -1952,6 +2036,60 @@ def fifo_edge_lines(N, seg):
     return [np.ascontiguousarray(np.stack(a), np.int32) for a in zip(*rows)]
 
 
+def queue_edge_row(N, V, bad_lines=(), hot=False, misses=None, cycle=None):
+    """One unordered-queue row of N lines (enqueue, enqueue, dequeue,
+    dequeue, ... of 0, 1, 2, ... mod ``cycle``, by default V - 1, or all
+    of value 0 when ``hot``) with a dequeue of V - 1, never enqueued, at
+    each line of ``bad_lines`` (V >= 2), and of value v at each line j
+    of ``misses`` {j: v}: each a missing dequeue where v is never
+    enqueued."""
+    typ = np.zeros(N, np.int32)
+    f = np.zeros(N, np.int32)
+    val = np.zeros(N, np.int32)
+    at = {j: V - 1 for j in bad_lines} | dict(misses or {})
+    cycle = cycle or V - 1
+    pending, enq = collections.deque(), 0
+    for j in range(N):
+        if j in at:
+            typ[j], f[j], val[j] = 1, 1, at[j]
+        elif j % 4 < 2 or not pending:
+            val[j] = 0 if hot else enq % cycle
+            pending.append(val[j])
+            enq += 1
+        else:
+            typ[j], f[j] = 1, 1
+            val[j] = pending.popleft()
+    return typ, f, val
+
+
+def queue_edge_lines(N, V, plan):
+    """Rows of N lines whose first miss sits at every edge of the walk
+    (``plan`` queue_plan's): line 0, the last line, each side of a tile
+    edge and of a warp's chunk edge, two misses in later chunks; where
+    the last slice holds V - 257 and V - 1, which one thread of the
+    fold takes in that order, misses of both with V - 1 failing first
+    (in an earlier chunk, in an earlier seventh of one chunk) and after;
+    then a hot value with a miss, and a healthy row. Returns the lines
+    and each failing row's first miss."""
+    chunk = plan["chunk"]
+    bad = [(0,), (N - 1,), (31,), (32,), (chunk - 1,), (chunk,),
+           (3 * chunk + 1, 5 * chunk)]
+    rows = [queue_edge_row(N, V, b) for b in bad]
+    firsts = [b[0] for b in bad]
+    c, c2 = V - 257, V - 1
+    if c >= 4 and c // plan["slice_width"] == c2 // plan["slice_width"]:
+        sub = -(-(-(-chunk // (plan["warps"] - 1))) // 32) * 32
+        w = 3 * chunk
+        for m in ({5 * chunk + 7: c, 2 * chunk + 40: c2},
+                  {w + 2 * sub + 3: c, w + 5: c2},
+                  {w + 9: c, w + 2 * sub + 1: c2}):
+            rows.append(queue_edge_row(N, V, misses=m, cycle=4))
+            firsts.append(min(m))
+    rows += [queue_edge_row(N, V, (N // 2,), hot=True), queue_edge_row(N, V)]
+    return ([np.ascontiguousarray(np.stack(a), np.int32)
+             for a in zip(*rows)], firsts)
+
+
 def fold_outputs_equal(a, b) -> tuple:
     """(all equal, largest absolute difference) of two output tuples,
     kernel on the card and plain on the CPU (None where a family has no
@@ -2025,6 +2163,20 @@ def phase_fold_kernel_parity(dev):
                     lambda ts, V=V: K.queue_scan(*ts, V),
                     lambda ts, V=V: F.plain_queue_scan(*ts, V))
         verdicts |= set(want[0].tolist())
+    for N, V in FOLD_QUEUE_EDGES:
+        args = fold_lines(rng, 6 if N > 600 else 40, N, V, queue=True)
+        firsts = []
+        if V >= 2 and N > 600:
+            edge, firsts = queue_edge_lines(N, V, K.queue_plan(N, V))
+            args = [np.concatenate([e, a]) for e, a in zip(edge, args)]
+        want = case("queue_scan", args, V,
+                    lambda ts, V=V: K.queue_scan(*ts, V),
+                    lambda ts, V=V: F.plain_queue_scan(*ts, V),
+                    slices=K.queue_plan(N, V)["slices"])
+        verdicts |= set(want[0].tolist())
+        # Each edge row's first miss is where it was put.
+        require(want[1][:len(firsts)].tolist() == firsts,
+                f"queue edge rows fail at {want[1].tolist()}")
     require(verdicts == {0, 1}, f"queue verdicts seen: {verdicts}")
     verdicts = set()
     for N, Nmax in FOLD_FIFO_CASES:
@@ -2062,7 +2214,8 @@ def phase_fold_kernel_parity(dev):
     require(verdicts == {0, 1}, f"FIFO verdicts seen: {verdicts}")
     seen = {(e, t) for e, _, t in tiers}
     require(seen == {(e, t) for e in K.ENTRIES
-                     for t in (("smem", "sliced") if e == "fold_counts"
+                     for t in (("smem", "sliced")
+                               if e in ("fold_counts", "queue_scan")
                                else ("smem", "global"))},
             f"tiers seen: {sorted(seen)}")
     for fam in FOLD_COUNT_FAMILIES:
@@ -2344,6 +2497,18 @@ def fold_measure(dev, lw, ts):
     elif lw.entry == "fifo_scan":
         extra["library_call"] = ("none: the final head after a first "
                                  "failure is a dependent walk")
+    elif lw.entry == "queue_scan":
+        library_ms = time_cuda(lambda: queue_scan_library(ts, lw.width),
+                               reps=5)
+        lib = queue_scan_library(ts, lw.width)
+        require(fold_outputs_equal(lib, want)[0],
+                "queue: the library route != plain")
+        plan = K.queue_plan(N, lw.width, B)
+        extra = {"slices": plan["slices"],
+                 "slice_width": plan["slice_width"],
+                 "chunk": plan["chunk"], "blocks": plan["blocks"],
+                 "library_call": "a stable sort of each row by value, "
+                                 "cumsum and scatter_reduce_"}
     elif lw.entry == "fold_counts":
         C = K.FAMILIES[lw.family][1]
         V = lw.width
@@ -2410,6 +2575,40 @@ def counter_scan_library(ts, P):
     emits = ((typ == 1) & (f == 1) & (kr >= 0)
              & inv.gather(1, kr.clamp_min(0)))
     return lows, vals, ups.to(torch.int32), emits.to(torch.uint8)
+
+
+def queue_scan_library(ts, V):
+    """queue_scan by the library route on the card: each row's active
+    lines sorted stably by clipped value (so each value's lines keep
+    their order), the steps' prefix sums within each value's run by a
+    cumsum less its value at the run's start, each value's sum and
+    lowest prefix by scatter_add_ and scatter_reduce_, and the first
+    dequeue whose prefix is -1. Returns (valid, bad, counts) as the
+    kernel does."""
+    typ, f, val = ts
+    B, N = typ.shape
+    dev = typ.device
+    enq = (typ == 0) & (f == 0)
+    deq = (typ == 1) & (f == 1)
+    key = torch.where(enq | deq, val.clamp(0, V - 1).long(), V)
+    sk, order = torch.sort(key, dim=1, stable=True)
+    step = (enq.long() - deq.long()).gather(1, order)
+    cs = step.cumsum(1)
+    j = torch.arange(N, device=dev).expand(B, N)
+    starts = torch.ones_like(sk, dtype=torch.bool)
+    starts[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    first = torch.where(starts, j, 0).cummax(1).values
+    pre = cs - (cs - step).gather(1, first)
+    total = torch.zeros((B, V + 1), dtype=torch.long, device=dev
+                        ).scatter_add_(1, sk, step)
+    low = torch.zeros((B, V + 1), dtype=torch.long, device=dev
+                      ).scatter_reduce_(1, sk, pre, "amin")
+    counts = (total - low)[:, :V].to(torch.int32)
+    miss = deq.gather(1, order) & (pre == -1)
+    bad = torch.where(miss, order, N).amin(1)
+    valid = bad == N
+    return (valid.to(torch.uint8),
+            torch.where(valid, -1, bad).to(torch.int32), counts)
 
 
 def fold_counts_library(family, ts, V):
@@ -4159,7 +4358,8 @@ def closure_entry(name, replaces, path, bench, wide, parity_err) -> dict:
     """The kernels-line entry of one closure entry: launches per batch of
     its path, times and bound of the full-width batch, and the bench
     batch's beside them."""
-    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
+    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kb, kw = bench["kernel"], wide["kernel"]
     return {"name": name, "route": "cuda",
             "source": "jepsen_torch/ops/csrc/graph_closure.cu",
@@ -4170,8 +4370,7 @@ def closure_entry(name, replaces, path, bench, wide, parity_err) -> dict:
             "parity": True,
             "max_abs_err": max(parity_err, kb["max_abs_err"],
                                kw["max_abs_err"]),
-            **{k: kw[k] for k in keys}, "library_ms": None,
-            "buckets": kw["buckets"],
+            **{k: kw[k] for k in keys}, "buckets": kw["buckets"],
             "bench_batch": {"buckets": kb["buckets"],
                             **{k: kb[k] for k in keys}}}
 
@@ -4220,7 +4419,8 @@ def headline_compare(trees, reps: int = 2) -> None:
 # The redesigned kernels timed alone in another checkout of the package
 # (its own build and import) on inputs saved by kernels_compare: K1 over
 # every launch of the dc batches' dc runs, K7a over each count family's
-# full-width batch, K7b and K7d over the counter's and the FIFO's. The
+# full-width batch, K7b, K7c and K7d over the counter's, the queue's and
+# the FIFO's, K5 and K6 over their CLOSURE_TIMING batches' buckets. The
 # timing helpers are this script's (its path is the third argument), so
 # that every checkout is timed by one harness.
 KERNELS_CHILD = r"""
@@ -4229,7 +4429,7 @@ import torch
 spec = importlib.util.spec_from_file_location("harness", sys.argv[3])
 CS = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(CS)
-from jepsen_torch.ops import cuda_folds
+from jepsen_torch.ops import cuda_folds, cuda_graph
 from jepsen_torch.ops import linearize as L
 saved, reps = torch.load(sys.argv[1]), int(sys.argv[2])
 dev = torch.device("cuda")
@@ -4253,29 +4453,50 @@ for entry, (ts, width) in saved.get("scans", {}).items():
     launch = prepare(*ts, width)[0]
     out["scans_ms"][entry] = CS.time_launches([(lambda: None, launch)],
                                               reps=reps)
+out["closures_ms"] = {}
+for label, (entry, buckets) in saved.get("closures", {}).items():
+    launches = [(lambda: None, cuda_graph.prepare(a.to(dev), V, entry)[0])
+                for V, a in buckets]
+    out["closures_ms"][label] = CS.time_launches(launches, reps=reps)
 print(json.dumps(out))
 """
 
+# The closure batches kernels_compare times: K5 on 32 full-width
+# list-append histories (V 1024) and on the graph path's 16
+# (GRAPH_WIDE), K6 on 128 wide transactional histories (V 256, ISO_WIDE
+# at twice its count).
+CLOSURE_TIMING = (("graph_wide32", "graph", 32),
+                  ("graph_path16", "graph", GRAPH_WIDE["n"]),
+                  ("txn_wide128", "txn", 128))
 
-def kernels_compare(trees, reps: int = 5) -> None:
-    """K1 on the dc headline, and K7a, K7b and K7d on the full-width fold
-    batches, the same inputs timed in each checkout of ``trees`` in the
-    order given (for example parent, change, change, parent), each in a
-    process of its own that builds that tree's kernels. This checkout
-    records the inputs (the K1 launches of each dc batch's dc run and of
-    the two wide W 17 check_synth specs, each from a fresh carry; each
-    count family's, the counter's and the FIFO's lowered batch) and
-    measures, on them, the K1 bound and each launch's plan and time
-    (``k1_launches_measure``) and the folds' bound, plain time and
-    whole-function library route (``fold_measure``)."""
+
+def closure_batch(entry, n):
+    """The packed buckets of ``n`` full-width graphs of ``entry``'s path
+    (list-append histories of the graph path's width; transactional
+    histories of ISO_WIDE's)."""
+    if entry == "graph":
+        from jepsen_torch.ops.graph import encode_graphs, extract_graph
+        from jepsen_torch.workloads.synth import synth_la_history
+        w = GRAPH_WIDE
+        return encode_graphs([extract_graph(synth_la_history(
+            s, n_ops=w["n_ops"], n_keys=w["n_keys"],
+            corrupt=1.0 if s % 7 == 0 else 0.0), "list-append")
+            for s in range(n)])
+    from jepsen_torch.ops.synth_txn import TxnSpec, synth_txn_batch
+    from jepsen_torch.ops.txn_graph import (encode_txn_graphs,
+                                            extract_txn_graph)
+    pairs = synth_txn_batch(TxnSpec(**dict(ISO_WIDE, n=n)))
+    return encode_txn_graphs([extract_txn_graph(h) for h, _ in pairs])
+
+
+def kernels_record_k1(out, saved) -> None:
+    """K1's inputs: the launches of each dc batch's dc run and of the two
+    wide W 17 check_synth specs, each from a fresh carry, with the bound
+    and each launch's plan and time (``k1_launches_measure``)."""
     from jepsen_torch.history.columnar import ops_to_columnar
     from jepsen_torch.models.core import cas_register
-    from jepsen_torch.ops import folds as F
     from jepsen_torch.ops import linearize as L
     from jepsen_torch.ops import synth_device as S
-    out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
-           "runs": []}
-    saved = {"k1": {}, "k7a": {}, "scans": {}}
 
     def keep(label, k1):
         require(k1.singles and not k1.groups,
@@ -4305,8 +4526,15 @@ def kernels_compare(trees, reps: int = 5) -> None:
                 family="wide", n=WIDE_ROWS, width=17, n_values=2,
                 invalid=inv), scheduler=False)
         keep(f"wide_w17_{'invalid' if inv else 'valid'}", k1)
+
+
+def kernels_record_folds(out, saved, families) -> None:
+    """Each fold family's lowered full-width batch as its check_*_batch
+    hands it to the kernel, with the folds' bound, plain time and
+    whole-function library route (``fold_measure``)."""
+    from jepsen_torch.ops import folds as F
     w = FOLD_WIDE
-    for family in FOLD_COUNT_FAMILIES + ("counter", "fifo"):
+    for family in families:
         hists = [fold_history(family, s, w["elements"], w["procs"])
                  for s in range(w["n"])]
         seen = []
@@ -4331,6 +4559,25 @@ def kernels_compare(trees, reps: int = 5) -> None:
         else:
             out["scans"][lw.entry] = m
             saved["scans"][lw.entry] = ([t.cpu() for t in ts], lw.width)
+
+
+def kernels_record_closures(out, saved) -> None:
+    """K5's and K6's CLOSURE_TIMING batches, with their bound, plain time
+    and library route (``closure_measure``)."""
+    dev = torch.device("cuda")
+    for label, entry, n in CLOSURE_TIMING:
+        buckets = closure_batch(entry, n)
+        m = closure_measure(dev, entry, buckets)
+        require(m["equal"], f"{label}: kernel != plain")
+        out["closures"][label] = {"entry": entry, **m}
+        saved["closures"][label] = (entry, [(b.V, torch.from_numpy(
+            np.ascontiguousarray(b.adj, np.int32))) for b in buckets])
+
+
+def kernels_time_trees(out, saved, trees, reps) -> None:
+    """The saved inputs timed in each checkout of ``trees``, in the order
+    given, each in a process of its own that builds that tree's
+    kernels."""
     path = os.path.abspath(os.path.join("build", "kernels_compare.pt"))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(saved, path)
@@ -4345,6 +4592,23 @@ def kernels_compare(trees, reps: int = 5) -> None:
         out["runs"].append({"tree": tree, **json.loads(
             p.stdout.strip().splitlines()[-1])})
     os.remove(path)
+
+
+def kernels_compare(trees, reps: int = 5) -> None:
+    """K1 on the dc headline, K7a, K7b, K7c and K7d on the full-width
+    fold batches, K5 and K6 on their CLOSURE_TIMING batches: the same
+    inputs timed in each checkout of ``trees`` in the order given (for
+    example parent, change, change, parent). This checkout records the
+    inputs and measures on them the bounds, the plain versions and the
+    library routes (``kernels_record_*``)."""
+    out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
+           "closures": {}, "runs": []}
+    saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}}
+    kernels_record_k1(out, saved)
+    kernels_record_folds(out, saved, FOLD_COUNT_FAMILIES
+                         + ("counter", "queue", "fifo"))
+    kernels_record_closures(out, saved)
+    kernels_time_trees(out, saved, trees, reps)
     emit(out)
 
 

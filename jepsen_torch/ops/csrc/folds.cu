@@ -41,10 +41,21 @@
 //     vocabulary, with histograms past shared memory in device-memory
 //     scratch: 32 rows left most SMs idle, and a cockroach set at V
 //     16,384 fell to global atomics.
-//   * queue_scan: one thread a row, walking its lines in order, as the
-//     reference's scan does. The multiset lives in shared memory where
-//     it fits (V words a row, word i of thread t at i·R + t, so that the
-//     block's threads never share a bank), else in its `counts` output.
+//   * queue_scan: S blocks a row, each owning a slice of Vs values (the
+//     wrapper's plan, ops/cuda_folds.py queue_plan: eight warps' (sum,
+//     lowest prefix) pairs and lane tags of a slice fit in
+//     QUEUE_SLICE_BYTES of shared memory), because the unordered
+//     queue's values are independent walks whose (sum, lowest prefix)
+//     compose by chunks of lines. Each warp of a block walks an eighth
+//     of the row's lines for its slice's values; the block folds the
+//     eight chunks of each value in order; the first chunk in which a
+//     value's prefix reaches -1 is cut in seven parts, summarised and
+//     folded the same way, and one warp walks the first part that
+//     reaches -1 again, for the line. A second launch takes each row's
+//     first such line over its slices. The first design gave each row one
+//     thread walking every line in order, with the multiset in shared
+//     memory or in the output: 32 rows ran on 11 SMs, a line every few
+//     hundred cycles.
 //   * counter_scan and fifo_scan cut each row into segments of `seg`
 //     lines, a warp each, eight warps a block (ops/cuda_folds.py
 //     scan_plan: segments of whole 32-line tiles, at least 256 lines,
@@ -82,10 +93,12 @@
 // summaries is a short serial chain before the first tile; the FIFO
 // makes three launches, writes 16 bytes a line of scratch, and its walk
 // is one block a row whose every run ends at a block barrier (one run a
-// tile on a healthy row, two more a wrong dequeue). queue_scan is bound
-// by each row's chain of dependent shared-memory or device-memory
-// accesses (a line every few hundred cycles at best): one thread a row
-// leaves the card nearly empty; its multiset composes by segments too.
+// tile on a healthy row, two more a wrong dequeue). queue_scan reads 12
+// bytes a line and writes V words a row (0.005 ms at the full-width
+// batch, bytes); each of a row's S blocks reads all its lines (from L2
+// after the first) and spends a match, a group minimum and a few
+// popcounts on each 32-line tile, so its instructions grow with S and
+// a row's time with its longest chunk.
 
 #include <algorithm>
 #include <climits>
@@ -100,8 +113,6 @@ constexpr int32_t kNone = INT_MIN;
 // kernels keep statically.
 constexpr int kSmemLimit = 232448 - 64;
 constexpr int kCountThreads = 256;
-// Rows (threads) of a queue_scan block, at most.
-constexpr int kScanRows = 32;
 // The counter keeps its per-process carry in shared memory to P words.
 constexpr int kCounterSmemP = 64;
 
@@ -471,63 +482,313 @@ counter_fill_kernel(const int32_t* __restrict__ typ,
                      lows + base, vals + base, ups + base, emits + base);
 }
 
-// One thread a row: the unordered queue's multiset. counts [B, V] is the
-// output; the walk keeps it in shared memory (word v of thread t at
-// v·R + t) and copies it out at the end, or, when `in_place`, updates
-// the output row itself.
-__global__ void queue_scan_kernel(const int32_t* __restrict__ typ,
-                                  const int32_t* __restrict__ fcol,
-                                  const int32_t* __restrict__ val, int B,
-                                  int N, int V, bool in_place,
-                                  uint8_t* __restrict__ valid_out,
-                                  int32_t* __restrict__ bad_out,
-                                  int32_t* counts) {
-  extern __shared__ int32_t smem_counts[];
-  const int R = blockDim.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * R;
-  const int rows = static_cast<int>(min(static_cast<long long>(R), B - row0));
-  const long long r = row0 + threadIdx.x;
-  int32_t* c;
-  int stride;
-  if (in_place) {
-    c = counts + r * V;
-    stride = 1;
-    if (threadIdx.x < rows)
-      for (int v = 0; v < V; ++v) c[v] = 0;
-  } else {
-    c = smem_counts + threadIdx.x;
-    stride = R;
-    for (int i = threadIdx.x; i < R * V; i += R) smem_counts[i] = 0;
-    __syncthreads();
+// ---- queue_scan (K7c): value slices, a block each, walked by warp
+// chunks.
+//
+// The values are independent walks: with S_v the running sum over the
+// row's lines of clipped value v (+1 an invoke-enqueue, -1 an ok
+// dequeue), the reference's count is S_v - min(0, lowest prefix of
+// S_v), and a dequeue is missing exactly where S_v first reaches a new
+// low below 0. So the row's first missing dequeue is the first line at
+// which some S_v equals -1 (the first new low below 0 is -1).
+//
+// Block (r, s) owns the values [s·Vs, s·Vs + Vs) of row r. Its warp w
+// walks the row's lines [w·chunk, (w+1)·chunk) in order, 32 a tile, and
+// keeps for each value of the slice the chunk's (sum, lowest prefix),
+// the lowest prefix counted from the chunk's start with the empty
+// prefix 0 included. A tile whose lines of the slice have distinct
+// values (found by tagging each value with a lane) folds each line's
+// step into its value's pair: (sum, low) then (sum + step, min(low,
+// sum + step)). A tile with twins groups the lanes of each value with
+// __match_any_sync; the group's inclusive prefixes come from two
+// popcounts and its lowest from its highest lane's walk over the group,
+// and that lane folds both into the pair. After a barrier each thread
+// folds the pairs of every 256th value of the slice over the warps in
+// chunk order into S_v and the row's lowest prefix (count = S_v - low),
+// writes the count and keeps each chunk's incoming prefix; the first
+// chunk at which a value's prefix reaches -1 is the block-wide minimum
+// w* of the threads' least over their values. The row's first
+// missing dequeue is then the first line of chunk w* at which a dequeue
+// takes a value's prefix to -1; to find it without one warp walking the
+// whole chunk again, the other seven warps summarise a seventh of chunk
+// w* each, the block folds those from chunk w*'s incoming prefixes into
+// h*, the first part that reaches -1, and warp h* walks its part again
+// from its incoming prefixes to the line: the slice's first missing
+// dequeue, stored per (row, slice). queue_finish_kernel takes each row's
+// minimum over its slices. (A first version grouped every tile's lanes
+// by __match_any_sync and took each group's lowest prefix with a
+// __reduce_min_sync over the group: several times slower on an H100,
+// where most tiles have no two lines of one value.)
+
+constexpr int kQueueWarps = 8;
+constexpr int kQueueThreads = 32 * kQueueWarps;
+constexpr int kQueueFinishThreads = 256;
+// Tiles whose lines a warp of queue_walk_kernel loads at once.
+constexpr int kQueueAhead = 8;
+
+// A lane's line of a tile, for the slice [lo, lo + vs) of a vocabulary
+// of V values: whether it is an active line of the slice (`mine`), a
+// dequeue, its clipped value's offset in the slice and its step.
+struct QueueLane {
+  bool mine, deq;
+  int c, step;
+};
+
+__device__ __forceinline__ QueueLane queue_lane(int t, int fc, int32_t val,
+                                                bool in, int V, int lo,
+                                                int vs) {
+  QueueLane q;
+  const bool enq = in && t == kInvoke && fc == 0;
+  q.deq = in && t == kOk && fc == 1;
+  q.c = min(max(val, 0), V - 1) - lo;
+  q.mine = (enq || q.deq) && static_cast<unsigned>(q.c) <
+                                 static_cast<unsigned>(vs);
+  q.step = enq ? 1 : -1;
+  return q;
+}
+
+// Whether two of a tile's lanes share a value: each lane of the slice
+// writes its lane into its value's tag, and a lane that reads back
+// another's has a twin. Ends with the warp's tags settled.
+__device__ __forceinline__ bool queue_twins(const QueueLane& q,
+                                            uint8_t* tag) {
+  const int lane = threadIdx.x & 31;
+  if (q.mine) tag[q.c] = static_cast<uint8_t>(lane);
+  __syncwarp();
+  return __ballot_sync(kFull, q.mine && tag[q.c] != lane) != 0u;
+}
+
+// A tile with twins: the lanes of one value (a __match_any_sync group)
+// in lane order. Returns the group's inclusive prefix at the lane;
+// `leader` is the group's highest lane, `g_low` (the leader's only) the
+// group's lowest inclusive prefix.
+__device__ __forceinline__ int queue_group(const QueueLane& q, bool& leader,
+                                           int& g_low) {
+  const int lane = threadIdx.x & 31;
+  const unsigned em = __ballot_sync(kFull, q.mine && q.step > 0);
+  // Lanes outside the slice key on a negative number of their own, so
+  // that each is a group of one.
+  const unsigned peers = __match_any_sync(kFull, q.mine ? q.c : -1 - lane);
+  const unsigned upto = peers & (kFull >> (31 - lane));
+  leader = q.mine && (peers >> lane) == 1u;
+  g_low = INT_MAX;
+  if (leader) {
+    int run = 0;
+    for (unsigned m = peers; m; m &= m - 1u) {
+      run += (em >> (__ffs(m) - 1)) & 1u ? 1 : -1;
+      g_low = min(g_low, run);
+    }
   }
-  if (threadIdx.x < rows) {
-    bool valid = true;
-    int32_t bad = -1;
-    const long long base = r * N;
-    for (int j = 0; j < N; ++j) {
-      const int t = typ[base + j], fc = fcol[base + j];
-      const int k = min(max(val[base + j], 0), V - 1) * stride;
-      if (t == kInvoke && fc == 0) c[k] += 1;
-      if (t == kOk && fc == 1) {
-        if (c[k] == 0) {
-          if (valid) bad = j;
-          valid = false;
-        } else {
-          c[k] -= 1;
+  return 2 * __popc(upto & em) - __popc(upto);
+}
+
+// The lines of kQueueAhead tiles from g0 (< end), a line a lane each,
+// loaded at once, so that a warp waits on memory once a group of tiles
+// rather than once a tile; lines past `end` read as PAD.
+__device__ __forceinline__ void queue_load(
+    const int32_t* __restrict__ typ, const int32_t* __restrict__ fcol,
+    const int32_t* __restrict__ val, long long base, long long g0,
+    long long end, int* tq, int* fq, int32_t* vq) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int a = 0; a < kQueueAhead; ++a) {
+    const long long j = g0 + 32 * a + lane;
+    tq[a] = -1;
+    fq[a] = vq[a] = 0;
+    if (j < end) {
+      tq[a] = typ[base + j];
+      fq[a] = fcol[base + j];
+      vq[a] = val[base + j];
+    }
+  }
+}
+
+// One warp's walk over a row's lines [start, end) (`base` the row's
+// first line) folding each line of the slice into its value's (sum,
+// low) pair.
+__device__ __forceinline__ void queue_summarise(
+    const int32_t* __restrict__ typ, const int32_t* __restrict__ fcol,
+    const int32_t* __restrict__ val, long long base, long long start,
+    long long end, int V, int lo, int vs, int2* pair, uint8_t* tag) {
+  const int lane = threadIdx.x & 31;
+  for (long long g0 = start; g0 < end; g0 += 32 * kQueueAhead) {
+    int tq[kQueueAhead], fq[kQueueAhead];
+    int32_t vq[kQueueAhead];
+    queue_load(typ, fcol, val, base, g0, end, tq, fq, vq);
+#pragma unroll
+    for (int a = 0; a < kQueueAhead; ++a) {
+      const long long j0 = g0 + 32 * a;
+      if (j0 >= end) break;
+      const QueueLane q =
+          queue_lane(tq[a], fq[a], vq[a], j0 + lane < end, V, lo, vs);
+      if (__ballot_sync(kFull, q.mine) == 0u) continue;
+      if (!queue_twins(q, tag)) {
+        if (q.mine) {
+          const int2 p = pair[q.c];
+          pair[q.c] = make_int2(p.x + q.step, min(p.y, p.x + q.step));
+        }
+      } else {
+        bool leader;
+        int g_low;
+        const int pre = queue_group(q, leader, g_low);
+        if (leader) {
+          const int2 p = pair[q.c];
+          pair[q.c] = make_int2(p.x + pre, min(p.y, p.x + g_low));
         }
       }
-    }
-    valid_out[r] = valid;
-    bad_out[r] = bad;
-  }
-  if (!in_place) {
-    __syncthreads();
-    for (long long i = threadIdx.x; i < static_cast<long long>(rows) * V;
-         i += R) {
-      const int t = static_cast<int>(i / V), v = static_cast<int>(i % V);
-      counts[(row0 + t) * V + v] = smem_counts[v * R + t];
+      __syncwarp();
     }
   }
+}
+
+// One warp's walk over lines [start, end) from the incoming prefixes
+// held in its pairs' sums, to the first dequeue that takes a value's
+// prefix to -1: its line, INT_MAX for none.
+__device__ __forceinline__ int queue_find(
+    const int32_t* __restrict__ typ, const int32_t* __restrict__ fcol,
+    const int32_t* __restrict__ val, long long base, long long start,
+    long long end, int V, int lo, int vs, int2* pair, uint8_t* tag) {
+  const int lane = threadIdx.x & 31;
+  for (long long g0 = start; g0 < end; g0 += 32 * kQueueAhead) {
+    int tq[kQueueAhead], fq[kQueueAhead];
+    int32_t vq[kQueueAhead];
+    queue_load(typ, fcol, val, base, g0, end, tq, fq, vq);
+#pragma unroll
+    for (int a = 0; a < kQueueAhead; ++a) {
+      const long long j0 = g0 + 32 * a;
+      if (j0 >= end) break;
+      const QueueLane q =
+          queue_lane(tq[a], fq[a], vq[a], j0 + lane < end, V, lo, vs);
+      const int before = q.mine ? pair[q.c].x : 0;
+      bool leader = q.mine;
+      int pre = q.step, g_low;
+      if (queue_twins(q, tag)) pre = queue_group(q, leader, g_low);
+      const unsigned hit =
+          __ballot_sync(kFull, q.deq && q.mine && before + pre == -1);
+      if (hit) return static_cast<int>(j0) + __ffs(hit) - 1;
+      if (leader) pair[q.c].x = before + pre;
+      __syncwarp();
+    }
+  }
+  return INT_MAX;
+}
+
+// Part w of lines [from, N) cut in parts of len lines: [from + w·len,
+// from + w·len + len), clipped to N.
+__device__ __forceinline__ longlong2 queue_span(int w, long long len,
+                                                long long from, int N) {
+  const long long a = min(from + static_cast<long long>(w) * len,
+                          static_cast<long long>(N));
+  return make_longlong2(a, min(a + len, static_cast<long long>(N)));
+}
+
+// Fold the (sum, low) pairs of `parts` consecutive parts of a row's
+// lines, part k's pairs at pairs + at(k)·Vs, value by value in part
+// order from the incoming prefixes `in` (0 where null): each part's
+// pair sum becomes its incoming prefix, and the result is the first
+// part at which some value's prefix reaches -1 (`parts` for none).
+// With `counts`, writes each value's count, its sum less its lowest
+// prefix. Ends with a block barrier.
+template <typename At>
+__device__ __forceinline__ int queue_fold(int2* pairs, int Vs, int vs,
+                                          int parts, At at, const int2* in,
+                                          int32_t* counts, int* first) {
+  if (threadIdx.x == 0) *first = parts;
+  __syncthreads();
+  // The least part, over this thread's values, at which one reaches -1.
+  int first_k = parts;
+  for (int c = threadIdx.x; c < vs; c += kQueueThreads) {
+    int sum = in ? in[c].x : 0, low = 0;
+    for (int k = 0; k < parts; ++k) {
+      int2& p = pairs[at(k) * Vs + c];
+      if (sum + p.y <= -1 && k < first_k) first_k = k;
+      low = min(low, sum + p.y);
+      const int in_sum = sum;
+      sum += p.x;
+      p.x = in_sum;
+    }
+    if (counts) counts[c] = sum - low;
+  }
+  if (first_k < parts) atomicMin(first, first_k);
+  __syncthreads();
+  return *first;
+}
+
+__global__ void __launch_bounds__(kQueueThreads)
+queue_walk_kernel(const int32_t* __restrict__ typ,
+                  const int32_t* __restrict__ fcol,
+                  const int32_t* __restrict__ val, int N, int V, int S,
+                  int Vs, int chunk, int32_t* __restrict__ counts,
+                  int32_t* __restrict__ first_bad) {
+  // [kQueueWarps][Vs] (sum, low) pairs, then [kQueueWarps][Vs] tags.
+  extern __shared__ int2 qstate[];
+  __shared__ int first;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long r = blockIdx.x / S;
+  const int s = blockIdx.x - static_cast<int>(r) * S;
+  const int lo = s * Vs;
+  const int vs = min(Vs, V - lo);
+  const long long base = r * N;
+  for (int i = tid; i < kQueueWarps * Vs; i += kQueueThreads)
+    qstate[i] = make_int2(0, 0);
+  __syncthreads();
+
+  int2* pair = qstate + warp * Vs;
+  uint8_t* tag = reinterpret_cast<uint8_t*>(qstate + kQueueWarps * Vs) +
+                 warp * Vs;
+  const longlong2 mine_c = queue_span(warp, chunk, 0, N);
+  queue_summarise(typ, fcol, val, base, mine_c.x, mine_c.y, V, lo, vs,
+                  pair, tag);
+  __syncthreads();
+  // The chunks in order: the counts, each chunk's incoming prefixes, and
+  // w*, the first chunk at which a value's prefix reaches -1.
+  const int ws = queue_fold(qstate, Vs, vs, kQueueWarps,
+                            [](int k) { return k; }, nullptr,
+                            counts + r * V + lo, &first);
+  if (ws == kQueueWarps) {
+    if (tid == 0) first_bad[blockIdx.x] = INT_MAX;
+    return;
+  }
+  // The other warps (helper h = warp, less one past w*) summarise
+  // sub-chunks of chunk w* in their own pairs; the fold from chunk w*'s
+  // incoming prefixes gives h*, whose warp walks its sub-chunk again.
+  constexpr int kHelpers = kQueueWarps - 1;
+  const longlong2 cw = queue_span(ws, chunk, 0, N);
+  const long long sub =
+      ((cw.y - cw.x + kHelpers - 1) / kHelpers + 31) / 32 * 32;
+  const auto helper_warp = [ws](int h) { return h < ws ? h : h + 1; };
+  const int h = warp < ws ? warp : warp - 1;
+  longlong2 mine_s = make_longlong2(0, 0);
+  if (warp != ws) {
+    for (int c = lane; c < Vs; c += 32) pair[c] = make_int2(0, 0);
+    __syncwarp();
+    mine_s = queue_span(h, sub, cw.x, N);
+    mine_s.y = min(mine_s.y, cw.y);
+    mine_s.x = min(mine_s.x, mine_s.y);
+    queue_summarise(typ, fcol, val, base, mine_s.x, mine_s.y, V, lo, vs,
+                    pair, tag);
+  }
+  __syncthreads();
+  const int hs = queue_fold(qstate, Vs, vs, kHelpers, helper_warp,
+                            qstate + ws * Vs, nullptr, &first);
+  if (warp != helper_warp(hs)) return;
+  const int found = queue_find(typ, fcol, val, base, mine_s.x, mine_s.y,
+                               V, lo, vs, pair, tag);
+  if (lane == 0) first_bad[blockIdx.x] = found;
+}
+
+// Each row's first missing dequeue: the minimum over its slices.
+__global__ void __launch_bounds__(kQueueFinishThreads)
+queue_finish_kernel(const int32_t* __restrict__ first_bad, int B, int S,
+                    uint8_t* __restrict__ valid_out,
+                    int32_t* __restrict__ bad_out) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * kQueueFinishThreads + threadIdx.x;
+  if (r >= B) return;
+  int bad = INT_MAX;
+  for (int s = 0; s < S; ++s) bad = min(bad, first_bad[r * S + s]);
+  valid_out[r] = bad == INT_MAX;
+  bad_out[r] = bad == INT_MAX ? -1 : bad;
 }
 
 // ---- fifo_scan (K7d): compaction, then a run-length walk of the
@@ -793,13 +1054,6 @@ int launch_counts(const void* typ, const void* f, const void* val,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows a shared-memory queue_scan block takes when each keeps `words`
-// words of carry: up to kScanRows, 0 when not even one row fits.
-int scan_rows(long long words) {
-  const long long fit = kSmemLimit / (words * 4);
-  return static_cast<int>(fit < kScanRows ? fit : kScanRows);
-}
-
 }  // namespace
 
 // fold_counts: family 0 set, 1 crdb, 2 total queue, 3 ids. typ, f, val
@@ -875,24 +1129,34 @@ extern "C" int counter_scan(const void* typ, const void* f, const void* val,
 }
 
 // queue_scan: typ, f, val int32 [B, N] -> valid uint8 [B], bad int32
-// [B], counts int32 [B, V]. The multiset is kept in shared memory when a
-// row's V words fit, else in `counts` itself.
+// [B], counts int32 [B, V]. S slices of Vs values a row (S·Vs >= V >
+// (S-1)·Vs, 9·kQueueWarps·Vs bytes of shared memory), chunk lines a
+// warp (kQueueWarps·chunk >= N); scratch of B·S int32 words, each
+// (row, slice)'s first missing dequeue.
 extern "C" int queue_scan(const void* typ, const void* f, const void* val,
-                          int B, int N, int V, void* valid, void* bad,
+                          int B, int N, int V, int S, int Vs, int chunk,
+                          void* scratch, void* valid, void* bad,
                           void* counts, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0) return 0;
-  if (N < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int fit = scan_rows(V);
-  const bool in_place = fit == 0;
-  const int R = in_place ? kScanRows : fit;
-  const long long smem = in_place ? 0 : static_cast<long long>(R) * V * 4;
-  if (const int e = set_smem(queue_scan_kernel, smem)) return e;
-  queue_scan_kernel<<<(B + R - 1) / R, R, static_cast<size_t>(smem), s>>>(
+  if (N < 1 || V < 1 || S < 1 || Vs < 1 || chunk < 1
+      || static_cast<long long>(S) * Vs < V
+      || static_cast<long long>(S - 1) * Vs >= V
+      || static_cast<long long>(chunk) * kQueueWarps < N
+      || static_cast<long long>(B) * S > INT_MAX || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = static_cast<long long>(kQueueWarps) * Vs * 9;
+  if (const int e = set_smem(queue_walk_kernel, smem)) return e;
+  int32_t* first_bad = static_cast<int32_t*>(scratch);
+  queue_walk_kernel<<<B * S, kQueueThreads, static_cast<size_t>(smem), s>>>(
       static_cast<const int32_t*>(typ), static_cast<const int32_t*>(f),
-      static_cast<const int32_t*>(val), B, N, V, in_place,
-      static_cast<uint8_t*>(valid), static_cast<int32_t*>(bad),
-      static_cast<int32_t*>(counts));
+      static_cast<const int32_t*>(val), N, V, S, Vs, chunk,
+      static_cast<int32_t*>(counts), first_bad);
+  if (const cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  queue_finish_kernel<<<(B + kQueueFinishThreads - 1) / kQueueFinishThreads,
+                        kQueueFinishThreads, 0, s>>>(
+      first_bad, B, S, static_cast<uint8_t*>(valid),
+      static_cast<int32_t*>(bad));
   return static_cast<int>(cudaGetLastError());
 }
 

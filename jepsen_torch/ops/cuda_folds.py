@@ -14,9 +14,11 @@ raises on anything its kernels do not take, allocates the outputs and
 the scratch, and launches on PyTorch's current stream. ``tier`` says
 where a kernel keeps its per-row state, ``count_plan`` how
 ``fold_counts`` cuts each row's vocabulary into slices, one block each,
-and ``scan_plan`` how ``counter_scan`` and ``fifo_scan`` cut each row's
-lines into segments, one warp each. ``prepare_*`` do a wrapper's checks
-and allocations and return the launch itself, so that a caller can time
+``queue_plan`` how ``queue_scan`` does (and cuts each row's lines into
+chunks, one warp each), and ``scan_plan`` how ``counter_scan`` and
+``fifo_scan`` cut each row's lines into segments, one warp each.
+``prepare_*`` do a wrapper's checks and allocations and return the
+launch itself, so that a caller can time
 the kernels alone.
 
 The library is built at first use by ``_build.build_library``; nothing
@@ -46,12 +48,10 @@ FAMILIES = {
 }
 
 # Dynamic shared memory one block may use (kSmemLimit in the source);
-# rows a queue_scan block takes at most (kScanRows); the counter's
-# carry stays in shared memory to P words (kCounterSmemP); the FIFO
-# walk's block keeps WALK_RED_BYTES of its own beside the ring it stages
-# (kWalkRedBytes).
+# the counter's carry stays in shared memory to P words
+# (kCounterSmemP); the FIFO walk's block keeps WALK_RED_BYTES of its own
+# beside the ring it stages (kWalkRedBytes).
 SMEM_LIMIT_BYTES = 232448 - 64
-SCAN_ROWS = 32
 COUNTER_SMEM_P = 64
 WALK_RED_BYTES = 256
 
@@ -77,6 +77,17 @@ COUNT_SLICE_BYTES = 48 * 1024
 COUNT_MIN_SLICE = 1024
 COUNT_TARGET_BLOCKS = 264
 
+# queue_scan's slices: a block of QUEUE_WARPS warps (kQueueWarps) keeps
+# a (sum, lowest prefix) pair of int32 and a byte of lane tag for each
+# warp and each value of its slice (QUEUE_BYTES_PER_VALUE a warp), at
+# most QUEUE_SLICE_BYTES of shared memory (three blocks to an SM), so a
+# slice is at most 1,024 values; slice widths are whole multiples of 32
+# values. Each warp walks a chunk of the row's lines, whole 32-line
+# tiles.
+QUEUE_WARPS = 8
+QUEUE_BYTES_PER_VALUE = 9
+QUEUE_SLICE_BYTES = 72 * 1024
+
 # Launches of each entry in this process; callers reset them to 0 and
 # read them back to show that a path ran on the card.
 LAUNCHES = dict.fromkeys(ENTRIES, 0)
@@ -93,7 +104,8 @@ def _library():
             "fold_counts": ([i, p, p, p, p, i, i, i, i, i, p, p, p], i),
             "counter_scan": ([p, p, p, p, i, i, i, i, p, ll, p, p, p, p, p],
                              i),
-            "queue_scan": ([p, p, p, i, i, i, p, p, p, p], i),
+            "queue_scan": ([p, p, p, i, i, i, i, i, i, p, p, p, p, p],
+                           i),
             "fifo_scan": ([p, p, p, i, i, i, i, p, ll, p, p, p, p, p, p],
                           i),
             "folds_error": ([i], ctypes.c_char_p)})
@@ -125,6 +137,23 @@ def count_plan(family: str, V: int, rows: int = 1) -> dict:
             "smem_bytes": 4 * C * width, "blocks": rows * slices}
 
 
+def queue_plan(N: int, V: int, rows: int = 1) -> dict:
+    """How ``queue_scan`` cuts a batch of ``rows`` rows of N lines at
+    vocabulary width V: ``slices`` blocks a row, each walking the row
+    for ``slice_width`` values (the last one the rest; the widest
+    multiple of 32 whose pairs and tags fit) in ``smem_bytes`` of shared
+    memory, its ``warps`` warps each a ``chunk`` of lines; ``blocks``
+    in all. One slice is the ``smem`` tier, more the ``sliced`` tier."""
+    per_value = QUEUE_BYTES_PER_VALUE * QUEUE_WARPS
+    widest = QUEUE_SLICE_BYTES // per_value // 32 * 32
+    width = min(widest, -(-V // 32) * 32)
+    slices = -(-V // width)
+    chunk = -(-max(-(-N // QUEUE_WARPS), 1) // 32) * 32
+    return {"tier": "smem" if slices == 1 else "sliced", "slices": slices,
+            "slice_width": width, "warps": QUEUE_WARPS, "chunk": chunk,
+            "smem_bytes": per_value * width, "blocks": rows * slices}
+
+
 def scan_plan(N: int, rows: int = 1, segment: Optional[int] = None
               ) -> dict:
     """How ``counter_scan`` and ``fifo_scan`` cut a batch of ``rows``
@@ -147,19 +176,20 @@ def tier(entry: str, width: int, family: Optional[str] = None,
     """Where ``entry`` keeps a row's state at ``width`` (V for the counts
     and the queue, P for the counter, Nmax for the FIFO): ``smem``
     (shared memory) or ``global`` (device memory); for ``fold_counts``
-    (always in shared memory) ``smem`` when one block counts a row and
-    ``sliced`` when several do (``count_plan`` over ``rows`` rows). The
-    counter's state is each warp's per-process carry, the FIFO's the
-    ring of enqueued values its walk reads (staged in shared memory, or
-    read where the compaction wrote it)."""
+    and ``queue_scan`` (always in shared memory) ``smem`` when one block
+    takes a row and ``sliced`` when several do (``count_plan`` over
+    ``rows`` rows, ``queue_plan``). The counter's state is each warp's
+    per-process carry, the FIFO's the ring of enqueued values its walk
+    reads (staged in shared memory, or read where the compaction wrote
+    it)."""
     if entry == "fold_counts":
         return count_plan(family, width, rows)["tier"]
+    if entry == "queue_scan":
+        return queue_plan(1, width, rows)["tier"]
     if entry == "counter_scan":
         return "smem" if width <= COUNTER_SMEM_P else "global"
-    if entry == "fifo_scan":
-        return ("smem" if 4 * (width - 1) + WALK_RED_BYTES
-                <= SMEM_LIMIT_BYTES else "global")
-    return "smem" if width * 4 <= SMEM_LIMIT_BYTES else "global"
+    return ("smem" if 4 * (width - 1) + WALK_RED_BYTES
+            <= SMEM_LIMIT_BYTES else "global")
 
 
 def _check(entry: str, cond: bool, msg: str) -> None:
@@ -312,14 +342,22 @@ def prepare_queue(typ: torch.Tensor, f: torch.Tensor, val: torch.Tensor,
     entry = "queue_scan"
     B, N = _check_lines(entry, typ, f, val)
     _check(entry, 1 <= V < 2**31, f"V={V} out of range")
+    plan = queue_plan(N, V, B)
+    _check(entry, plan["blocks"] < 2**31,
+           f"{B} rows of {plan['slices']} slices exceed the grid")
     dev = typ.device
     valid = torch.empty(B, dtype=torch.uint8, device=dev)
     bad = torch.empty(B, dtype=torch.int32, device=dev)
     counts = torch.empty((B, V), dtype=torch.int32, device=dev)
+    # Every (row, slice) writes its word of the scratch: no zeroing.
+    scratch = torch.empty(max(plan["blocks"], 1), dtype=torch.int32,
+                          device=dev)
     fn = _library().queue_scan
     launch = _launcher(entry, dev, B, lambda s: fn(
         typ.data_ptr(), f.data_ptr(), val.data_ptr(), B, N, V,
-        valid.data_ptr(), bad.data_ptr(), counts.data_ptr(), s))
+        plan["slices"], plan["slice_width"], plan["chunk"],
+        scratch.data_ptr(), valid.data_ptr(), bad.data_ptr(),
+        counts.data_ptr(), s))
     return launch, (valid, bad, counts)
 
 

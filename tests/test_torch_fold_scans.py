@@ -1,8 +1,9 @@
-"""The parallel forms of the fold scans K7b (``counter_scan``) and K7d
-(``fifo_scan``), as ``jepsen_torch/ops/csrc/folds.cu`` computes them,
-held bit for bit to the plain versions (``plain_counter_scan``,
-``plain_fifo_scan``) and to the reference's ``_counter_kernel`` and
-``_fifo_kernel`` (run by jax on the CPU).
+"""The parallel forms of the fold scans K7b (``counter_scan``), K7c
+(``queue_scan``) and K7d (``fifo_scan``), as
+``jepsen_torch/ops/csrc/folds.cu`` computes them, held bit for bit to
+the plain versions (``plain_counter_scan``, ``plain_queue_scan``,
+``plain_fifo_scan``) and to the reference's ``_counter_kernel``,
+``_queue_kernel`` and ``_fifo_kernel`` (run by jax on the CPU).
 
 The CUDA kernels cannot run here, so each is modelled in numpy step for
 step, following the kernel's own structure:
@@ -16,13 +17,25 @@ step, following the kernel's own structure:
   then each block's warps' summaries folded into the block's; the fill
   folds the row's earlier blocks and the block's earlier warps into the
   warp's incoming carry and walks again, writing every line;
+* the unordered queue: a block a slice of the row's values, each warp
+  walking a chunk of the row's lines in tiles of 32 and keeping each
+  value's (sum, lowest prefix): a line at a time where the tile's
+  values are distinct (lane tags tell), else by a ``__match_any_sync``
+  group a value, its inclusive prefixes from popcounts, its lowest from
+  the group's highest lane's walk over it, folded in by that lane; the
+  block folds the chunks in order into the counts and finds w*, the
+  first chunk in which some value's prefix reaches -1; the other seven
+  warps summarise sub-chunks of chunk w*, their fold from its incoming
+  prefixes finds h*, and that warp walks its sub-chunk again for the
+  line; the row's bad line is the minimum over its slices;
 * the FIFO: each warp counts its segment's enqueues and ok dequeues,
   the compaction gives every enqueue its rank (the value list E) and
   every ok dequeue its line, value and enqueue count, and the walk
   takes the dequeue list in tiles, in alternating success and failure
   runs, each run ended by a block-wide minimum.
 
-The plan (segment length, warps a block) is ``cuda_folds.scan_plan``'s.
+The plans (segment length, warps a block; the queue's slices and
+chunks) are ``cuda_folds.scan_plan``'s and ``cuda_folds.queue_plan``'s.
 Tolerance: none.
 """
 import numpy as np
@@ -255,6 +268,165 @@ def fifo_model(typ, f, val, Nmax, segment=None, tile=cuda_folds.
                                   "tail"))
 
 
+# --------------------------------------------------------- queue model
+
+INT_MAX = 2**31 - 1
+QUEUE_THREADS = 32 * cuda_folds.QUEUE_WARPS
+
+
+def queue_tile(t, fc, v, j0, end, V, lo, vs):
+    """One 32-line tile of a warp's walk (``queue_tile`` in folds.cu):
+    per lane whether its line is a dequeue and an active line of the
+    slice, its value's offset in the slice, its value group (the
+    ``__match_any_sync`` mask, as a [lane, k] matrix), the group's
+    inclusive prefix at the lane and whether the lane leads the group."""
+    j = j0 + LANES
+    inn = j < end
+    jj = np.where(inn, j, 0)
+    tt = np.where(inn, t[jj], -1)
+    ff = np.where(inn, fc[jj], 0)
+    vv = np.where(inn, v[jj], 0)
+    enq = inn & (tt == 0) & (ff == 0)
+    deq = inn & (tt == 1) & (ff == 1)
+    c = np.clip(vv, 0, V - 1) - lo
+    mine = (enq | deq) & (c >= 0) & (c < vs)
+    key = np.where(mine, c, -1 - LANES)
+    peers = key[None, :] == key[:, None]
+    upto = peers & ~ABOVE
+    pre = 2 * (upto & (mine & enq)[None, :]).sum(1) - upto.sum(1)
+    leader = mine & ~(peers & ABOVE).any(1)
+    return deq, mine, c, peers, pre, leader
+
+
+def twins(mine, c):
+    """Whether two of a tile's lines of the slice share a value (the
+    kernel's lane tags: each such lane writes its lane into its value's
+    tag, and one that reads back another's has a twin)."""
+    tag = {}
+    for lane in np.nonzero(mine)[0]:
+        tag[c[lane]] = lane                  # the last writer's stays
+    return any(tag[c[lane]] != lane for lane in np.nonzero(mine)[0])
+
+
+def queue_summarise(t, fc, v, start, end, V, lo, vs, pair, stats_twins):
+    """One warp's walk over lines [start, end) of a row into its (sum,
+    low) pairs: a line at a time where the tile's values are distinct,
+    by value groups (each group's inclusive prefixes, its lowest folded
+    in by its highest lane) where it has twins."""
+    for j0 in range(start, end, 32):
+        deq, mine, c, peers, pre, leader = queue_tile(
+            t, fc, v, j0, end, V, lo, vs)
+        if not mine.any():
+            continue
+        if not twins(mine, c):
+            step = np.where(deq, -1, 1)
+            for lane in np.nonzero(mine)[0]:
+                x, y = pair[c[lane]]
+                pair[c[lane]] = (x + step[lane], min(y, x + step[lane]))
+            continue
+        stats_twins[0] += 1
+        g_low = np.where(peers, pre[None, :], INT_MAX).min(1)
+        for lane in np.nonzero(leader)[0]:
+            x, y = pair[c[lane]]
+            pair[c[lane]] = (x + pre[lane], min(y, x + g_low[lane]))
+
+
+def queue_fold(pairs, vs, incoming=None):
+    """The block's fold of consecutive parts' pairs [parts, Vs, 2] from
+    the incoming prefixes (0 when None), as its QUEUE_THREADS threads
+    take it: thread i folds values i, i + QUEUE_THREADS, ... in turn,
+    each over the parts in order, and keeps one least part, over its
+    values, at which a value's prefix reaches -1. Each part's sum
+    becomes its incoming prefix. Returns the least of the threads'
+    parts (``parts`` for none) and each value's count (its sum less its
+    lowest prefix)."""
+    parts = len(pairs)
+    total = (np.zeros(vs, np.int64) if incoming is None
+             else incoming[:vs].copy())
+    low = np.zeros(vs, np.int64)
+    first_k = np.full(QUEUE_THREADS, parts)
+    for c0 in range(0, vs, QUEUE_THREADS):
+        c = np.arange(c0, min(c0 + QUEUE_THREADS, vs))
+        th = c - c0
+        for k in range(parts):
+            reach = (total[c] + pairs[k][c, 1] <= -1) & (k < first_k[th])
+            first_k[th[reach]] = k
+            low[c] = np.minimum(low[c], total[c] + pairs[k][c, 1])
+            pairs[k][c, 0], total[c] = total[c], total[c] + pairs[k][c, 0]
+    return int(first_k.min()), total - low
+
+
+def queue_model(typ, f, val, V, slice_width=None, stats=None):
+    """queue_scan as the kernels compute it: per (row, slice) each warp's
+    chunk walk into (sum, lowest prefix) pairs, the fold over chunks
+    (the counts, and w*, the first chunk that reaches -1); then the
+    other seven warps summarise sub-chunks of chunk w*, the fold of those
+    from its incoming prefixes gives h*, and that warp walks its
+    sub-chunk again for the line; each row's minimum over its slices.
+    The slices are the plan's, or ``slice_width`` values each, narrower
+    than the kernel takes, so that a short test spreads a row's values
+    over many slices."""
+    B, N = typ.shape
+    plan = cuda_folds.queue_plan(N, V, B)
+    if slice_width:
+        plan.update(slice_width=slice_width, slices=-(-V // slice_width))
+    S, Vs, W, chunk = (plan[k] for k in ("slices", "slice_width", "warps",
+                                         "chunk"))
+    helpers = W - 1
+    valid = np.empty(B, np.int64)
+    bad = np.empty(B, np.int64)
+    counts = np.empty((B, V), np.int64)
+    rewalks = []
+    stats_twins = [0]
+    for r in range(B):
+        t, fc, v = (a[r].astype(np.int64) for a in (typ, f, val))
+        first_bad = []
+        for s in range(S):
+            lo = s * Vs
+            vs = min(Vs, V - lo)
+            pair = np.zeros((W, Vs, 2), np.int64)      # (sum, low)
+            for w in range(W):
+                start = min(w * chunk, N)
+                queue_summarise(t, fc, v, start, min(start + chunk, N), V,
+                                lo, vs, pair[w], stats_twins)
+            ws, counts[r, lo:lo + vs] = queue_fold(list(pair), vs)
+            if ws == W:
+                first_bad.append(INT_MAX)
+                continue
+            c0 = min(ws * chunk, N)
+            c1 = min(c0 + chunk, N)
+            sub = -(-max(-(-(c1 - c0) // helpers), 0) // 32) * 32
+            spans = [(min(c0 + h * sub, c1), min(c0 + h * sub + sub, c1))
+                     for h in range(helpers)]
+            hpair = [np.zeros((Vs, 2), np.int64) for _ in range(helpers)]
+            for h, (a, b) in enumerate(spans):
+                queue_summarise(t, fc, v, a, b, V, lo, vs, hpair[h],
+                                stats_twins)
+            hs, _ = queue_fold(hpair, vs, incoming=pair[ws][:, 0])
+            assert hs < helpers, "a chunk that reaches -1 has a part"
+            rewalks.append((r, s, ws, hs))
+            run = hpair[hs][:, 0]                # the incoming prefixes
+            found = INT_MAX
+            a, b = spans[hs]
+            for j0 in range(a, b, 32):
+                deq, mine, c, peers, pre, leader = queue_tile(
+                    t, fc, v, j0, b, V, lo, vs)
+                before = np.where(mine, run[np.where(mine, c, 0)], 0)
+                hit = deq & mine & (before + pre == -1)
+                if hit.any():
+                    found = j0 + int(np.argmax(hit))
+                    break
+                run[c[leader]] = (before + pre)[leader]
+            assert found != INT_MAX, "a part that reaches -1 has a line"
+            first_bad.append(found)
+        b = min(first_bad)
+        valid[r] = b == INT_MAX
+        bad[r] = -1 if b == INT_MAX else b
+    if stats is not None:
+        stats.update(plan, rewalks=rewalks, twin_tiles=stats_twins[0])
+    return valid, bad, counts
+
+
 # ------------------------------------------------------------- inputs
 
 def t(a):
@@ -324,6 +496,72 @@ def fifo_lines(seed, B, N, V, noise=0.1, dup_every=0):
     return [np.ascontiguousarray(a, np.int32) for a in (typ, f, val)]
 
 
+def queue_lines(seed, B, N, V, hot=0.0, noise=0.02, early=0.0):
+    """Seeded unordered-queue lines: enqueues of running values (mod V,
+    so values repeat) and ok dequeues of a pending value (the oldest, or
+    any), ``noise`` of the dequeues with a random value, ``hot`` of the
+    values drawn as value 0, ``early`` of the dequeues of a value yet to
+    be enqueued; other (type, f) codes, values past V - 1, negative and
+    NONE values, and PAD tails with garbage."""
+    rng = np.random.default_rng(seed)
+    typ = rng.choice([0, 1, 0, 1, 2, 3], (B, N))
+    f = rng.integers(0, 2, (B, N))
+    val = np.zeros((B, N), np.int64)
+    for r in range(B):
+        pending, nxt = [], 0
+        for j in range(N):
+            hot_v = rng.random() < hot
+            if typ[r, j] == 0 and f[r, j] == 0:
+                val[r, j] = 0 if hot_v else nxt % V
+                pending.append(int(val[r, j]))
+                nxt += 1
+            elif typ[r, j] == 1 and f[r, j] == 1:
+                if rng.random() < early:
+                    val[r, j] = (nxt + 1) % V
+                elif pending and rng.random() >= noise:
+                    val[r, j] = pending.pop(
+                        0 if rng.random() < 0.5
+                        else int(rng.integers(len(pending))))
+                else:
+                    val[r, j] = rng.integers(-2, V + 2)
+            else:
+                val[r, j] = rng.integers(-2, V + 2)
+    odd = rng.random((B, N))
+    val[odd < 0.01] = NONE
+    live = rng.integers(0, N + 1, B)
+    live[0] = N
+    pad = np.arange(N)[None, :] >= live[:, None]
+    typ[pad] = -1
+    val[pad & (rng.random((B, N)) < 0.5)] = NONE
+    return [np.ascontiguousarray(a, np.int32) for a in (typ, f, val)]
+
+
+def queue_miss_row(N, V, bad_lines=(), misses=None, cycle=None):
+    """One healthy unordered-queue row of N lines (enqueue, enqueue,
+    dequeue, dequeue, ... of 0, 1, 2, ... mod ``cycle``, by default
+    V - 1, V >= 2) with a dequeue of V - 1, a value never enqueued, at
+    each line of ``bad_lines``, and of value v at each line j of
+    ``misses`` {j: v}: each a missing dequeue where v is never
+    enqueued."""
+    typ = np.zeros(N, np.int64)
+    f = np.zeros(N, np.int64)
+    val = np.zeros(N, np.int64)
+    at = {j: V - 1 for j in bad_lines} | dict(misses or {})
+    cycle = cycle or V - 1
+    pending, enq = [], 0
+    for j in range(N):
+        if j in at:
+            typ[j], f[j], val[j] = 1, 1, at[j]
+        elif j % 4 < 2 or not pending:
+            val[j] = enq % cycle
+            pending.append(val[j])
+            enq += 1
+        else:
+            typ[j], f[j] = 1, 1
+            val[j] = pending.pop(0)
+    return typ, f, val
+
+
 def fifo_fail_row(N, bad_lines=(), bad_deqs=()):
     """One healthy FIFO row of N lines (enqueue, enqueue, dequeue,
     dequeue, ... of 0, 1, 2, ...) with a wrong dequeue (a value never
@@ -373,6 +611,14 @@ def check_counter(lines, P, segment=None):
     equal(got, F.plain_counter_scan(*map(t, lines), P))
     equal(got, R._counter_kernel()(*lines, P))
     return stats
+
+
+def check_queue(lines, V, slice_width=None):
+    stats = {}
+    got = queue_model(*lines, V, slice_width, stats=stats)
+    equal(got, F.plain_queue_scan(*map(t, lines), V))
+    equal(got, R._queue_kernel(V)(*lines))
+    return stats, got
 
 
 def check_fifo(lines, Nmax, segment=None, tile=cuda_folds.FIFO_WALK_TILE):
@@ -445,6 +691,154 @@ def test_counter_model_single_line_and_single_row():
        segment=st.sampled_from([1, 2, 5, 31, 32, 64, None, 1000]))
 def test_counter_model_drawn(seed, B, N, P, segment):
     check_counter(counter_lines(seed, B, N, P), P, segment)
+
+
+# ------------------------------------------------------- the queue
+
+@pytest.mark.parametrize("V", [1, 2, 31, 33, 1024, 1025, 16384, 65536])
+def test_queue_model_matches_plain_and_reference(V):
+    """Vocabularies of one and two values (one run as long as the row),
+    both sides of a tile's 32 and of the widest one-slice vocabulary,
+    and the full width's 16,384 and 65,536 (16 and 64 slices)."""
+    B = 6 if V <= 1025 else 3
+    lines = queue_lines(V * 3 + 1, B, 300, V, noise=0.05)
+    stats, got = check_queue(lines, V)
+    assert stats["slices"] == -(-V // 1024)
+    assert set(got[0]) <= {0, 1}
+
+
+@pytest.mark.parametrize("slice_width", [32, 64, None])
+@pytest.mark.parametrize("hot", [0.0, 0.5, 1.0])
+def test_queue_model_hot_values_and_forced_slices(hot, slice_width):
+    """A hot value (half or all of the enqueues on value 0: one long run
+    among short ones), with the model's slices narrowed to 32 and 64
+    values (the kernel's plan takes up to 1,024) so that a
+    row's values spread over many blocks."""
+    V = 200
+    lines = queue_lines(int(hot * 10) + (slice_width or 0), 5, 400, V,
+                        hot=hot, noise=0.03)
+    stats, _ = check_queue(lines, V, slice_width)
+    assert stats["slices"] == -(-V // (slice_width or 224))
+    assert stats["twin_tiles"] > 0 or not hot
+
+
+def test_queue_model_misses_at_every_edge():
+    """A missing dequeue at line 0, at the last line, each side of a
+    tile edge and of a chunk edge (the chunk of 96 lines that 8 warps
+    give 700 lines): each row fails where the miss was put, its walk
+    again taken in the chunk that holds it; a healthy row passes."""
+    N, V = 700, 40
+    chunk = cuda_folds.queue_plan(N, V)["chunk"]
+    assert chunk == 96
+    at = [(0,), (N - 1,), (31,), (32,), (chunk - 1,), (chunk,),
+          (3 * chunk + 1, 5 * chunk), (N // 2, N // 2 + 9), ()]
+    lines = fifo_rows([queue_miss_row(N, V, a) for a in at])
+    stats, got = check_queue(lines, V)
+    valid, bad = got[0], got[1]
+    assert list(valid) == [0] * 8 + [1]
+    assert list(bad[:8]) == [a[0] for a in at[:8]]
+    assert sorted({(r, w) for r, _, w, _ in stats["rewalks"]}) == [
+        (r, a[0] // chunk) for r, a in enumerate(at[:8])]
+    # Chunk w* is cut into seven sub-chunks of 32 lines (96 / 7, rounded
+    # up to a tile); h* is the one that holds the miss.
+    assert sorted({(r, h) for r, _, _, h in stats["rewalks"]}) == [
+        (r, a[0] % chunk // 32) for r, a in enumerate(at[:8])]
+    for sw in (32, 64):                 # the miss's value in one slice
+        check_queue(lines, V, sw)
+
+
+def test_queue_model_two_values_of_one_thread():
+    """Two missing values of one slice that one thread of the fold
+    takes (c and c' = c + 256, the thread folding c first), c' failing
+    first: in an earlier chunk than c, in an earlier part of the same
+    chunk, and after c (the row fails at c). Each row fails at its first
+    miss, which the thread's least part over its values finds."""
+    N, V = 700, 600
+    plan = cuda_folds.queue_plan(N, V)
+    chunk, helpers = plan["chunk"], plan["warps"] - 1
+    assert plan["slices"] == 1 and plan["slice_width"] >= V
+    c, c2 = V - 1 - QUEUE_THREADS, V - 1
+    assert c % QUEUE_THREADS == c2 % QUEUE_THREADS and c >= 4
+    sub = -(-(-(-chunk // helpers)) // 32) * 32
+    w = 3 * chunk
+    rows = [{5 * chunk + 7: c, 2 * chunk + 40: c2},
+            {w + 2 * sub + 3: c, w + 5: c2},
+            {w + 9: c, w + 2 * sub + 1: c2},
+            {w + 20: c, w + 21: c2}]
+    lines = fifo_rows([queue_miss_row(N, V, misses=m, cycle=4)
+                       for m in rows])
+    stats, got = check_queue(lines, V)
+    assert list(got[0]) == [0] * len(rows)
+    assert list(got[1]) == [min(m) for m in rows]
+    assert sorted((r, w_, h) for r, _, w_, h in stats["rewalks"]) == [
+        (r, min(m) // chunk, min(m) % chunk // sub)
+        for r, m in enumerate(rows)]
+
+
+def test_queue_model_every_dequeue_before_its_enqueue():
+    """Every dequeue ahead of its enqueue (every value's walk dips below
+    0, so every chunk reaches -1 and the first line fails), a row of
+    dequeues and then their enqueues, and a row of enqueues alone."""
+    N, V = 300, 50
+    vals = np.arange(N // 2) % V
+    typ = np.stack([np.repeat([[1, 0]], N // 2, 0).ravel(),
+                    np.where(np.arange(N) < N // 2, 1, 0),
+                    np.zeros(N)]).astype(np.int32)
+    f = np.stack([np.repeat([[1, 0]], N // 2, 0).ravel(),
+                  np.where(np.arange(N) < N // 2, 1, 0),
+                  np.zeros(N)]).astype(np.int32)
+    val = np.stack([np.repeat(vals, 2), np.arange(N) % V,
+                    np.arange(N) % 70]).astype(np.int32)
+    _, got = check_queue([typ, f, val], V)
+    assert list(got[0]) == [0, 0, 1] and list(got[1][:2]) == [0, 0]
+    assert got[2][2].sum() == N
+
+
+def test_queue_model_rows_with_no_active_line():
+    """An all-PAD row with garbage values, a row of failed and info
+    lines only, and a row whose lines fall in one slice of many."""
+    N, V = 64, 2048
+    typ = np.stack([np.full(N, -1), np.tile([2, 3], N // 2),
+                    np.tile([0, 1], N // 2)]).astype(np.int32)
+    f = np.stack([np.zeros(N), np.tile([0, 1], N // 2),
+                  np.tile([0, 1], N // 2)]).astype(np.int32)
+    val = np.stack([np.full(N, NONE), np.arange(N),
+                    np.full(N, 1500)]).astype(np.int32)
+    _, got = check_queue([typ, f, val], V)
+    assert list(got[0]) == [1, 1, 1] and list(got[1]) == [-1, -1, -1]
+    assert got[2].sum() == 0
+
+
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), B=st.integers(1, 4),
+       N=st.integers(1, 300), V=st.integers(1, 100),
+       slice_width=st.sampled_from([32, 64, None]),
+       hot=st.sampled_from([0.0, 0.3]), early=st.sampled_from([0.0, 0.1]))
+def test_queue_model_drawn(seed, B, N, V, slice_width, hot, early):
+    check_queue(queue_lines(seed, B, N, V, hot=hot, early=early), V,
+                slice_width)
+
+
+@pytest.mark.parametrize("rows", [1, 32, 2000])
+@pytest.mark.parametrize("N", [1, 31, 600, 40_002])
+@pytest.mark.parametrize("V", [1, 33, 1024, 1025, 16384, 65536])
+def test_queue_plan_covers_each_row(V, N, rows):
+    """Slices of whole 32 values cover V exactly once, each slice's
+    pairs and tags within QUEUE_SLICE_BYTES; chunks of whole tiles cover
+    the row in QUEUE_WARPS warps, each the shortest whole number of
+    tiles that does."""
+    p = cuda_folds.queue_plan(N, V, rows)
+    S, Vs, chunk = p["slices"], p["slice_width"], p["chunk"]
+    assert Vs % 32 == 0 and S * Vs >= V > (S - 1) * Vs
+    assert p["smem_bytes"] == 9 * p["warps"] * Vs
+    assert p["smem_bytes"] <= cuda_folds.QUEUE_SLICE_BYTES
+    assert p["blocks"] == rows * S
+    assert p["tier"] == ("smem" if S == 1 else "sliced")
+    assert chunk % 32 == 0 and chunk * p["warps"] >= N
+    assert chunk == 32 or (chunk - 32) * p["warps"] < N
+    assert Vs == min(1024, -(-V // 32) * 32)
+    # The full-width queue batch: 16 slices of 1,024 values a row.
+    assert cuda_folds.queue_plan(40_002, 16384, 32)["blocks"] == 512
 
 
 # ------------------------------------------------------------ the FIFO

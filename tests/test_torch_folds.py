@@ -709,8 +709,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
     ("fold_counts", "tq", 128, 2000, "smem"),
     ("counter_scan", None, 64, 1, "smem"),
     ("counter_scan", None, 65, 1, "global"),
-    ("queue_scan", None, 58096, 1, "smem"),
-    ("queue_scan", None, 58097, 1, "global"),
+    ("queue_scan", None, 1024, 1, "smem"),
+    ("queue_scan", None, 1025, 1, "sliced"),
     ("fifo_scan", None, 16384, 1, "smem"),
     ("fifo_scan", None, 65536, 1, "global"),
 ])
@@ -718,8 +718,9 @@ def test_tier_edges(entry, family, width, rows, tier):
     """Each entry's tier at both sides of its edges: fold_counts counts a
     row in one block (``smem``) until its histograms pass a slice's
     shared memory or the batch has too few rows to fill the card, then
-    in several (``sliced``); the scans keep their state in shared memory
-    to the widths that fit."""
+    in several (``sliced``); queue_scan takes a row in one block until a
+    slice's pairs pass its shared memory; the other scans keep their
+    state in shared memory to the widths that fit."""
     assert cuda_folds.tier(entry, width, family, rows=rows) == tier
 
 
