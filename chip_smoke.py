@@ -14,9 +14,12 @@ launch; its
 group entry (several bucket chunks of mixed shapes and tiers in one
 launch, padding rows skipped, against ``plain_fused_wgl`` and against
 single-bucket launches); and the history generators (CAS/register cases over
-processes, values, op counts, keys, faults and row slices; the wide
-family). It times the warp tier against the block tier on the same rows
-at each window it could take (``tier_cut``). Then it drives the port's
+processes, to windows over several of the row kernel's 32-op tiles,
+values to the 24-bit kind field's largest, op counts on each side of a
+tile, keys, faults, lines stored straight to the outputs, a ring in
+device scratch, row slices and explicit stream keys; the wide family).
+It times the warp tier against the block tier on the same rows at each
+window it could take (``tier_cut``). Then it drives the port's
 paths, each with the launch counts set to 0 just before and read just
 after:
 
@@ -83,11 +86,12 @@ after:
     transactional histories at the bench's shapes), every row held to
     its host oracle (``route_check``);
   * the list-append generator (K8c, ``cuda_synth.synth_la``) against its
-    plain version bit for bit over processes, keys (past the kernel's
-    local array), op counts, corruption rates, a row slice and explicit
-    stream keys (``la_synth_parity``); then the la path on the card,
-    ``synthesize`` -> ``decode_la`` -> ``check_graphs_batch(family=
-    "list-append")``, on a full-width batch (32 histories of 1,000 ops
+    plain version bit for bit over processes, keys (past the counts'
+    shared-memory share), op counts, corruption rates, lines stored
+    straight to the outputs, a ring in device scratch, a row slice and
+    explicit stream keys (``la_synth_parity``); then the la path on the
+    card, ``synthesize`` -> ``decode_la`` -> ``check_graphs_batch(family=
+    "list-append")``, on a full-width batch (16 histories of 1,000 ops
     over 8 keys, half corrupted: V 1,024) and the reference bench's
     shape (2,000 of 30 ops), every corrupted row invalid with a G2
     cycle and every clean one valid, sampled rows against the host
@@ -129,9 +133,15 @@ kernel (K1) over every launch of the dc batches' dc runs, the count
 fold (K7a) on each family's full-width batch, the counter, queue and
 FIFO scans (K7b, K7c, K7d) on theirs, and the closure's two entries
 (K5 on 32 and on 16 full-width list-append graphs, V 1024; K6 on 128
-wide transactional graphs, V 256), the same inputs in each checkout
-given, with the bound, each K1 launch's plan and time, and the folds'
-and closures' library routes measured once in this checkout.
+wide transactional graphs, V 256) and the generators (K8a on the
+north-star batch, K8c on 10,000 la histories of 1,000 ops, and each on
+the first 528 and 2,112 rows of its batch, also through its wrapper and
+split into its kernels by the profiler), the
+same inputs in each checkout given, with the bound, each K1 launch's
+plan and time, and the folds' and closures' library routes measured
+once in this checkout. ``--kernels --only synth,closures TREE ...``
+times only the named groups (``k1``, ``folds``, ``closures``,
+``synth``).
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -558,6 +568,49 @@ def time_launches(launches, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in windows) / reps
 
 
+def kernel_split(fn, reps: int) -> dict:
+    """Milliseconds per call of each CUDA kernel that fn() launches, by
+    torch.profiler's device times (the kernel's name without its
+    namespace and arguments): the passes of a multi-kernel entry apart."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0))
+        if us:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split()[-1]
+            name = name.split("::")[-1]
+            split[name] = split.get(name, 0.0) + us / 1e3 / reps
+    return split
+
+
+def synth_times(cuda_synth, family, args, st, reps: int) -> dict:
+    """A generator kernel of ``family`` ("cas": K8a, "la": K8c) on the
+    given inputs: alone (its prepared launch, outputs allocated outside
+    the window; a tree without ``prepare_cas`` times the wrapper in the
+    same sleep-bracketed window and says so in ``timed``), through its
+    wrapper, and each of its kernels apart by the profiler."""
+    wrap = cuda_synth.synth_cas if family == "cas" else cuda_synth.synth_la
+    prepare = getattr(cuda_synth, f"prepare_{family}", None)
+
+    def wrapper():
+        wrap(*args, **st)
+    launch, timed = ((wrapper, "wrapper") if prepare is None
+                     else (prepare(*args, **st)[0], "prepared"))
+    return {"ms": time_launches([(lambda: None, launch)], reps=reps),
+            "timed": timed,
+            "wrapper_ms": time_launches([(lambda: None, wrapper)],
+                                        reps=reps),
+            "split_ms": kernel_split(launch, reps)}
+
+
 def prepared_single(L, ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
                     valid, bad, **kw):
     """A single-bucket launch on copies of the given carry, with the
@@ -612,6 +665,7 @@ def synth_case(S, cuda_synth, spec, dev, rows=None, key_meta=True,
 
 
 def phase_synth_parity(dev, S, cuda_synth):
+    import dataclasses
     spec = S.SynthSpec
     ns = spec(**NS_SPEC)
     cases = [("north_star_rows_0_256", ns, (0, 256)),
@@ -628,7 +682,29 @@ def phase_synth_parity(dev, S, cuda_synth):
     cases += [(f"n_ops_{n}", spec(n=64, seed=7, n_procs=5, n_ops=n,
                                   n_values=3, corrupt=0.5, p_info=0.2,
                                   crash_lo=0, crash_hi=500, p_crash=0.2),
-               None) for n in (1, 2, 1000)]
+               None) for n in (1, 2, 31, 32, 33, 64, 1000)]
+    # Windows over several of the row kernel's 32-op tiles, the largest
+    # value count the 24-bit kind field takes, every key with crashes and
+    # timeouts, a line buffer past the warp's shared memory (P 700: lines
+    # stored straight to the outputs) and a ring past it (P 3,000: the
+    # device-scratch ring).
+    cases += [(f"n_procs_{p}", spec(n=128, seed=8, n_procs=p, n_ops=600,
+                                    n_values=5, n_keys=3, corrupt=0.5,
+                                    p_info=0.1), None)
+              for p in (33, 40, 100)]
+    cases += [("n_values_4094", spec(n=128, seed=10, n_procs=5, n_ops=300,
+                                     n_values=4094, n_keys=2, corrupt=0.5),
+               None),
+              ("n_keys_16_crash_info",
+               spec(n=128, seed=11, n_procs=6, n_ops=400, n_values=4,
+                    n_keys=16, p_info=0.15, crash_lo=50, crash_hi=350,
+                    p_crash=0.3, corrupt=0.5), None),
+              ("lines_direct",
+               spec(n=64, seed=13, n_procs=700, n_ops=1500, n_values=5,
+                    n_keys=4, p_info=0.1, corrupt=0.5), None),
+              ("ring_in_device",
+               spec(n=32, seed=12, n_procs=3000, n_ops=4000, n_values=5,
+                    n_keys=4, p_info=0.1, corrupt=0.5), None)]
     cases += [(f"wide_{w}_{'invalid' if inv else 'valid'}",
                spec(family="wide", n=WIDE_ROWS, seed=2, width=w,
                     n_values=2, invalid=inv), None)
@@ -642,10 +718,13 @@ def phase_synth_parity(dev, S, cuda_synth):
                                   f"{sorted(p)}")
         equal = all(torch.equal(k[n], p[n]) for n in p)
         err = max(err, outputs_err(k, p))
-        out["cases"].append({"case": label, "outputs": sorted(p),
-                             "rows": int(p["type"].shape[0]),
-                             "lines": int(p["type"].shape[1]),
-                             "equal": equal})
+        case = {"case": label, "outputs": sorted(p),
+                "rows": int(p["type"].shape[0]),
+                "lines": int(p["type"].shape[1]), "equal": equal}
+        if sp.family == "cas":
+            case["plan"] = cuda_synth.synth_plan("cas", sp.n_procs,
+                                                 sp.n_ops, sp.n_keys)
+        out["cases"].append(case)
         require(equal, f"synth kernel != plain on {label}")
     # A rows=(lo, hi) slice equals the same rows of the full batch.
     sp = spec(n=300, seed=9, n_procs=5, n_ops=100, n_values=3, n_keys=4,
@@ -656,8 +735,23 @@ def phase_synth_parity(dev, S, cuda_synth):
     sliced = all(torch.equal(full[n][100:250], part[n])
                  and torch.equal(part[n], plain[n]) for n in plain)
     require(sliced, "a row slice differs from the full batch")
-    out["row_slice_equal"] = sliced
-    out["max_abs_err"] = err
+    # Explicit stream keys and per-row crash windows, as the fuzz loop's
+    # neighbourhoods pass them.
+    rows = np.array([5, 5, 17, 40, 2, 255], np.uint32)
+    keys = S.history_keys_for(sp.seed, rows)
+    keys["sched"][1] = S.fold_in(keys["sched"][1], np.uint32(0xF00D))
+    lo = np.array([0, 4, 8, 2, 16, 60], np.int32)
+    hi = np.array([100, 9, 12, 3, 40, 99], np.int32)
+    sp = dataclasses.replace(sp, p_crash=0.4)
+    args = S.cas_inputs(sp, keys=keys, crash_lo=lo, crash_hi=hi, device=dev)
+    st = S.cas_static(sp)
+    k, p = cuda_synth.synth_cas(*args, **st), S.plain_cas_core(*args, **st)
+    torch.cuda.synchronize()
+    keyed = all(torch.equal(k[n], p[n]) for n in p)
+    require(keyed, "synth kernel with explicit keys != plain")
+    err = max(err, outputs_err(k, p))
+    out.update(row_slice_equal=sliced, explicit_keys_equal=keyed,
+               max_abs_err=err)
     emit(out)
     return err
 
@@ -899,8 +993,10 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
     args = S.cas_inputs(spec, device=dev)
     keys_s = time.perf_counter() - t0
     st = S.cas_static(spec, key_meta=False)
-    synth_ms = time_cuda(lambda: cuda_synth.synth_cas(*args, **st), reps=5)
-    out = cuda_synth.synth_cas(*args, **st)
+    launch, out = cuda_synth.prepare_cas(*args, **st)
+    synth_ms = time_launches([(lambda: None, launch)], reps=5)
+    synth_wrapper_ms = time_cuda(lambda: cuda_synth.synth_cas(*args, **st),
+                                 reps=5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host = {k: v.cpu().numpy() for k, v in out.items()}
@@ -1015,6 +1111,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
           "rest_s": e2e_s - sum(split.values()),
           # the same layers again, one by one
           "keys_s": keys_s, "synth_kernel_ms": synth_ms,
+          "synth_wrapper_ms": synth_wrapper_ms,
           "copy_back_ms": copy_ms, "synth_plain_ms": synth_plain_ms,
           "encode_columnar_s": encode_s,
           "wgl_upload_ms": wgl["upload_ms"],
@@ -1040,6 +1137,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
                          "bound_by": wgl["bound_by"]},
         "synth_device": {"launches": launches["synth_device"],
                          "max_abs_err": synth_err, "ms": synth_ms,
+                         "wrapper_ms": synth_wrapper_ms,
                          "plain_ms": synth_plain_ms,
                          "bound_ms": sb["bound_ms"],
                          "bound_by": sb["bound_by"]}}
@@ -2770,11 +2868,12 @@ DC_ORACLE_ROWS = 16
 DC_OP_OPS = 4
 DC_CLUSTER_OPS = 6
 DC_PARITY_EVENTS = (1, 64, 256, 4096, 16384)
-# route_check's mixed corpus: the bench shapes of each family.
-ROUTE_CAS = dict(n=256, n_procs=5, n_ops=1_000, n_values=5, corrupt=0.25)
-ROUTE_RW = 512
-ROUTE_LA = dict(n=512, n_ops=30)
-ROUTE_TXN = dict(n=128, seed=7, anomaly="mix")
+# route_check's mixed corpus: the bench shapes of each family, each
+# count halved for the script's time (from 256, 512, 512 and 128).
+ROUTE_CAS = dict(n=128, n_procs=5, n_ops=1_000, n_values=5, corrupt=0.25)
+ROUTE_RW = 256
+ROUTE_LA = dict(n=256, n_ops=30)
+ROUTE_TXN = dict(n=64, seed=7, anomaly="mix")
 
 
 def dc_sample() -> list:
@@ -3980,7 +4079,9 @@ def phase_real_oom(dev, L):
 # (V 1,024, as GRAPH_WIDE) and the reference bench's shape (V 32).
 LA_BASE = dict(family="la", n=256, seed=4, n_procs=5, n_ops=300, n_keys=2,
                corrupt=0.6)
-LA_WIDE = dict(family="la", n=32, n_ops=1_000, n_keys=8, corrupt=0.5)
+# The full-width batch's count, cut from 32 for the script's time (its
+# host refinement takes seconds a history); its length is uncut.
+LA_WIDE = dict(family="la", n=16, n_ops=1_000, n_keys=8, corrupt=0.5)
 LA_BENCH = dict(family="la", n=2_000, n_ops=30, corrupt=0.15)
 # K8c is timed alone on 10,000 histories of 1,000 ops (the north-star
 # batch's size) at the full-width batch's keys and corruption.
@@ -4013,9 +4114,17 @@ def phase_la_synth_parity(dev, S, cuda_synth):
     base = S.SynthSpec(**LA_BASE)
     rep = dataclasses.replace
     cases = [(f"n_procs_{p}", rep(base, n_procs=p))
-             for p in (1, 2, 4, 5, 12)]
+             for p in (1, 2, 4, 5, 12, 40, 100)]
     cases += [(f"n_keys_{k}", rep(base, n_keys=k))
-              for k in (1, 2, 8, 16, 17, 33)]
+              for k in (1, 2, 8, 16, 17, 33, 64)]
+    # Past the warp's shared memory: the per-key counts (K 1,500) and the
+    # ring (P 1,500) in device scratch, the lines (P 500) stored straight
+    # to the outputs.
+    cases += [("counts_in_device", rep(base, n=64, n_keys=1500)),
+              ("lines_direct", rep(base, n=64, n_procs=500, n_ops=1000,
+                                   n_keys=8)),
+              ("ring_in_device", rep(base, n=32, n_procs=1500, n_ops=2000,
+                                     n_keys=8))]
     cases += [(f"n_ops_{n}", rep(base, n_ops=n)) for n in (1, 2, 1000)]
     cases += [(f"corrupt_{c}", rep(base, corrupt=c)) for c in (0, 0.6, 1.0)]
     cases += [("keys_33_procs_12_ops_1000",
@@ -4035,6 +4144,8 @@ def phase_la_synth_parity(dev, S, cuda_synth):
                              "lines": 2 * sp.n_ops, "n_procs": sp.n_procs,
                              "n_keys": sp.n_keys, "corrupt": sp.corrupt,
                              "corrupted": int(p["corrupted"].sum()),
+                             "plan": cuda_synth.synth_plan(
+                                 "la", sp.n_procs, sp.n_ops, sp.n_keys),
                              "equal": equal})
         require(equal, f"la kernel != plain on {label}")
     require(all(c["corrupted"] > 0 for c in out["cases"]
@@ -4420,7 +4531,8 @@ def headline_compare(trees, reps: int = 2) -> None:
 # (its own build and import) on inputs saved by kernels_compare: K1 over
 # every launch of the dc batches' dc runs, K7a over each count family's
 # full-width batch, K7b, K7c and K7d over the counter's, the queue's and
-# the FIFO's, K5 and K6 over their CLOSURE_TIMING batches' buckets. The
+# the FIFO's, K5 and K6 over their CLOSURE_TIMING batches' buckets, K8a
+# and K8c over the north-star and LA_TIMING batches (``synth_times``). The
 # timing helpers are this script's (its path is the third argument), so
 # that every checkout is timed by one harness.
 KERNELS_CHILD = r"""
@@ -4458,6 +4570,12 @@ for label, (entry, buckets) in saved.get("closures", {}).items():
     launches = [(lambda: None, cuda_graph.prepare(a.to(dev), V, entry)[0])
                 for V, a in buckets]
     out["closures_ms"][label] = CS.time_launches(launches, reps=reps)
+out["synth"] = {}
+from jepsen_torch.ops import cuda_synth
+for label, (family, keys, rest, st) in saved.get("synth", {}).items():
+    args = ({s: t.to(dev) for s, t in keys.items()},
+            *[t.to(dev) if torch.is_tensor(t) else t for t in rest])
+    out["synth"][label] = CS.synth_times(cuda_synth, family, args, st, reps)
 print(json.dumps(out))
 """
 
@@ -4574,6 +4692,40 @@ def kernels_record_closures(out, saved) -> None:
             np.ascontiguousarray(b.adj, np.int32))) for b in buckets])
 
 
+# Row counts of the generators' smaller timing batches (the first rows of
+# the north-star and LA_TIMING batches): one row a scheduler of the
+# card's 528, and about half of one wave of the row kernels' warps.
+SYNTH_TIMING_ROWS = (528, 2112)
+
+
+def kernels_record_synth(out, saved) -> None:
+    """K8a's inputs on the north-star batch and K8c's on LA_TIMING, and on
+    their first SYNTH_TIMING_ROWS rows, with their bounds."""
+    import dataclasses
+
+    from jepsen_torch.ops import synth_device as S
+    dev = torch.device("cuda")
+    for name, fields in (("cas_north_star", NS_SPEC),
+                         ("la_timing", LA_TIMING)):
+        full = S.SynthSpec(**fields)
+        for rows in (None, *SYNTH_TIMING_ROWS):
+            spec = full if rows is None else dataclasses.replace(full,
+                                                                 n=rows)
+            label = name if rows is None else f"{name}_rows_{rows}"
+            if spec.family == "cas":
+                keys, *rest = S.cas_inputs(spec, device=dev)
+                st = S.cas_static(spec, key_meta=False)
+                bound = synth_bound(spec)
+            else:
+                keys, *rest = S.la_inputs(spec, device=dev)
+                st, bound = S.la_static(spec), la_bound(spec)
+            saved["synth"][label] = (
+                spec.family, {s: t.cpu() for s, t in keys.items()},
+                [t.cpu() if torch.is_tensor(t) else t for t in rest], st)
+            out["synth"][label] = {"spec": dataclasses.asdict(spec),
+                                   **bound}
+
+
 def kernels_time_trees(out, saved, trees, reps) -> None:
     """The saved inputs timed in each checkout of ``trees``, in the order
     given, each in a process of its own that builds that tree's
@@ -4594,20 +4746,29 @@ def kernels_time_trees(out, saved, trees, reps) -> None:
     os.remove(path)
 
 
-def kernels_compare(trees, reps: int = 5) -> None:
+KERNEL_GROUPS = ("k1", "folds", "closures", "synth")
+
+
+def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
     """K1 on the dc headline, K7a, K7b, K7c and K7d on the full-width
-    fold batches, K5 and K6 on their CLOSURE_TIMING batches: the same
-    inputs timed in each checkout of ``trees`` in the order given (for
-    example parent, change, change, parent). This checkout records the
-    inputs and measures on them the bounds, the plain versions and the
-    library routes (``kernels_record_*``)."""
+    fold batches, K5 and K6 on their CLOSURE_TIMING batches, K8a on the
+    north-star batch and K8c on LA_TIMING (``only`` names a subset of
+    KERNEL_GROUPS): the same inputs timed in each checkout of ``trees``
+    in the order given (for example parent, change, change, parent).
+    This checkout records the inputs and measures on them the bounds,
+    the plain versions and the library routes (``kernels_record_*``)."""
     out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
-           "closures": {}, "runs": []}
-    saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}}
-    kernels_record_k1(out, saved)
-    kernels_record_folds(out, saved, FOLD_COUNT_FAMILIES
-                         + ("counter", "queue", "fifo"))
-    kernels_record_closures(out, saved)
+           "closures": {}, "synth": {}, "runs": []}
+    saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}, "synth": {}}
+    if "k1" in only:
+        kernels_record_k1(out, saved)
+    if "folds" in only:
+        kernels_record_folds(out, saved, FOLD_COUNT_FAMILIES
+                             + ("counter", "queue", "fifo"))
+    if "closures" in only:
+        kernels_record_closures(out, saved)
+    if "synth" in only:
+        kernels_record_synth(out, saved)
     kernels_time_trees(out, saved, trees, reps)
     emit(out)
 
@@ -4620,6 +4781,11 @@ def main() -> int:
         smi = nvidia_smi()
         if sys.argv[1] == "--headline":
             headline_compare(sys.argv[2:])
+        elif sys.argv[2:3] == ["--only"]:
+            only = sys.argv[3].split(",")
+            require(set(only) <= set(KERNEL_GROUPS),
+                    f"--only takes {','.join(KERNEL_GROUPS)}")
+            kernels_compare(sys.argv[4:], only=only)
         else:
             kernels_compare(sys.argv[2:])
         print(smi, flush=True)
@@ -4755,7 +4921,8 @@ def main() -> int:
                              "fuzz": fz["launches"]["synth_device"]},
         "parity": True,
         "max_abs_err": max(synth_err, sk["max_abs_err"]),
-        "ms": sk["ms"], "plain_ms": sk["plain_ms"],
+        "ms": sk["ms"], "wrapper_ms": sk["wrapper_ms"],
+        "plain_ms": sk["plain_ms"],
         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
         "library_ms": None}, {
         "name": "wgl_frontier_group", "route": "cuda",
