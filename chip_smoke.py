@@ -17,8 +17,8 @@ single-bucket launches); and the history generators (CAS/register cases over
 processes, to windows over several of the row kernel's 32-op tiles,
 values to the 24-bit kind field's largest, op counts on each side of a
 tile, keys, faults, lines stored straight to the outputs, a ring in
-device scratch, row slices and explicit stream keys; the wide family).
-It times the warp tier against the block tier on the same rows at each
+device scratch, row slices and explicit stream keys; the wide family at
+widths over one, two and three of its warp's 32-line turns). It times the warp tier against the block tier on the same rows at each
 window it could take (``tier_cut``). Then it drives the port's
 paths, each with the launch counts set to 0 just before and read just
 after:
@@ -69,8 +69,10 @@ after:
     oracle in ``checkers.simple`` and the kernel against its plain
     version on the batch (``fold_path``);
   * the peel loop (K4, ``cuda_dc.dc_peel``) against its plain version on
-    the probe plan, random plans at every width edge and in both tiers,
-    all-inactive rows and a round cap (``dc_kernel_parity``); then the
+    the probe plan, pair, random, one-cluster and shifted-cluster plans at
+    every edge of its three tiers (warp to E 256, shared memory, device
+    memory), all-inactive rows and round caps 1 and 3
+    (``dc_kernel_parity``); then the
     peel prefilter at full width (``dc_path``): the rate probe
     (``fleet.probe_and_persist``), and two batches of 1,024 unkeyed
     read/write histories of 80 ops at W 11-16, one healthy and one with
@@ -78,7 +80,9 @@ after:
     ``wgl_backend`` "dc", "xla" (the frontier search alone) and "auto"
     (on the probed rates), verdicts and bad ops equal across the three,
     the certified rows equal to the host twin, a sample against
-    ``wgl_check``, K4 measured on the plans the path gave it, and each
+    ``wgl_check``, K4 measured on the plans the path gave it (every one
+    in its warp tier; beside it the empty kernel on its grids and the
+    whole peel as PyTorch calls, its library route), and each
     dc run's frontier launches replayed alone, once a batch also one by
     one with their plans and the bound from the operations their data
     needs (``k1_launches_measure``); then
@@ -136,12 +140,15 @@ FIFO scans (K7b, K7c, K7d) on theirs, and the closure's two entries
 wide transactional graphs, V 256) and the generators (K8a on the
 north-star batch, K8c on 10,000 la histories of 1,000 ops, and each on
 the first 528 and 2,112 rows of its batch, also through its wrapper and
-split into its kernels by the profiler), the
-same inputs in each checkout given, with the bound, each K1 launch's
-plan and time, and the folds' and closures' library routes measured
-once in this checkout. ``--kernels --only synth,closures TREE ...``
-times only the named groups (``k1``, ``folds``, ``closures``,
-``synth``).
+split into its kernels by the profiler), the peel loop (K4) over every
+plan of the dc batches' dc runs, and the wide generator (K8b) on the
+wide path's 256 rows of width 17, each beside the empty kernel
+(``csrc/launch_floor.cu``) on its grids, the launch floor; the same
+inputs in each checkout given, with the bound, each K1 launch's plan and
+time, and the folds', closures' and K4's library routes measured once in
+this checkout. ``--kernels --only dc,wide TREE ...`` times only the
+named groups (``k1``, ``folds``, ``closures``, ``synth``, ``dc``,
+``wide``).
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -187,6 +194,9 @@ SCHED_OPLIST_HISTORIES = 500
 ORACLE_ROWS = 64
 DETAIL_ROWS = 256
 WIDE_ROWS = 256
+# K8b's parity widths: one, two and three of its warp's 32-line turns
+# (lines = width + 1), the wide path's 17 and K1's wide tiers' edges.
+WIDE_PARITY_WIDTHS = (2, 6, 9, 17, 18, 33, 40)
 
 # Integer operations of one splitmix32 draw (fold_in): the counter add,
 # the stride multiply and key add, then mix's three shift-xor-multiply
@@ -611,6 +621,47 @@ def synth_times(cuda_synth, family, args, st, reps: int) -> dict:
             "split_ms": kernel_split(launch, reps)}
 
 
+def wide_grid(B: int) -> tuple:
+    """K8b's launch grid on B rows: blocks of eight rows, a warp each
+    (kWideWarps in the source)."""
+    return -(-B // 8), 256
+
+
+def wide_launch(cuda_synth, vk, st):
+    """K8b's launch alone on ``vk``: its prepared launch, or, in a tree
+    without ``prepare_wide``, its library entry on outputs allocated
+    here; with which of the two it is ("prepared", "library entry")."""
+    prepare = getattr(cuda_synth, "prepare_wide", None)
+    if prepare is not None:
+        return prepare(vk, **st)[0], "prepared"
+    B, N = vk.shape[0], st["width"] + 1
+    out = [torch.empty((B, N), dtype=d, device=vk.device)
+           for d in (torch.int8, torch.int16, torch.int32)]
+    out.append(torch.empty(B, dtype=torch.int32, device=vk.device))
+    lib = cuda_synth._library()
+
+    def launch(_alive=(vk, out)):
+        err = lib.synth_wide_launch(
+            vk.data_ptr(), B, st["width"], st["n_values"],
+            int(st["invalid"]), *(t.data_ptr() for t in out),
+            torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"synth_wide_launch failed: {err}")
+    return launch, "library entry"
+
+
+def wide_times(cuda_synth, vk, st, reps: int, floor_path=None) -> dict:
+    """K8b on ``vk``: alone (``time_launches``), through its wrapper
+    (``time_cuda``, back to back) and the empty kernel on its grid
+    (``floor_ms``)."""
+    launch, timed = wide_launch(cuda_synth, vk, st)
+    return {"ms": time_launches([(lambda: None, launch)], reps=reps),
+            "timed": timed,
+            "wrapper_ms": time_cuda(lambda: cuda_synth.synth_wide(vk, **st),
+                                    reps=reps),
+            "floor_ms": time_launches(floor_launches(
+                [wide_grid(vk.shape[0])], floor_path), reps=reps)}
+
+
 def prepared_single(L, ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
                     valid, bad, **kw):
     """A single-bucket launch on copies of the given carry, with the
@@ -708,7 +759,7 @@ def phase_synth_parity(dev, S, cuda_synth):
     cases += [(f"wide_{w}_{'invalid' if inv else 'valid'}",
                spec(family="wide", n=WIDE_ROWS, seed=2, width=w,
                     n_values=2, invalid=inv), None)
-              for w in (6, 17) for inv in (False, True)]
+              for w in WIDE_PARITY_WIDTHS for inv in (False, True)]
     out = {"phase": "synth_vs_plain", "cases": []}
     err = 0
     for label, sp, rows in cases:
@@ -1067,13 +1118,13 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
     for inv in (False, True):
         ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2,
                          invalid=inv)
-        cuda_synth.LAUNCHES = 0
+        cuda_synth.WIDE_LAUNCHES = 0
         L.cuda_wgl.LAUNCHES = L.cuda_wgl.WIDE_LAUNCHES = 0
         with LaunchRecorder(L.cuda_wgl) as k1:
             t0 = time.perf_counter()
             wv, _ = L.check_synth(cas(), ws, scheduler=False)
             wide_s = time.perf_counter() - t0
-        counts = {"synth_device": cuda_synth.LAUNCHES,
+        counts = {"synth_wide": cuda_synth.WIDE_LAUNCHES,
                   "wgl_frontier": L.cuda_wgl.LAUNCHES,
                   "wgl_frontier_wide": L.cuda_wgl.WIDE_LAUNCHES}
         require(all(v > 0 for v in counts.values()),
@@ -1090,17 +1141,17 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
                                           a[3].shape[-2], a[3].dim() == 2)
                                   for a, kw in k1.singles]})
         del k1
-    # The wide generator alone at that shape.
+    # The wide generator at that shape: alone, through its wrapper, and
+    # the empty kernel on its grid.
     vk = S.wide_inputs(ws, device=dev)
     st = dict(width=ws.width, n_values=ws.n_values, invalid=ws.invalid)
-    wide_ms = time_cuda(lambda: cuda_synth.synth_wide(vk, **st), reps=20)
+    wide_gen = wide_times(cuda_synth, vk, st, reps=20)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     S.plain_wide_core(vk, **st)
     torch.cuda.synchronize()
-    wide_gen = {"ms": wide_ms,
-                "plain_ms": (time.perf_counter() - t0) * 1e3,
-                **wide_bound(ws)}
+    wide_gen.update(plain_ms=(time.perf_counter() - t0) * 1e3,
+                    **wide_bound(ws))
 
     emit({"phase": "columnar_main_path", "spec": NS_SPEC,
           "check_synth_s": e2e_s, "histories_per_s": B / e2e_s,
@@ -1127,7 +1178,7 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
           "synth_bound": synth_bound(spec)})
     sb = synth_bound(spec)
     return {
-        "buckets": buckets, "wide": wide,
+        "buckets": buckets, "wide": wide, "wide_generator": wide_gen,
         "wgl_frontier": {"launches": launches["wgl_frontier"],
                          "max_abs_err": wgl_err, "ms": wgl["kernel_ms"],
                          "wrapper_ms": wgl["wrapper_ms"],
@@ -1579,12 +1630,12 @@ def phase_scheduler_sides(dev, L, S, cuda_synth, synth, cas):
     for inv in (False, True):
         ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2,
                          invalid=inv)
-        cuda_synth.LAUNCHES = 0
+        cuda_synth.WIDE_LAUNCHES = 0
         L.cuda_wgl.LAUNCHES = 0
         t0 = time.perf_counter()
         sv, sb = L.check_synth(cas(), ws)
         s = time.perf_counter() - t0
-        counts = {"synth_device": cuda_synth.LAUNCHES,
+        counts = {"synth_wide": cuda_synth.WIDE_LAUNCHES,
                   "wgl_frontier": L.cuda_wgl.LAUNCHES}
         route = L.DISPATCH_LOG[-1][0]
         xv, xb = L.check_synth(cas(), ws, scheduler=False)
@@ -1624,7 +1675,8 @@ def phase_scheduler_sides(dev, L, S, cuda_synth, synth, cas):
                      "invalid": sum(r["valid"] is False for r in got),
                      "provenance": prov, "launches": counts}
     emit(out)
-    return counts
+    return dict(counts, synth_wide=sum(w["launches"]["synth_wide"]
+                                       for w in out["wide"]))
 
 
 # ---------------------------------------------- dependency-graph phases
@@ -2867,7 +2919,14 @@ DC_ORACLE_ROWS = 16
 # invocation compare), 6. Loads, stores and loop control are not counted.
 DC_OP_OPS = 4
 DC_CLUSTER_OPS = 6
-DC_PARITY_EVENTS = (1, 64, 256, 4096, 16384)
+# K4's parity widths: each side of the warp tier's slot counts (32, 64,
+# 128 events a row) and of its edge (256), the smem tier, and past 13
+# bytes an event of shared memory (32768) the device-memory tier.
+DC_PARITY_EVENTS = (1, 2, 32, 33, 64, 255, 256, 257, 1024, 4096, 16384,
+                    32768)
+# Round caps of the cap cases, and their widths (one a tier).
+DC_PARITY_CAPS = (1, 3)
+DC_CAP_EVENTS = (64, 257, 32768)
 # route_check's mixed corpus: the bench shapes of each family, each
 # count halved for the script's time (from 256, 512, 512 and 128).
 ROUTE_CAS = dict(n=128, n_procs=5, n_ops=1_000, n_values=5, corrupt=0.25)
@@ -2923,25 +2982,48 @@ def verdict(r: dict) -> tuple:
     return r["valid"], (r.get("op") or {}).get("index")
 
 
+def dc_plan_rows(rng, B, E, kind):
+    """Plan rows of one ``kind``: W-overlapped write+read ``pairs``,
+    arbitrary clusters (``random``), a row's ops all in ``one`` cluster,
+    and ``shifted`` pairs, whose clusters are moved and whose first
+    events are inactive, so that the least alive event's cluster is not
+    0; a tenth of the ops inactive."""
+    e = np.arange(E)
+    if kind in ("pairs", "shifted"):
+        inv = np.maximum(0, e[None] - rng.integers(1, 17, (B, 1)))
+        cl = np.broadcast_to(e // 2 * 2, (B, E))
+        if kind == "shifted":
+            cl = (cl + rng.integers(1, E + 1, (B, 1))) % E
+    else:
+        inv = rng.integers(0, E, (B, E))
+        cl = (np.broadcast_to(rng.integers(0, E, (B, 1)), (B, E))
+              if kind == "one" else rng.integers(0, E, (B, E)))
+    act = rng.random((B, E)) < 0.9
+    if kind == "shifted":
+        act[:, :min(3, E - 1)] = False
+    return (inv.astype(np.int32), np.ascontiguousarray(cl, np.int32), act)
+
+
 def dc_cases(rng):
     """The parity cases of K4: (label, inv, cluster, active, round cap
-    or 0), padded as dc_decide pads."""
+    or 0), padded as dc_decide pads or at the widths given."""
     from jepsen_torch.ops import dc_monitor as D
     out = [(f"probe_w{w}", *D.pad_plan(*D.make_probe_plan(64, 128, w)), 0)
            for w in (6, 12)]
     for E in DC_PARITY_EVENTS:
-        B = 64 if E <= 4096 else 8
-        for structured in (True, False):
-            if structured:
-                w = int(rng.integers(1, 17))
-                inv = np.maximum(0, np.arange(E) - w)[None].repeat(B, 0)
-                cl = (np.arange(E) // 2 * 2)[None].repeat(B, 0)
-            else:
-                inv = rng.integers(0, E, (B, E))
-                cl = rng.integers(0, E, (B, E))
-            out.append((f"{'pairs' if structured else 'random'}_E{E}",
-                        inv.astype(np.int32), cl.astype(np.int32),
-                        rng.random((B, E)) < 0.9, 0))
+        # The widest rows peel a pair a round, E / 2 rounds of the plain
+        # version over all of them: fewer rows there, and no shifted
+        # rows (the narrower widths hold that case in every tier).
+        B = 64 if E <= 4096 else 8 if E <= 16384 else 4
+        kinds = ("pairs", "random", "one") + (("shifted",) if E <= 4096
+                                              else ())
+        for kind in kinds:
+            out.append((f"{kind}_E{E}", *dc_plan_rows(rng, B, E, kind), 0))
+    for E in DC_CAP_EVENTS:
+        for cap in DC_PARITY_CAPS:
+            for kind in ("pairs", "shifted"):
+                out.append((f"{kind}_E{E}_cap{cap}",
+                            *dc_plan_rows(rng, 8, E, kind), cap))
     z = np.zeros((4, 64), np.int32)
     out.append(("inactive", z, z, np.zeros((4, 64), bool), 0))
     return out
@@ -2997,9 +3079,11 @@ def dc_work(inv, cluster, active):
 
 def phase_dc_kernel_parity(dev):
     """K4 (``cuda_dc.dc_peel``) against ``plain_dc_peel`` on CPU copies,
-    decided and rounds bit for bit: the probe plan at W 6 and 12, random
-    plans at E 1 to 4096 (shared-memory tier) and 16384 (device-memory
-    tier), all-inactive rows, and JT_DC_MAX_ROUNDS=1 through dc_decide."""
+    decided and rounds bit for bit: the probe plan at W 6 and 12; pair,
+    random, one-cluster and shifted-cluster plans at every tier edge (the
+    warp tier to E 256, the smem tier to 16384, the device-memory tier at
+    32768); round caps 1 and 3 in each tier; all-inactive rows; and
+    JT_DC_MAX_ROUNDS=1 through dc_decide."""
     from jepsen_torch.ops import cuda_dc
     from jepsen_torch.ops import dc_monitor as D
     rng = np.random.default_rng(8)
@@ -3009,8 +3093,10 @@ def phase_dc_kernel_parity(dev):
         require(e == 0, f"dc_peel != plain_dc_peel on {label}")
         err = max(err, e)
         cases.append({"case": label, "B": inv.shape[0], "E": inv.shape[1],
-                      "tier": cuda_dc.tier(inv.shape[1]),
+                      "tier": cuda_dc.tier(inv.shape[1]), "cap": cap,
                       "rounds_max": max(rounds), "equal": True})
+        require(not cap or max(rounds) == cap,
+                f"{label}: no row reached the round cap")
     os.environ["JT_DC_MAX_ROUNDS"] = "1"
     try:
         plan = D.make_probe_plan(64, 128, 12)
@@ -3023,7 +3109,11 @@ def phase_dc_kernel_parity(dev):
             "dc_decide differs from its plain version under a round cap")
     require(set(got_r) == {1} and not got.any(), "the round cap is ignored")
     cases.append({"case": "JT_DC_MAX_ROUNDS=1", "B": 64, "E": 128,
-                  "tier": "smem", "rounds_max": 1, "equal": True})
+                  "tier": cuda_dc.tier(128), "rounds_max": 1,
+                  "equal": True})
+    tiers = {c["tier"] for c in cases}
+    require(tiers == {"warp", "smem", "global"},
+            f"the parity cases missed a tier: {sorted(tiers)}")
     emit({"phase": "dc_kernel_parity", "cases": cases, "max_abs_err": err})
     return err
 
@@ -3271,17 +3361,94 @@ def dc_run(L, cas, hists, backend, measure=False):
     return res, run, plans, rec.certified_at()
 
 
+def dc_peel_library(inv, cluster, active, rounds):
+    """K4's whole function as PyTorch calls on the plan's device, for
+    ``rounds`` rounds of every row: per round a scatter_reduce_ amin of
+    the alive ops' event index and an amax of their invocation by
+    cluster, the argmin, a gather and the alive mask's update. A round
+    without progress changes nothing, so ``rounds`` at the launch's
+    largest round count gives the kernel's decided [B]."""
+    big = 1 << 30
+    idx = torch.arange(inv.shape[1], device=inv.device, dtype=torch.int32)
+    cl = cluster.long()
+    alive = active.clone()
+    m_resp = torch.empty_like(inv)
+    m_inv = torch.empty_like(inv)
+    for _ in range(rounds):
+        at = torch.where(alive, cl, 0)
+        m_resp.fill_(big).scatter_reduce_(1, at, torch.where(alive, idx, big),
+                                          "amin")
+        m_inv.fill_(-1).scatter_reduce_(1, at, torch.where(alive, inv, -1),
+                                        "amax")
+        a1 = m_resp.argmin(dim=1, keepdim=True)
+        g1 = m_resp.gather(1, a1)
+        g2 = m_resp.scatter(1, a1, big).amin(dim=1, keepdim=True)
+        peel = (m_resp < big) & (m_inv <= torch.where(idx == a1, g2, g1))
+        alive &= ~peel.gather(1, cl)
+    return ~alive.any(dim=1)
+
+
+# The empty kernel (csrc/launch_floor.cu) that the launch floor is timed
+# with, launched through ctypes as the wrappers launch their kernels.
+FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "jepsen_torch", "ops", "csrc", "launch_floor.cu")
+_FLOOR_LIB = None
+
+
+def floor_library(path=None):
+    """The empty kernel's library: built from this checkout's source, or
+    loaded from ``path`` (a library another process built)."""
+    global _FLOOR_LIB
+    if _FLOOR_LIB is None:
+        import ctypes
+        sym = {"launch_floor": ([ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p], ctypes.c_int)}
+        if path is None:
+            from jepsen_torch.ops._build import build_library
+            _FLOOR_LIB = build_library(FLOOR_SRC, sym)
+        else:
+            _FLOOR_LIB = ctypes.CDLL(path)
+            fn = _FLOOR_LIB.launch_floor
+            fn.argtypes, fn.restype = sym["launch_floor"]
+    return _FLOOR_LIB
+
+
+def floor_launches(grids, path=None):
+    """Prepared launches (for ``time_launches``) of the empty kernel on
+    each ``(blocks, threads)`` grid."""
+    lib = floor_library(path)
+
+    def one(blocks, threads):
+        def launch():
+            err = lib.launch_floor(blocks, threads,
+                                   torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"the empty kernel was refused: {err}")
+        return (lambda: None), launch
+    return [one(b, t) for b, t in grids]
+
+
+def dc_grid(B, E):
+    """K4's launch grid on a [B, E] plan: the warp tier's blocks of
+    cuda_dc.WARP_ROWS rows, else a block a row (256 threads each)."""
+    from jepsen_torch.ops import cuda_dc
+    if cuda_dc.tier(E) == "warp":
+        return -(-B // cuda_dc.WARP_ROWS), 256
+    return B, 256
+
+
 def dc_measure(dev, plans):
     """K4 over the padded plans a path gave it: the kernel alone
     (``time_launches``, 5 runs after a warm-up) and through its wrapper,
+    the empty kernel on the same grids (``floor_ms``, the launch floor),
     the plain version's time on CPU copies (host clock, one run) and
-    parity with it, one scatter_reduce_ round over the same plans on the
-    card (``library_ms``), the rounds' distribution, and the bound over
-    the real rows: each event's active byte and each active event's inv
-    and cluster read once and two outputs written once, over the memory
-    rate, against the peel's operations on each round's alive ops and
-    live clusters (``dc_work``) over the int32 rate. ``plans`` is
-    [(padded plan, real rows)]."""
+    parity with it, the whole peel as PyTorch calls on the card for each
+    launch's largest round count (``dc_peel_library``, ``library_ms``),
+    the rounds' distribution, each plan's tier, and the bound over the
+    real rows: each event's active byte and each active event's inv and
+    cluster read once and two outputs written once, over the memory rate,
+    against the peel's operations on each round's alive ops and live
+    clusters (``dc_work``) over the int32 rate. ``plans`` is [(padded
+    plan, real rows)]."""
     from jepsen_torch.ops import cuda_dc
     from jepsen_torch.ops import dc_monitor as D
     real = [b for _, b in plans]
@@ -3292,6 +3459,8 @@ def dc_measure(dev, plans):
                         for t, c in zip(ts, caps)], reps=5)
     wrapper_ms = time_cuda(lambda: [cuda_dc.dc_peel(*t, c)
                                     for t, c in zip(ts, caps)], reps=5)
+    floor_ms = time_launches(floor_launches([dc_grid(*p[0].shape)
+                                             for p in plans]), reps=5)
     got = [cuda_dc.dc_peel(*t, c) for t, c in zip(ts, caps)]
     cpu = [[torch.from_numpy(a) for a in p] for p in plans]
     t0 = time.perf_counter()
@@ -3302,20 +3471,14 @@ def dc_measure(dev, plans):
               for g, w in zip(got, want))
     # Rounds of the real rows (the padding rows run none).
     rounds = [r for (_, w), b in zip(want, real) for r in w[:b].tolist()]
-    # The nearest library route: one round's scatter-min of alive ops'
-    # event index by cluster, over the same [B, E] plans.
-    lib = []
-    for inv, cl, act in ts:
-        E = inv.shape[1]
-        idx = torch.where(act, cl, 0).long()
-        val = torch.where(act, torch.arange(E, device=dev,
-                                            dtype=torch.int32),
-                          torch.tensor(1 << 30, device=dev,
-                                       dtype=torch.int32))
-        out = torch.empty_like(inv)
-        lib.append((idx, val, out))
-    library_ms = time_cuda(lambda: [o.fill_(1 << 30).scatter_reduce_(
-        1, i, v, "amin", include_self=True) for i, v, o in lib], reps=5)
+    # The library route over the same plans, each for its launch's most
+    # rounds; its decided must be the plain version's.
+    most = [int(w[1].max()) if len(w[1]) else 0 for w in want]
+    lib = [dc_peel_library(*t, r) for t, r in zip(ts, most)]
+    require(all(torch.equal(x.cpu(), w[0]) for x, w in zip(lib, want)),
+            "dc_peel_library != plain_dc_peel")
+    library_ms = time_cuda(lambda: [dc_peel_library(*t, r)
+                                    for t, r in zip(ts, most)], reps=3)
     nbytes = op_rounds = cluster_rounds = 0
     for (inv, cl, act), b, (_, w) in zip(plans, real, want):
         nbytes += act[:b].size + int(act[:b].sum()) * 8 + b * 5
@@ -3331,9 +3494,15 @@ def dc_measure(dev, plans):
             "shapes": sorted({tuple(p[0].shape) for p in plans}),
             "real_rows": sum(real),
             "tier": sorted({cuda_dc.tier(p[0].shape[1]) for p in plans}),
-            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "plain_on": "cpu", "library_ms": library_ms,
-            "library_call": "scatter_reduce_ amin, one round",
+            "tier_per_plan": [[*p[0].shape, cuda_dc.tier(p[0].shape[1])]
+                              for p in plans],
+            "ms": ms, "wrapper_ms": wrapper_ms, "floor_ms": floor_ms,
+            "plain_ms": plain_ms, "plain_on": "cpu",
+            "library_ms": library_ms,
+            "library_call": "the whole peel: scatter_reduce_ amin and amax, "
+                            "argmin, gathers and the mask update a round, "
+                            "each launch's most rounds",
+            "library_rounds": most,
             "rounds_hist": hist_json(hist), "rows": len(rounds),
             "op_rounds": op_rounds, "cluster_rounds": cluster_rounds,
             "equal": err == 0, "max_abs_err": err,
@@ -3384,6 +3553,9 @@ def dc_batch(dev, L, cas, oracle, label, stale_rows):
                 f"{label}: row {s} differs from wgl_check")
     measure = dc_measure(dev, plans)
     require(measure["equal"], f"{label}: dc_peel != plain on the path")
+    require(measure["tier"] == ["warp"],
+            f"{label}: a plan of the path left K4's warp tier: "
+            f"{measure['tier']}")
     ws: dict = {}
     for j in jobs:
         ws[j[1]] = ws.get(j[1], 0) + 1
@@ -3579,8 +3751,8 @@ def phase_route_check(dev, L, pool, oracle):
 def dc_entry(probe, batches, route, parity_err) -> dict:
     """The kernels-line entry of K4: launches per path, times and bound
     of the healthy batch's dc run (the faulty batch's beside them)."""
-    keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("ms", "wrapper_ms", "floor_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kh, kf = batches[0]["kernel"], batches[1]["kernel"]
     by_path = {
         f"check_batch_columnar_{b}": sum(
@@ -3597,8 +3769,11 @@ def dc_entry(probe, batches, route, parity_err) -> dict:
             "max_abs_err": max(parity_err, kh["max_abs_err"],
                                kf["max_abs_err"]),
             **{k: kh[k] for k in keys}, "tier": kh["tier"],
+            "tier_per_plan": kh["tier_per_plan"],
+            "library_call": kh["library_call"],
             "plain_on": "cpu", "rounds_hist": kh["rounds_hist"],
-            "faulty_batch": {k: kf[k] for k in keys}}
+            "faulty_batch": {k: kf[k] for k in keys + ("tier",
+                                                       "tier_per_plan")}}
 
 
 def fold_entry(name, replaces, path, parity_err) -> dict:
@@ -4427,18 +4602,19 @@ def phase_fuzz(dev, L, S, cuda_synth):
 
 
 def build_kernels(L, cuda_synth):
-    """Build the five kernel libraries at once (one nvcc each, in
-    parallel)."""
+    """Build the five kernel libraries and the empty kernel's at once
+    (one nvcc each, in parallel)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from jepsen_torch.ops import _build, cuda_dc, cuda_folds, cuda_graph
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         for f in [pool.submit(L.cuda_wgl.build),
                   pool.submit(cuda_synth.build),
                   pool.submit(cuda_graph.build),
                   pool.submit(cuda_folds.build),
-                  pool.submit(cuda_dc.build)]:
+                  pool.submit(cuda_dc.build),
+                  pool.submit(floor_library)]:
             f.result()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
@@ -4532,9 +4708,12 @@ def headline_compare(trees, reps: int = 2) -> None:
 # every launch of the dc batches' dc runs, K7a over each count family's
 # full-width batch, K7b, K7c and K7d over the counter's, the queue's and
 # the FIFO's, K5 and K6 over their CLOSURE_TIMING batches' buckets, K8a
-# and K8c over the north-star and LA_TIMING batches (``synth_times``). The
-# timing helpers are this script's (its path is the third argument), so
-# that every checkout is timed by one harness.
+# and K8c over the north-star and LA_TIMING batches (``synth_times``), K4
+# over every plan of the dc batches' dc runs, K8b on the wide path's
+# batch (``wide_times``), and the empty kernel on their grids, from the
+# library this checkout built. The timing helpers are this script's (its
+# path is the third argument), so that every checkout is timed by one
+# harness.
 KERNELS_CHILD = r"""
 import importlib.util, json, sys
 import torch
@@ -4576,6 +4755,19 @@ for label, (family, keys, rest, st) in saved.get("synth", {}).items():
     args = ({s: t.to(dev) for s, t in keys.items()},
             *[t.to(dev) if torch.is_tensor(t) else t for t in rest])
     out["synth"][label] = CS.synth_times(cuda_synth, family, args, st, reps)
+out["dc_ms"], out["wide"], out["floor_ms"] = {}, {}, {}
+from jepsen_torch.ops import cuda_dc
+for label, plans in saved.get("dc", {}).items():
+    plans = [[t.to(dev) for t in p] for p in plans]
+    launches = [(lambda: None, cuda_dc.prepare(*p, p[0].shape[1] + 1)[0])
+                for p in plans]
+    out["dc_ms"][label] = CS.time_launches(launches, reps=reps)
+for label, (vk, st) in saved.get("wide", {}).items():
+    out["wide"][label] = CS.wide_times(cuda_synth, vk.to(dev), st, reps,
+                                       saved["floor"]["lib"])
+for label, grids in saved.get("floor", {}).get("grids", {}).items():
+    out["floor_ms"][label] = CS.time_launches(
+        CS.floor_launches(grids, saved["floor"]["lib"]), reps=reps)
 print(json.dumps(out))
 """
 
@@ -4746,20 +4938,63 @@ def kernels_time_trees(out, saved, trees, reps) -> None:
     os.remove(path)
 
 
-KERNEL_GROUPS = ("k1", "folds", "closures", "synth")
+def kernels_record_dc(out, saved) -> None:
+    """K4's inputs: the padded plans of each dc batch's dc run, with the
+    bound, plain time, library route, floor and this checkout's times
+    (``dc_measure``), and the plans' grids for the floor."""
+    from jepsen_torch.history.columnar import ops_to_columnar
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.ops import linearize as L
+    dev = torch.device("cuda")
+    for label, stale_rows in (("healthy", set()),
+                              ("faulty", set(range(0, DC_ROWS, 8)))):
+        hists = [rw_history(rw_job(s, DC_STALE if s in stale_rows else 0.0))
+                 for s in range(DC_ROWS)]
+        with DcRecorder() as rec:
+            cols = ops_to_columnar(cas_register(), hists, max_states=64)
+            L.check_columnar(cas_register(), cols, details="invalid",
+                             scheduler_opts={"wgl_backend": "dc"})
+        plans = rec.padded_plans()
+        m = dc_measure(dev, plans)
+        require(m["equal"] and m["tier"] == ["warp"],
+                f"dc {label}: kernel != plain, or a plan off the warp tier")
+        out["dc"][label] = m
+        saved["dc"][label] = [[torch.from_numpy(a) for a in p]
+                              for p, _ in plans]
+        saved["floor"]["grids"][f"dc_{label}"] = [dc_grid(*p[0].shape)
+                                                  for p, _ in plans]
+
+
+def kernels_record_wide(out, saved) -> None:
+    """K8b's input on the wide path's batch (WIDE_ROWS rows of width 17,
+    valid), with its bound and its grid for the floor."""
+    from jepsen_torch.ops import synth_device as S
+    spec = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2)
+    st = dict(width=spec.width, n_values=spec.n_values,
+              invalid=spec.invalid)
+    saved["wide"]["wide_w17"] = (S.wide_inputs(spec, device="cpu"), st)
+    saved["floor"]["grids"]["wide_w17"] = [wide_grid(spec.n)]
+    out["wide"]["wide_w17"] = {"rows": spec.n, **st, **wide_bound(spec)}
+
+
+KERNEL_GROUPS = ("k1", "folds", "closures", "synth", "dc", "wide")
 
 
 def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
     """K1 on the dc headline, K7a, K7b, K7c and K7d on the full-width
     fold batches, K5 and K6 on their CLOSURE_TIMING batches, K8a on the
-    north-star batch and K8c on LA_TIMING (``only`` names a subset of
-    KERNEL_GROUPS): the same inputs timed in each checkout of ``trees``
+    north-star batch and K8c on LA_TIMING, K4 on every plan of the dc
+    headline's dc runs and K8b on the wide path's batch, beside the empty
+    kernel on their grids (``only`` names a subset of KERNEL_GROUPS): the
+    same inputs timed in each checkout of ``trees``
     in the order given (for example parent, change, change, parent).
     This checkout records the inputs and measures on them the bounds,
     the plain versions and the library routes (``kernels_record_*``)."""
     out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
-           "closures": {}, "synth": {}, "runs": []}
-    saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}, "synth": {}}
+           "closures": {}, "synth": {}, "dc": {}, "wide": {}, "runs": []}
+    saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}, "synth": {},
+             "dc": {}, "wide": {},
+             "floor": {"lib": floor_library()._name, "grids": {}}}
     if "k1" in only:
         kernels_record_k1(out, saved)
     if "folds" in only:
@@ -4769,6 +5004,10 @@ def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
         kernels_record_closures(out, saved)
     if "synth" in only:
         kernels_record_synth(out, saved)
+    if "dc" in only:
+        kernels_record_dc(out, saved)
+    if "wide" in only:
+        kernels_record_wide(out, saved)
     kernels_time_trees(out, saved, trees, reps)
     emit(out)
 
@@ -4860,6 +5099,12 @@ def main() -> int:
         return out
 
     wk, sk = main_k["wgl_frontier"], main_k["synth_device"]
+    # K8b: the wide W 17 specs' launches, exact and through the scheduler.
+    wg = main_k["wide_generator"]
+    wide_gen_by_path = {
+        "check_synth_wide_w17": sum(w["launches"]["synth_wide"]
+                                    for w in main_k["wide"]),
+        "check_synth_scheduler_wide_w17": sides["synth_wide"]}
     sl, gk = sched["launches"], sched["group"]
     # K1's wide tiers: the dc headline's dc runs (the healthy batch's
     # times and bound, the faulty batch's beside them) and the wide W 17
@@ -4912,7 +5157,7 @@ def main() -> int:
                                  for w in main_k["wide"]]}, {
         "name": "synth_device", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/synth_device.cu",
-        "replaces": "jepsen_tpu/ops/synth_device.py:361,735",
+        "replaces": "jepsen_tpu/ops/synth_device.py:361",
         "launches": sk["launches"],
         "launches_by_path": {"check_synth": sk["launches"],
                              "check_synth_scheduler": sl["synth_device"],
@@ -4925,6 +5170,16 @@ def main() -> int:
         "plain_ms": sk["plain_ms"],
         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
         "library_ms": None}, {
+        "name": "synth_wide", "route": "cuda",
+        "source": "jepsen_torch/ops/csrc/synth_device.cu",
+        "replaces": "jepsen_tpu/ops/synth_device.py:735",
+        "launches": sum(wide_gen_by_path.values()),
+        "launches_by_path": wide_gen_by_path, "parity": True,
+        "max_abs_err": synth_err,
+        **{k: wg[k] for k in ("ms", "timed", "wrapper_ms", "floor_ms",
+                              "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "timing_batch": f"{WIDE_ROWS} rows, width 17"},
+        {
         "name": "wgl_frontier_group", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
         "replaces": "jepsen_tpu/ops/linearize.py:355",

@@ -60,7 +60,10 @@
 //     block, 48 KB); past that the wrapper passes a device scratch row per
 //     warp for the ring or the counts, and lines are stored straight to
 //     the outputs (cuda_synth.synth_plan).
-//   * wide_kernel: one thread per (row, line), elementwise.
+//   * wide_kernel: one warp a row, lanes over its lines; `% V` by Lemire's
+//     multiply, no divide. The wide path's 256 rows of 18 lines write
+//     34 KB: its bound is a few nanoseconds, and its time on the card is
+//     an empty kernel's on the same grid, the launch floor (PERF.md).
 //
 // What bounds it on this card. The outputs: 7 bytes per line (int8 type,
 // int16 process, int32 kind), 11 with the key column, so the north-star
@@ -469,32 +472,34 @@ __global__ void __launch_bounds__(32 * kRowWarps) cas_rows_kernel(
   }
 }
 
-__global__ void wide_kernel(const uint32_t* __restrict__ k_vals, int B,
-                            int width, int V, int invalid,
-                            int8_t* __restrict__ type,
-                            int16_t* __restrict__ proc,
-                            int32_t* __restrict__ kind,
-                            int32_t* __restrict__ peak_w) {
+// The wide family: one warp a row, kWideWarps rows a block; lane l writes
+// lines l, l + 32, ... of its row (widths past 32 loop), so a warp's
+// stores of a column cover consecutive bytes. Line t < width - 1 is a
+// crashed write of a seeded value (each lane's draw is its own line's),
+// line width - 1 the read that completes at line width; peak_w by lane 0.
+constexpr int kWideWarps = 8;
+
+__global__ void __launch_bounds__(32 * kWideWarps)
+    wide_kernel(const uint32_t* __restrict__ k_vals, int B, int width,
+                FastMod fv, int32_t read_kind, int8_t* __restrict__ type,
+                int16_t* __restrict__ proc, int32_t* __restrict__ kind,
+                int32_t* __restrict__ peak_w) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWideWarps + (threadIdx.x >> 5);
+  if (b >= B) return;
   const int N = width + 1, w1 = width - 1;
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(B) * N) return;
-  const int b = static_cast<int>(idx / N);
-  const int t = static_cast<int>(idx - static_cast<long long>(b) * N);
-  type[idx] = t == N - 1 ? kOk : kInvoke;
-  proc[idx] = static_cast<int16_t>(min(t, w1));
-  int32_t k;
-  if (t < w1) {
-    k = 1 + V + static_cast<int32_t>(
-                    fold_in(k_vals[b], static_cast<uint32_t>(t)) %
-                    static_cast<uint32_t>(V));
-  } else if (t == w1) {
-    k = invalid ? 1 + 2 * V + V * V : 0;
-  } else {
-    k = -1;
+  const int32_t write0 = 1 + static_cast<int32_t>(fv.d);
+  const uint32_t key = k_vals[b];
+  const size_t off = static_cast<size_t>(b) * N;
+  for (int t = lane; t < N; t += 32) {
+    type[off + t] = t == N - 1 ? kOk : kInvoke;
+    proc[off + t] = static_cast<int16_t>(min(t, w1));
+    kind[off + t] =
+        t < w1 ? write0 + static_cast<int32_t>(fmod32(
+                              fold_in(key, static_cast<uint32_t>(t)), fv))
+               : (t == w1 ? read_kind : -1);
   }
-  kind[idx] = k;
-  if (t == 0) peak_w[b] = width;
+  if (lane == 0) peak_w[b] = width;
 }
 
 // ------------------------------------------------------------ list-append
@@ -809,12 +814,12 @@ extern "C" int synth_la_launch(const void* k_sched, const void* k_vals,
 extern "C" int synth_wide_launch(const void* k_vals, int B, int width, int V,
                                  int invalid, void* type, void* proc,
                                  void* kind, void* peak_w, void* stream) {
-  constexpr int kThreads = 256;
-  wide_kernel<<<blocks_for(static_cast<long long>(width + 1) * B, kThreads),
-                kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(k_vals), B, width, V, invalid,
-      static_cast<int8_t*>(type), static_cast<int16_t*>(proc),
-      static_cast<int32_t*>(kind), static_cast<int32_t*>(peak_w));
+  wide_kernel<<<blocks_for(B, kWideWarps), 32 * kWideWarps, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(k_vals), B, width, make_fastmod(V),
+      invalid ? 1 + 2 * V + V * V : 0, static_cast<int8_t*>(type),
+      static_cast<int16_t*>(proc), static_cast<int32_t*>(kind),
+      static_cast<int32_t*>(peak_w));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,14 +2,23 @@
 
 The counterpart of the reference's ``get_dc_kernel``
 (``ops/dc_monitor.py``), a vmapped ``lax.while_loop``: ``csrc/dc_peel.cu``
-holds one kernel, a block per plan row with the rounds inside it, and
-this module is its wrapper. ``dc_peel`` checks device, dtype, shape and
-contiguity, raises on anything the kernel does not take, allocates the
-outputs and, past shared memory, the rows' scratch, launches on
-PyTorch's current stream and counts the launch in ``LAUNCHES``.
-``prepare`` does the checks and allocations and returns the launch
-itself, so that a caller can time the kernel alone. ``tier`` says where
-a row's state lives at a width.
+holds the kernel, the rounds of a plan row inside one launch, and this
+module is its wrapper. A round needs no per-cluster minimum: an event
+belongs to one cluster, so the reference's two smallest cluster minima
+are g1, the least alive event, and g2, the least alive event outside
+g1's cluster (the tie-break of its argmin cannot matter, since distinct
+clusters' minima are distinct events). ``tier`` names the kernel's three
+tiers at a width: ``warp`` (E <= 256, every plan of the dc path: a warp
+a row, eight rows a block, the events in registers and only the row's
+scatter-max in shared memory), ``smem`` (a block a row, its state in
+shared memory) and ``global`` (a block a row, its state in a device
+scratch). ``dc_peel`` checks device, dtype, shape and contiguity, raises
+on anything the kernel does not take, allocates the outputs and, in the
+``global`` tier, the rows' scratch, launches on PyTorch's current stream
+and counts the launch in ``LAUNCHES``. ``prepare`` does the checks and
+allocations and returns the launch itself, so that a caller can time the
+kernel alone. A CUDA tensor launches the kernel or raises: nothing here
+falls back to the plain version or to another tier.
 
 The library is built at first use by ``_build.build_library``; nothing
 here runs when the module is imported.
@@ -26,11 +35,15 @@ from ._build import CudaLaunchError, build_library
 
 SRC = Path(__file__).resolve().parent / "csrc" / "dc_peel.cu"
 
+# The warp tier's widest row (kWarpEvents in the source: eight events a
+# lane) and its rows a block (kWarps).
+WARP_EVENTS = 256
+WARP_ROWS = 8
 # Dynamic shared memory one block may use (kSmemLimit in the source) and
-# the bytes a row takes there per event: inv, cluster, m_resp and m_inv
-# as int32, alive as one byte.
+# the bytes a row of the smem tier takes there per event: inv, cluster and
+# m_inv as int32, alive as one byte.
 SMEM_LIMIT_BYTES = 232448 - 256
-SMEM_BYTES_PER_EVENT = 17
+SMEM_BYTES_PER_EVENT = 13
 
 # Launches of the kernel in this process; callers reset it to 0 and read
 # it back to show that a path ran on the card.
@@ -57,8 +70,11 @@ def build() -> None:
 
 
 def tier(E: int) -> str:
-    """Where a row of width ``E`` keeps its state: ``smem`` (shared
-    memory) or ``global`` (a device-memory scratch slice)."""
+    """The kernel's tier at width ``E``: ``warp`` (a warp a row, E <=
+    WARP_EVENTS), ``smem`` (a block a row, its state in shared memory) or
+    ``global`` (a block a row, its state in a device-memory scratch)."""
+    if E <= WARP_EVENTS:
+        return "warp"
     return "smem" if SMEM_BYTES_PER_EVENT * E <= SMEM_LIMIT_BYTES \
         else "global"
 
@@ -91,7 +107,7 @@ def prepare(inv: torch.Tensor, cluster: torch.Tensor, active: torch.Tensor,
     rounds = torch.empty(B, dtype=torch.int32, device=dev)
     scratch = None
     if tier(E) == "global" and B:
-        scratch = torch.empty(B * 3 * E, dtype=torch.int32, device=dev)
+        scratch = torch.empty(B * 2 * E, dtype=torch.int32, device=dev)
     fn = _library().dc_peel
 
     def launch() -> None:

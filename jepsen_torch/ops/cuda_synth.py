@@ -7,13 +7,15 @@ wrapper. ``synth_cas`` launches the CAS/register kernel and ``synth_la``
 the list-append kernel (one warp per history row walks its ops in tiles
 of 32 and stores each line from its op; ``synth_plan`` places each
 warp's ring of recent ops and la's per-key counts), ``synth_wide`` the
-elementwise wide-window kernel. ``prepare_cas`` and ``prepare_la`` do a
-wrapper's checks and allocations and return the launch alone. Each
-checks device, dtype, shape and contiguity, raises on anything the
-kernels do not take, allocates outputs and scratch, launches on
-PyTorch's current stream, and adds one to ``LAUNCHES`` (``LA_LAUNCHES``
-for ``synth_la``). The library is built at first use by
-``_build.build_library``; nothing here runs when the module is imported.
+wide-window kernel (a warp a row, lanes over its lines). ``prepare_cas``,
+``prepare_la`` and ``prepare_wide`` do a wrapper's checks and
+allocations and return the launch alone. Each checks device, dtype,
+shape and contiguity, raises on anything the kernels do not take,
+allocates outputs and scratch, launches on PyTorch's current stream, and
+adds one to ``LAUNCHES`` (``LA_LAUNCHES`` for ``synth_la``,
+``WIDE_LAUNCHES`` for ``synth_wide``). The library is built at first use
+by ``_build.build_library``; nothing here runs when the module is
+imported.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from ._build import CudaLaunchError, build_library
 
 SRC = Path(__file__).resolve().parent / "csrc" / "synth_device.cu"
 
-# Launches of the generator kernels in this process (one per wrapper
+# Launches of the CAS generator kernel in this process (one per wrapper
 # call); callers reset it to 0 and read it back to show that a path ran
-# on the card. ``LA_LAUNCHES`` counts the list-append kernel apart.
+# on the card. ``LA_LAUNCHES`` counts the list-append kernel and
+# ``WIDE_LAUNCHES`` the wide one.
 LAUNCHES = 0
 LA_LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 # The row kernels' shared memory (kRowWarps warps a block in the source):
 # a warp's share of the 48 KB a block takes without opting in, the cas
@@ -269,10 +273,11 @@ def synth_la(keys: Dict[str, torch.Tensor], corrupt_t: int, *,
     return out
 
 
-def synth_wide(vals_key: torch.Tensor, *, width: int, n_values: int,
-               invalid: bool) -> Dict[str, torch.Tensor]:
-    """Generate B wide-window histories on the card; the same contract as
-    ``ops.synth_device.plain_wide_core``, bit for bit."""
+def prepare_wide(vals_key: torch.Tensor, *, width: int, n_values: int,
+                 invalid: bool):
+    """``synth_wide``'s checks and allocations, without the launch:
+    returns ``(launch, out)``, where each ``launch()`` runs the wide
+    kernel into ``out`` (counted in ``WIDE_LAUNCHES``)."""
     dev = _check_rows({"vals_key": vals_key})
     _check(1 <= width < (1 << 15) and n_values >= 1,
            f"width={width}, n_values={n_values}")
@@ -281,16 +286,27 @@ def synth_wide(vals_key: torch.Tensor, *, width: int, n_values: int,
            "process": torch.empty((B, N), dtype=torch.int16, device=dev),
            "kind": torch.empty((B, N), dtype=torch.int32, device=dev),
            "peak_w": torch.empty((B,), dtype=torch.int32, device=dev)}
-    if B == 0:
-        return out
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.synth_wide_launch(
-            vals_key.data_ptr(), B, width, n_values, int(invalid),
-            out["type"].data_ptr(), out["process"].data_ptr(),
-            out["kind"].data_ptr(), out["peak_w"].data_ptr(), stream)
-    _raise_on(err)
-    global LAUNCHES
-    LAUNCHES += 1
+    args = (vals_key.data_ptr(), B, width, n_values, int(invalid),
+            *(out[f].data_ptr() for f in ("type", "process", "kind",
+                                          "peak_w")))
+
+    def launch(_alive=vals_key):
+        global WIDE_LAUNCHES
+        if B == 0:
+            return
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            _raise_on(lib.synth_wide_launch(*args, stream))
+        WIDE_LAUNCHES += 1
+    return launch, out
+
+
+def synth_wide(vals_key: torch.Tensor, *, width: int, n_values: int,
+               invalid: bool) -> Dict[str, torch.Tensor]:
+    """Generate B wide-window histories on the card; the same contract as
+    ``ops.synth_device.plain_wide_core``, bit for bit."""
+    launch, out = prepare_wide(vals_key, width=width, n_values=n_values,
+                               invalid=invalid)
+    launch()
     return out

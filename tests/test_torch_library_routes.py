@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from jepsen_torch.ops import cuda_folds
+from jepsen_torch.ops import cuda_dc, cuda_folds
+from jepsen_torch.ops import dc_monitor as D
 from jepsen_torch.ops import folds as F
 from jepsen_torch.ops.graph import plain_graph_closure
 from jepsen_torch.ops.txn_graph import plain_txn_closure
@@ -80,3 +81,34 @@ def test_closure_library_matches_plain(entry, V):
     want = plain(t, V)
     same(CS.closure_library(t, V, entry), want)
     assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.parametrize("kind", ["pairs", "random", "one", "shifted"])
+def test_dc_peel_library_matches_plain(kind):
+    """K4's whole-function route (scatter_reduce_ amin and amax, argmin,
+    gathers and the mask update a round), run for the plan's most
+    rounds, decides every row as the plain version does: a round without
+    progress changes nothing."""
+    rng = np.random.default_rng(len(kind))
+    for E in (1, 2, 33, 128, 300):
+        ts = [torch.from_numpy(a) for a in CS.dc_plan_rows(rng, 6, E, kind)]
+        decided, rounds = D.plain_dc_peel(*ts)
+        same([CS.dc_peel_library(*ts, int(rounds.max()))], [decided])
+        # Fewer rounds leave the rows that need more undecided.
+        short = CS.dc_peel_library(*ts, max(int(rounds.max()) - 1, 0))
+        assert not (short & ~decided).any()
+
+
+def test_dc_parity_cases_reach_every_tier_and_cap():
+    """chip_smoke's K4 parity cases: every tier, both caps in each, and
+    shifted rows whose least alive event's cluster is not 0."""
+    cases = CS.dc_cases(np.random.default_rng(8))
+    tiers = {cuda_dc.tier(inv.shape[1]) for _, inv, _, _, _ in cases}
+    assert tiers == {"warp", "smem", "global"}
+    capped = {(cuda_dc.tier(inv.shape[1]), cap)
+              for _, inv, _, _, cap in cases if cap}
+    assert capped == {(t, c) for t in tiers for c in CS.DC_PARITY_CAPS}
+    for label, inv, cl, act, _ in cases:
+        if label.startswith("shifted") and inv.shape[1] > 1:
+            first = act.argmax(1)
+            assert (cl[np.arange(len(cl)), first] != 0).any(), label

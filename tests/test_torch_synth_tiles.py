@@ -27,6 +27,10 @@ stage, every row a warp of 32 lanes, op 32t + l on lane l of tile t:
   first line not yet stored (with n even, the multiple of four below
   it); every line is stored exactly once.
 
+The wide kernel (K8b ``synth_wide``: a warp a row, lane l writing lines
+l, l + 32, ...) is modelled lane by lane too, past one and two turns of
+32 lines, against ``plain_wide_core`` and the reference's ``_wide_core``.
+
 Tolerance: none.
 """
 import dataclasses
@@ -897,3 +901,55 @@ def test_synth_plan_places_rings_counts_and_lines():
         p = plan(fam, P, n, K)
         assert p["ring"] >= min(P, n) + 32 and p["lines"] >= min(P, n) + 67
         assert p["smem_bytes"] <= 48 * 1024
+
+
+# ------------------------------------------------------- the wide kernel
+
+def model_wide(vals_key, *, width, n_values, invalid):
+    """K8b as ``wide_kernel`` computes it: a warp a row, lane l writing
+    lines l, l + 32, ... of its row, each write line's value its own draw
+    fold_in(key, t) % V by the kernel's Lemire remainder, peak_w by lane
+    0."""
+    B, N, w1 = len(vals_key), width + 1, width - 1
+    read_kind = 1 + 2 * n_values + n_values * n_values if invalid else 0
+    out = {"type": np.full((B, N), 99, np.int8),
+           "process": np.full((B, N), -9, np.int16),
+           "kind": np.full((B, N), -9, np.int32),
+           "peak_w": np.full(B, -9, np.int32)}
+    stores = np.zeros((B, N), np.int64)
+    for b in range(B):
+        for turn in range(0, N, 32):
+            for lane in range(32):
+                t = turn + lane
+                if t >= N:
+                    continue
+                stores[b, t] += 1
+                out["type"][b, t] = 1 if t == N - 1 else 0
+                out["process"][b, t] = min(t, w1)
+                if t < w1:
+                    draw = int(S.fold_in(vals_key[b], np.uint32(t)))
+                    out["kind"][b, t] = 1 + n_values + fastmod(draw,
+                                                               n_values)
+                else:
+                    out["kind"][b, t] = read_kind if t == w1 else -1
+        out["peak_w"][b] = width
+    assert (stores == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("width", [1, 2, 9, 17, 18, 33, 40, 70])
+@pytest.mark.parametrize("invalid", [False, True])
+def test_wide_model_matches_plain_and_reference(width, invalid):
+    """The lanes-over-lines layout, past one and two turns of 32 lines,
+    against ``plain_wide_core`` and the reference's ``_wide_core`` under
+    numpy, bit for bit."""
+    spec = S.SynthSpec(family="wide", n=6, seed=2 + width, width=width,
+                       n_values=2 + width % 5, invalid=invalid)
+    vk = S.wide_inputs(spec, device="cpu")
+    st = dict(width=width, n_values=spec.n_values, invalid=invalid)
+    got = model_wide(vk.numpy().view(np.uint32), **st)
+    assert_same(got, {k: v.numpy() for k, v in
+                      S.plain_wide_core(vk, **st).items()},
+                ("type", "process", "kind", "peak_w"))
+    assert_same(got, R._wide_core(np, vk.numpy().view(np.uint32), **st),
+                ("type", "process", "kind", "peak_w"))
