@@ -107,9 +107,13 @@ Then the fault ladder's phases, after every kernel is built:
   * the instrumented entry of the frontier kernel (K2 instrument, each
     row's closure passes) against the plain version's pass count bit for
     bit and against the frontier kernel's valid, bad and frontier, on
-    random tables at every edge of its plan and on the north-star bucket
-    and the keyed headline's dispatched buckets, which its path
-    (``measure_closure_iters``) measures (``instrument_parity``);
+    random tables at every edge of its plan (the warp tier at one to
+    eight masks a lane, the block and device-memory tiers past it, each
+    with its table staged and in device memory), on hand-built rows
+    whose counts tell its slot schedule from broken ones
+    (``count_edge_rows``, against their known counts too) and on the
+    north-star bucket and the keyed headline's dispatched buckets, which
+    its path (``measure_closure_iters``) measures (``instrument_parity``);
   * the keyed headline's shape at 1,000 histories under each single-fault
     schedule of the checker nemesis, fault-free, with
     ``scheduler=False``, launched on a side stream, under a sticky
@@ -142,13 +146,15 @@ north-star batch, K8c on 10,000 la histories of 1,000 ops, and each on
 the first 528 and 2,112 rows of its batch, also through its wrapper and
 split into its kernels by the profiler), the peel loop (K4) over every
 plan of the dc batches' dc runs, and the wide generator (K8b) on the
-wide path's 256 rows of width 17, each beside the empty kernel
-(``csrc/launch_floor.cu``) on its grids, the launch floor; the same
+wide path's 256 rows of width 17, and the instrumented entry (K2
+instrument) with K1 on the north-star bucket and on the keyed
+headline's dispatched buckets, each W apart, each beside the empty
+kernel (``csrc/launch_floor.cu``) on its grids, the launch floor; the same
 inputs in each checkout given, with the bound, each K1 launch's plan and
 time, and the folds', closures' and K4's library routes measured once in
 this checkout. ``--kernels --only dc,wide TREE ...`` times only the
 named groups (``k1``, ``folds``, ``closures``, ``synth``, ``dc``,
-``wide``).
+``wide``, ``instrument``).
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -1185,7 +1191,9 @@ def phase_columnar_path(dev, L, S, cuda_synth, cas, wgl_check):
                          "tier": wgl["tiers"][0]["tier"],
                          "plain_ms": wgl["plain_ms"],
                          "bound_ms": wgl["bound_ms"],
-                         "bound_by": wgl["bound_by"]},
+                         "bound_by": wgl["bound_by"],
+                         "bytes": wgl["bytes"],
+                         "needed_ops": wgl["needed_ops"]},
         "synth_device": {"launches": launches["synth_device"],
                          "max_abs_err": synth_err, "ms": synth_ms,
                          "wrapper_ms": synth_wrapper_ms,
@@ -3804,19 +3812,105 @@ def fold_entry(name, replaces, path, parity_err) -> dict:
 # ------------------------------------------- the fault ladder's phases
 
 # The instrumented entry's random cases, (V, W, w_live, K1, shared
-# target), at every edge of its plan: both frontiers in shared memory
-# (the block tier, whatever W) up to W = 14 at one state word and 13 at
-# two, the device-memory tier past that (W 15 and 16 at one word, 14 at
-# two); V = 1, 8, 33, 40 and 64; w_live < W; shared and per-row targets;
-# int8 and int32 slot tables. random_tables gives pads that carry live
-# slot kinds (row 0 is all pads) and rows that fail early.
+# target), at every edge of its plan: the warp tier at one, two, four
+# and eight masks a lane (W 1-8) with one and two state words (V 33-64 at
+# W 5-8), the table as nibble images, int8 targets, and past the warp
+# tier's budget in device memory (K1 = 800 at V = 64); the block tier
+# (W 9-14 at one state word, 9-13 at two) with the table staged and past
+# shared memory beside both frontiers (K1 = 3,000 at V = 64, W 12); the
+# device-memory tier (W 15 and 16 at one word, 14 at two), with the table
+# staged and in device memory (K1 = 4,000); V = 1, 8, 33, 40, 48 and 64;
+# w_live < W; shared and per-row targets; int8 and int32 slot tables.
+# random_tables gives pads that carry live slot kinds (row 0 is all pads)
+# and rows that fail early.
 INSTRUMENT_CASES = ((1, 1, None, 3, True), (8, 1, None, 5, False),
                     (8, 2, None, 7, True), (8, 5, None, 7, False),
-                    (64, 5, 3, 200, True), (8, 8, None, 12, False),
-                    (40, 8, 6, 130, True), (8, 9, 6, 12, False),
-                    (64, 12, None, 9, False), (8, 13, None, 9, True),
+                    (64, 5, 3, 200, True), (33, 5, None, 9, False),
+                    (8, 6, None, 7, True), (48, 6, None, 40, True),
+                    (64, 6, None, 800, True), (8, 7, 5, 9, False),
+                    (64, 7, None, 200, False), (8, 8, None, 12, False),
+                    (40, 8, 6, 130, True), (64, 8, None, 9, True),
+                    (8, 9, 6, 12, False), (64, 12, None, 9, False),
+                    (64, 12, 5, 3000, True), (8, 13, None, 9, True),
                     (8, 14, 5, 9, False), (33, 14, None, 9, True),
-                    (8, 15, 5, 9, True), (8, 16, 3, 6, True))
+                    (8, 15, 5, 9, True), (8, 16, 3, 6, True),
+                    (64, 16, 4, 4000, True))
+
+# Every (tier, table form) of the instrumented plan the cases must reach.
+INSTRUMENT_PLANS = {(tier, form) for tier in ("warp", "block", "device")
+                    for form in ("int8", "device", "nibble")}
+
+# Hand-built rows (count_edge_rows) at each tier of the instrumented
+# entry: the warp tier at one and eight masks a lane, the block tier
+# with lane and warp slot bits (W 9) and with register bits too (W 12),
+# the device-memory tier (W 16).
+COUNT_EDGE_WIDTHS = (5, 8, 9, 12, 16)
+COUNT_EDGE_EVENTS = 40
+
+
+def count_chain(W: int) -> tuple:
+    """The slots of count_edge_rows' chain at window W, ascending: lane
+    slot bits, then (W > 5) bits of a lane's registers (W <= 8) or of
+    other warps and of a thread's own masks (W > 8)."""
+    if W <= 5:
+        return tuple(range(W))
+    return (1, 4, 5, W - 1) if W <= 8 else (2, 6, W - 2, W - 1)
+
+
+def count_edge_rows(W: int) -> dict:
+    """Rows whose closure passes tell the reference's schedule (slots in
+    place, in order, every event counted) from three broken ones: a body
+    that steps every slot at once from the pass's first frontier, one
+    that skips pads and one that stops counting at a row's failure. Kind
+    t < k of the k-slot chain (count_chain) sends state t to t + 1; kind
+    k reaches nothing. Over COUNT_EDGE_EVENTS events, after the listed
+    ones every event is a pad whose slots reach nothing (one pass each):
+      0: a close with the chain's kinds on ascending slots: one pass
+         walks the whole chain, one more sees no change (at once: k + 1);
+      1: the chain on descending slots: a pass a link, k + 1;
+      2: three pads carrying the ascending chain, two passes each and
+         dropped, then a close reaching nothing: one pass;
+      3: an OK on the chain's first slot (two passes), then an OK on the
+         same slot, freed, which fails: the 38 events after it count one
+         pass each, the tile's pads after it counted once only;
+      4: closes of slot 0's kind 0, the first two passes and 30 more one
+         each, then a failure at the tile's last event (31) and a close
+         and pads in the next tile.
+    Returns the four event tables (numpy, shared target), V and each
+    row's passes."""
+    chain = count_chain(W)
+    k, N, V = len(chain), COUNT_EDGE_EVENTS, 8
+    K1 = k + 1
+    target = np.full((K1, V), -1, np.int32)
+    for t in range(k):
+        target[t, t] = t + 1
+    ev_type = np.zeros((5, N), np.int8)
+    ev_slot = np.zeros((5, N), np.int8)
+    ev_slots = np.full((5, N, W), K1 - 1, np.int8)
+    up = np.full(W, K1 - 1, np.int8)
+    down = up.copy()
+    for t, i in enumerate(chain):
+        up[i] = t
+        down[chain[k - 1 - t]] = t
+    ev_type[0, 0], ev_slots[0, 0] = 3, up
+    ev_type[1, 0], ev_slots[1, 0] = 3, down
+    ev_slots[2, :3] = up
+    ev_type[2, 3] = 3
+    ev_type[3, :2], ev_slot[3, :2] = 2, chain[0]
+    ev_slots[3, 0] = up
+    ev_slots[3, 1] = up
+    ev_slots[3, 1, chain[0]] = K1 - 1
+    ev_type[4, :31] = 3
+    ev_slots[4, :32, 0] = 0
+    ev_type[4, 31], ev_slot[4, 31] = 2, chain[-1]
+    ev_type[4, 33] = 3
+    ev_slots[4, 33, 0] = 0
+    pads = N - 1
+    passes = np.array([2 + pads, k + 1 + pads, 3 * 2 + 1 + (N - 4),
+                       2 + 1 + (N - 2), 2 + 30 + 1 + (N - 32)], np.int32)
+    return {"args": (ev_type, ev_slot, ev_slots, target), "V": V,
+            "passes": passes}
+
 
 # Rows of each real bucket whose pass count the plain version replays
 # (the north-star bucket is replayed whole, to time the plain version);
@@ -3886,14 +3980,18 @@ def instrument_times(L, buckets, dev) -> dict:
             "k1_wrapper_ms": time_cuda(wrapped(False), reps=3)}
 
 
-def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound):
+def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound,
+                            hl_bound):
     """The instrumented entry (K2 instrument) against the plain version's
     pass count bit for bit, and against K1's valid, bad and frontier:
-    random cases at every edge of its plan, then the north-star bucket
-    and the keyed headline's dispatched buckets, which its path
-    (``measure_closure_iters``) measures with the launch counts set to 0
-    just before."""
-    out = {"phase": "instrument_parity", "cases": []}
+    random cases at every edge of its plan, the hand-built rows of
+    count_edge_rows at each tier (against their known counts too), then
+    the north-star bucket and the keyed headline's dispatched buckets,
+    which its path (``measure_closure_iters``) measures with the launch
+    counts set to 0 just before. ``ns_bound`` and ``hl_bound`` are K1's
+    bytes and needed operations on the two batches (the same work; the
+    count adds four bytes a row)."""
+    out = {"phase": "instrument_parity", "cases": [], "edge_rows": []}
     t_phase = time.perf_counter()
     rng = np.random.default_rng(2026)
     max_err, tiers = 0, set()
@@ -3903,7 +4001,7 @@ def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound):
         eq, err, passes, inv, _ = instrument_vs(args, V, W, wl, dev, L)
         plan = L.cuda_wgl.smem_plan(V, W, wl, K1=K1, shared_target=shared,
                                     instrument=True)
-        tiers.add(plan["tier"])
+        tiers.add((plan["tier"], plan["table_form"]))
         live_pads = int(((args[0] == 0)[..., None]
                          & (args[2][..., :wl or W] >= 0)
                          & (args[2][..., :wl or W] < K1 - 1)).any(-1).sum())
@@ -3912,14 +4010,30 @@ def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound):
                              "events": RANDOM_EVENTS, "invalid": inv,
                              "pads_with_live_kinds": live_pads,
                              "passes": int(passes.sum()),
-                             "tier": plan["tier"], "equal": eq})
+                             "tier": plan["tier"],
+                             "table_form": plan["table_form"], "equal": eq})
         require(eq, f"instrumented != plain/K1 on random tables V={V} "
                     f"W={W}")
         require(inv > 0 and live_pads > 0,
                 f"case V={V} W={W} has no failing row or no live pad")
         max_err = max(max_err, err)
-    require(tiers == {"block", "device"},
-            f"the instrumented cases missed a tier: {sorted(tiers)}")
+    require(tiers == INSTRUMENT_PLANS,
+            f"the instrumented cases missed a plan: "
+            f"{sorted(INSTRUMENT_PLANS - tiers)}")
+    for W in COUNT_EDGE_WIDTHS:
+        rows = count_edge_rows(W)
+        args = tuple(on(a, dev) for a in rows["args"])
+        eq, err, passes, _, _ = instrument_vs(args, rows["V"], W, None, dev,
+                                              L)
+        want = torch.from_numpy(rows["passes"]).to(dev, torch.int64)
+        tier = L.cuda_wgl.smem_plan(rows["V"], W, K1=args[3].shape[0],
+                                    instrument=True)["tier"]
+        out["edge_rows"].append({"W": W, "tier": tier,
+                                 "passes": passes.tolist(), "equal": eq})
+        require(eq and torch.equal(passes, want),
+                f"instrumented != plain/K1 or the known counts on the "
+                f"hand-built rows at W={W}: {passes.tolist()}")
+        max_err = max(max_err, err)
 
     # The path: measure_closure_iters on the north-star bucket and on the
     # keyed headline's dispatched buckets.
@@ -3955,11 +4069,16 @@ def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound):
             plain_s += ps
         require(total == m["iters"], f"{label}: passes {total} != "
                                      f"measure_closure_iters {m['iters']}")
-        real.append({"batch": label, "buckets": len(bs),
-                     "rows": sum(b.batch for b in bs),
+        k1 = ns_bound if label == "north_star" else hl_bound
+        rows = sum(b.batch for b in bs)
+        real.append({"batch": label, "buckets": len(bs), "rows": rows,
+                     "buckets_by_W": hist_json(collections.Counter(
+                         b.W for b in bs)),
                      "closure_iters_total": m["iters"],
                      "vpu_lane_ops": m["lane_ops"],
-                     "plain_s": plain_s, **instrument_times(L, bs, dev)})
+                     "plain_s": plain_s, **instrument_times(L, bs, dev),
+                     **launch_bound(k1["bytes"] + 4 * rows,
+                                    k1["needed_ops"])})
     out.update(launches=launches, measure_closure_iters_s=measure_s,
                batches=real, max_abs_err=max_err,
                phase_s=time.perf_counter() - t_phase)
@@ -3968,11 +4087,11 @@ def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound):
     return {"launches": launches, "max_abs_err": max_err,
             "ms": ns["ms"], "wrapper_ms": ns["wrapper_ms"],
             "k1_ms": ns["k1_ms"], "plain_ms": ns["plain_s"] * 1e3,
-            "bound_ms": ns_bound["bound_ms"],
-            "bound_by": ns_bound["bound_by"],
+            "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"],
             "headline": {k: real[1][k] for k in (
-                "buckets", "rows", "ms", "k1_ms", "wrapper_ms",
-                "k1_wrapper_ms", "closure_iters_total", "vpu_lane_ops")}}
+                "buckets", "rows", "buckets_by_W", "ms", "k1_ms",
+                "wrapper_ms", "k1_wrapper_ms", "closure_iters_total",
+                "vpu_lane_ops", "bound_ms", "bound_by")}}
 
 
 # The fault phases' WGL batch: the keyed headline's shape, its count cut
@@ -4710,10 +4829,11 @@ def headline_compare(trees, reps: int = 2) -> None:
 # the FIFO's, K5 and K6 over their CLOSURE_TIMING batches' buckets, K8a
 # and K8c over the north-star and LA_TIMING batches (``synth_times``), K4
 # over every plan of the dc batches' dc runs, K8b on the wide path's
-# batch (``wide_times``), and the empty kernel on their grids, from the
-# library this checkout built. The timing helpers are this script's (its
-# path is the third argument), so that every checkout is timed by one
-# harness.
+# batch (``wide_times``), K2 instrument and K1 over the north-star and
+# keyed headline buckets, each W's buckets apart, K2f over the keyed
+# headline's group launches, and the empty kernel on their grids, from the library this checkout built. The timing helpers
+# are this script's (its path is the third argument), so that every
+# checkout is timed by one harness.
 KERNELS_CHILD = r"""
 import importlib.util, json, sys
 import torch
@@ -4765,6 +4885,31 @@ for label, plans in saved.get("dc", {}).items():
 for label, (vk, st) in saved.get("wide", {}).items():
     out["wide"][label] = CS.wide_times(cuda_synth, vk.to(dev), st, reps,
                                        saved["floor"]["lib"])
+out["instrument"] = {}
+for label, buckets in saved.get("instrument", {}).items():
+    by_w = {}
+    for ev, kw in buckets:
+        by_w.setdefault(kw["W"], []).append(([t.to(dev) for t in ev], kw))
+    res = {"ms_by_W": {}, "k1_ms_by_W": {}}
+    for W, bs in sorted(by_w.items()):
+        for key, count in (("ms_by_W", True), ("k1_ms_by_W", False)):
+            prepared = []
+            for ev, kw in bs:
+                B = ev[0].shape[0]
+                extra = ({"iters": torch.zeros(B, dtype=torch.int32,
+                                               device=dev)} if count else {})
+                prepared.append(CS.prepared_single(
+                    L, *ev, 0, *L.initial_carry(B, kw["V"], W, dev), **kw,
+                    **extra))
+            res[key][str(W)] = CS.time_launches(prepared, reps=reps)
+    res["ms"] = sum(res["ms_by_W"].values())
+    res["k1_ms"] = sum(res["k1_ms_by_W"].values())
+    out["instrument"][label] = res
+out["k2f_ms"] = {}
+for label, groups in saved.get("k2f", {}).items():
+    out["k2f_ms"][label] = CS.time_launches(
+        [CS.prepared_group(L, m, [t.to(dev) for t in f], r)
+         for m, f, r in groups], reps=reps)
 for label, grids in saved.get("floor", {}).get("grids", {}).items():
     out["floor_ms"][label] = CS.time_launches(
         CS.floor_launches(grids, saved["floor"]["lib"]), reps=reps)
@@ -4977,23 +5122,88 @@ def kernels_record_wide(out, saved) -> None:
     out["wide"]["wide_w17"] = {"rows": spec.n, **st, **wide_bound(spec)}
 
 
-KERNEL_GROUPS = ("k1", "folds", "closures", "synth", "dc", "wide")
+def kernels_record_instrument(out, saved) -> None:
+    """K2 instrument's inputs: the north-star bucket (the exact path's
+    encode of the generated batch) and the keyed headline's dispatched
+    buckets (the default check_synth's, recorded), each bucket's plan
+    and rows by W, the headline's group launches (K2f, which shares the
+    warp tier's body), and this checkout's instrumented grids for the
+    floor."""
+    from jepsen_torch.history.columnar import ColumnarOps
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.ops import cuda_synth
+    from jepsen_torch.ops import linearize as L
+    from jepsen_torch.ops import synth_device as S
+    from jepsen_torch.ops.encode import encode_columnar
+    from jepsen_torch.ops.statespace import enumerate_statespace
+    from jepsen_torch.workloads.synth import cas_kind_vocabulary
+    spec = S.SynthSpec(**NS_SPEC)
+    st = S.cas_static(spec, key_meta=False)
+    host = {k: v.cpu().numpy() for k, v in cuda_synth.synth_cas(
+        *S.cas_inputs(spec, device=torch.device("cuda")), **st).items()}
+    cols = ColumnarOps(type=host["type"], process=host["process"],
+                       kind=host["kind"],
+                       kinds=cas_kind_vocabulary(spec.n_values))
+    ns, _ = encode_columnar(enumerate_statespace(cas_register(), cols.kinds,
+                                                 64), cols, max_slots=18)
+    with BucketRecorder() as disp, LaunchRecorder(L.cuda_wgl) as rec:
+        L.check_synth(cas_register(), S.SynthSpec(**HEADLINE_SPEC))
+    # K2f, which shares the warp tier's body: the headline's group
+    # launches, timed in each tree beside K2 instrument.
+    require(rec.groups, "the keyed headline made no group launch")
+    saved["k2f"] = {"headline": [(members, [t.cpu() for t in flat], rows)
+                                 for members, flat, rows in rec.groups]}
+    del rec
+    for label, buckets in (("north_star", ns), ("headline", disp.buckets)):
+        buckets = [b for b in buckets
+                   if b.batch and b.W <= L.DATA_MAX_SLOTS]
+        saved["instrument"][label] = [
+            ([torch.from_numpy(np.array(a)) for a in (
+                b.ev_type, b.ev_slot, b.ev_slots,
+                b.target[0] if b.shared_target else b.target)],
+             {"V": b.V, "W": b.W, "w_live": b.eff_w_live})
+            for b in buckets]
+        grids, plans = [], []
+        for b in buckets:
+            K1 = b.target.shape[-2]
+            p = L.cuda_wgl.smem_plan(b.V, b.W, b.eff_w_live, K1=K1,
+                                     shared_target=b.shared_target,
+                                     instrument=True)
+            R = p["rows_per_block"]
+            grids.append((-(-b.batch // R), p["threads"]))
+            plans.append({"V": b.V, "W": b.W, "rows": b.batch,
+                          "events": b.ev_type.shape[1], "tier": p["tier"],
+                          "table_form": p["table_form"]})
+        saved["floor"]["grids"][f"instrument_{label}"] = grids
+        out["instrument"][label] = {
+            "buckets": len(buckets), "rows": sum(b.batch for b in buckets),
+            "rows_by_W": hist_json(collections.Counter(
+                {W: sum(b.batch for b in buckets if b.W == W)
+                 for W in {b.W for b in buckets}})),
+            "plans": plans}
 
+
+KERNEL_GROUPS = ("k1", "folds", "closures", "synth", "dc", "wide",
+                 "instrument")
 
 def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
     """K1 on the dc headline, K7a, K7b, K7c and K7d on the full-width
     fold batches, K5 and K6 on their CLOSURE_TIMING batches, K8a on the
     north-star batch and K8c on LA_TIMING, K4 on every plan of the dc
-    headline's dc runs and K8b on the wide path's batch, beside the empty
-    kernel on their grids (``only`` names a subset of KERNEL_GROUPS): the
-    same inputs timed in each checkout of ``trees``
-    in the order given (for example parent, change, change, parent).
+    headline's dc runs, K8b on the wide path's batch, and K2 instrument
+    with K1 on the north-star bucket and the keyed headline's dispatched
+    buckets (split by W) and K2f on the headline's group launches,
+    beside the empty kernel on their grids
+    (``only`` names a subset of KERNEL_GROUPS): the same inputs timed in
+    each checkout of ``trees`` in the order given (for example parent,
+    change, change, parent).
     This checkout records the inputs and measures on them the bounds,
     the plain versions and the library routes (``kernels_record_*``)."""
     out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
-           "closures": {}, "synth": {}, "dc": {}, "wide": {}, "runs": []}
+           "closures": {}, "synth": {}, "dc": {}, "wide": {},
+           "instrument": {}, "runs": []}
     saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}, "synth": {},
-             "dc": {}, "wide": {},
+             "dc": {}, "wide": {}, "instrument": {},
              "floor": {"lib": floor_library()._name, "grids": {}}}
     if "k1" in only:
         kernels_record_k1(out, saved)
@@ -5008,6 +5218,8 @@ def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
         kernels_record_dc(out, saved)
     if "wide" in only:
         kernels_record_wide(out, saved)
+    if "instrument" in only:
+        kernels_record_instrument(out, saved)
     kernels_time_trees(out, saved, trees, reps)
     emit(out)
 
@@ -5080,9 +5292,13 @@ def main() -> int:
         la_err = phase_la_synth_parity(dev, S, cuda_synth)
         la = phase_la_path(dev, pool, S, cuda_synth)
     # The fault ladder's phases, after every kernel is built.
+    # K1's work on the headline's buckets: the scheduler path's group and
+    # single launches over the same rows.
+    hl_k1 = {k: sched["group"][k] + sched["single"][k]
+             for k in ("bytes", "needed_ops")}
     inst = phase_instrument_parity(dev, L, main_k.pop("buckets"),
                                    sched.pop("buckets"),
-                                   main_k["wgl_frontier"])
+                                   main_k["wgl_frontier"], hl_k1)
     phase_wgl_faults(dev, L, S, cas_register)
     phase_graph_faults(dev)
     phase_real_oom(dev, L)

@@ -86,21 +86,31 @@
 //     block's shared memory (W 16 at one word, 15 at two) walked a
 //     frontier in device memory.
 //
-// The instrumented entry (wgl_instrument_kernel) replaces the fourth
-// output of make_kernel(instrument=True) (jepsen_tpu/ops/linearize.py:158,
-// :243): each row's closure while_loop passes, summed over EVERY event of
-// its event axis. That count depends on the reference's schedule, slots
-// 0..WL-1 applied in place in order and then one whole-frontier change
-// test; the warp tier and the delta closure propagate only new
-// configurations and skip pads, so neither can count it. The entry keeps
-// the first block-tier body (wgl_row, one block a row, one thread a mask
-// pair, dense in-place slot sweeps) with the counter switched on: a pad
-// event's
-// closure runs on a scratch copy of the frontier (beside it in shared
-// memory, or the row's scratch slice in device memory) and is dropped, a
-// closure whose slots reach no state counts one pass, and a failed row's
+// The instrumented entry (wgl_frontier_instrument_launch) replaces the
+// fourth output of make_kernel(instrument=True)
+// (jepsen_tpu/ops/linearize.py:158, :243): each row's closure while_loop
+// passes, summed over EVERY event of its event axis. That count depends
+// on the reference's schedule: a pass applies slots 0..WL-1 in place, in
+// that order, then tests the whole frontier for a change, and the last
+// pass (which changes nothing) counts. The warp tier and the delta
+// closure propagate only new configurations and skip pads, so neither
+// counts it; the entry runs the same tiers' layouts with a counting
+// closure instead (count_closure, count_block_closure), which steps the
+// live slots in that order, skipping a slot whose step cannot change the
+// frontier, and votes after each step it takes:
+//   * W <= W_warp: wgl_count_walk, a warp a row with the frontier in
+//     registers, the table staged once a row or block and events in
+//     32-event tiles, as the warp tier;
+//   * W > W_warp: wgl_count_block_kernel, a block a row, mask bits split
+//     over lanes, warps and each thread's own masks, the table staged
+//     once a row, the frontier and its pad copy in shared memory or in
+//     device memory.
+// A pad event's closure runs on a copy of the frontier and is dropped; a
+// closure whose slots reach no state counts one pass; a failed row's
 // every later event counts one (the closure of its empty frontier). Its
-// valid, bad and frontier are K1's, bit for bit.
+// valid, bad and frontier are K1's, bit for bit. What bounds it: as K1,
+// each event's chain of dependent slot steps and votes, one slot after
+// another (PERF.md has the measured times).
 //
 // The group entry (wgl_frontier_group_kernel) replaces the TPU dispatch
 // group jepsen_tpu/ops/linearize.py::make_fused_kernel: one XLA call that
@@ -123,8 +133,9 @@
 // Why the updates are race-free. Applying slot i reads only masks without
 // bit i and writes only masks with bit i: in the warp tier a lane updates
 // only its own registers from a shuffled copy of its partner's, in the
-// instrumented body each mask pair (m, m | 1<<i) belongs to one thread,
-// and the wide tiers OR into destinations atomically. The closure is a
+// instrumented entry's block tier a thread updates only its own masks,
+// with a barrier between slots whose partners lie in other warps (a warp
+// barrier between the others), and the wide tiers OR into destinations atomically. The closure is a
 // monotone OR to a unique least fixpoint, so the order of slots, lanes
 // and pushes does not change Fc. Completion moves each pair's upper word
 // down and clears it.
@@ -154,218 +165,10 @@ constexpr int kWarpRows = 8;
 constexpr int kWarpMinBlocks = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Mask of the p-th pair for slot bit i: p with a zero bit inserted at i.
-__device__ __forceinline__ uint32_t pair_mask(uint32_t p, int i) {
-  const uint32_t low = (1u << i) - 1u;
-  return ((p & ~low) << 1) | (p & low);
-}
-
 __device__ __forceinline__ int load_kind(const void* slots, long long at,
                                          int slots_i32) {
   return slots_i32 ? static_cast<const int32_t*>(slots)[at]
                    : static_cast<const int8_t*>(slots)[at];
-}
-
-// The block tier's closure of the frontier Fw under the staged rows of the
-// live slots, slot by slot in place to a fixpoint. Returns the number of
-// sweeps, the last one (which changes nothing) included; block-uniform.
-__device__ __forceinline__ int block_closure(uint32_t* Fw,
-                                             const uint32_t* rows,
-                                             uint32_t live, int WL, int NW,
-                                             int V, uint32_t M, uint32_t P,
-                                             int tid, int nt) {
-  int passes = 0;
-  int changed;
-  do {
-    int ch = 0;
-    for (int i = 0; i < WL; ++i) {
-      if (!((live >> i) & 1u)) continue;
-      const uint32_t bit = 1u << i;
-      const uint32_t* r = rows + i * NW * V;
-      for (uint32_t p = tid; p < P; p += nt) {
-        const uint32_t m0 = pair_mask(p, i);
-        uint32_t s0 = Fw[m0];
-        uint32_t s1 = NW > 1 ? Fw[M + m0] : 0u;
-        if (!(s0 | s1)) continue;
-        uint32_t n0 = 0u, n1 = 0u;
-        while (s0) {
-          const int s = __ffs(s0) - 1;
-          s0 &= s0 - 1u;
-          if (s < V) {
-            n0 |= r[s];
-            if (NW > 1) n1 |= r[V + s];
-          }
-        }
-        while (s1) {
-          const int s = 32 + __ffs(s1) - 1;
-          s1 &= s1 - 1u;
-          if (s < V) {
-            n0 |= r[s];
-            n1 |= r[V + s];
-          }
-        }
-        const uint32_t m1 = m0 | bit;
-        const uint32_t o0 = Fw[m1];
-        if (n0 & ~o0) {
-          Fw[m1] = o0 | n0;
-          ch = 1;
-        }
-        if (NW > 1) {
-          const uint32_t o1 = Fw[M + m1];
-          if (n1 & ~o1) {
-            Fw[M + m1] = o1 | n1;
-            ch = 1;
-          }
-        }
-      }
-      __syncthreads();
-    }
-    changed = __syncthreads_or(ch);
-    ++passes;
-  } while (changed);
-  return passes;
-}
-
-// The first block-tier body, kept for the instrumented entry: one row's walk
-// over its N events by a whole block, counting its closure passes. `et`,
-// `es` and `ev_slots` are the row's event tables (its slot table at
-// element offset `slots_base`, Wt entries per event), `tg` its [K1][V]
-// transition table, Fg and Fbg its carry frontiers in device memory,
-// valid_p and bad_p its verdict. With frontier_in_smem the frontier lives
-// in shared memory after the staged transition rows and is copied back to
-// Fg at the end; Sg is the row's scratch frontier in device memory (used
-// when the frontier is not in shared memory) and *iters_p gets the row's
-// closure passes.
-__device__ void wgl_row(const int8_t* __restrict__ et,
-                        const int8_t* __restrict__ es,
-                        const void* __restrict__ ev_slots,
-                        long long slots_base,
-                        int slots_i32, const int32_t* __restrict__ tg,
-                        uint32_t* Fg, uint32_t* Fbg, uint8_t* valid_p,
-                        int32_t* bad_p, int N, int Wt, int K1, int V, int NW,
-                        int W, int WL, int idx0, int frontier_in_smem,
-                        uint32_t* Sg, int32_t* iters_p) {
-  extern __shared__ uint32_t smem[];
-  __shared__ uint32_t live_slots;
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const uint32_t M = 1u << W;
-  const uint32_t P = M >> 1;
-  const uint32_t NWM = static_cast<uint32_t>(NW) * M;
-
-  // [WL][NW][V] packed one-hot target rows of this event's slots.
-  uint32_t* rows = smem;
-  uint32_t* Fw = frontier_in_smem ? smem + WL * NW * V : Fg;
-  // The instrumented body's scratch frontier for pad events' closures.
-  uint32_t* Sw = frontier_in_smem ? Fw + NWM : Sg;
-  int32_t sweeps = 0;
-
-  if (frontier_in_smem) {
-    for (uint32_t m = tid; m < NWM; m += nt) Fw[m] = Fg[m];
-  }
-  bool ok = *valid_p != 0;
-  int32_t first_bad = *bad_p;
-  // True once a failed completion has emptied F: from then on every event
-  // leaves F, Fb and valid as they are, and only bad's running min moves.
-  bool dead = false;
-
-  for (int e = 0; e < N; ++e) {
-    const int typ = et[e];
-    const bool is_ok = typ == kEvOk || typ == kEvFused;
-    const bool is_close = typ == kEvClose;
-    const bool is_live = is_ok || is_close;
-    // EV_PAD changes nothing, but its closure's passes count (below).
-    if (dead) {
-      if (is_ok) first_bad = min(first_bad, idx0 + e);
-      sweeps += 1;  // the closure of an empty frontier
-      continue;
-    }
-
-    // Stage the slots' transition rows. Kind indices follow the
-    // reference's gather: negative wraps once, then clamps into [0, K1).
-    if (tid == 0) live_slots = 0u;
-    __syncthreads();
-    for (int t = tid; t < WL * V; t += nt) {
-      const int i = t / V;
-      const int s = t - i * V;
-      int k = load_kind(ev_slots, slots_base + static_cast<long long>(e) * Wt
-                                      + i, slots_i32);
-      if (k < 0) k += K1;
-      k = min(max(k, 0), K1 - 1);
-      const int to = tg[static_cast<long long>(k) * V + s];
-      for (int w = 0; w < NW; ++w) {
-        const int sh = to - 32 * w;
-        rows[(i * NW + w) * V + s] = (sh >= 0 && sh < 32) ? (1u << sh) : 0u;
-      }
-      if (to >= 0 && to < 32 * NW) atomicOr(&live_slots, 1u << i);
-    }
-    __syncthreads();
-    const uint32_t live = live_slots;
-
-    if (!is_live) {
-      // A pad event: close a scratch copy, count its passes, drop it.
-      int passes = 1;
-      if (live) {
-        for (uint32_t m = tid; m < NWM; m += nt) Sw[m] = Fw[m];
-        __syncthreads();
-        passes = block_closure(Sw, rows, live, WL, NW, V, M, P, tid, nt);
-      }
-      sweeps += passes;
-      __syncthreads();
-      continue;
-    }
-
-    // Closure to fixpoint, slot by slot in place (one pass counted when
-    // no slot reaches a state).
-    const int passes =
-        live ? block_closure(Fw, rows, live, WL, NW, V, M, P, tid, nt) : 1;
-    sweeps += passes;
-
-    if (is_ok) {
-      // The reference selects among WL static branches, so the slot index
-      // clamps into [0, WL).
-      const int q = min(max(static_cast<int>(es[e]), 0), WL - 1);
-      const uint32_t bit = 1u << q;
-      int any = 0;
-      for (uint32_t p = tid; p < P; p += nt) {
-        const uint32_t m1 = pair_mask(p, q) | bit;
-        any |= Fw[m1] != 0u;
-        if (NW > 1) any |= Fw[M + m1] != 0u;
-      }
-      if (__syncthreads_or(any)) {
-        for (uint32_t p = tid; p < P; p += nt) {
-          const uint32_t m0 = pair_mask(p, q);
-          for (int w = 0; w < NW; ++w) {
-            const uint32_t base = w * M;
-            Fw[base + m0] = Fw[base + (m0 | bit)];
-            Fw[base + (m0 | bit)] = 0u;
-          }
-        }
-      } else {
-        // No config survives: latch the closure on the row's first
-        // failure, then the frontier becomes empty.
-        for (uint32_t m = tid; m < NWM; m += nt) {
-          if (ok) Fbg[m] = Fw[m];
-          Fw[m] = 0u;
-        }
-        ok = false;
-        dead = true;
-        first_bad = min(first_bad, idx0 + e);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (frontier_in_smem && (ok || Fbg != Fg)) {
-    __syncthreads();
-    for (uint32_t m = tid; m < NWM; m += nt) Fg[m] = Fw[m];
-  }
-  if (tid == 0) {
-    *valid_p = ok ? 1 : 0;
-    *bad_p = first_bad;
-    *iters_p = sweeps;
-  }
 }
 
 // Where a warp-tier row's transition table lives (table_form): in device
@@ -618,6 +421,61 @@ __device__ __forceinline__ void complete_high(uint32_t (&f)[MPL][NW]) {
   }
 }
 
+// OK completion on slot qc (already clamped into [0, WL)) of a warp's
+// register frontier. When some mask with bit qc holds a config, every mask
+// without the bit takes its partner's words, the partner is cleared, and
+// it returns true; when no config survives it returns false and changes
+// nothing. Warp-uniform.
+template <int MPL, int NW>
+__device__ __forceinline__ bool warp_complete(uint32_t (&f)[MPL][NW],
+                                              int qc, int lane) {
+  bool any = false;
+  if (qc < 5) {
+    const uint32_t bit = 1u << qc;
+    const bool up = (lane & bit) != 0u;
+#pragma unroll
+    for (int j = 0; j < MPL; ++j)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) any |= up && f[j][w] != 0u;
+    if (!__any_sync(kFullMask, any)) return false;
+#pragma unroll
+    for (int j = 0; j < MPL; ++j)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const uint32_t p = __shfl_xor_sync(kFullMask, f[j][w], bit);
+        f[j][w] = up ? 0u : p;
+      }
+    return true;
+  }
+  const int jb = 1 << (qc - 5);
+#pragma unroll
+  for (int j = 0; j < MPL; ++j)
+#pragma unroll
+    for (int w = 0; w < NW; ++w) any |= (j & jb) && f[j][w] != 0u;
+  if (!__any_sync(kFullMask, any)) return false;
+  if (jb == 1) complete_high<1, MPL, NW>(f);
+  else if (jb == 2) complete_high<2, MPL, NW>(f);
+  else complete_high<4, MPL, NW>(f);
+  return true;
+}
+
+// A row's first failure: its pre-completion closure is latched into Fbg
+// (when the row was still valid), and the register frontier is emptied.
+template <int MPL, int NW>
+__device__ __forceinline__ void warp_latch(uint32_t (&f)[MPL][NW],
+                                           uint32_t* Fbg, bool ok,
+                                           uint32_t M, int lane) {
+#pragma unroll
+  for (int j = 0; j < MPL; ++j) {
+    const uint32_t m = lane + 32u * j;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      if (ok && m < M) Fbg[w * M + m] = f[j][w];
+      f[j][w] = 0u;
+    }
+  }
+}
+
 // One row's walk in the warp tier, by the calling warp, with the
 // frontier in registers: lane l holds masks l + 32j, j < MPL (2^W / 32,
 // at least 1; lanes past 2^W hold nothing and only ever meet each other).
@@ -761,49 +619,11 @@ __device__ void wgl_warp_walk(const int8_t* __restrict__ et,
         const int qc = min(max(static_cast<int>(
                                    static_cast<int8_t>(ew & 0xffu)), 0),
                            WL - 1);
-        bool any = false;
-        if (qc < 5) {
-          const uint32_t bit = 1u << qc;
-          const bool up = (lane & bit) != 0u;
-#pragma unroll
-          for (int j2 = 0; j2 < MPL; ++j2)
-#pragma unroll
-            for (int w = 0; w < NW; ++w) any |= up && f[j2][w] != 0u;
-          if (__any_sync(kFullMask, any)) {
-#pragma unroll
-            for (int j2 = 0; j2 < MPL; ++j2)
-#pragma unroll
-              for (int w = 0; w < NW; ++w) {
-                const uint32_t p = __shfl_xor_sync(kFullMask, f[j2][w], bit);
-                f[j2][w] = up ? 0u : p;
-              }
-            continue;
-          }
-        } else {
-          const int jb = 1 << (qc - 5);
-#pragma unroll
-          for (int j2 = 0; j2 < MPL; ++j2)
-#pragma unroll
-            for (int w = 0; w < NW; ++w) any |= (j2 & jb) && f[j2][w] != 0u;
-          if (__any_sync(kFullMask, any)) {
-            if (jb == 1) complete_high<1, MPL, NW>(f);
-            else if (jb == 2) complete_high<2, MPL, NW>(f);
-            else complete_high<4, MPL, NW>(f);
-            continue;
-          }
-        }
+        if (warp_complete<MPL, NW>(f, qc, lane)) continue;
         // No config survives: latch the closure on the row's first
         // failure; the frontier becomes empty and stays so, and nothing
         // after it can change the row.
-#pragma unroll
-        for (int j2 = 0; j2 < MPL; ++j2) {
-          const uint32_t m = lane + 32u * j2;
-#pragma unroll
-          for (int w = 0; w < NW; ++w) {
-            if (ok && m < M) Fbg[w * M + m] = f[j2][w];
-            f[j2][w] = 0u;
-          }
-        }
+        warp_latch<MPL, NW>(f, Fbg, ok, M, lane);
         ok = false;
         dead = true;
         first_bad = min(first_bad, idx0 + e0 + j);
@@ -827,20 +647,211 @@ __device__ void wgl_warp_walk(const int8_t* __restrict__ et,
   }
 }
 
+// ---- The instrumented entry's counting closure.
+//
+// The reference's closure, as make_kernel(instrument=True) counts it: a
+// pass applies slots 0 .. WL-1 in place, in that order (a later slot sees
+// what an earlier one added in the same pass), and ends with one change
+// test over the whole frontier; the passes are counted up to and
+// including the first that changes nothing. Applying slot i reads only
+// masks without bit i and writes only masks with it, so one slot's step
+// is the same whether its masks step at once or one by one: only the
+// order of the slots matters.
+//
+// A step that cannot change the frontier may be skipped without changing
+// what any later step sees, or the count. Slot i's step cannot when the
+// frontier is closed under its kind: its kind reaches no state; or no
+// step changed the frontier since slot i's own last step (a step never
+// feeds itself); or, at the closure's start, its kind is the one it had
+// at the row's last live event, whose closure (and completion, but for
+// the freed slot) left the frontier closed under it. So each slot is
+// stepped only while it is dirty, and a step that changes something
+// (one vote) marks the other live slots dirty.
+
+// One closure of a warp's register frontier x, counted: returns its
+// passes (at least 1). `so` holds the event's slot offsets into the
+// table, `live` its slots whose kind reaches a state, `dirty` (within
+// live) those whose steps may change x. Warp-uniform.
+template <int MPL, int NW, int kSlots>
+__device__ __forceinline__ int count_closure(uint32_t (&x)[MPL][NW],
+                                             const WarpTable& t,
+                                             const int (&so)[kSlots],
+                                             uint32_t live, uint32_t dirty,
+                                             int lane) {
+  int passes = 1;
+  while (dirty) {
+    bool changed = false;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (!((dirty >> i) & 1u)) continue;
+      dirty &= ~(1u << i);
+      bool ch;
+      if (i < 5)
+        ch = apply_low<MPL, NW>(x, t, so[i], 1u << i, (lane >> i) & 1);
+      else if (i == 5)
+        ch = apply_high<1, MPL, NW>(x, t, so[i]);
+      else if (i == 6)
+        ch = apply_high<2, MPL, NW>(x, t, so[i]);
+      else
+        ch = apply_high<4, MPL, NW>(x, t, so[i]);
+      if (__any_sync(kFullMask, ch)) {
+        dirty |= live & ~(1u << i);
+        changed = true;
+      }
+    }
+    if (!changed) break;
+    ++passes;
+  }
+  return passes;
+}
+
+// The instrumented entry's warp tier (W <= W_warp): wgl_warp_walk's row
+// walk, with its frontier registers, 32-event tiles, staged table and
+// completion, but each event's closure run as the reference schedules it
+// (count_closure) and every event of the row counted into *iters_p:
+//   * a pad event (EV_PAD) closes a register copy of the frontier, adds
+//     its passes and drops it; one whose slots reach no state counts one
+//     pass without a walk (a ballot per tile finds them);
+//   * EV_CLOSE keeps its closure, an OK completes it;
+//   * a row that fails stops walking: every later event closes an empty
+//     frontier, one pass each, added in one step.
+template <int MPL, int NW>
+__device__ void wgl_count_walk(const int8_t* __restrict__ et,
+                               const int8_t* __restrict__ es,
+                               const void* __restrict__ ev_slots,
+                               long long slots_base, int slots_i32,
+                               const WarpTable t, const uint8_t* reach,
+                               int* offs, uint32_t* Fg, uint32_t* Fbg,
+                               uint8_t* valid_p, int32_t* bad_p,
+                               int32_t* iters_p, int N, int Wt, int K1,
+                               int W, int WL, int idx0) {
+  constexpr int kSlots = MPL == 1 ? 5 : MPL == 2 ? 6 : MPL == 4 ? 7 : 8;
+  const int lane = threadIdx.x & 31;
+  const uint32_t M = 1u << W;
+
+  uint32_t f[MPL][NW];
+#pragma unroll
+  for (int j = 0; j < MPL; ++j) {
+    const uint32_t m = lane + 32u * j;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) f[j][w] = m < M ? Fg[w * M + m] : 0u;
+  }
+  bool ok = *valid_p != 0;
+  int32_t first_bad = *bad_p;
+  int32_t passes = 0;
+  // Lane i < WL: slot i's table offset at the row's last live event, -1
+  // while the frontier is not known to be closed under slot i.
+  int closed = -1;
+
+  Tile next;
+  load_tile(next, et, es, ev_slots, slots_base, lane, N, Wt, WL, slots_i32);
+  for (int e0 = 0; e0 < N; e0 += 32) {
+    const bool in_row = e0 + lane < N;
+    const bool is_ok = next.typ == kEvOk || next.typ == kEvFused;
+    const bool live_ev = is_ok || next.typ == kEvClose;
+    uint32_t live_l = 0u;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (i >= WL) continue;
+      int k = next.kind[i];
+      if (k < 0) k += K1;
+      k = min(max(k, 0), K1 - 1);
+      offs[lane * kWarpMaxW + i] = k * t.kstride;
+      if (reach == nullptr || reach[k]) live_l |= 1u << i;
+    }
+    __syncwarp();
+    // One word per event: its slot's low byte, whether it completes,
+    // whether it is live (not a pad), and its live slots from bit 16.
+    const uint32_t word = (static_cast<uint32_t>(next.q) & 0xffu)
+                          | (is_ok ? 0x100u : 0u) | (live_ev ? 0x200u : 0u)
+                          | live_l << 16;
+    load_tile(next, et, es, ev_slots, slots_base, e0 + 32 + lane, N, Wt,
+              WL, slots_i32);
+    const uint32_t walk =
+        __ballot_sync(kFullMask, in_row && (live_ev || live_l != 0u));
+    // Pads whose slots reach no state: one pass each.
+    const uint32_t quiet = __ballot_sync(kFullMask, in_row) & ~walk;
+    passes += __popc(quiet);
+
+    bool failed = false;
+    for (uint32_t pend = walk; pend;) {
+      const int j = __ffs(pend) - 1;
+      pend &= pend - 1u;
+      const uint32_t ew = __shfl_sync(kFullMask, word, j);
+      const uint32_t live = ew >> 16;
+      int so[kSlots];
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i)
+        so[i] = (live >> i) & 1u ? offs[j * kWarpMaxW + i] : 0;
+      const int mine = lane < WL ? offs[j * kWarpMaxW + lane] : -1;
+      const uint32_t dirty = live & __ballot_sync(kFullMask, mine != closed);
+      uint32_t x[MPL][NW];
+#pragma unroll
+      for (int j2 = 0; j2 < MPL; ++j2)
+#pragma unroll
+        for (int w = 0; w < NW; ++w) x[j2][w] = f[j2][w];
+      passes += count_closure<MPL, NW, kSlots>(x, t, so, live, dirty, lane);
+      if (!(ew & 0x200u)) continue;   // a pad: its closure is dropped
+#pragma unroll
+      for (int j2 = 0; j2 < MPL; ++j2)
+#pragma unroll
+        for (int w = 0; w < NW; ++w) f[j2][w] = x[j2][w];
+      closed = mine;
+      if (!(ew & 0x100u)) continue;   // EV_CLOSE keeps the closure
+      // The reference selects among WL static branches, so the slot
+      // index clamps into [0, WL).
+      const int qc = min(max(static_cast<int>(
+                                 static_cast<int8_t>(ew & 0xffu)), 0),
+                         WL - 1);
+      if (warp_complete<MPL, NW>(f, qc, lane)) {
+        if (lane == qc) closed = -1;   // the freed slot is not closed
+        continue;
+      }
+      warp_latch<MPL, NW>(f, Fbg, ok, M, lane);
+      ok = false;
+      first_bad = min(first_bad, idx0 + e0 + j);
+      // Every later event closes the empty frontier in one pass; this
+      // tile's quiet events past j are counted already.
+      passes += N - 1 - (e0 + j) - __popc(quiet & (~1u << j));
+      failed = true;
+      break;
+    }
+    if (failed) break;
+  }
+
+  if (ok || Fbg != Fg) {
+#pragma unroll
+    for (int j = 0; j < MPL; ++j) {
+      const uint32_t m = lane + 32u * j;
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        if (m < M) Fg[w * M + m] = f[j][w];
+    }
+  }
+  if (lane == 0) {
+    *valid_p = ok ? 1 : 0;
+    *bad_p = first_bad;
+    *iters_p = passes;
+  }
+}
+
 // One warp-tier block: rows blk * R + warp of a bucket (B rows), MPL
 // masks per lane and NW state words. Shared memory holds R event tiles,
 // then the staged table(s): one for the block when the target is shared
 // (target_row_stride 0), one per warp otherwise, or none when the table
-// stays in device memory (table_form, kTable*).
+// stays in device memory (table_form, kTable*). kCount walks the rows
+// with the instrumented entry's counting closure (wgl_count_walk), each
+// row's passes into iters[row].
 // (Not inlined: the group entry calls every instantiation, and each keeps
 // its own register allocation.)
-template <int MPL, int NW>
+template <int MPL, int NW, bool kCount>
 __device__ __noinline__ void wgl_warp_block(
     const int8_t* ev_type, const int8_t* ev_slot, const void* ev_slots,
     int slots_i32, const int32_t* target, long long target_row_stride,
-    uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad, long long blk,
-    int B, int N, int Wt, int K1, int V, int W, int WL, int idx0, int R,
-    int table_form) {
+    uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad, int32_t* iters,
+    long long blk, int B, int N, int Wt, int K1, int V, int W, int WL,
+    int idx0, int R, int table_form) {
   extern __shared__ uint32_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -875,10 +886,18 @@ __device__ __noinline__ void wgl_warp_block(
       form == kTableNibble ? 32 : V, V >= 64 ? ~0ull : (1ull << V) - 1ull};
   int* offs = reinterpret_cast<int*>(smem) + warp * (kTileBytes / 4);
   const long long NWM = static_cast<long long>(NW) << W;
-  wgl_warp_walk<MPL, NW>(ev_type + row * N, ev_slot + row * N, ev_slots,
-                         row * static_cast<long long>(N) * Wt, slots_i32, t,
-                         reach, offs, F + row * NWM, Fb + row * NWM,
-                         valid + row, bad + row, N, Wt, K1, W, WL, idx0);
+  if constexpr (kCount) {
+    wgl_count_walk<MPL, NW>(ev_type + row * N, ev_slot + row * N, ev_slots,
+                            row * static_cast<long long>(N) * Wt, slots_i32,
+                            t, reach, offs, F + row * NWM, Fb + row * NWM,
+                            valid + row, bad + row, iters + row, N, Wt, K1,
+                            W, WL, idx0);
+  } else {
+    wgl_warp_walk<MPL, NW>(ev_type + row * N, ev_slot + row * N, ev_slots,
+                           row * static_cast<long long>(N) * Wt, slots_i32,
+                           t, reach, offs, F + row * NWM, Fb + row * NWM,
+                           valid + row, bad + row, N, Wt, K1, W, WL, idx0);
+  }
 }
 
 // Masks per lane of a warp-tier window: 2^W / 32, at least 1.
@@ -897,9 +916,10 @@ wgl_warp_kernel(const int8_t* __restrict__ ev_type,
                 long long target_row_stride, uint32_t* F, uint32_t* Fb,
                 uint8_t* valid, int32_t* bad, int B, int N, int Wt, int K1,
                 int V, int W, int WL, int idx0, int R, int table_form) {
-  wgl_warp_block<MPL, NW>(ev_type, ev_slot, ev_slots, slots_i32, target,
-                          target_row_stride, F, Fb, valid, bad, blockIdx.x,
-                          B, N, Wt, K1, V, W, WL, idx0, R, table_form);
+  wgl_warp_block<MPL, NW, false>(ev_type, ev_slot, ev_slots, slots_i32,
+                                 target, target_row_stride, F, Fb, valid,
+                                 bad, nullptr, blockIdx.x, B, N, Wt, K1, V,
+                                 W, WL, idx0, R, table_form);
 }
 
 // ---- The wide tiers (W > W_warp): a delta closure over mask groups.
@@ -1074,8 +1094,10 @@ __device__ __forceinline__ uint32_t q_lanes(int q, int g, int Wl,
 }
 
 // One row's walk in a wide tier by one CTA (of 2^clog, this one `rank`).
-// Arguments as wgl_row's; Fg and Fbg are the row's whole [NW][2^W] carry
-// frontiers. `table_staged` stages the int8 table in shared memory (else
+// `et`, `es` and `ev_slots` are the row's event tables (its slot table at
+// element offset `slots_base`, Wt entries per event), `tg` its [K1][V]
+// transition table, valid_p and bad_p its verdict; Fg and Fbg are the
+// row's whole [NW][2^W] carry frontiers. `table_staged` stages the int8 table in shared memory (else
 // it is read from device memory, every slot counted live).
 template <int NW>
 __device__ __noinline__ void wgl_wide_row(
@@ -1316,24 +1338,274 @@ wgl_wide_kernel(const int8_t* __restrict__ ev_type,
                    WL, idx0, clog, rank, frontier_in_smem, table_staged);
 }
 
-// The instrumented entry: the block tier's body with the pass counter on,
-// one block per row; `scratch` ([B][NW][2^W]) is read only when the
-// frontier is not in shared memory (then it may not be null).
-__global__ void wgl_instrument_kernel(
+// ---- The instrumented entry's block tier (W > W_warp): one block a row.
+//
+// The block's T threads (a power of two, min(2^W, kCountMaxThreads)) split
+// the row's masks: thread tid = 32 * warp + lane owns masks tid + T * j,
+// j < 2^W / T, of the frontier and of its pad copy, so a mask's bits 0..4
+// name its lane, bits 5 .. log2(T) - 1 its warp and the bits above its
+// index j on the thread. A slot step writes only its owner's masks with
+// bit i, each from its partner without the bit, which lies on the same
+// thread (a bit of j), on another lane of the warp (bits 0..4) or in
+// another warp. Each step ends on the block's vote (__syncthreads_or),
+// which the dirty-slot rule needs and which also orders the step against
+// the next one's reads and writes. The frontier and its pad copy live in
+// shared memory while both fit beside the event tile and the table (W 14
+// at one state word, 13 at two), else in device memory: the row's slice
+// of F and of `scratch`. The row's table is staged once, as the warp
+// tier stages it (nibble images for V <= 8 at one word, else int8
+// targets, else left in device memory), and events 32 at a time: each
+// slot's table offset, the event's live slots (those whose kind reaches
+// a state), its type and its completing slot.
+constexpr int kCountTile = 32;
+constexpr int kCountMaxThreads = 1024;
+
+// Words of shared memory the block tier keeps besides the frontiers and
+// the table: the event tile's slot offsets, live slots and event words.
+__host__ __device__ __forceinline__ int count_fixed_words() {
+  return kCountTile * kWideMaxW + 2 * kCountTile;
+}
+
+// Slot bit `bit`'s step on the frontier X ([NW][M]) by thread tid of T:
+// its masks with the bit take T_i of their partners. Returns this
+// thread's "something changed".
+template <int NW>
+__device__ __forceinline__ bool count_step(uint32_t* X, const WarpTable& t,
+                                           int so, uint32_t bit, uint32_t M,
+                                           uint32_t T, int tid) {
+  if (bit < T && !(tid & bit)) return false;
+  bool ch = false;
+  for (uint32_t m = tid; m < M; m += T) {
+    if (!(m & bit)) continue;
+    uint32_t src[NW], n[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) src[w] = X[w * M + (m ^ bit)];
+    if (!(src[0] | src[NW - 1])) continue;
+    image<NW>(t, so, src, n);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const uint32_t o = X[w * M + m];
+      if (n[w] & ~o) {
+        X[w * M + m] = o | n[w];
+        ch = true;
+      }
+    }
+  }
+  return ch;
+}
+
+// One closure of the frontier X by the whole block, counted: returns its
+// passes (at least 1; block-uniform), stepping the dirty slots as
+// count_closure does. `so` is the event's slot offsets in the tile. Each
+// step ends on a block vote, which also orders it against the next one;
+// a barrier first orders the caller's last writes (to its own masks)
+// against the first step's reads.
+template <int NW>
+__device__ int count_block_closure(uint32_t* X, const WarpTable& t,
+                                   const int* so, uint32_t live,
+                                   uint32_t dirty, int WL, uint32_t M,
+                                   uint32_t T, int tid) {
+  int passes = 1;
+  if (dirty) __syncthreads();
+  while (dirty) {
+    bool changed = false;
+    for (int i = 0; i < WL; ++i) {
+      if (!((dirty >> i) & 1u)) continue;
+      dirty &= ~(1u << i);
+      const bool ch = count_step<NW>(X, t, so[i], 1u << i, M, T, tid);
+      if (__syncthreads_or(ch)) {
+        dirty |= live & ~(1u << i);
+        changed = true;
+      }
+    }
+    if (!changed) break;
+    ++passes;
+  }
+  return passes;
+}
+
+// The block tier's row walk: block b walks row b over its N events,
+// counting every event's closure passes into iters[b] as the warp tier's
+// wgl_count_walk does (a pad closes the copy, a failed row adds one pass
+// for each later event), with valid, bad and the frontier K1's.
+template <int NW>
+__global__ void __launch_bounds__(kCountMaxThreads, 1)
+wgl_count_block_kernel(
     const int8_t* __restrict__ ev_type, const int8_t* __restrict__ ev_slot,
     const void* __restrict__ ev_slots, int slots_i32,
     const int32_t* __restrict__ target, long long target_row_stride,
     uint32_t* F, uint32_t* Fb, uint8_t* valid, int32_t* bad,
-    uint32_t* scratch, int32_t* iters, int N, int Wt, int K1, int V, int NW,
-    int W, int WL, int idx0, int frontier_in_smem) {
+    uint32_t* scratch, int32_t* iters, int N, int Wt, int K1, int V, int W,
+    int WL, int idx0, int frontier_in_smem, int table_form) {
+  extern __shared__ uint32_t smem[];
   const long long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const uint32_t T = blockDim.x;
+  const uint32_t M = 1u << W;
   const long long NWM = static_cast<long long>(NW) << W;
-  wgl_row(ev_type + row * N, ev_slot + row * N, ev_slots,
-          row * static_cast<long long>(N) * Wt, slots_i32,
-          target + row * target_row_stride, F + row * NWM, Fb + row * NWM,
-          valid + row, bad + row, N, Wt, K1, V, NW, W, WL, idx0,
-          frontier_in_smem, frontier_in_smem ? nullptr : scratch + row * NWM,
-          iters + row);
+  const int8_t* et = ev_type + row * N;
+  const int8_t* es = ev_slot + row * N;
+  const long long slots_base = row * static_cast<long long>(N) * Wt;
+  const int32_t* tg = target + row * target_row_stride;
+  uint32_t* Fg = F + row * NWM;
+  uint32_t* Fbg = Fb + row * NWM;
+
+  uint32_t* cur = smem;
+  uint32_t* Fw = Fg;
+  uint32_t* Sw = frontier_in_smem ? nullptr : scratch + row * NWM;
+  if (frontier_in_smem) {
+    Fw = cur;
+    Sw = cur + NWM;
+    cur += 2 * NWM;
+  }
+  int* tk = reinterpret_cast<int*>(cur);      // [kCountTile][kWideMaxW]
+  int* tlive = tk + kCountTile * kWideMaxW;   // [kCountTile]
+  int* tev = tlive + kCountTile;              // [kCountTile]
+  int8_t* tab = reinterpret_cast<int8_t*>(tev + kCountTile);
+  const int form = table_form;
+  if (form != kTableDevice) stage_table(tg, tab, form, K1, V, NW, tid, T);
+  const int entries = form == kTableNibble ? K1 * 32 * 4 : K1 * V;
+  const uint8_t* reach =
+      form != kTableDevice ? reinterpret_cast<const uint8_t*>(tab) + entries
+                           : nullptr;
+  const WarpTable t{
+      form == kTableNibble ? reinterpret_cast<const uint32_t*>(tab)
+                           : nullptr,
+      form == kTableInt8 ? tab : nullptr, tg, NW,
+      form == kTableNibble ? 32 : V, V >= 64 ? ~0ull : (1ull << V) - 1ull};
+  if (frontier_in_smem) {
+    for (uint32_t m = tid; m < M; m += T)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) Fw[w * M + m] = Fg[w * M + m];
+  }
+  bool ok = valid[row] != 0;
+  int32_t first_bad = bad[row];
+  int32_t passes = 0;
+  // Lane i < WL of every warp: slot i's table offset at the row's last
+  // live event, -1 while the frontier is not known to be closed under it.
+  const int lane = tid & 31;
+  int closed = -1;
+
+  for (int e0 = 0; e0 < N; e0 += kCountTile) {
+    const int ne = min(kCountTile, N - e0);
+    __syncthreads();   // the table is staged, the last tile consumed
+    for (int x = tid; x < ne; x += T) {
+      const int e = e0 + x;
+      const int typ = et[e];
+      const bool is_ok = typ == kEvOk || typ == kEvFused;
+      int live = 0;
+      for (int i = 0; i < WL; ++i) {
+        int k = load_kind(ev_slots,
+                          slots_base + static_cast<long long>(e) * Wt + i,
+                          slots_i32);
+        if (k < 0) k += K1;
+        k = min(max(k, 0), K1 - 1);
+        tk[x * kWideMaxW + i] = k * t.kstride;
+        if (reach == nullptr || reach[k]) live |= 1 << i;
+      }
+      tlive[x] = live;
+      tev[x] = (static_cast<int>(es[e]) & 0xff) | (is_ok ? 0x100 : 0)
+               | (is_ok || typ == kEvClose ? 0x200 : 0);
+    }
+    __syncthreads();
+
+    bool failed = false;
+    for (int j = 0; j < ne; ++j) {
+      const int ev = tev[j];
+      const uint32_t live = static_cast<uint32_t>(tlive[j]);
+      const bool live_ev = (ev & 0x200) != 0;
+      const int mine = lane < WL ? tk[j * kWideMaxW + lane] : -1;
+      const uint32_t dirty = live & __ballot_sync(kFullMask, mine != closed);
+      if (!dirty) {
+        ++passes;      // no step can change the frontier: one pass
+      } else {
+        uint32_t* X = Fw;
+        if (!live_ev) {  // a pad closes a copy of the frontier
+          for (uint32_t m = tid; m < M; m += T)
+#pragma unroll
+            for (int w = 0; w < NW; ++w) Sw[w * M + m] = Fw[w * M + m];
+          X = Sw;
+        }
+        passes += count_block_closure<NW>(X, t, tk + j * kWideMaxW, live,
+                                          dirty, WL, M, T, tid);
+      }
+      if (!live_ev) continue;   // a pad's closure is dropped
+      closed = mine;
+      if (!(ev & 0x100)) continue;   // EV_CLOSE keeps the closure
+      // The reference selects among WL static branches, so the slot
+      // index clamps into [0, WL).
+      const int q = min(max(static_cast<int>(static_cast<int8_t>(ev & 0xff)),
+                            0), WL - 1);
+      const uint32_t qb = 1u << q;
+      bool any = false;
+      for (uint32_t m = tid; m < M; m += T) {
+        if (!(m & qb)) continue;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) any |= Fw[w * M + m] != 0u;
+      }
+      if (__syncthreads_or(any)) {
+        // Masks without bit q take their partner's words, then masks
+        // with bit q are cleared.
+        for (uint32_t m = tid; m < M; m += T) {
+          if (m & qb) continue;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) Fw[w * M + m] = Fw[w * M + (m | qb)];
+        }
+        __syncthreads();
+        for (uint32_t m = tid; m < M; m += T) {
+          if (!(m & qb)) continue;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) Fw[w * M + m] = 0u;
+        }
+        if (lane == q) closed = -1;   // the freed slot is not closed
+        continue;
+      }
+      // No config survives: latch the closure on the row's first failure;
+      // the frontier becomes empty, and every later event closes it in
+      // one pass.
+      for (uint32_t m = tid; m < M; m += T)
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          if (ok) Fbg[w * M + m] = Fw[w * M + m];
+          Fw[w * M + m] = 0u;
+        }
+      ok = false;
+      first_bad = min(first_bad, idx0 + e0 + j);
+      passes += N - 1 - (e0 + j);
+      failed = true;
+      break;
+    }
+    if (failed) break;
+  }
+
+  if (frontier_in_smem && (ok || Fbg != Fg)) {
+    for (uint32_t m = tid; m < M; m += T)
+#pragma unroll
+      for (int w = 0; w < NW; ++w) Fg[w * M + m] = Fw[w * M + m];
+  }
+  if (tid == 0) {
+    valid[row] = ok ? 1 : 0;
+    bad[row] = first_bad;
+    iters[row] = passes;
+  }
+}
+
+// The instrumented entry's warp tier: one kernel per (MPL, NW), as the
+// single-bucket entry's.
+template <int MPL, int NW>
+__global__ void __launch_bounds__(kWarpRows * 32, kWarpMinBlocks)
+wgl_count_warp_kernel(const int8_t* __restrict__ ev_type,
+                      const int8_t* __restrict__ ev_slot,
+                      const void* __restrict__ ev_slots, int slots_i32,
+                      const int32_t* __restrict__ target,
+                      long long target_row_stride, uint32_t* F, uint32_t* Fb,
+                      uint8_t* valid, int32_t* bad, int32_t* iters, int B,
+                      int N, int Wt, int K1, int V, int W, int WL, int idx0,
+                      int R, int table_form) {
+  wgl_warp_block<MPL, NW, true>(ev_type, ev_slot, ev_slots, slots_i32,
+                                target, target_row_stride, F, Fb, valid, bad,
+                                iters, blockIdx.x, B, N, Wt, K1, V, W, WL,
+                                idx0, R, table_form);
 }
 
 // One member chunk of a group launch. Layout shared with the ctypes
@@ -1372,11 +1644,13 @@ wgl_frontier_group_kernel(const __grid_constant__ WglGroup g) {
   const long long blk = b - mb.block_start;
   if (mb.tier == kTierWarp) {
 #define WGL_GROUP_WARP(MPL, NW)                                             \
-  wgl_warp_block<MPL, NW>(mb.ev_type, mb.ev_slot, mb.ev_slots,              \
-                          mb.slots_i32, mb.target, mb.target_row_stride,    \
-                          mb.frontier, mb.frontier, mb.valid, mb.bad, blk,  \
-                          mb.rows, mb.N, mb.Wt, mb.K1, mb.V, mb.W, mb.WL,   \
-                          0, mb.rows_per_block, mb.table_form)
+  wgl_warp_block<MPL, NW, false>(mb.ev_type, mb.ev_slot, mb.ev_slots,       \
+                                 mb.slots_i32, mb.target,                   \
+                                 mb.target_row_stride, mb.frontier,         \
+                                 mb.frontier, mb.valid, mb.bad, nullptr,    \
+                                 blk, mb.rows, mb.N, mb.Wt, mb.K1, mb.V,    \
+                                 mb.W, mb.WL, 0, mb.rows_per_block,         \
+                                 mb.table_form)
     const int mpl = warp_mpl(mb.W);
     if (mb.NW == 1) {
       if (mpl == 1) WGL_GROUP_WARP(1, 1);
@@ -1520,29 +1794,77 @@ extern "C" int wgl_frontier_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instrumented entry over B rows: B blocks of `threads`, the frontier
-// and its scratch copy in shared memory when frontier_in_smem, else both
-// in device memory (F and `scratch`); iters[b] gets row b's closure
-// passes over these N events.
+// The instrumented entry over B rows: tier 0 (warp), ceil(B / R) blocks
+// of `threads` = R x 32, as wgl_frontier_launch's warp tier; tier 1
+// (block) and 2 (device memory), B blocks of min(2^W, kCountMaxThreads),
+// the frontier and its pad copy in shared memory (tier 1) or in F and
+// `scratch` (tier 2, which may then not be null). iters[b] gets row b's
+// closure passes over these N events.
 extern "C" int wgl_frontier_instrument_launch(
     const void* ev_type, const void* ev_slot, const void* ev_slots,
     int slots_i32, const void* target, long long target_row_stride,
     void* F, void* Fb, void* valid, void* bad, void* scratch, void* iters,
     int B, int N, int Wt, int K1, int V, int NW, int W, int WL, int idx0,
-    int frontier_in_smem, int threads, int smem_bytes, void* stream) {
-  if (!frontier_in_smem && scratch == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_smem(wgl_instrument_kernel, smem_bytes);
+    int tier, int rows_per_block, int table_form, int threads,
+    int smem_bytes, void* stream) {
+  const auto* et = static_cast<const int8_t*>(ev_type);
+  const auto* es = static_cast<const int8_t*>(ev_slot);
+  const auto* tg = static_cast<const int32_t*>(target);
+  auto* f = static_cast<uint32_t*>(F);
+  auto* fb = static_cast<uint32_t*>(Fb);
+  auto* v = static_cast<uint8_t*>(valid);
+  auto* bd = static_cast<int32_t*>(bad);
+  auto* it = static_cast<int32_t*>(iters);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (tier == kTierWarp) {
+    if (!warp_tier_ok(W, V, NW, rows_per_block, table_form)
+        || threads != 32 * rows_per_block)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = (B + rows_per_block - 1) / rows_per_block;
+    const int mpl = warp_mpl(W);
+    auto kernel = wgl_count_warp_kernel<1, 1>;
+    if (NW == 1) {
+      kernel = mpl == 1   ? wgl_count_warp_kernel<1, 1>
+               : mpl == 2 ? wgl_count_warp_kernel<2, 1>
+               : mpl == 4 ? wgl_count_warp_kernel<4, 1>
+                          : wgl_count_warp_kernel<8, 1>;
+    } else {
+      kernel = mpl == 1   ? wgl_count_warp_kernel<1, 2>
+               : mpl == 2 ? wgl_count_warp_kernel<2, 2>
+               : mpl == 4 ? wgl_count_warp_kernel<4, 2>
+                          : wgl_count_warp_kernel<8, 2>;
+    }
+    const cudaError_t e = allow_smem(kernel, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (blocks > 0) {
+      kernel<<<blocks, threads, smem_bytes, st>>>(
+          et, es, ev_slots, slots_i32, tg, target_row_stride, f, fb, v, bd,
+          it, B, N, Wt, K1, V, W, WL, idx0, rows_per_block, table_form);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int in_smem = tier == kTierBlock ? 1 : 0;
+  const long long need =
+      4LL * ((in_smem ? 2LL * NW << W : 0LL) + count_fixed_words())
+      + (table_form != kTableDevice ? table_bytes(K1, V, table_form) : 0);
+  const bool ok = (tier == kTierBlock || tier == kTierDevice) && W >= 5
+                  && W <= kWideMaxW && (NW == 1 || NW == 2) && WL >= 1
+                  && WL <= W && threads == min(1 << W, kCountMaxThreads)
+                  && smem_bytes >= need
+                  && (table_form == kTableDevice || table_form == kTableInt8
+                      || (table_form == kTableNibble && NW == 1 && V <= 8))
+                  && (in_smem || scratch != nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = NW == 1 ? wgl_count_block_kernel<1>
+                        : wgl_count_block_kernel<2>;
+  const cudaError_t e = allow_smem(kernel, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  wgl_instrument_kernel<<<B, threads, smem_bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(ev_type),
-      static_cast<const int8_t*>(ev_slot), ev_slots, slots_i32,
-      static_cast<const int32_t*>(target), target_row_stride,
-      static_cast<uint32_t*>(F), static_cast<uint32_t*>(Fb),
-      static_cast<uint8_t*>(valid), static_cast<int32_t*>(bad),
-      static_cast<uint32_t*>(scratch), static_cast<int32_t*>(iters), N, Wt,
-      K1, V, NW, W, WL, idx0, frontier_in_smem);
+  if (B > 0) {
+    kernel<<<B, threads, smem_bytes, st>>>(
+        et, es, ev_slots, slots_i32, tg, target_row_stride, f, fb, v, bd,
+        static_cast<uint32_t*>(scratch), it, N, Wt, K1, V, W, WL, idx0,
+        in_smem, table_form);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

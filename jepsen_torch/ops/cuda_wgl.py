@@ -20,7 +20,9 @@ reference's ``make_fused_kernel``), and counts its launches in
 ``GROUP_LAUNCHES``. ``wgl_frontier(..., iters=)`` launches the
 instrumented entry instead (the counterpart of the reference's
 ``make_kernel(instrument=True)``), which also counts each row's closure
-passes; its launches count in ``INSTRUMENT_LAUNCHES``.
+passes as the reference schedules them, on the warp tier's layout (a
+warp a row, W <= W_WARP) or a block a row (the count tier, W > W_WARP);
+its launches count in ``INSTRUMENT_LAUNCHES``.
 ``prepare_frontier`` and ``prepare_group`` do a
 wrapper's checks and allocations and return the launch itself, so that a
 caller can time the kernel alone.
@@ -82,6 +84,12 @@ WIDE_MAX_W = 18
 WIDE_MAX_WARPS = 32
 MAX_CLUSTER_CTAS = 8
 
+# The instrumented entry's block tier (W > W_WARP, kCount* in the
+# source): events staged per tile (each with WIDE_MAX_W slots) and the
+# most threads a row's block.
+COUNT_TILE = 32
+COUNT_MAX_THREADS = 1024
+
 # Launches of the single-bucket and the group entry in this process;
 # callers reset them to 0 and read them back to show that a path ran on
 # the card.
@@ -123,6 +131,39 @@ def wide_fixed_words(groups: int) -> int:
     vote flags and two group counters (wide_fixed_words in the
     source)."""
     return 3 * groups + WIDE_TILE * WIDE_MAX_W + 2 * WIDE_TILE + 6
+
+
+def count_fixed_words() -> int:
+    """Shared-memory words the instrumented entry's block tier keeps
+    beside its frontiers and table: the event tile's slot offsets
+    (COUNT_TILE events of WIDE_MAX_W slots), live slots and event words
+    (count_fixed_words in the source)."""
+    return COUNT_TILE * WIDE_MAX_W + 2 * COUNT_TILE
+
+
+def _count_plan(V: int, W: int, K1: int) -> dict:
+    """The instrumented entry's block tier (W > W_WARP): one block of
+    min(2^W, COUNT_MAX_THREADS) threads a row. The frontier and its pad
+    copy ([words(V), 2^W] uint32 each) stay in shared memory while they
+    fit beside the event tile and the table staged as the warp tier
+    stages it (``table_form``), then without the table (read from device
+    memory); past that both frontiers live in device memory (the
+    "device" tier: the output frontier and a scratch copy), the table
+    staged when it fits."""
+    NW, M = n_state_words(V), 1 << W
+    form = table_form(V)
+    tb = table_bytes(K1, V, form)
+    frontier = 2 * NW * M * 4
+    fixed = 4 * count_fixed_words()
+    plans = [{"tier": tier, "rows_per_block": 1, "table_form": f,
+              "cluster_ctas": 1, "rows_bytes": rows,
+              "frontier_bytes": frontier, "frontier_in_smem": tier == "block",
+              "smem_bytes": resident + fixed + rows,
+              "threads": min(M, COUNT_MAX_THREADS),
+              "limit_bytes": SMEM_LIMIT_BYTES}
+             for tier, resident in (("block", frontier), ("device", 0))
+             for f, rows in ((form, tb), ("device", 0))]
+    return next(p for p in plans if p["smem_bytes"] <= SMEM_LIMIT_BYTES)
 
 
 def wide_threads(groups: int) -> int:
@@ -191,26 +232,17 @@ def smem_plan(V: int, W: int, w_live: Optional[int] = None, *,
     WARP_SMEM_BYTES, and a table that fits no block stays in device
     memory (``table_form`` "device", R = 8).
 
-    ``instrument=True`` plans the instrumented entry, which runs the
-    first block tier's body at every W (dense slot sweeps: neither the
-    warp tier nor the delta closure can count the reference's closure
-    passes), one block a row with one thread a mask pair (at most 512),
-    the packed rows of its event's slots staged, and a scratch copy of
-    the frontier beside it: ``frontier_bytes`` counts both, in shared
-    memory (block tier) or in device memory (device-memory tier)."""
+    ``instrument=True`` plans the instrumented entry, whose closure
+    steps the slots in the reference's order and counts its passes: to
+    W_WARP the warp tier's plan (the frontier and its pad copy in the
+    warp's registers), past it the count tier's (``_count_plan``: a
+    block a row, tier "block" with both frontiers in shared memory, or
+    "device" with both in device memory). ``frontier_bytes`` counts the
+    frontier and its pad copy."""
     NW, M = n_state_words(V), 1 << int(W)
-    WL = W if w_live is None else max(1, min(int(w_live), W))
     frontier = NW * M * 4 * (2 if instrument else 1)
-    if instrument:
-        rows = WL * NW * V * 4
-        resident = rows + frontier <= SMEM_LIMIT_BYTES
-        return {"tier": "block" if resident else "device",
-                "rows_per_block": 1, "table_form": "device",
-                "cluster_ctas": 1, "rows_bytes": rows,
-                "frontier_bytes": frontier, "frontier_in_smem": resident,
-                "smem_bytes": rows + (frontier if resident else 0),
-                "threads": min(max(M // 2, 32), 512),
-                "limit_bytes": SMEM_LIMIT_BYTES}
+    if instrument and W > W_WARP:
+        return _count_plan(V, int(W), int(K1))
     if W > W_WARP:
         return _wide_plan(V, int(W), int(K1))
     form = table_form(V)
@@ -260,7 +292,7 @@ def _library():
                 + [i] * 15 + [p], ctypes.c_int),
             "wgl_frontier_instrument_launch": (
                 [p, p, p, i, p, ctypes.c_longlong, p, p, p, p, p, p]
-                + [i] * 12 + [p], ctypes.c_int),
+                + [i] * 14 + [p], ctypes.c_int),
             "wgl_frontier_group_launch": ([p, i, i, p], ctypes.c_int),
             "wgl_frontier_group_desc_bytes": ([], ctypes.c_int),
             "wgl_frontier_warp_limits": ([ip, ip], ctypes.c_int),
@@ -400,12 +432,11 @@ def _prepare_instrument(ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
                         valid, bad, iters, B, N, shared, K1, V, NW, W, WL):
     """The instrumented entry's launch (prepare_frontier with iters=)."""
     plan = smem_plan(V, W, WL, K1=K1, shared_target=shared, instrument=True)
-    in_smem = plan["frontier_in_smem"]
     dev = ev_type.device
-    # The pad events' scratch frontier, in device memory when the two
-    # frontiers do not fit in shared memory; fresh for every launch.
-    scratch = (None if in_smem or B == 0 else
-               torch.empty((B, NW, 1 << W), dtype=torch.int32, device=dev))
+    # The pad events' scratch frontier of the device-memory tier (the
+    # other tiers keep it on chip); fresh for every launch.
+    scratch = (torch.empty((B, NW, 1 << W), dtype=torch.int32, device=dev)
+               if plan["tier"] == "device" and B else None)
 
     def launch() -> None:
         global INSTRUMENT_LAUNCHES
@@ -423,8 +454,9 @@ def _prepare_instrument(ev_type, ev_slot, ev_slots, target, idx0, F, Fb,
                 valid.data_ptr(), bad.data_ptr(),
                 None if scratch is None else scratch.data_ptr(),
                 iters.data_ptr(), B, N, int(ev_slots.shape[2]), K1, V, NW,
-                W, WL, int(idx0), int(in_smem), plan["threads"],
-                plan["smem_bytes"], _stream(dev))
+                W, WL, int(idx0), TIERS[plan["tier"]],
+                plan["rows_per_block"], TABLE_FORMS[plan["table_form"]],
+                plan["threads"], plan["smem_bytes"], _stream(dev))
         _raise_on(lib, err, "wgl_frontier_instrument")
         INSTRUMENT_LAUNCHES += 1
 

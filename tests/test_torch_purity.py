@@ -1,5 +1,5 @@
-"""The port stands alone: jepsen_torch and chip_smoke.py import neither
-jax nor anything of jepsen_tpu, and nothing runs on the CPU unless the
+"""The port stands alone: jepsen_torch, chip_smoke.py and tools/ import
+neither jax nor anything of jepsen_tpu, and nothing runs on the CPU unless the
 caller asks for it."""
 import ast
 import os
@@ -59,7 +59,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_the_reference(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

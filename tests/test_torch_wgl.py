@@ -253,19 +253,60 @@ def test_smem_plan_places_the_frontier(V, W, tier, ctas):
         assert plan["cta_frontier_bytes"] * ctas == plan["frontier_bytes"]
 
 
-def block_tier_plan(V, W, w_live=None):
-    """The first block tier's plan (one block per row, one thread per
-    mask pair, the packed rows of an event's slots staged, a scratch
-    frontier beside the frontier): the instrumented entry keeps it."""
+def count_tier_plan(V, W, K1):
+    """The instrumented entry's plan past W_WARP, written out: a block of
+    min(2^W, 1024) threads a row, the frontier and its pad copy in shared
+    memory beside the event tile (32 events of 18 slot offsets, a live
+    slot mask and an event word each) and the table staged as the warp
+    tier stages it (nibble images to V 8, else int8 targets); without
+    the table when all three do not fit; past that both frontiers in
+    device memory (the "device" tier), the table staged when it fits."""
     NW, M = L.n_state_words(V), 1 << W
-    WL = W if w_live is None else max(1, min(w_live, W))
-    rows, frontier = WL * NW * V * 4, 2 * NW * M * 4
-    resident = rows + frontier <= 232448
-    return {"tier": "block" if resident else "device", "rows_per_block": 1,
-            "cluster_ctas": 1, "rows_bytes": rows,
-            "frontier_bytes": frontier, "frontier_in_smem": resident,
-            "smem_bytes": rows + (frontier if resident else 0),
-            "threads": min(max(M // 2, 32), 512), "limit_bytes": 232448}
+    form = "nibble" if V <= 8 else "int8"
+    table = ((K1 * 128 if form == "nibble" else K1 * V) + K1 + 15) & ~15
+    frontier, fixed = 2 * NW * M * 4, 4 * (32 * 18 + 32 + 32)
+    for tier, resident in (("block", frontier), ("device", 0)):
+        for f, rows in ((form, table), ("device", 0)):
+            if resident + fixed + rows <= 232448:
+                return {"tier": tier, "rows_per_block": 1, "table_form": f,
+                        "cluster_ctas": 1, "rows_bytes": rows,
+                        "frontier_bytes": frontier,
+                        "frontier_in_smem": tier == "block",
+                        "smem_bytes": resident + fixed + rows,
+                        "threads": min(M, 1024), "limit_bytes": 232448}
+
+
+def warp_count_plan(V, W, K1, shared):
+    """The instrumented entry's plan to W_WARP, written out: the warp
+    tier's, a warp a row and R rows a block, R the largest of 8, 4, 2, 1
+    whose R event tiles (1 KB each) and staged tables (one for a shared
+    target, else one a row; nibble images to V 8, else int8 targets) fit
+    48 KB; a table that fits no block stays in device memory, R 8. The
+    frontier and its pad copy sit in the warp's registers."""
+    NW, M = L.n_state_words(V), 1 << W
+    form = "nibble" if V <= 8 else "int8"
+    table = ((K1 * 128 if form == "nibble" else K1 * V) + K1 + 15) & ~15
+    plan = {"tier": "warp", "rows_per_block": 8, "table_form": "device",
+            "cluster_ctas": 1, "rows_bytes": 0,
+            "frontier_bytes": 2 * NW * M * 4, "frontier_in_smem": True,
+            "smem_bytes": 8 * 1024, "threads": 8 * 32,
+            "limit_bytes": 232448}
+    for R in (8, 4, 2, 1):
+        tables = table if shared else R * table
+        if R * 1024 + tables <= 48 * 1024:
+            plan.update(rows_per_block=R, table_form=form, rows_bytes=tables,
+                        smem_bytes=R * 1024 + tables, threads=R * 32)
+            break
+    return plan
+
+
+def instrument_plan(V, W, w_live=None, K1=1, shared=True):
+    """The instrumented entry's plan: to W_WARP the warp tier's
+    (warp_count_plan; w_live changes nothing), past it the count
+    tier's."""
+    if W > cuda_wgl.W_WARP:
+        return count_tier_plan(V, W, K1)
+    return warp_count_plan(V, W, K1, shared)
 
 
 def wide_plan(V, W, K1):
@@ -296,8 +337,8 @@ def test_smem_plan_tiers_and_limits(V):
     within the shared memory a block may use (and the warp tier within
     its budget), threads a whole number of warps, the wide tiers as
     wide_plan writes them out (w_live and a shared target change
-    nothing there), and the instrumented entry on the first block
-    tier's plan."""
+    nothing there), and the instrumented entry on the warp tier's plan
+    to W_WARP and on the count tier's past it (instrument_plan)."""
     for W in range(1, cuda_wgl.MAX_W + 1):
         for w_live in (None, 1, 3):
             for K1 in (1, 37, 200, 800, 5000):
@@ -309,8 +350,9 @@ def test_smem_plan_tiers_and_limits(V):
                     inst = cuda_wgl.smem_plan(V, W, w_live, K1=K1,
                                               shared_target=shared,
                                               instrument=True)
-                    assert {k: inst[k] for k in block_tier_plan(
-                        V, W, w_live)} == block_tier_plan(V, W, w_live)
+                    assert inst == instrument_plan(V, W, w_live, K1,
+                                                   shared)
+                    assert inst["smem_bytes"] <= inst["limit_bytes"]
                     if W > cuda_wgl.W_WARP:
                         tier, ctas, form, smem, groups = wide_plan(V, W, K1)
                         assert (plan["tier"], plan["cluster_ctas"],
@@ -351,7 +393,7 @@ def test_smem_plan_every_width_and_vocabulary(V):
     words), each CTA's bytes within 227 KB and whole 32-mask groups,
     threads a whole number of warps up to 1024, the group entry taking
     exactly the warp and block tiers, and the instrumented plan on the
-    first block tier's body at every W."""
+    warp tier to W_WARP and on the count tier past it."""
     NW = L.n_state_words(V)
     for W in range(1, cuda_wgl.MAX_W + 1):
         plan = cuda_wgl.smem_plan(V, W, K1=40)
@@ -373,9 +415,11 @@ def test_smem_plan_every_width_and_vocabulary(V):
         batch = SimpleNamespace(V=V, W=W, eff_w_live=W)
         assert BucketScheduler._groupable(batch) is (
             plan["tier"] in ("warp", "block"))
-        inst = cuda_wgl.smem_plan(V, W, instrument=True)
-        assert inst["tier"] in ("block", "device")
-        assert inst == {**inst, **block_tier_plan(V, W)}
+        inst = cuda_wgl.smem_plan(V, W, K1=40, instrument=True)
+        assert inst["tier"] == ("warp" if W <= cuda_wgl.W_WARP
+                                else "block" if W <= 15 - NW
+                                else "device")
+        assert inst == instrument_plan(V, W, K1=40)
 
 
 @pytest.mark.parametrize("V,W,K1,shared,R,form", [
@@ -554,21 +598,36 @@ def test_instrumented_has_the_check_form_only():
 
 
 def test_instrument_plan_runs_the_block_body_at_every_width():
-    """The instrumented entry never takes the warp tier, and keeps a
-    scratch frontier beside the frontier: in shared memory while both
-    fit, in device memory past that."""
+    """The instrumented entry runs the warp tier to W_WARP and a block a
+    row past it, with a pad copy beside the frontier: both in shared
+    memory while they fit (W 14 at one state word, 13 at two), in device
+    memory past that; a table too large for shared memory stays in
+    device memory in every tier."""
     for W in range(1, 19):
         for V in (8, 40):
             plan = cuda_wgl.smem_plan(V, W, instrument=True)
-            assert plan["tier"] in ("block", "device")
             words = cuda_wgl.n_state_words(V)
             assert plan["frontier_bytes"] == 2 * words * (4 << W)
+            if W <= cuda_wgl.W_WARP:
+                assert plan["tier"] == "warp"
+                continue
+            assert plan["tier"] in ("block", "device")
+            assert plan["frontier_in_smem"] == (plan["tier"] == "block")
             assert plan["frontier_in_smem"] == (
-                plan["rows_bytes"] + plan["frontier_bytes"]
+                plan["frontier_bytes"] + 4 * cuda_wgl.count_fixed_words()
                 <= cuda_wgl.SMEM_LIMIT_BYTES)
+            assert plan["threads"] == min(1 << W, 1024)
     assert cuda_wgl.smem_plan(8, 14, instrument=True)["tier"] == "block"
     assert cuda_wgl.smem_plan(8, 15, instrument=True)["tier"] == "device"
+    assert cuda_wgl.smem_plan(40, 13, instrument=True)["tier"] == "block"
+    assert cuda_wgl.smem_plan(40, 14, instrument=True)["tier"] == "device"
     assert cuda_wgl.smem_plan(8, 15)["tier"] == "block"
+    for W, K1, want in ((6, 800, ("warp", "device")),
+                        (12, 3000, ("block", "device")),
+                        (16, 4000, ("device", "device")),
+                        (16, 9, ("device", "int8"))):
+        plan = cuda_wgl.smem_plan(64, W, K1=K1, instrument=True)
+        assert (plan["tier"], plan["table_form"]) == want
 
 
 def test_instrumented_wrapper_refuses_cpu_tensors():
