@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA libraries from the checkout's sources (one nvcc
+Builds the six CUDA libraries from the checkout's sources (one nvcc
 each, in parallel) and holds each kernel bit for bit against its plain
 PyTorch version on the card (the list-append generator with its own
 phases, below): the WGL frontier kernel in each of its tiers (warp;
@@ -24,7 +24,7 @@ paths, each with the launch counts set to 0 just before and read just
 after:
 
   * the Op-list path, ``check_batch(scheduler=False)`` on seeded
-    CAS-register histories of 1,000 invocations each (500 of them: cut
+    CAS-register histories of 1,000 invocations each (250 of them: cut
     in count, never in length, to keep the run short), with the host
     oracle on sampled rows;
   * the columnar exact path, ``check_synth(scheduler=False)`` on the
@@ -40,7 +40,7 @@ after:
     scheduler and its group launches, held against the exact path on
     every history, the host oracle on sampled sub-histories and
     ``details=True`` on a 256-row slice; then the scheduler over the
-    wide specs and over 500 Op-list histories against
+    wide specs and over 250 Op-list histories against
     ``scheduler=False``;
   * the dependency-graph closure kernel's two entries (``graph_closure``,
     ``txn_closure``) against their plain versions at every vertex bucket
@@ -64,7 +64,7 @@ after:
     side of a tile and a warp's chunk edge, and of two values that one
     thread of the fold takes (``fold_kernel_parity``), then each of the seven fold
     checkers' ``check_*_batch`` on the reference bench's total-queue
-    batch and on a full-width batch per family, 32 histories of 10,000
+    batch and on a full-width batch per family, 16 histories of 10,000
     elements with seeded violations, every history held against its host
     oracle in ``checkers.simple`` and the kernel against its plain
     version on the batch (``fold_path``);
@@ -133,6 +133,28 @@ Then the fault ladder's phases, after every kernel is built:
     with every eighth neighbour re-checked by the host engine: no
     disagreement and at least one invalid neighbourhood (``fuzz``).
 
+Then the multi-device routes, on a mesh of the card named 8 times
+(``provision.provisioned``; until then nothing is provisioned, the
+one-card host has no production mesh, and no sharded dispatch may run):
+
+  * the frontier-sharded step (K3, ``csrc/wgl_shard.cu``) on explicit
+    meshes 4 x 2, 2 x 4 and 1 x 8 at local windows 1, 8, 9 and 16, one
+    and two state words, shared and per-row tables, padding rows and rows
+    that fail on and survive a top-slot completion: each of its three
+    kernels against its plain version on every input the walk gives it,
+    and the walk's valid, bad and frontier against K1 on the same rows
+    (``mesh_kernel_parity``);
+  * the production routes: wide Op-list rows at W 17, 18 and 19 and a
+    columnar W 18 batch on the frontier route, the wide W 17
+    ``check_synth`` specs on it against their one-card ``data1wide`` run,
+    and the dryrun's 256 CAS histories of 256 ops on the batch-sharded
+    route against ``data1`` and ``wgl_check`` (``mesh_path``). Every K3
+    walk of these routes is replayed through the plain versions (the
+    outputs must be equal) and with each kernel held against its plain
+    version on every input; K3 is timed on the wide specs beside K1's
+    data1wide time on them, with K1's bound on those rows shared out
+    over its three kernels.
+
 ``python3 chip_smoke.py --headline TREE [TREE ...]`` instead times the
 default ``check_synth`` on the keyed headline spec in each checkout
 given, in that order (for example parent, change, change, parent).
@@ -194,10 +216,12 @@ HEADLINE_SPEC = dict(family="cas", n=10_000, seed=1, n_procs=5,
                      n_ops=1_000, n_values=5, corrupt=0.1, p_info=0.01,
                      n_keys=8)
 # The Op-list path's count, cut from 2,000 (to 1,000, then to 500 when
-# the la phases joined the script); its length is uncut.
-OPLIST_HISTORIES = 500
-SCHED_OPLIST_HISTORIES = 500
-ORACLE_ROWS = 64
+# the la phases joined the script, and to 250 when the mesh phases did);
+# its length is uncut. Host-oracle rows of the WGL paths: 32 (64 until
+# the mesh phases joined the script).
+OPLIST_HISTORIES = 250
+SCHED_OPLIST_HISTORIES = 250
+ORACLE_ROWS = 32
 DETAIL_ROWS = 256
 WIDE_ROWS = 256
 # K8b's parity widths: one, two and three of its warp's 32-line turns
@@ -813,20 +837,22 @@ def phase_synth_parity(dev, S, cuda_synth):
     return err
 
 
-def frontier_bytes(L, ev_type, ev_slots, target, V, W, w_live) -> int:
+def frontier_bytes(L, ev_type, ev_slots, target, V, W, w_live,
+                   parts=False):
     """Bytes a frontier launch must move for its rows: per live event
     (padding events are skipped before their slots are read, so they
     count nothing) its type, its slot and its ``w_live`` slot kinds; the
     transition table (shared, or one per row) read once; and valid
     (bool), bad (int32) and the frontier (int32 [words, 2^W]) written
-    once per row."""
+    once per row. ``parts``: (bytes read, bytes written) apart."""
     from jepsen_torch.ops.encode import EV_PAD
     model = L.vpu_op_model(V, W, w_live)
     live = int((ev_type != EV_PAD).sum())
-    return (live * (2 + model["w_live"] * ev_slots.element_size())
-            + target.numel() * target.element_size()
-            + ev_type.shape[0] * (1 + 4 + 4 * model["words"]
-                                  * model["masks"]))
+    read = (live * (2 + model["w_live"] * ev_slots.element_size())
+            + target.numel() * target.element_size())
+    written = ev_type.shape[0] * (1 + 4 + 4 * model["words"]
+                                  * model["masks"])
+    return (read, written) if parts else read + written
 
 
 def wgl_measure(dev, L, buckets):
@@ -926,7 +952,7 @@ def wide_bound(spec) -> dict:
 
 def phase_oplist_path(dev, L, synth, cas, prep, bucket_encode, wgl_check):
     """check_batch(scheduler=False) on Op lists: the first slice's path,
-    at 2,000 rows."""
+    at OPLIST_HISTORIES rows."""
     from jepsen_torch.ops.encode import take_rows
     t0 = time.perf_counter()
     hists = synth(OPLIST_HISTORIES, seed0=0, n_procs=5,
@@ -1430,14 +1456,24 @@ def launch_bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+# Group launches of a path whose members the plain version runs on (the
+# first ones recorded): the plain version over all of the keyed
+# headline's 20 group launches took 56-91 s of the script's time on the
+# card; the bound counts every group's operations from the kernel's own
+# closures (``closure_ops``), held equal to the plain version's count on
+# these groups.
+PLAIN_GROUPS = 4
+
+
 def group_measure(dev, L, groups):
     """The recorded group launches of a path: their kernel time alone
     (``time_launches``, 3 runs after a warm-up) and through the wrapper
     (CUDA events around the wrapper calls, output allocation included),
     each member's tier, parity and time of the plain version on the same
-    inputs, and the bound from the bytes the groups must move
-    (``frontier_bytes`` over each member's real rows) and the operations
-    their data needs."""
+    inputs (the first PLAIN_GROUPS groups), and the bound from the bytes
+    the groups must move (``frontier_bytes`` over each member's real
+    rows) and the operations their data needs (``closure_ops`` on every
+    member, equal to the plain version's count where it ran)."""
     def replay():
         return [L.cuda_wgl.wgl_frontier_group(m, f, r) for m, f, r in groups]
 
@@ -1446,13 +1482,14 @@ def group_measure(dev, L, groups):
                        reps=3)
     got = replay()
     torch.cuda.synchronize()
+    held = groups[:PLAIN_GROUPS]
     # The plain version, member by member as plain_fused_wgl runs it, each
     # counting the operations its data needs in the same run.
     needed = [[torch.zeros(nb, dtype=torch.int64, device=dev) for nb in r]
-              for _, _, r in groups]
+              for _, _, r in held]
     t0 = time.perf_counter()
     want = []
-    for (m, f, r), nd in zip(groups, needed):
+    for (m, f, r), nd in zip(held, needed):
         flat = real_rows(m, f, r)
         out = []
         for i, ((V, W, wl, _), nb) in enumerate(zip(m, r)):
@@ -1464,19 +1501,26 @@ def group_measure(dev, L, groups):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, equal = 0, True
-    for (m, _, r), g, w in zip(groups, got, want):
+    for (m, _, r), g, w in zip(held, got, want):
         for j in range(3 * len(m)):
             gj = g[j][:r[j // 3]]
             equal = equal and torch.equal(gj, w[j])
             err = max(err, tensors_err(gj, w[j]))
     del got, want
-    ops = sum(int(t.sum()) for nd in needed for t in nd)
+    ops = 0
     nbytes = 0
     tiers: dict = {}
-    for m, f, r in groups:
+    for gi, (m, f, r) in enumerate(groups):
         flat = real_rows(m, f, r)
         for i, ((V, W, wl, shared), nb) in enumerate(zip(m, r)):
             ev = flat[4 * i:4 * i + 4]
+            counted = closure_ops(L, (*ev, 0, *L.initial_carry(nb, V, W,
+                                                               dev)),
+                                  {"V": V, "W": W,
+                                   "w_live": L._w_live(W, wl)})
+            if gi < PLAIN_GROUPS:
+                equal = equal and torch.equal(counted, needed[gi][i])
+            ops += int(counted.sum())
             nbytes += frontier_bytes(L, ev[0], ev[2], ev[3], V, W, wl)
             t = tier_of(L, V, W, wl, ev[3].shape[-2], shared)["tier"]
             require(t == "warp" or W > L.cuda_wgl.W_WARP,
@@ -1488,6 +1532,8 @@ def group_measure(dev, L, groups):
             "rows": sum(sum(r) for _, _, r in groups),
             "members_by_tier_and_W": dict(sorted(tiers.items())),
             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "plain_groups": len(held),
+            "plain_members": sum(len(m) for m, _, _ in held),
             "equal": equal, "max_abs_err": err, **launch_bound(nbytes, ops)}
 
 
@@ -1575,8 +1621,8 @@ def phase_scheduler_path(dev, L, S, cuda_synth, cas, wgl_check):
     require(np.array_equal(valid, ev), "scheduler verdicts != exact path")
     require(np.array_equal(bad, eb), "scheduler bad ops != exact path")
 
-    # The host oracle on 64 sub-histories: the witness subs of 32 invalid
-    # histories and 32 subs of valid ones.
+    # The host oracle on ORACLE_ROWS sub-histories: the witness subs of
+    # half as many invalid histories and as many subs of valid ones.
     invalid = np.flatnonzero(~valid)
     require(len(invalid) >= ORACLE_ROWS // 2, "too few invalid rows")
     sub_of = {(int(h), k): s for s, (h, k) in
@@ -1697,22 +1743,23 @@ GRAPH_DENSITIES = (0.002, 0.05, 0.5)
 
 # The graph path's batches: the reference bench's (bench.py:849-852) and
 # a full-width one, Elle-style list-append histories of 1,000 ops over
-# 8 keys (V 1024). The full-width count is cut from 128 to 16 (32 until
-# the la path's batch of the same width joined the script): the
+# 8 keys (V 1024). The full-width count is cut from 128 to 8 (32 until
+# the la path's batch of the same width joined the script, 16 until the
+# mesh phases did): the
 # checker's host refinement of each cyclic graph's witness (a BFS per
 # vertex over about 500,000 realtime edges, seconds each) and the host
 # oracle, not the card, set its time. Host-oracle rows: every row of the
 # bench batch, GRAPH_ORACLE_ROWS evenly spaced rows of the wide one.
 GRAPH_BENCH_HISTORIES = 2_000
-GRAPH_WIDE = dict(n=16, n_ops=1_000, n_keys=8)
+GRAPH_WIDE = dict(n=8, n_ops=1_000, n_keys=8)
 GRAPH_WIDE_CUT_FROM = 128
 GRAPH_ORACLE_ROWS = 16
 # The isolation path's batches: the bench's (bench.py:899, V 16) and a
-# wide one (V 256), its count cut from 256 to 64 (128 until the la
-# phases joined the script) for the same reason (the host refinement and
-# the oracle, about 0.2 s a history).
+# wide one (V 256), its count cut from 256 to 32 (128 until the la
+# phases joined the script, 64 until the mesh phases did) for the same
+# reason (the host refinement and the oracle, about 0.2 s a history).
 ISO_BENCH = dict(n=512, seed=7, anomaly="mix")
-ISO_WIDE = dict(n=64, seed=7, anomaly="mix", n_txns=250)
+ISO_WIDE = dict(n=32, seed=7, anomaly="mix", n_txns=250)
 ISO_WIDE_CUT_FROM = 256
 
 
@@ -2078,13 +2125,16 @@ def count_edge_cases(family: str) -> tuple:
 
 # The fold path's batches: the reference bench's total-queue batch
 # (bench.py:805-826: 2,000 histories of 100 elements) and, per family, a
-# full-width batch of 32 histories (cut from 64 when the la phases
-# joined the script) of 10,000 elements over 10 processes, what a Jepsen
-# set, queue, unique-id or counter run records over its time limit.
-# Seeded violations by seed % 8 (see fold_history).
+# full-width batch of 16 histories (cut from 64 when the la phases
+# joined the script, and from 32 when the mesh phases did) of 10,000
+# elements over 10 processes, what a Jepsen set, queue, unique-id or
+# counter run records over its time limit. Seeded violations by seed % 8
+# (see fold_history). ``--kernels`` times the folds on 32 such histories
+# (FOLD_KERNELS_WIDE), the batch its earlier timings used.
 FOLD_BENCH_HISTORIES = 2_000
 FOLD_BENCH_ELEMENTS = 100
-FOLD_WIDE = dict(n=32, elements=10_000, procs=10)
+FOLD_WIDE = dict(n=16, elements=10_000, procs=10)
+FOLD_KERNELS_WIDE = dict(FOLD_WIDE, n=32)
 FOLD_CHECKS = {"set": "check_sets_batch", "crdb": "check_crdb_sets_batch",
                "tq": "check_total_queues_batch",
                "queue": "check_queues_batch",
@@ -2917,7 +2967,10 @@ DC_ROWS = 1_024
 DC_OPS = 80
 DC_W0, DC_WS = 11, 6
 DC_STALE = 0.3
-DC_ORACLE_ROWS = 16
+# Rows of a dc batch (and of route_check's rw rows) held to wgl_check on
+# the worker pool, 20-40 s each: cut from 16 to 8 for the script's time
+# when the mesh phases joined it (the window still cycles W 11-16).
+DC_ORACLE_ROWS = 8
 # int32 operations the peel's function needs in one round (the bound's
 # count; dc_work replays each row to count what its data needs): an op
 # alive at the round's start takes part in the scatter-min and the
@@ -2943,11 +2996,32 @@ ROUTE_LA = dict(n=256, n_ops=30)
 ROUTE_TXN = dict(n=64, seed=7, anomaly="mix")
 
 
-def dc_sample() -> list:
-    """The healthy batch's oracle rows: spread over the batch, the
-    window cycling through W 11-16."""
+# The faulty dc batch's stale rows.
+DC_STALE_ROWS = frozenset(range(0, DC_ROWS, 8))
+
+
+def dc_oracle_jobs() -> list:
+    """Both dc batches' oracle rows, as jobs: main starts them on the pool
+    before the dc phases (a W 16 row takes 20-60 s, longer than the
+    rest of a round), and the batches read them when they get there."""
+    return ([rw_job(s, 0.0) for s in dc_sample()]
+            + [rw_job(s, DC_STALE if s in DC_STALE_ROWS else 0.0)
+               for s in dc_sample(DC_STALE_ROWS)])
+
+
+def dc_sample(stale_rows=frozenset()) -> list:
+    """A dc batch's oracle rows: spread over the batch, the window
+    cycling through W 11-16; with ``stale_rows`` (the faulty batch) half
+    of them stale rows."""
     step = DC_ROWS // DC_ORACLE_ROWS
-    return [step * i + (i - step * i) % DC_WS for i in range(DC_ORACLE_ROWS)]
+    sample = [step * i + (i - step * i) % DC_WS
+              for i in range(DC_ORACLE_ROWS)]
+    if stale_rows:
+        half = DC_ORACLE_ROWS // 2
+        st = sorted(stale_rows)
+        sample = (st[::len(st) // half][:half]
+                  + [s for s in sample if s not in stale_rows][:half])
+    return sample
 
 
 def rw_job(seed: int, stale: float) -> tuple:
@@ -2976,10 +3050,23 @@ class RwOracle:
 
     def __init__(self, pool):
         self.pool, self.seen, self.s = pool, {}, 0.0
+        self.pending = None
+
+    def prefetch(self, jobs) -> None:
+        """Start the oracle on ``jobs`` in the pool's workers and return:
+        the next call collects them (``s`` counts only the wait)."""
+        new = sorted({j for j in jobs if j not in self.seen})
+        self.pending = (new, self.pool.map_async(rw_oracle, new,
+                                                 chunksize=1))
 
     def __call__(self, jobs):
-        new = sorted({j for j in jobs if j not in self.seen})
         t0 = time.perf_counter()
+        if self.pending is not None:
+            new, res = self.pending
+            self.pending = None
+            for j, r in zip(new, res.get()):
+                self.seen[j] = r
+        new = sorted({j for j in jobs if j not in self.seen})
         for j, r in zip(new, host_oracle(self.pool, rw_oracle, new)):
             self.seen[j] = r
         self.s += time.perf_counter() - t0
@@ -3211,14 +3298,16 @@ def zero_counts(L):
     L.cuda_wgl.WIDE_LAUNCHES = 0
 
 
-def closure_ops(L, args, kw) -> torch.Tensor:
+def closure_ops(L, args, kw, top=None):
     """What ``plain_wgl(ops=)`` counts for one recorded launch, per row
     (int64 [B]), from the closures of the kernel under test: each live
     event is run twice from the previous event's carry, once as EV_CLOSE
     (its closure Fc, the count's input) and once as itself. Per live
     event of a row still valid: NW ORs for each configuration of Fc
     under each slot whose kind reaches a state and whose bit its mask
-    lacks, and on an OK one word test per kept mask."""
+    lacks, and on an OK one word test per kept mask. With ``top`` (a
+    slot), the three parts apart: (ORs under the slots below ``top``,
+    ORs under the slots from ``top`` up, word tests)."""
     from jepsen_torch.ops.encode import EV_CLOSE, EV_FUSED, EV_OK
     ev_type, ev_slot, ev_slots, target, idx0 = args[:5]
     V, W, WL = kw["V"], kw["W"], kw["w_live"]
@@ -3235,7 +3324,8 @@ def closure_ops(L, args, kw) -> torch.Tensor:
     lacks = [((masks >> i) & 1 == 0).long() for i in range(WL)]
     octet = torch.tensor([bin(v).count("1") for v in range(256)],
                          dtype=torch.int64, device=dev)
-    ops = torch.zeros(B, dtype=torch.int64, device=dev)
+    split, top = top is not None, WL if top is None else min(top, WL)
+    parts = torch.zeros(3, B, dtype=torch.int64, device=dev)
     F, Fb, valid, bad = (t.clone() for t in args[5:9])
     for e in range(N):
         typ = ev_type[:, e]
@@ -3247,19 +3337,26 @@ def closure_ops(L, args, kw) -> torch.Tensor:
         Fc = kern(close, *ev, target, idx0 + e, F, Fb, valid, bad)[2]
         pc = octet[Fc.contiguous().view(torch.uint8).long()].view(
             B, NW, M, 4).sum((1, 3))
-        weight = sum(reach[:, e, i, None] * lacks[i] for i in range(WL))
-        need = NW * (pc * weight).sum(1) + (
-            (typ == EV_OK) | (typ == EV_FUSED)).long() * (NW * (M >> 1))
-        ops += torch.where(live & valid, need, torch.zeros_like(need))
+        weights = [sum((reach[:, e, i, None] * lacks[i] for i in slots),
+                       torch.zeros_like(pc))
+                   for slots in (range(top), range(top, WL))]
+        ok = ((typ == EV_OK) | (typ == EV_FUSED)).long()
+        need = torch.stack([NW * (pc * w).sum(1) for w in weights]
+                           + [ok * (NW * (M >> 1))])
+        parts += torch.where(live & valid, need, torch.zeros_like(need))
         valid, bad, F, Fb = kern(ev_type[:, e:e + 1].contiguous(), *ev,
                                  target, idx0 + e, F, Fb, valid, bad)
-    return ops
+    return tuple(parts) if split else parts.sum(0)
 
 
 # Rows of each recorded launch the plain version runs on to hold
 # closure_ops to plain_wgl(ops=) (the plain version over a whole dc
-# batch takes minutes on the card).
+# batch takes minutes on the card), on every PLAIN_SAMPLE_EVERY-th
+# launch (every one until the mesh phases joined the script: the
+# plain version's event walk, 13-21 s a batch, does not shrink with
+# the rows).
 PLAIN_SAMPLE_ROWS = 2
+PLAIN_SAMPLE_EVERY = 2
 
 
 def k1_launches_measure(L, singles) -> dict:
@@ -3269,11 +3366,12 @@ def k1_launches_measure(L, singles) -> dict:
     the bound of the whole run from the operations its data needs
     (``closure_ops``) and the bytes the launches must move
     (``frontier_bytes``). The plain version runs on the first
-    PLAIN_SAMPLE_ROWS rows of each launch (its time there is
-    ``plain_ms``), which must give the same verdicts, frontiers and
-    operation counts as the kernel and closure_ops there."""
+    PLAIN_SAMPLE_ROWS rows of every PLAIN_SAMPLE_EVERY-th launch (its
+    time there is ``plain_ms``), which must give the same verdicts,
+    frontiers and operation counts as the kernel and closure_ops
+    there."""
     detail, nbytes, ops, plain_ms, sampled = [], 0, 0, 0.0, 0
-    for a, kw in singles:
+    for li, (a, kw) in enumerate(singles):
         V, W, wl = kw["V"], kw["W"], kw["w_live"]
         plan = L.cuda_wgl.smem_plan(V, W, wl, K1=a[3].shape[-2],
                                     shared_target=a[3].dim() == 2)
@@ -3289,6 +3387,8 @@ def k1_launches_measure(L, singles) -> dict:
                        "needed_ops": int(counted.sum()),
                        "ms": time_launches([prepared_single(L, *a, **kw)],
                                            reps=3)})
+        if li % PLAIN_SAMPLE_EVERY:
+            continue
         n = min(PLAIN_SAMPLE_ROWS, a[0].shape[0])
         part = [t[:n] for t in a[:3]] + [a[3] if a[3].dim() == 2
                                          else a[3][:n]]
@@ -3548,14 +3648,7 @@ def dc_batch(dev, L, cas, oracle, label, stale_rows):
                 f"{label}: {b} verdicts or bad ops differ from xla")
     require(runs["dc"]["launches"]["dc_peel"] > 0,
             f"{label}: dc_peel was not launched")
-    # Rows spread over the batch, every window W 11-16 among them; in the
-    # faulty batch half of them stale rows.
-    sample = dc_sample()
-    if stale_rows:
-        half = DC_ORACLE_ROWS // 2
-        st = sorted(stale_rows)
-        sample = (st[::len(st) // half][:half]
-                  + [s for s in sample if s not in stale_rows][:half])
+    sample = dc_sample(stale_rows)
     for s, w in zip(sample, oracle([jobs[s] for s in sample])):
         require(verdicts["xla"][s] == w,
                 f"{label}: row {s} differs from wgl_check")
@@ -3609,7 +3702,7 @@ def phase_dc_path(dev, L, oracle):
             "the dc rate probe did not run K4")
     healthy = dc_batch(dev, L, cas_register, oracle, "healthy", set())
     faulty = dc_batch(dev, L, cas_register, oracle, "faulty",
-                      set(range(0, DC_ROWS, 8)))
+                      DC_STALE_ROWS)
     whole = dc_skip_batch(L, cas_register, healthy.pop("certified_jobs"))
     del faulty["certified_jobs"]
     emit({"phase": "dc_path", "probe": probe,
@@ -3914,8 +4007,13 @@ def count_edge_rows(W: int) -> dict:
 
 # Rows of each real bucket whose pass count the plain version replays
 # (the north-star bucket is replayed whole, to time the plain version);
-# 16, cut from 32 when the la phases joined the script.
+# 16, cut from 32 when the la phases joined the script. Of the keyed
+# headline's buckets every INSTRUMENT_HELD_EVERY-th is replayed (every
+# one until the mesh phases joined the script); the kernel's passes on
+# every bucket still add up to the path's total and its outputs equal
+# K1's.
 INSTRUMENT_HELD_ROWS = 16
+INSTRUMENT_HELD_EVERY = 2
 
 
 def instrument_vs(args, V, W, w_live, dev, L, held=None):
@@ -3930,12 +4028,14 @@ def instrument_vs(args, V, W, w_live, dev, L, held=None):
     sub = [a[:n] for a in args[:3]] + [args[3] if args[3].dim() == 2
                                        else args[3][:n]]
     pi = torch.zeros(n, dtype=torch.int64, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    L.plain_wgl(*sub, 0, *L.initial_carry(n, V, W, dev), V=V, W=W,
-                w_live=w_live, iters=pi)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    plain_s = 0.0
+    if n:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L.plain_wgl(*sub, 0, *L.initial_carry(n, V, W, dev), V=V, W=W,
+                    w_live=w_live, iters=pi)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
     ki = ki.to(torch.int64)
     equal = (torch.equal(ki[:n], pi) and torch.equal(kv, rv)
              and torch.equal(kb, rb) and torch.equal(kf, rf))
@@ -4058,8 +4158,9 @@ def phase_instrument_parity(dev, L, ns_buckets, hl_buckets, ns_bound,
     for label, bs, m in (("north_star", ns_buckets, m_ns),
                          ("headline", hl_buckets, m_hl)):
         total, plain_s = 0, 0.0
-        for b in bs:
-            held = None if label == "north_star" else INSTRUMENT_HELD_ROWS
+        for j, b in enumerate(bs):
+            held = (None if label == "north_star" else INSTRUMENT_HELD_ROWS
+                    if j % INSTRUMENT_HELD_EVERY == 0 else 0)
             eq, err, passes, inv, ps = instrument_vs(
                 bucket_args(b, dev), b.V, b.W, b.eff_w_live, dev, L, held)
             require(eq, f"instrumented != plain/K1 on the {label} bucket "
@@ -4720,19 +4821,454 @@ def phase_fuzz(dev, L, S, cuda_synth):
     return out
 
 
+# The mesh phase (K3, the frontier-sharded step): the card named
+# MESH_DEVICES times, as a one-process mesh. Kernel parity on explicit
+# meshes (data x frontier), MESH_CASES: every mesh at three or four of
+# the local windows 1, 8, 9 and 16, every window on two or three meshes
+# with one and two state words and a shared and a per-row table;
+# MESH_ROWS rows of MESH_EVENTS events a case (rows 4-7 mostly padding,
+# row 0 all padding, row 1 failing on a top-slot completion, row 2
+# surviving one). W 18 on 2 x 4 at W_local 16 is left to mesh_path,
+# whose W 18 Op-list and columnar rows run on that mesh with every
+# entry held against its plain version on each input.
+MESH_DEVICES = 8
+MESH_CASES = (  # (n_data, D, W_local, V, shared target)
+    (4, 2, 1, 40, False), (4, 2, 8, 8, True), (4, 2, 9, 40, False),
+    (4, 2, 16, 40, False),
+    (2, 4, 1, 8, True), (2, 4, 8, 40, False), (2, 4, 9, 8, True),
+    (1, 8, 1, 40, False), (1, 8, 8, 8, True), (1, 8, 16, 8, True))
+MESH_ROWS = 8
+MESH_EVENTS = 16
+# The batch-sharded route's batch, the dryrun's shape
+# (__graft_entry__.py: at least 256 CAS histories of 256 ops), and its
+# rows held to wgl_check.
+MESH_DATAN = dict(seed0=3, n_procs=4, n_ops=256, n_values=3, corrupt=0.25)
+MESH_DATAN_ROWS = 256
+MESH_ORACLE_ROWS = 8
+
+
+def mesh_tables(rng, B, N, V, W, K1, shared, dev):
+    """Random tables for the sharded step: ``random_tables`` with slots
+    kept in [-1, W - 1] (as an encoder writes them), rows 4-7 mostly
+    padding, row 0 all padding, row 1 completing at event 0 on the top
+    slot W - 1 with a kind that reaches no state (it fails there) and row
+    2 with one that takes state 0 to 1 (it survives a top completion)."""
+    ev_type, ev_slot, ev_slots, target = (
+        a.cpu().numpy() for a in pad_heavy(rng, list(random_tables(
+            rng, B, N, V, W, None, K1, shared, torch.device("cpu")))))
+    ev_slot = np.minimum(ev_slot, W - 1).astype(np.int8)
+    ev_type[0] = 0
+    for r, kind in ((1, K1 - 1), (2, K1 - 2)):
+        ev_type[r, 0], ev_slot[r, 0] = 2, W - 1
+        ev_slots[r, 0, :] = K1 - 1
+        ev_slots[r, 0, W - 1] = kind
+    row = target[K1 - 2] if shared else target[2, K1 - 2]
+    row[:] = -1
+    row[0] = 1
+    return tuple(on(a, dev) for a in (ev_type, ev_slot, ev_slots, target))
+
+
+def paired_ops(errs: dict):
+    """The walk's ``ops`` that launch each K3 entry on the card and run
+    its plain version on copies of the same inputs, keep the kernel's
+    outputs and record the largest difference per entry: each entry held
+    against its plain version on every input the walk gives it."""
+    from jepsen_torch.ops import cuda_shard as CS
+
+    def close(F, recv, *a, **kw):
+        Fp = F.clone()
+        pc, pk = CS.plain_shard_close(Fp, recv, *a, **kw)
+        c, k = CS.shard_close(F, recv, *a, **kw)
+        errs["shard_close"] = max(errs["shard_close"], tensors_err(F, Fp),
+                                  tensors_err(c, pc), tensors_err(k, pk))
+        return c, k
+
+    def image(F, *a, send=None, **kw):
+        p = CS.plain_shard_image(F, *a, **kw)
+        s = CS.shard_image(F, *a, send=send, **kw)
+        errs["shard_image"] = max(errs["shard_image"], tensors_err(s, p))
+        return s
+
+    def commit(F, Fbad, top, ev_type, ev_slot, ev_slots, target, valid,
+               bad, nonempty, **kw):
+        mine = [t.clone() for t in (F, Fbad, valid, bad)]
+        CS.plain_shard_commit(mine[0], mine[1], top, ev_type, ev_slot,
+                              ev_slots, target, mine[2], mine[3], nonempty,
+                              **kw)
+        CS.shard_commit(F, Fbad, top, ev_type, ev_slot, ev_slots, target,
+                        valid, bad, nonempty, **kw)
+        errs["shard_commit"] = max([errs["shard_commit"]] + [
+            tensors_err(x, y) for x, y in zip((F, Fbad, valid, bad), mine)])
+
+    return {"shard_close": close, "shard_image": image,
+            "shard_commit": commit}
+
+
+def timed_plain(times: dict):
+    """The plain versions as the walk's ``ops``, each call bracketed by
+    synchronisations and timed by the host clock into ``times`` (ms)."""
+    from jepsen_torch.ops import cuda_shard as CS
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + (time.perf_counter()
+                                                  - t0) * 1e3
+            return out
+        return run
+    return {n: wrap(n, f) for n, f in CS.PLAIN.items()}
+
+
+def k1_reference(L, V, W, args, dev):
+    """K1 on the same rows, the sharded step's yardstick: the CUDA
+    kernel up to its widest window, past it K1's plain version on the
+    card."""
+    if W <= L.cuda_wgl.MAX_W:
+        return L.get_kernel(V, W)(*args)
+    return L._plain_check(V, W, W, *args)
+
+
+def phase_mesh_kernel_parity(dev, L):
+    """K3's three entries against their plain versions on every input of
+    the walk, and the walk's outputs against K1 on the same rows, on
+    explicit meshes of the card named MESH_DEVICES times."""
+    from jepsen_torch.parallel import checker_mesh, frontier_sharded_kernel
+    from jepsen_torch.parallel import frontier as PF
+    rng = np.random.default_rng(2026)
+    errs = {"shard_close": 0, "shard_image": 0, "shard_commit": 0}
+    cases, k1_err, rounds = [], 0, 0
+    devices = [dev] * MESH_DEVICES
+    for n_data, D, WL, V, shared in MESH_CASES:
+        mesh = checker_mesh(n_data, D, devices=devices)
+        W = WL + D.bit_length() - 1
+        K1 = 9 if shared else 12
+        args = mesh_tables(rng, MESH_ROWS, MESH_EVENTS, V, W, K1, shared,
+                           dev)
+        r0, t0 = PF.ROUNDS, time.perf_counter()
+        got = frontier_sharded_kernel(V, W, mesh, shared)(
+            *args, ops=paired_ops(errs))
+        want = k1_reference(L, V, W, args, dev)
+        torch.cuda.synchronize()
+        err = max(tensors_err(g, w) for g, w in zip(got, want))
+        k1_err = max(k1_err, err)
+        rounds += PF.ROUNDS - r0
+        cases.append({"mesh": f"{n_data}x{D}", "W_local": WL, "W": W,
+                      "V": V, "shared_target": shared, "rows": MESH_ROWS,
+                      "events": MESH_EVENTS,
+                      "invalid": int((~got[0]).sum()),
+                      "rounds": PF.ROUNDS - r0, "k1_err": err,
+                      "s": time.perf_counter() - t0,
+                      "top_fail": bool(not got[0][1]
+                                       and int(got[1][1]) == 0)})
+        require(err == 0, f"K3 != K1 on {n_data}x{D} W={W} V={V}")
+        require(cases[-1]["top_fail"] and bool(got[0][0])
+                and int(got[1][2]) != 0,
+                f"the top-slot rows are not as built ({W}, {V})")
+    require(all(v == 0 for v in errs.values()),
+            f"a K3 entry != its plain version: {errs}")
+    require(rounds > 0, "no exchange round ran")
+    emit({"phase": "mesh_kernel_parity", "cases": cases, "errs": errs,
+          "rounds": rounds, "k1_err": k1_err})
+    return max(list(errs.values()) + [k1_err])
+
+
+class ShardRecorder:
+    """Keeps every frontier-sharded check the production routes make while
+    it is active, with its inputs, so that a route's K3 walks can be
+    replayed, timed and held against plain versions afterwards."""
+
+    def __enter__(self):
+        from jepsen_torch.parallel import frontier as PF
+        self.mod, self.orig, self.calls = PF, PF.frontier_sharded_kernel, []
+
+        def build(V, W, mesh, shared_target=False):
+            kern = self.orig(V, W, mesh, shared_target)
+
+            def check(*args, **kw):
+                self.calls.append((V, W, mesh, shared_target, kern, args))
+                return kern(*args, **kw)
+            return check
+        PF.frontier_sharded_kernel = build
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.frontier_sharded_kernel = self.orig
+        return False
+
+
+def shard_counts() -> dict:
+    from jepsen_torch.ops import cuda_shard
+    from jepsen_torch.parallel import frontier as PF
+    return {**cuda_shard.LAUNCHES, "rounds": PF.ROUNDS}
+
+
+def zero_shard_counts() -> None:
+    from jepsen_torch.ops import cuda_shard
+    from jepsen_torch.parallel import frontier as PF
+    for k in cuda_shard.LAUNCHES:
+        cuda_shard.LAUNCHES[k] = 0
+    PF.ROUNDS = 0
+
+
+def k3_bound(k1: dict, work: dict) -> dict:
+    """K1's bound on the timing walks' rows (``k1``, ``launch_bound`` of
+    the bytes K1 must move and the operations their data needs), shared
+    out over K3's entries by their part of that work at the card's
+    rates: shard_close reads the inputs (events and table) and does the
+    ORs under the local slots, shard_image the ORs under the top slots,
+    shard_commit the completions' word tests and the outputs' writes
+    (valid, bad, frontier). The entries' bounds add up to K1's."""
+    part = {"shard_close": (work["read"], work["ors_local"]),
+            "shard_image": (0, work["ors_top"]),
+            "shard_commit": (work["written"], work["tests"])}
+    t = {n: b / HBM_BYTES_PER_S + o / INT32_OPS_PER_S
+         for n, (b, o) in part.items()}
+    total = sum(t.values()) or 1.0
+    return {n: {"bound_ms": k1["bound_ms"] * t[n] / total,
+                "bound_by": k1["bound_by"], "bound_share": t[n] / total,
+                "bytes": b, "needed_ops": o}
+            for n, (b, o) in part.items()}
+
+
+def k3_measure(dev, L, calls, timed, k1_singles):
+    """The recorded K3 walks of the routes (``calls``). Each is replayed
+    through the kernels, through the plain versions and with every entry
+    held against its plain version on each input it gets
+    (``paired_ops``); the kernel walk's (valid, bad, frontier) must equal
+    the plain walk's. On the timing walks (``calls[timed:]``): each
+    kernel's device time (the profiler), the walk through the host loop
+    (host clock), the plain versions' time per entry, launches and host
+    rounds, the bound (K1's on the same rows, shared out by ``k3_bound``)
+    and K1's data1wide time on them (``k1_singles``, recorded on the
+    one-card route)."""
+    from jepsen_torch.ops import cuda_shard as CS
+    from jepsen_torch.parallel import frontier as PF
+    errs = {n: 0 for n in PF.OPS}
+    shard_ms, walk_ms, plain, launches = {}, 0.0, {}, {}
+    walk_err, rounds, k1_ops, nbytes = 0, 0, 0, 0
+    work = dict.fromkeys(("read", "written", "ors_local", "ors_top",
+                          "tests"), 0)
+    for i, (V, W, mesh, shared, kern, args) in enumerate(calls):
+        timing = i >= timed
+        before, r0 = dict(CS.LAUNCHES), PF.ROUNDS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = kern(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        walk = {k: v - before[k] for k, v in CS.LAUNCHES.items()}
+        walk_rounds = PF.ROUNDS - r0
+        want = kern(*args, ops=timed_plain(plain if timing else {}))
+        torch.cuda.synchronize()
+        walk_err = max([walk_err] + [tensors_err(g, w)
+                                     for g, w in zip(got, want)])
+        kern(*args, ops=paired_ops(errs))
+        if not timing:
+            continue
+        walk_ms += ms
+        rounds += walk_rounds
+        for k, v in walk.items():
+            launches[k] = launches.get(k, 0) + v
+        for name, ms in kernel_split(lambda: kern(*args), reps=1).items():
+            if name.startswith("shard_"):
+                key = name.replace("_kernel", "")
+                shard_ms[key] = shard_ms.get(key, 0.0) + ms
+        ev = [a.to(dev) if isinstance(a, torch.Tensor) else on(a, dev)
+              for a in args]
+        B = ev[0].shape[0]
+        nd = torch.zeros(B, dtype=torch.int64, device=dev)
+        L.plain_wgl(*ev, 0, *L.initial_carry(B, V, W, dev),
+                    V=V, W=W, w_live=W, ops=nd)
+        k1_ops += int(nd.sum())
+        WL = W - (mesh.shape["frontier"].bit_length() - 1)
+        split = [int(x.sum()) for x in closure_ops(
+            L, (*ev, 0, *L.initial_carry(B, V, W, dev)),
+            {"V": V, "W": W, "w_live": W}, top=WL)]
+        require(sum(split) == int(nd.sum()),
+                f"closure_ops {split} != plain_wgl {int(nd.sum())}")
+        for k, x in zip(("ors_local", "ors_top", "tests"), split):
+            work[k] += x
+        read, written = frontier_bytes(L, ev[0], ev[2], ev[3], V, W, W,
+                                       parts=True)
+        work["read"] += read
+        work["written"] += written
+        nbytes += read + written
+    k1 = launch_bound(nbytes, k1_ops)
+    entries = {n: {"ms": shard_ms.get(n, 0.0),
+                   "launches": launches.get(n, 0),
+                   "plain_ms": plain.get(n, 0.0), **b}
+               for n, b in k3_bound(k1, work).items()}
+    return {"walks": len(calls) - timed, "walks_held": len(calls),
+            "walk_err": walk_err, "entry_errs": errs, "rounds": rounds,
+            "walk_ms": walk_ms,
+            "ms": sum(e["ms"] for e in entries.values()),
+            "plain_ms": sum(plain.values()), "entries": entries,
+            "k1_bound": k1,
+            "k1_data1wide_ms": time_launches(
+                [prepared_single(L, *a, **kw) for a, kw in k1_singles],
+                reps=3)}
+
+
+def phase_mesh_path(dev, L, S, cas, synth, wgl_check, sharded_before):
+    """The production routes under the card named MESH_DEVICES times:
+    wide Op-list rows (W 17, 18 and 19) and a columnar W 18 batch on the
+    frontier route, the wide W 17 check_synth specs on it against their
+    one-card data1wide run (K3 timed on them), and the dryrun's batch on
+    the batch-sharded route against data1 and wgl_check."""
+    from jepsen_torch import provision
+    from jepsen_torch.history.columnar import ops_to_columnar
+    from jepsen_torch.workloads.synth import synth_wide_window_history
+    require(not sharded_before, f"a sharded route ran before the mesh "
+                                f"phase: {dict(sharded_before)}")
+    out = {"phase": "mesh_path", "devices": MESH_DEVICES}
+    # The wide specs on one card first: data1wide, K1's launches kept.
+    one_card, k1_singles = {}, []
+    for inv in (False, True):
+        ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17, n_values=2,
+                         invalid=inv)
+        L.DISPATCH_LOG.clear()
+        with LaunchRecorder(L.cuda_wgl) as k1:
+            one_card[inv] = L.check_synth(cas(), ws, scheduler=False)
+        require({p for p, *_ in L.DISPATCH_LOG} == {"data1wide"},
+                f"one card: {list(L.DISPATCH_LOG)}")
+        k1_singles += k1.singles
+    hists = synth(MESH_DATAN_ROWS, **MESH_DATAN)
+    L.DISPATCH_LOG.clear()
+    data1 = L.check_batch(cas(), hists)
+    require(not {p for p, *_ in L.DISPATCH_LOG} & {"dataN", "frontier"},
+            f"one card: {list(L.DISPATCH_LOG)}")
+    with provision.provisioned(MESH_DEVICES, dev):
+        L._PROD_MESHES.clear()
+        require(L.production_mesh(1, dev).shape
+                == {"data": MESH_DEVICES, "frontier": 1}, "no data mesh")
+        require(L.device_frontier_capacity(dev) == 3, "capacity != 3")
+        zero_shard_counts()
+        with ShardRecorder() as rec:
+            # Op-list rows, each width valid and invalid.
+            wide = [synth_wide_window_history(width=w, invalid=inv)
+                    for w in (17, 18, 19) for inv in (False, True)]
+            L.DISPATCH_LOG.clear()
+            t0 = time.perf_counter()
+            res = L.check_batch(cas(), wide)
+            oplist_s = time.perf_counter() - t0
+            routes = sorted({(p, w) for p, _, w, _ in L.DISPATCH_LOG})
+            require(routes == [("frontier", 17), ("frontier", 18),
+                               ("frontier", 19)], f"Op-list: {routes}")
+            for h, r, inv in zip(wide, res, [False, True] * 3):
+                require(r["valid"] is (not inv) and "fallback" not in r,
+                        f"Op-list row {len(h) - 1}: {r.get('valid')}")
+                require(not inv or (r["op"]["f"] == "read"
+                                    and r["op"]["index"] == h[-1].index),
+                        "Op-list: the invalid row's op is not the read")
+            oplist = {"s": oplist_s, "routes": routes, **shard_counts()}
+            # The columnar entry at W 18.
+            pair = [synth_wide_window_history(width=18),
+                    synth_wide_window_history(width=18, invalid=True)]
+            L.DISPATCH_LOG.clear()
+            cv, cb = L.check_columnar(cas(), ops_to_columnar(cas(), pair))
+            require([p for p, *_ in L.DISPATCH_LOG] == ["frontier"]
+                    and cv.tolist() == [True, False]
+                    and int(cb[1]) == pair[1][-1].index,
+                    f"columnar W 18: {list(L.DISPATCH_LOG)}")
+            n_oplist = len(rec.calls)
+            # The wide specs through the default check_synth.
+            synth_runs = []
+            for inv in (False, True):
+                ws = S.SynthSpec(family="wide", n=WIDE_ROWS, width=17,
+                                 n_values=2, invalid=inv)
+                L.DISPATCH_LOG.clear()
+                t0 = time.perf_counter()
+                fv, fb = L.check_synth(cas(), ws)
+                s = time.perf_counter() - t0
+                require([p for p, *_ in L.DISPATCH_LOG] == ["frontier"],
+                        f"wide spec: {list(L.DISPATCH_LOG)}")
+                ov, ob = one_card[inv]
+                require(np.array_equal(fv, ov) and np.array_equal(fb, ob),
+                        f"wide spec invalid={inv}: frontier != data1wide")
+                synth_runs.append({"invalid": inv, "s": s,
+                                   "valid_rows": int(fv.sum())})
+            # The batch-sharded route.
+            L.DISPATCH_LOG.clear()
+            t0 = time.perf_counter()
+            dn = L.check_batch(cas(), hists)
+            datan_s = time.perf_counter() - t0
+            require("dataN" in {p for p, *_ in L.DISPATCH_LOG},
+                    f"dataN: {list(L.DISPATCH_LOG)}")
+            launches = shard_counts()
+        require(all(launches[k] > 0 for k in ("shard_close", "shard_image",
+                                              "shard_commit")),
+                f"the mesh routes missed a K3 entry: {launches}")
+        require([verdict(r) for r in dn] == [verdict(r) for r in data1],
+                "dataN verdicts != data1")
+        step = MESH_DATAN_ROWS // MESH_ORACLE_ROWS
+        for i in range(0, MESH_DATAN_ROWS, step):
+            require(verdict(wgl_check(cas(), hists[i])) == verdict(dn[i]),
+                    f"dataN row {i} != wgl_check")
+        measure = k3_measure(dev, L, rec.calls, n_oplist, k1_singles)
+        require(measure["walk_err"] == 0
+                and not any(measure["entry_errs"].values()),
+                f"K3 on the routes' walks != its plain version: "
+                f"{measure['walk_err']}, {measure['entry_errs']}")
+    L._PROD_MESHES.clear()
+    require(L.production_mesh(1, dev) is None
+            or torch.cuda.device_count() > 1, "the mesh outlived its block")
+    out.update(oplist=oplist, synth=synth_runs,
+               dataN={"rows": MESH_DATAN_ROWS, "s": datan_s,
+                      "invalid": sum(r["valid"] is False for r in dn),
+                      "oracle_rows": MESH_ORACLE_ROWS},
+               launches=launches, k3=measure)
+    emit(out)
+    return {"launches": launches, "k3": measure}
+
+
+def mesh_entries(mesh, parity_err) -> list:
+    """The kernels-line entries of K3's three kernels: launches on the
+    mesh routes, times on the wide W 17 specs, and each entry's share of
+    K1's bound on those rows (``k3_bound``; the three add up to it)."""
+    k3 = mesh["k3"]
+    err = max([parity_err, k3["walk_err"]] + list(k3["entry_errs"].values()))
+    out = []
+    for name in ("shard_close", "shard_image", "shard_commit"):
+        e = k3["entries"][name]
+        out.append({
+            "name": f"wgl_{name}", "route": "cuda",
+            "source": "jepsen_torch/ops/csrc/wgl_shard.cu",
+            "replaces": "jepsen_tpu/parallel/frontier.py:74",
+            "launches": mesh["launches"][name],
+            "rounds": mesh["launches"]["rounds"],
+            "parity": True, "max_abs_err": err,
+            **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "bound_share", "bytes", "needed_ops")},
+            "bound_of": "K1's bound on the same rows, shared out",
+            "library_ms": None,
+            "timing_batch": f"wide W 17 check_synth specs, {WIDE_ROWS} "
+                            f"rows each, {MESH_DEVICES} devices",
+            "k3_step": {k: k3[k] for k in ("walks", "walks_held",
+                                           "rounds", "walk_ms", "ms",
+                                           "plain_ms", "k1_data1wide_ms")}
+            | {"k1_bound_ms": k3["k1_bound"]["bound_ms"],
+               "k1_bound_by": k3["k1_bound"]["bound_by"]}})
+    return out
+
+
 def build_kernels(L, cuda_synth):
-    """Build the five kernel libraries and the empty kernel's at once
+    """Build the six kernel libraries and the empty kernel's at once
     (one nvcc each, in parallel)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from jepsen_torch.ops import _build, cuda_dc, cuda_folds, cuda_graph
+    from jepsen_torch.ops import (_build, cuda_dc, cuda_folds, cuda_graph,
+                                  cuda_shard)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         for f in [pool.submit(L.cuda_wgl.build),
                   pool.submit(cuda_synth.build),
                   pool.submit(cuda_graph.build),
                   pool.submit(cuda_folds.build),
                   pool.submit(cuda_dc.build),
+                  pool.submit(cuda_shard.build),
                   pool.submit(floor_library)]:
             f.result()
     build_s = time.perf_counter() - t0
@@ -4917,11 +5453,11 @@ print(json.dumps(out))
 """
 
 # The closure batches kernels_compare times: K5 on 32 full-width
-# list-append histories (V 1024) and on the graph path's 16
-# (GRAPH_WIDE), K6 on 128 wide transactional histories (V 256, ISO_WIDE
-# at twice its count).
+# list-append histories (V 1024) and on 16 (the graph path's count until
+# it was cut to GRAPH_WIDE's 8), K6 on 128 wide transactional histories
+# (V 256, ISO_WIDE's shape).
 CLOSURE_TIMING = (("graph_wide32", "graph", 32),
-                  ("graph_path16", "graph", GRAPH_WIDE["n"]),
+                  ("graph_path16", "graph", 16),
                   ("txn_wide128", "txn", 128))
 
 
@@ -4988,7 +5524,7 @@ def kernels_record_folds(out, saved, families) -> None:
     hands it to the kernel, with the folds' bound, plain time and
     whole-function library route (``fold_measure``)."""
     from jepsen_torch.ops import folds as F
-    w = FOLD_WIDE
+    w = FOLD_KERNELS_WIDE
     for family in families:
         hists = [fold_history(family, s, w["elements"], w["procs"])
                  for s in range(w["n"])]
@@ -5252,6 +5788,20 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi()
     dev = torch.device("cuda")
+    # With nothing provisioned a one-card host has no mesh: every phase
+    # before mesh_path keeps its one-card route, and no sharded dispatch
+    # may happen until then (counted here).
+    one_card = torch.cuda.device_count() == 1
+    require(not one_card or (L.production_mesh(1, dev) is None
+                             and L.production_mesh(2, dev) is None),
+            "a production mesh exists with nothing provisioned")
+    sharded = collections.Counter()
+    dispatch_sharded = L._dispatch_sharded
+
+    def counted_sharded(kind, *a, **kw):
+        sharded[kind] += 1
+        return dispatch_sharded(kind, *a, **kw)
+    L._dispatch_sharded = counted_sharded
     build_s, ptxas = build_kernels(L, cuda_synth)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -5285,8 +5835,9 @@ def main() -> int:
         ib, iw = phase_isolation_path(dev, pool)
         fold_err = phase_fold_kernel_parity(dev)
         folds = phase_fold_path(dev, pool)
-        dc_err = phase_dc_kernel_parity(dev)
         oracle = RwOracle(pool)
+        oracle.prefetch(dc_oracle_jobs())
+        dc_err = phase_dc_kernel_parity(dev)
         probe, dch, dcf, dcw = phase_dc_path(dev, L, oracle)
         route = phase_route_check(dev, L, pool, oracle)
         la_err = phase_la_synth_parity(dev, S, cuda_synth)
@@ -5304,6 +5855,10 @@ def main() -> int:
     phase_real_oom(dev, L)
     camp = phase_campaign(dev, L, S, cuda_synth)
     fz = phase_fuzz(dev, L, S, cuda_synth)
+    # The multi-device routes (K3), on the card named MESH_DEVICES times.
+    mesh_err = phase_mesh_kernel_parity(dev, L)
+    mesh = phase_mesh_path(dev, L, S, cas_register, synth_cas_batch,
+                           wgl_check, sharded if one_card else {})
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
 
     def dc_launches(entry):
@@ -5435,7 +5990,7 @@ def main() -> int:
         "plain_ms": inst["plain_ms"], "bound_ms": inst["bound_ms"],
         "bound_by": inst["bound_by"], "library_ms": None,
         "k1_ms": inst["k1_ms"], "headline": inst["headline"]},
-        la_entry(la, la_err)]})
+        la_entry(la, la_err)] + mesh_entries(mesh, mesh_err)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

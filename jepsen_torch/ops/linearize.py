@@ -63,19 +63,31 @@ MAX_PACKED_STATES = cuda_wgl.MAX_STATES
 # Frontier-words budget per device launch: B * words(V) * 2^W int32.
 MAX_FRONTIER_ELEMENTS = 1 << 26
 
-# Pending-window width of the main route ("data1"); one card hosts
-# SINGLE_DEVICE_EXTRA_SLOTS more ("data1wide", frontier in device memory
-# instead of shared memory). Wider windows raise WindowOverflow and their
-# rows go to the host engine.
+# Pending-window width of the main route ("data1"); wider windows split
+# their mask axis over 2^(W - DATA_MAX_SLOTS) frontier devices of the
+# production mesh ("frontier", jepsen_torch.parallel.frontier). Without
+# enough devices one card still hosts SINGLE_DEVICE_EXTRA_SLOTS more
+# ("data1wide", frontier in device memory instead of shared memory);
+# wider windows raise WindowOverflow and their rows go to the host
+# engine.
 DATA_MAX_SLOTS = 16
 SINGLE_DEVICE_EXTRA_SLOTS = 2
 
-# (route, V, W, B) per bucket dispatch; tests assert the route taken.
+# Batches below this many rows per device stay on one device: the
+# batch-sharded route's default floor ($JT_SHARD_MIN_ROWS,
+# parallel.mesh.shard_min_rows).
+MIN_ROWS_PER_DEVICE = 8
+
+# (route, V, W, B) per bucket dispatch — "data1" (one device),
+# "data1wide", "dataN" (batch sharded over the mesh), "frontier" (mask
+# axis sharded); tests assert the route taken.
 DISPATCH_LOG: "deque" = deque(maxlen=256)
+
+_PROD_MESHES: Dict[tuple, object] = {}
 
 
 class WindowOverflow(Exception):
-    """A cost bucket's pending window exceeds what one card can host; the
+    """A cost bucket's pending window exceeds what the devices can host; the
     rows belong on the host engine."""
 
 
@@ -126,19 +138,36 @@ def _pack_states(bits: torch.Tensor, NW: int) -> torch.Tensor:
     return val.permute(0, 2, 1)
 
 
-def _apply_slot(F: torch.Tensor, i: int, rowbits: torch.Tensor,
+def _transition(src: torch.Tensor, rows: torch.Tensor,
+                V: int) -> torch.Tensor:
+    """T(src): each packed config of ``src`` [B, NW, P] mapped to the OR
+    of its states' target rows. ``rows`` holds each source state's
+    packed target row, either as int32 words [B, V, NW] (a loop over
+    states, the CPU's form) or unpacked as float [B, V, NW*32] (a 0/1
+    matrix product, for a device where each operation is a kernel
+    launch; counts <= 64 are exact in any float format the card might
+    use)."""
+    if rows.dtype == torch.int32:
+        img = torch.zeros_like(src)
+        for s in range(V):
+            bit = (src[:, s >> 5, :] >> (s & 31)) & 1        # [B, P]
+            img |= bit[:, None, :] * rows[:, s, :, None]
+        return img
+    new = torch.bmm(_unpack_states(src, V), rows) > 0
+    return _pack_states(new, src.shape[1])
+
+
+def _apply_slot(F: torch.Tensor, i: int, rows_i: torch.Tensor,
                 V: int) -> torch.Tensor:
     """Close F one step under the op in slot ``i``: every config without
-    bit i spawns (target-state, mask | bit i). ``rowbits`` [B, V, NW*32]
-    holds each source state's packed target row, unpacked; the OR over
-    source states is a 0/1 matrix product (counts <= 64 are exact in
-    any float format the card might use)."""
+    bit i spawns (target-state, mask | bit i). ``rows_i`` holds each
+    source state's packed target row in either form of
+    ``_transition``."""
     B, NW, M = F.shape
     hi, lo = M >> (i + 1), 1 << i
     Fr = F.reshape(B, NW, hi, 2, lo)
     src = Fr[:, :, :, 0, :].reshape(B, NW, hi * lo)
-    new = torch.bmm(_unpack_states(src, V), rowbits) > 0
-    spawned = _pack_states(new, NW).reshape(B, NW, hi, lo)
+    spawned = _transition(src, rows_i, V).reshape(B, NW, hi, lo)
     out = Fr.clone()
     out[:, :, :, 1, :] |= spawned
     return out.reshape(B, NW, M)
@@ -219,9 +248,13 @@ def plain_wgl(ev_type: torch.Tensor, ev_slot: torch.Tensor,
         is_close = typ == EV_CLOSE
         k = kinds_all[:, e]                                  # [B, WL]
         r = rows[:, k] if target.dim() == 2 else rows[:, ar, k]
-        # [NW, B, WL, V] → [B, WL, V, NW*32] unpacked target bits
-        rb = ((r[..., None] >> shifts) & 1).permute(1, 2, 3, 0, 4)
-        rb = rb.reshape(B, WL, V, NW * 32).to(torch.float32)
+        if dev.type == "cpu":
+            # [NW, B, WL, V] → [B, WL, V, NW] packed target words
+            rb = r.permute(1, 2, 3, 0)
+        else:
+            # [NW, B, WL, V] → [B, WL, V, NW*32] unpacked target bits
+            rb = ((r[..., None] >> shifts) & 1).permute(1, 2, 3, 0, 4)
+            rb = rb.reshape(B, WL, V, NW * 32).to(torch.float32)
         live_ev = is_ok | is_close
         Fc = F
         active = torch.ones(B, dtype=torch.bool, device=dev)
@@ -335,11 +368,21 @@ def get_fused_kernel(members):
 
 
 def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
-               resume: bool = False, instrument: bool = False):
+               resume: bool = False, instrument: bool = False,
+               kind: str = "data1", mesh=None,
+               shared_target: bool = False):
     """The WGL step for static bounds (V, W), dispatching by the device
     of the tensors it is called with: a CUDA tensor launches the CUDA
     kernel (which raises on anything it does not take), a CPU tensor
     runs ``plain_wgl``.
+
+    ``kind`` "data1" (default) is the single-device step below; "data"
+    shards the batch over ``mesh``'s batch axes
+    (parallel.mesh.data_sharded_kernel) and "frontier" splits the mask
+    axis over its frontier devices
+    (parallel.frontier.frontier_sharded_kernel, always at the full W).
+    Both return the check form, ``shared_target`` saying whether the
+    target is one [K1, V] table.
 
     ``resume=False`` returns ``check(ev_type, ev_slot, ev_slots, target)
     -> (valid, bad, frontier)``, frontier being the final config set of
@@ -357,6 +400,15 @@ def get_kernel(V: int, W: int, *, w_live: Optional[int] = None,
                          f"{MAX_PACKED_STATES} states; use the host engine")
     if instrument and resume:
         raise ValueError("the instrumented kernel has the check form only")
+    if kind == "frontier":
+        from ..parallel.frontier import frontier_sharded_kernel
+        return frontier_sharded_kernel(V, W, mesh, shared_target)
+    if kind == "data":
+        from ..parallel.mesh import data_sharded_kernel
+        return data_sharded_kernel(V, W, mesh, shared_target,
+                                   w_live=w_live)
+    if kind != "data1":
+        raise ValueError(f"unknown kernel kind {kind!r}")
     WL = _w_live(W, w_live)
 
     def step(ev_type, ev_slot, ev_slots, target, idx0, F, Fb, valid, bad,
@@ -481,23 +533,146 @@ def _on(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(device)
 
 
+def _mesh_devices(device) -> list:
+    """The production routes' devices (jepsen_torch.provision) of
+    ``device``'s type: a mesh serves the callers that run there."""
+    from ..provision import devices
+    if device is None:
+        return devices()
+    kind = torch.device(device).type
+    return [d for d in devices() if d.type == kind]
+
+
+def device_frontier_capacity(device=None) -> int:
+    """Extra pending-window bits the devices can host beyond
+    DATA_MAX_SLOTS: log2 of the largest power-of-two count of the
+    production devices of ``device``'s type (the frontier-sharded
+    route), and never less than the single-device margin (the data1wide
+    route). The encoder windows up to DATA_MAX_SLOTS + capacity slots
+    before a history must go to the host engine."""
+    nd = len(_mesh_devices(device))
+    return max(nd.bit_length() - 1, SINGLE_DEVICE_EXTRA_SLOTS)
+
+
+def production_mesh(n_frontier: int = 1, device=None):
+    """The process-wide ("data", "frontier") mesh over the production
+    devices of ``device``'s type, or None when they cannot host the
+    frontier axis (or there is one device and no frontier need)."""
+    devs = _mesh_devices(device)
+    nd = len(devs)
+    if n_frontier > nd or (nd < 2 and n_frontier == 1):
+        return None
+    key = (tuple(devs), n_frontier)
+    mesh = _PROD_MESHES.get(key)
+    if mesh is None:
+        from ..parallel.mesh import checker_mesh
+        mesh = checker_mesh(n_data=nd // n_frontier, n_frontier=n_frontier,
+                            devices=devs)
+        _PROD_MESHES[key] = mesh
+    return mesh
+
+
+def _pad_rows(batch: EncodedBatch, bp: int, lo: int = 0,
+              hi: Optional[int] = None) -> tuple:
+    """Rows lo..hi of a batch's arrays padded to ``bp`` rows with inert
+    histories (all events PAD, empty slot tables, all-invalid targets):
+    they walk to valid and are sliced off after the device call. The
+    target is None for a shared-target batch (its one table ships
+    once)."""
+    hi = batch.batch if hi is None else hi
+    b, n, w = hi - lo, batch.n_events, batch.ev_slots.shape[2]
+    K1, V = batch.target.shape[1], batch.target.shape[2]
+    ev_type = np.zeros((bp, n), batch.ev_type.dtype)
+    ev_slot = np.zeros((bp, n), batch.ev_slot.dtype)
+    ev_slots = np.full((bp, n, w), K1 - 1, batch.ev_slots.dtype)
+    ev_type[:b] = batch.ev_type[lo:hi]
+    ev_slot[:b] = batch.ev_slot[lo:hi]
+    ev_slots[:b] = batch.ev_slots[lo:hi]
+    if batch.shared_target:
+        return ev_type, ev_slot, ev_slots, None
+    target = np.full((bp, K1, V), -1, np.int32)
+    target[:b] = batch.target[lo:hi]
+    return ev_type, ev_slot, ev_slots, target
+
+
+def _round_up_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _dispatch_sharded(kind: str, batch: EncodedBatch, mesh,
+                      return_frontier: bool) -> list:
+    """Run one bucket through a sharded kernel ("dataN" or "frontier"),
+    padding each chunk to the batch shards' multiple and chunking to
+    MAX_FRONTIER_ELEMENTS a distinct device. Returns [(valid, bad,
+    frontier|None)] per chunk, padding rows sliced off."""
+    from ..parallel.mesh import batch_cells
+    n_data = len(batch_cells(mesh))
+    kern = get_kernel(batch.V, batch.W,
+                      kind="frontier" if kind == "frontier" else "data",
+                      mesh=mesh, shared_target=batch.shared_target,
+                      w_live=batch.eff_w_live)
+    # Per-device budget: a device holds (chunk / n_data) rows x
+    # (per_hist / n_frontier) words for each of the size / n_devices
+    # cells it fills (one card named n times fills n), so
+    # chunk x per_hist / n_devices <= MAX_FRONTIER_ELEMENTS.
+    per_hist = n_state_words(batch.V) << batch.W
+    n_devices = len(set(mesh.devices.flat))
+    chunk = _round_up_to(
+        max(n_data, MAX_FRONTIER_ELEMENTS * n_devices // max(per_hist, 1)),
+        n_data)
+    DISPATCH_LOG.append((kind, batch.V, batch.W, batch.batch))
+    out = []
+    for lo in range(0, batch.batch, chunk):
+        hi = min(lo + chunk, batch.batch)
+        nb = hi - lo
+        ev_type, ev_slot, ev_slots, target = _pad_rows(
+            batch, _round_up_to(nb, n_data), lo, hi)
+        valid, bad, front = kern(
+            ev_type, ev_slot, ev_slots,
+            batch.target[0] if batch.shared_target else target)
+        out.append((valid[:nb], bad[:nb],
+                    front[:nb] if return_frontier else None))
+    return out
+
+
+def _route(batch: EncodedBatch, device):
+    """(route, mesh) of one bucket: "frontier" when the window is past
+    DATA_MAX_SLOTS and the production mesh has 2^(W - 16) frontier
+    devices, else "data1wide" up to SINGLE_DEVICE_EXTRA_SLOTS past it;
+    "dataN" for a batch of at least shard_min_rows() rows per data
+    device, else "data1". Raises WindowOverflow past what the devices
+    host."""
+    from ..parallel.mesh import should_shard
+    if batch.W > DATA_MAX_SLOTS:
+        D = 1 << (batch.W - DATA_MAX_SLOTS)
+        mesh = production_mesh(D, device)
+        if mesh is not None:
+            return "frontier", mesh
+        if batch.W - DATA_MAX_SLOTS > SINGLE_DEVICE_EXTRA_SLOTS:
+            raise WindowOverflow(
+                f"window W={batch.W} needs {D} frontier devices")
+        return "data1wide", None
+    mesh = production_mesh(1, device)
+    if should_shard(batch.batch, mesh):
+        return "dataN", mesh
+    return "data1", None
+
+
 def _launch(batch: EncodedBatch, return_frontier: bool, device) -> list:
-    """Queue one bucket on the device, batch-chunked so the in-flight
-    frontier words stay inside MAX_FRONTIER_ELEMENTS (wide windows get
-    proportionally smaller chunks). Returns [(valid, bad, frontier|None)]
-    device tensors per chunk; raises WindowOverflow past one card's
-    window."""
+    """Queue one bucket on the route ``_route`` picks. One device: batch
+    chunks so the in-flight frontier words stay inside
+    MAX_FRONTIER_ELEMENTS (wide windows get proportionally smaller
+    chunks). Returns [(valid, bad, frontier|None)] tensors per chunk;
+    raises WindowOverflow past what the devices host."""
     if batch.batch == 0:
         NW, M = n_state_words(batch.V), 1 << batch.W
         return [(torch.zeros(0, dtype=torch.bool),
                  torch.zeros(0, dtype=torch.int32),
                  torch.zeros((0, NW, M), dtype=torch.int32)
                  if return_frontier else None)]
-    if batch.W > DATA_MAX_SLOTS + SINGLE_DEVICE_EXTRA_SLOTS:
-        raise WindowOverflow(
-            f"window W={batch.W} needs "
-            f"{1 << (batch.W - DATA_MAX_SLOTS)} frontier devices")
-    label = "data1wide" if batch.W > DATA_MAX_SLOTS else "data1"
+    label, mesh = _route(batch, device)
+    if mesh is not None:
+        return _dispatch_sharded(label, batch, mesh, return_frontier)
     kern = get_kernel(batch.V, batch.W, w_live=batch.eff_w_live)
     per_hist = n_state_words(batch.V) << batch.W
     chunk = max(1, MAX_FRONTIER_ELEMENTS // per_hist)
@@ -529,11 +704,22 @@ def _collect(pending: list, return_frontier: bool):
 
 def run_encoded_batch(batch: EncodedBatch, return_frontier: bool = False,
                       *, device=None):
-    """Check one cost bucket on one device. W <= DATA_MAX_SLOTS takes
-    the "data1" route; up to SINGLE_DEVICE_EXTRA_SLOTS more take
-    "data1wide" (the kernel keeps such frontiers in device memory);
-    wider windows raise WindowOverflow. Returns numpy (valid [B] bool,
-    bad [B] int32, frontier [B, words(V), 2^W] uint32 or None)."""
+    """Check one cost bucket on the route its window and the production
+    devices give it (``_route``):
+
+      * W <= DATA_MAX_SLOTS, a small batch or one device: "data1", the
+        single-device kernel, chunked to bound memory;
+      * W <= DATA_MAX_SLOTS, a large batch on a mesh of several devices:
+        "dataN", the batch axis sharded over "data"
+        (jepsen_torch.parallel.mesh);
+      * W > DATA_MAX_SLOTS: "frontier", the mask axis split over
+        2^(W - 16) frontier devices (jepsen_torch.parallel.frontier);
+        without them "data1wide" up to SINGLE_DEVICE_EXTRA_SLOTS past
+        it (the kernel keeps such frontiers in device memory), and
+        WindowOverflow beyond, whose rows go to the host engine.
+
+    Returns numpy (valid [B] bool, bad [B] int32, frontier [B, words(V),
+    2^W] uint32 or None)."""
     return _collect(_launch(batch, return_frontier, resolve_device(device)),
                     return_frontier)
 
@@ -544,7 +730,9 @@ def run_buckets(batches: Sequence[EncodedBatch], *, device=None,
     WindowOverflow) in submission order. Launches are asynchronous, so
     bucket k+1 is queued on the card before bucket k's results are
     copied back: the host's per-bucket decode overlaps the device's next
-    bucket, with at most two buckets' frontiers in flight."""
+    bucket, with at most two buckets' frontiers in flight. A bucket on a
+    sharded route ("dataN", "frontier") runs blocking, after the queued
+    ones."""
     device = resolve_device(device)
     queued: "deque" = deque()
 
@@ -559,7 +747,21 @@ def run_buckets(batches: Sequence[EncodedBatch], *, device=None,
             return b, p
         return b, _collect(p, return_frontier)
 
+    def sharded(b):
+        try:
+            return b.batch and _route(b, device)[1] is not None
+        except WindowOverflow:
+            return False
+
     for b in batches:
+        if sharded(b):
+            # The sharded routes are driven from the host (the frontier
+            # walk reads its flags every round): drain, then run it
+            # blocking.
+            while queued:
+                yield finish(*queued.popleft())
+            yield finish(b, launch(b))
+            continue
         queued.append((b, launch(b)))
         if len(queued) > 1:
             yield finish(*queued.popleft())
@@ -905,7 +1107,7 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
 
     ``device=None`` means the CUDA card and raises when there is none;
     ``device="cpu"`` runs the plain version. Histories the encoder cannot
-    bound (state-space explosion, a pending window past one card) are
+    bound (state-space explosion, a pending window past the devices) are
     decided by ``host_fallback(model, history)`` (default: the exact host
     engine) and carry a ``fallback`` key naming why. Cost buckets
     smaller than ``min_device_batch`` go to the host engine too (under
@@ -962,7 +1164,7 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
         if any(op.index is None for op in h):
             index_history(h)
     prepared = [prepare_history(h) for h in histories]
-    eff_slots = max_slots + (SINGLE_DEVICE_EXTRA_SLOTS
+    eff_slots = max_slots + (device_frontier_capacity(device)
                              if max_slots >= DATA_MAX_SLOTS else 0)
     buckets = bucket_encode(model, prepared,
                             max_states=min(max_states, MAX_PACKED_STATES),
@@ -1090,7 +1292,7 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
     (details mode) the witness sub's result plus ``independent_key``.
     The journal then rides the sub-batch's row order.
 
-    Rows the encoder cannot bound (a pending window past one card) are
+    Rows the encoder cannot bound (a pending window past the devices) are
     converted to Op lists and decided by ``host_fallback(model,
     history)`` (default: the exact host engine), their dicts carrying
     ``fallback`` and ``provenance``. ``device=None`` means the CUDA card
@@ -1190,7 +1392,7 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
 
     t_start = time.perf_counter()
     space = enumerate_statespace(model, cols.kinds, MAX_PACKED_STATES)
-    eff_slots = max_slots + (SINGLE_DEVICE_EXTRA_SLOTS
+    eff_slots = max_slots + (device_frontier_capacity(device)
                              if max_slots >= DATA_MAX_SLOTS else 0)
     valid = np.ones(cols.batch, bool)
     bad = np.full(cols.batch, INT32_MAX, np.int32)

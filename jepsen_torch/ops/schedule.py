@@ -37,6 +37,15 @@ the reference's ``ops/schedule.py`` trimmed to its happy path:
     ``"pallas"`` (the reference's two TPU forms of the search, one CUDA
     kernel here) run the search alone.
 
+  * **the mesh routes** — a bucket past DATA_MAX_SLOTS, or one of at
+    least ``shard_min_rows`` rows (default: the production mesh's data
+    devices x $JT_SHARD_MIN_ROWS, parallel.mesh.should_shard) when the
+    production devices form a mesh, drains the pipeline and runs
+    blocking through ``run_encoded_batch``: the frontier-sharded,
+    batch-sharded or one-card wide route (ops.linearize._route). With
+    nothing provisioned (jepsen_torch.provision) a one-card host has no
+    mesh, and every narrow bucket stays on the pipeline.
+
 Contract for callers: ``run(source)`` yields ``(batch, out)`` pairs
 where ``batch`` is a *consolidated* EncodedBatch (NOT an element of the
 input list) and ``out`` is (valid, bad, frontier) or a WindowOverflow.
@@ -50,9 +59,8 @@ What the reference's scheduler has and this one does not, by decision:
 the persistent XLA compilation cache, AOT executable shipping and
 kernel pre-warm (the port has no compile step: each CUDA library builds
 once, at first use, into ``build/jepsen_torch/``); the Pallas-versus-
-scan backend choice (one CUDA kernel serves both TPU forms); the
-batch-sharded multi-device route (one card; it waits for the multi-GPU
-slice); resident frontiers (the online slice); the native-CPU tail
+scan backend choice (one CUDA kernel serves both TPU forms); resident
+frontiers (the online slice); the native-CPU tail
 diversion (the port has no native engine); and donated buffers, which
 have no meaning for torch tensors.
 
@@ -96,7 +104,8 @@ from .faults import (INT32_MAX, CorruptOutput, FaultInjector,
 from .graph import (N_LEVELS, close_planes, mxu_op_model,
                     validate_graph_decoded)
 from .linearize import (DATA_MAX_SLOTS, DISPATCH_LOG, MAX_FRONTIER_ELEMENTS,
-                        WindowOverflow, _on, get_fused_kernel, get_kernel,
+                        MIN_ROWS_PER_DEVICE, WindowOverflow, _on,
+                        get_fused_kernel, get_kernel, production_mesh,
                         run_encoded_batch, run_event_chunked, vpu_op_model)
 
 log = logging.getLogger("jepsen.schedule")
@@ -131,7 +140,10 @@ log = logging.getLogger("jepsen.schedule")
 #                       the extra allowance of a shape's first wait (its
 #                       first launch builds the CUDA library);
 #   bisect_floor_rows   below this many rows per dispatch an OOM stops
-#                       halving and takes the event-chunked kernel.
+#                       halving and takes the event-chunked kernel;
+#   shard_min_rows      rows per data device below which a bucket stays
+#                       off the batch-sharded route (dataN), read by
+#                       parallel.mesh.shard_min_rows.
 # The reference also reads JT_COMPILE_CACHE=0 as fuse width 1, since a
 # fused XLA program is a compile it would otherwise pay per process; the
 # port compiles nothing per shape, so that variable means nothing here.
@@ -151,6 +163,7 @@ KNOBS = {
     "watchdog_factor": ("JT_WATCHDOG_FACTOR", 32.0, 0.0),
     "watchdog_compile_grace_s": ("JT_WATCHDOG_COMPILE_GRACE_S", 900.0, 0.0),
     "bisect_floor_rows": ("JT_BISECT_FLOOR_ROWS", 16, 1),
+    "shard_min_rows": ("JT_SHARD_MIN_ROWS", MIN_ROWS_PER_DEVICE, 1),
 }
 
 
@@ -414,7 +427,9 @@ class BucketScheduler:
     names another); ``return_frontier`` is False, True or "invalid"
     (frontiers of the invalid rows only, as {row: frontier}).
     ``wgl_backend`` is "auto", "dc", "xla" or "pallas" (the module
-    docstring), $JT_WGL_BACKEND when None.
+    docstring), $JT_WGL_BACKEND when None. ``shard_min_rows`` is the
+    rows from which a narrow bucket takes the batch-sharded route when
+    there is a production mesh (None: parallel.mesh.should_shard).
 
     The degradation ladder: ``faults`` is a FaultInjector (else the
     ambient $JT_FAULT_PLAN, else none); ``max_retries`` and
@@ -438,6 +453,7 @@ class BucketScheduler:
                  max_retries: Optional[int] = None,
                  backoff_s: Optional[float] = None,
                  resident: Optional[ResidentState] = None,
+                 shard_min_rows: Optional[int] = None,
                  device=None):
         self.return_frontier = return_frontier
         self.device = resolve_device(device)
@@ -462,6 +478,12 @@ class BucketScheduler:
         self.event_route_events = knob("event_route_events")
         self.event_chunk = knob("event_chunk")
         self.bisect_floor_rows = knob("bisect_floor_rows")
+        # Routing floor of the batch-sharded (dataN) route: merged
+        # buckets below it stay on the chunked pipeline (its fault
+        # hooks, chunk journal and group launches) instead of draining
+        # it for a blocking sharded call. None keeps the mesh's default
+        # (data devices x $JT_SHARD_MIN_ROWS, parallel.mesh.should_shard).
+        self.shard_min_rows = shard_min_rows
         self._fuse_buf: List[Tuple] = []
         self.consolidate = consolidate
         self.on_chunk = on_chunk
@@ -1024,9 +1046,12 @@ class BucketScheduler:
         return out
 
     def _run_wide(self, mb: EncodedBatch):
-        """Blocking wide-route dispatch (W > DATA_MAX_SLOTS: the kernel
-        keeps such frontiers in device memory) with bounded retry. A
-        window past one card returns the WindowOverflow, and a failure
+        """Blocking dispatch of a wide or sharded bucket through
+        ``run_encoded_batch`` (W > DATA_MAX_SLOTS: the frontier-sharded
+        route, or one card's device-memory tier; a large narrow bucket on
+        a mesh: the batch-sharded route) with bounded retry. A window
+        past what the devices host returns the WindowOverflow, and a
+        failure
         that persists returns ChunkAbandoned: either way the caller's
         host engine decides the rows."""
         last: Optional[BaseException] = None
@@ -1145,10 +1170,16 @@ class BucketScheduler:
             self._inc("orig_events",
                       int(mb.orig_n_events.sum())
                       if mb.orig_n_events is not None else ev)
-            if mb.W > DATA_MAX_SLOTS:
-                # The wide route keeps its own dispatch: drain the
-                # pipeline so yields stay in dispatch order, then run
-                # blocking.
+            mesh = production_mesh(1, self.device)
+            if self.shard_min_rows is None:
+                from ..parallel.mesh import should_shard
+                shard = should_shard(mb.batch, mesh)
+            else:
+                shard = mesh is not None and mb.batch >= self.shard_min_rows
+            if mb.W > DATA_MAX_SLOTS or shard:
+                # The wide, frontier and sharded routes keep their own
+                # dispatch (run_encoded_batch): drain the pipeline so
+                # yields stay in dispatch order, then run blocking.
                 yield from drain()
                 yield blocking(mb, self._run_wide(mb))
                 return

@@ -238,3 +238,25 @@ def synth_la_history(seed: int, *, n_procs: int = 4, n_ops: int = 24,
                 h[ok_idx].value = [k, obs[:j]]
                 break
     return index(h)
+
+
+def synth_wide_window_history(*, width: int = 17, n_values: int = 2,
+                              invalid: bool = False,
+                              seed: Optional[int] = None) -> List[Op]:
+    """A history whose pending window is exactly ``width``: width-1
+    crashed writes pin slots forever, then one read completes ok while
+    all of them are pending. The checker must close the frontier over
+    2^(width-1) linearization subsets — the shape that exceeds one
+    device's window and takes the frontier-sharded route
+    (jepsen_torch.parallel.frontier). ``invalid=True`` makes the read
+    observe a value no write could have produced. ``seed`` draws the
+    pinned write values from the seed; None keeps the ``p % n_values``
+    pattern."""
+    rng = random.Random(seed) if seed is not None else None
+    h: List[Op] = []
+    for p in range(width - 1):
+        v = rng.randrange(n_values) if rng is not None else p % n_values
+        h.append(invoke_op(p, "write", v))
+    h.append(invoke_op(width - 1, "read", None))
+    h.append(ok_op(width - 1, "read", n_values + 5 if invalid else None))
+    return index(h)

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax():
             "jepsen_torch.utils.core", "jepsen_torch.ops.dc_monitor",
             "jepsen_torch.ops.cuda_dc", "jepsen_torch.fleet",
             "jepsen_torch.store", "jepsen_torch.runtime",
-            "jepsen_torch.fuzz"} <= set(MODULES)
+            "jepsen_torch.fuzz", "jepsen_torch.provision",
+            "jepsen_torch.parallel.mesh", "jepsen_torch.parallel.frontier",
+            "jepsen_torch.ops.cuda_shard"} <= set(MODULES)
 
 
 def _imports(path: Path):

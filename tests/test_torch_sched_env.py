@@ -195,7 +195,8 @@ def test_defaults_are_unchanged(plans, monkeypatch):
         "graph_chunk_rows": 2048, "retry_max": 3, "retry_backoff_s": 0.25,
         "watchdog_min_s": 120.0, "watchdog_lane_ops_per_s": 1e8,
         "watchdog_mxu_macs_per_s": 1e11, "watchdog_factor": 32.0,
-        "watchdog_compile_grace_s": 900.0, "bisect_floor_rows": 16}
+        "watchdog_compile_grace_s": 900.0, "bisect_floor_rows": 16,
+        "shard_min_rows": 8}
     assert plans["default"]["port"] == plans["default"]["ref"]
 
 
