@@ -138,12 +138,16 @@ Then the multi-device routes, on a mesh of the card named 8 times
 one-card host has no production mesh, and no sharded dispatch may run):
 
   * the frontier-sharded step (K3, ``csrc/wgl_shard.cu``) on explicit
-    meshes 4 x 2, 2 x 4 and 1 x 8 at local windows 1, 8, 9 and 16, one
-    and two state words, shared and per-row tables, padding rows and rows
-    that fail on and survive a top-slot completion: each of its three
-    kernels against its plain version on every input the walk gives it,
-    and the walk's valid, bad and frontier against K1 on the same rows
-    (``mesh_kernel_parity``);
+    meshes 4 x 2, 2 x 4 and 1 x 8 at local windows 1, 8, 9, 13, 14, 15
+    and 16 (``shard_close``'s block tier at its widest, its cluster tier
+    at 2, 4 and 8 CTAs), one and two state words, shared and per-row tables,
+    padding rows, rows that fail on and survive a top-slot completion, and
+    the rows a broken close fails (a chain that gains in a late pass, a
+    config only the cluster's top rank bit reaches, a slot fresh only
+    because an OK freed it): each of its three kernels against its plain
+    version on every input the walk gives it, and the walk's valid, bad
+    and frontier against K1 on the same rows, with the close's launches
+    per tier (``mesh_kernel_parity``);
   * the production routes: wide Op-list rows at W 17, 18 and 19 and a
     columnar W 18 batch on the frontier route, the wide W 17
     ``check_synth`` specs on it against their one-card ``data1wide`` run,
@@ -174,9 +178,12 @@ headline's dispatched buckets, each W apart, each beside the empty
 kernel (``csrc/launch_floor.cu``) on its grids, the launch floor; the same
 inputs in each checkout given, with the bound, each K1 launch's plan and
 time, and the folds', closures' and K4's library routes measured once in
-this checkout. ``--kernels --only dc,wide TREE ...`` times only the
-named groups (``k1``, ``folds``, ``closures``, ``synth``, ``dc``,
-``wide``, ``instrument``).
+this checkout, and the frontier-sharded step (K3) over the wide W 17
+``check_synth`` specs' walks on a mesh of the card named 8 times (each
+kernel's device time by the profiler, the walk by the host clock).
+``--kernels --only dc,wide TREE ...`` times only the named groups
+(``k1``, ``folds``, ``closures``, ``synth``, ``dc``, ``wide``,
+``instrument``, ``mesh``).
 
 Kernel times are of the kernel alone (``time_launches``: carries reset
 and outputs allocated outside the window, CUDA events around each
@@ -4823,20 +4830,24 @@ def phase_fuzz(dev, L, S, cuda_synth):
 
 # The mesh phase (K3, the frontier-sharded step): the card named
 # MESH_DEVICES times, as a one-process mesh. Kernel parity on explicit
-# meshes (data x frontier), MESH_CASES: every mesh at three or four of
-# the local windows 1, 8, 9 and 16, every window on two or three meshes
-# with one and two state words and a shared and a per-row table;
-# MESH_ROWS rows of MESH_EVENTS events a case (rows 4-7 mostly padding,
-# row 0 all padding, row 1 failing on a top-slot completion, row 2
-# surviving one). W 18 on 2 x 4 at W_local 16 is left to mesh_path,
-# whose W 18 Op-list and columnar rows run on that mesh with every
-# entry held against its plain version on each input.
+# meshes (data x frontier), MESH_CASES: every mesh at four of the local
+# windows 1, 8, 9, 13, 14, 15 and 16, with one and two state words and a
+# shared and a per-row table. shard_close's plan (cuda_shard.close_plan)
+# runs W_local 13 in its block tier (its widest on these few rows), 14
+# over a cluster of 2 CTAs, 15 over 4 and 16 over 8, the narrower
+# windows in the block tier; MESH_CLOSE_TIERS must each be reached. MESH_ROWS rows of MESH_EVENTS events a case (``mesh_tables``).
+# W 18 on 2 x 4 at W_local 16 is left to mesh_path, whose W 18 Op-list
+# and columnar rows run on that mesh with every entry held against its
+# plain version on each input.
 MESH_DEVICES = 8
 MESH_CASES = (  # (n_data, D, W_local, V, shared target)
-    (4, 2, 1, 40, False), (4, 2, 8, 8, True), (4, 2, 9, 40, False),
+    (4, 2, 1, 40, False), (4, 2, 8, 8, True), (4, 2, 14, 40, False),
     (4, 2, 16, 40, False),
     (2, 4, 1, 8, True), (2, 4, 8, 40, False), (2, 4, 9, 8, True),
-    (1, 8, 1, 40, False), (1, 8, 8, 8, True), (1, 8, 16, 8, True))
+    (2, 4, 15, 8, True),
+    (1, 8, 1, 40, False), (1, 8, 8, 8, True), (1, 8, 13, 8, True),
+    (1, 8, 16, 8, True))
+MESH_CLOSE_TIERS = ("block/1", "cluster/2", "cluster/4", "cluster/8")
 MESH_ROWS = 8
 MESH_EVENTS = 16
 # The batch-sharded route's batch, the dryrun's shape
@@ -4847,12 +4858,30 @@ MESH_DATAN_ROWS = 256
 MESH_ORACLE_ROWS = 8
 
 
-def mesh_tables(rng, B, N, V, W, K1, shared, dev):
+# Links of mesh_tables' chain row: kinds K1 - 2 - j take state j to
+# j + 1 (the last kinds of the table; K1 - 1 reaches no state).
+MESH_CHAIN = 4
+
+
+def mesh_tables(rng, B, N, V, W, WL, K1, shared, dev):
     """Random tables for the sharded step: ``random_tables`` with slots
     kept in [-1, W - 1] (as an encoder writes them), rows 4-7 mostly
-    padding, row 0 all padding, row 1 completing at event 0 on the top
-    slot W - 1 with a kind that reaches no state (it fails there) and row
-    2 with one that takes state 0 to 1 (it survives a top completion)."""
+    padding, and designed rows (each a row of its own at event 0, random
+    after its designed events):
+
+    * row 0 all padding; row 1 completing at event 0 on the top slot
+      W - 1 with a kind that reaches no state (it fails there) and row 2
+      with one that takes state 0 to 1 (it survives a top completion);
+    * row 3, a chain down the local slots: slot WL - 1 - j takes state j
+      to j + 1, so each in-order pass of shard_close adds one link and
+      the last link's mask gains in pass MESH_CHAIN (the top links cross
+      the cluster's rank bits);
+    * row 4, a config that only slot WL - 1, the cluster's top rank bit,
+      moves (state 0 to 1);
+    * row 5, closing under slot 1 (state 0 to 1 to 2) and completing on
+      it at event 0, with the same kinds at event 1: slot 1 is fresh
+      there only because the OK freed it, and event 1's completion on
+      slot 1 needs the config (2, state 2) that only it makes."""
     ev_type, ev_slot, ev_slots, target = (
         a.cpu().numpy() for a in pad_heavy(rng, list(random_tables(
             rng, B, N, V, W, None, K1, shared, torch.device("cpu")))))
@@ -4862,9 +4891,26 @@ def mesh_tables(rng, B, N, V, W, K1, shared, dev):
         ev_type[r, 0], ev_slot[r, 0] = 2, W - 1
         ev_slots[r, 0, :] = K1 - 1
         ev_slots[r, 0, W - 1] = kind
-    row = target[K1 - 2] if shared else target[2, K1 - 2]
-    row[:] = -1
-    row[0] = 1
+
+    def kinds_of(r):
+        return target if shared else target[r]
+    links = min(MESH_CHAIN, WL)
+    freed = K1 - 2 - MESH_CHAIN
+    for r in range(B):
+        t = kinds_of(r)
+        for j in range(MESH_CHAIN):
+            t[K1 - 2 - j] = -1
+            t[K1 - 2 - j, j] = j + 1
+        t[freed] = -1
+        t[freed, 0], t[freed, 1] = 1, 2
+    ev_type[3, 0], ev_slots[3, 0, :] = 3, K1 - 1
+    for j in range(links):
+        ev_slots[3, 0, WL - 1 - j] = K1 - 2 - j
+    ev_type[4, 0], ev_slots[4, 0, :] = 3, K1 - 1
+    ev_slots[4, 0, WL - 1] = K1 - 2
+    ev_type[5, :2], ev_slot[5, :2] = 2, 1
+    ev_slots[5, :2, :] = K1 - 1
+    ev_slots[5, :2, 1] = freed
     return tuple(on(a, dev) for a in (ev_type, ev_slot, ev_slots, target))
 
 
@@ -4939,17 +4985,22 @@ def phase_mesh_kernel_parity(dev, L):
     from jepsen_torch.parallel import frontier as PF
     rng = np.random.default_rng(2026)
     errs = {"shard_close": 0, "shard_image": 0, "shard_commit": 0}
+    from jepsen_torch.ops import cuda_shard as CS
     cases, k1_err, rounds = [], 0, 0
+    tiers = collections.Counter()
     devices = [dev] * MESH_DEVICES
     for n_data, D, WL, V, shared in MESH_CASES:
         mesh = checker_mesh(n_data, D, devices=devices)
         W = WL + D.bit_length() - 1
         K1 = 9 if shared else 12
-        args = mesh_tables(rng, MESH_ROWS, MESH_EVENTS, V, W, K1, shared,
-                           dev)
+        args = mesh_tables(rng, MESH_ROWS, MESH_EVENTS, V, W, WL, K1,
+                           shared, dev)
         r0, t0 = PF.ROUNDS, time.perf_counter()
+        before = collections.Counter(CS.CLOSE_TIERS)
         got = frontier_sharded_kernel(V, W, mesh, shared)(
             *args, ops=paired_ops(errs))
+        case_tiers = dict(collections.Counter(CS.CLOSE_TIERS) - before)
+        tiers.update(case_tiers)
         want = k1_reference(L, V, W, args, dev)
         torch.cuda.synchronize()
         err = max(tensors_err(g, w) for g, w in zip(got, want))
@@ -4960,6 +5011,11 @@ def phase_mesh_kernel_parity(dev, L):
                       "events": MESH_EVENTS,
                       "invalid": int((~got[0]).sum()),
                       "rounds": PF.ROUNDS - r0, "k1_err": err,
+                      "close_tiers": case_tiers,
+                      "close_plan": {k: CS.close_plan(
+                          WL, (V + 31) // 32, MESH_ROWS // n_data, V)[k]
+                          for k in ("tier", "ctas", "threads",
+                                    "smem_bytes")},
                       "s": time.perf_counter() - t0,
                       "top_fail": bool(not got[0][1]
                                        and int(got[1][1]) == 0)})
@@ -4970,9 +5026,11 @@ def phase_mesh_kernel_parity(dev, L):
     require(all(v == 0 for v in errs.values()),
             f"a K3 entry != its plain version: {errs}")
     require(rounds > 0, "no exchange round ran")
+    require(all(tiers[t] > 0 for t in MESH_CLOSE_TIERS),
+            f"shard_close missed a tier: {dict(tiers)}")
     emit({"phase": "mesh_kernel_parity", "cases": cases, "errs": errs,
-          "rounds": rounds, "k1_err": k1_err})
-    return max(list(errs.values()) + [k1_err])
+          "rounds": rounds, "k1_err": k1_err, "close_tiers": dict(tiers)})
+    return max(list(errs.values()) + [k1_err]), dict(tiers)
 
 
 class ShardRecorder:
@@ -5002,7 +5060,8 @@ class ShardRecorder:
 def shard_counts() -> dict:
     from jepsen_torch.ops import cuda_shard
     from jepsen_torch.parallel import frontier as PF
-    return {**cuda_shard.LAUNCHES, "rounds": PF.ROUNDS}
+    return {**cuda_shard.LAUNCHES, "rounds": PF.ROUNDS,
+            "close_tiers": dict(cuda_shard.CLOSE_TIERS)}
 
 
 def zero_shard_counts() -> None:
@@ -5010,6 +5069,7 @@ def zero_shard_counts() -> None:
     from jepsen_torch.parallel import frontier as PF
     for k in cuda_shard.LAUNCHES:
         cuda_shard.LAUNCHES[k] = 0
+    cuda_shard.CLOSE_TIERS.clear()
     PF.ROUNDS = 0
 
 
@@ -5033,6 +5093,33 @@ def k3_bound(k1: dict, work: dict) -> dict:
             for n, (b, o) in part.items()}
 
 
+def k3_work(dev, L, V, W, mesh, args, work) -> tuple:
+    """K1's work on one K3 walk's rows: adds the input bytes read
+    (``read``), the output bytes written (``written``) and the needed
+    operations split by ``closure_ops`` (ORs under local slots, under top
+    slots, word tests) to ``work``; returns (bytes, operations), the
+    split's sum held to ``plain_wgl(ops=)``."""
+    ev = [a.to(dev) if isinstance(a, torch.Tensor) else on(a, dev)
+          for a in args]
+    B = ev[0].shape[0]
+    nd = torch.zeros(B, dtype=torch.int64, device=dev)
+    L.plain_wgl(*ev, 0, *L.initial_carry(B, V, W, dev),
+                V=V, W=W, w_live=W, ops=nd)
+    WL = W - (mesh.shape["frontier"].bit_length() - 1)
+    split = [int(x.sum()) for x in closure_ops(
+        L, (*ev, 0, *L.initial_carry(B, V, W, dev)),
+        {"V": V, "W": W, "w_live": W}, top=WL)]
+    require(sum(split) == int(nd.sum()),
+            f"closure_ops {split} != plain_wgl {int(nd.sum())}")
+    for k, x in zip(("ors_local", "ors_top", "tests"), split):
+        work[k] += x
+    read, written = frontier_bytes(L, ev[0], ev[2], ev[3], V, W, W,
+                                   parts=True)
+    work["read"] += read
+    work["written"] += written
+    return read + written, int(nd.sum())
+
+
 def k3_measure(dev, L, calls, timed, k1_singles):
     """The recorded K3 walks of the routes (``calls``). Each is replayed
     through the kernels, through the plain versions and with every entry
@@ -5048,18 +5135,21 @@ def k3_measure(dev, L, calls, timed, k1_singles):
     from jepsen_torch.parallel import frontier as PF
     errs = {n: 0 for n in PF.OPS}
     shard_ms, walk_ms, plain, launches = {}, 0.0, {}, {}
+    close_tiers = collections.Counter()
     walk_err, rounds, k1_ops, nbytes = 0, 0, 0, 0
     work = dict.fromkeys(("read", "written", "ors_local", "ors_top",
                           "tests"), 0)
     for i, (V, W, mesh, shared, kern, args) in enumerate(calls):
         timing = i >= timed
         before, r0 = dict(CS.LAUNCHES), PF.ROUNDS
+        tiers0 = collections.Counter(CS.CLOSE_TIERS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = kern(*args)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         walk = {k: v - before[k] for k, v in CS.LAUNCHES.items()}
+        walk_tiers = collections.Counter(CS.CLOSE_TIERS) - tiers0
         walk_rounds = PF.ROUNDS - r0
         want = kern(*args, ops=timed_plain(plain if timing else {}))
         torch.cuda.synchronize()
@@ -5070,32 +5160,16 @@ def k3_measure(dev, L, calls, timed, k1_singles):
             continue
         walk_ms += ms
         rounds += walk_rounds
+        close_tiers.update(walk_tiers)
         for k, v in walk.items():
             launches[k] = launches.get(k, 0) + v
         for name, ms in kernel_split(lambda: kern(*args), reps=1).items():
             if name.startswith("shard_"):
                 key = name.replace("_kernel", "")
                 shard_ms[key] = shard_ms.get(key, 0.0) + ms
-        ev = [a.to(dev) if isinstance(a, torch.Tensor) else on(a, dev)
-              for a in args]
-        B = ev[0].shape[0]
-        nd = torch.zeros(B, dtype=torch.int64, device=dev)
-        L.plain_wgl(*ev, 0, *L.initial_carry(B, V, W, dev),
-                    V=V, W=W, w_live=W, ops=nd)
-        k1_ops += int(nd.sum())
-        WL = W - (mesh.shape["frontier"].bit_length() - 1)
-        split = [int(x.sum()) for x in closure_ops(
-            L, (*ev, 0, *L.initial_carry(B, V, W, dev)),
-            {"V": V, "W": W, "w_live": W}, top=WL)]
-        require(sum(split) == int(nd.sum()),
-                f"closure_ops {split} != plain_wgl {int(nd.sum())}")
-        for k, x in zip(("ors_local", "ors_top", "tests"), split):
-            work[k] += x
-        read, written = frontier_bytes(L, ev[0], ev[2], ev[3], V, W, W,
-                                       parts=True)
-        work["read"] += read
-        work["written"] += written
-        nbytes += read + written
+        nb, no = k3_work(dev, L, V, W, mesh, args, work)
+        nbytes += nb
+        k1_ops += no
     k1 = launch_bound(nbytes, k1_ops)
     entries = {n: {"ms": shard_ms.get(n, 0.0),
                    "launches": launches.get(n, 0),
@@ -5103,6 +5177,7 @@ def k3_measure(dev, L, calls, timed, k1_singles):
                for n, b in k3_bound(k1, work).items()}
     return {"walks": len(calls) - timed, "walks_held": len(calls),
             "walk_err": walk_err, "entry_errs": errs, "rounds": rounds,
+            "close_tiers": dict(close_tiers),
             "walk_ms": walk_ms,
             "ms": sum(e["ms"] for e in entries.values()),
             "plain_ms": sum(plain.values()), "entries": entries,
@@ -5224,21 +5299,27 @@ def phase_mesh_path(dev, L, S, cas, synth, wgl_check, sharded_before):
     return {"launches": launches, "k3": measure}
 
 
-def mesh_entries(mesh, parity_err) -> list:
+def mesh_entries(mesh, parity_err, parity_tiers) -> list:
     """The kernels-line entries of K3's three kernels: launches on the
     mesh routes, times on the wide W 17 specs, and each entry's share of
-    K1's bound on those rows (``k3_bound``; the three add up to it)."""
+    K1's bound on those rows (``k3_bound``; the three add up to it);
+    shard_close's launches by tier ("tier/CTAs a row") on the routes, on
+    the timing walks and in the parity phase."""
     k3 = mesh["k3"]
     err = max([parity_err, k3["walk_err"]] + list(k3["entry_errs"].values()))
     out = []
     for name in ("shard_close", "shard_image", "shard_commit"):
         e = k3["entries"][name]
+        tiers = ({"close_tiers": mesh["launches"]["close_tiers"],
+                  "timing_close_tiers": k3["close_tiers"],
+                  "parity_close_tiers": parity_tiers}
+                 if name == "shard_close" else {"tier": "block/1"})
         out.append({
             "name": f"wgl_{name}", "route": "cuda",
             "source": "jepsen_torch/ops/csrc/wgl_shard.cu",
             "replaces": "jepsen_tpu/parallel/frontier.py:74",
             "launches": mesh["launches"][name],
-            "rounds": mesh["launches"]["rounds"],
+            "rounds": mesh["launches"]["rounds"], **tiers,
             "parity": True, "max_abs_err": err,
             **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "bound_share", "bytes", "needed_ops")},
@@ -5367,9 +5448,13 @@ def headline_compare(trees, reps: int = 2) -> None:
 # over every plan of the dc batches' dc runs, K8b on the wide path's
 # batch (``wide_times``), K2 instrument and K1 over the north-star and
 # keyed headline buckets, each W's buckets apart, K2f over the keyed
-# headline's group launches, and the empty kernel on their grids, from the library this checkout built. The timing helpers
-# are this script's (its path is the third argument), so that every
-# checkout is timed by one harness.
+# headline's group launches, the empty kernel on their grids, from the
+# library this checkout built, and K3 over the wide W 17 specs' walks
+# through this checkout's frontier_sharded_kernel on a mesh of the card
+# named 8 times (each kernel's device time by the profiler, the walk by
+# the host clock, its median of the reps). The timing helpers are this
+# script's (its path is the third argument), so that every checkout is
+# timed by one harness.
 KERNELS_CHILD = r"""
 import importlib.util, json, sys
 import torch
@@ -5449,6 +5534,45 @@ for label, groups in saved.get("k2f", {}).items():
 for label, grids in saved.get("floor", {}).get("grids", {}).items():
     out["floor_ms"][label] = CS.time_launches(
         CS.floor_launches(grids, saved["floor"]["lib"]), reps=reps)
+out["mesh"] = {}
+for label, walks in saved.get("mesh", {}).items():
+    import time
+    from jepsen_torch.ops import cuda_shard
+    from jepsen_torch.parallel import checker_mesh, frontier_sharded_kernel
+    from jepsen_torch.parallel import frontier as PF
+    runs = []
+    for w in walks:
+        nd, D = w["mesh"]
+        mesh = checker_mesh(nd, D, devices=[dev] * (nd * D))
+        runs.append((frontier_sharded_kernel(w["V"], w["W"], mesh,
+                                             w["shared"]),
+                     [t.to(dev) for t in w["args"]]))
+    def walk():
+        for kern, args in runs:
+            kern(*args)
+    walk()
+    torch.cuda.synchronize()
+    before = dict(cuda_shard.LAUNCHES)
+    tiers = dict(getattr(cuda_shard, "CLOSE_TIERS", {}))
+    r0 = PF.ROUNDS
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walk()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: (v - before[k]) // reps
+                for k, v in cuda_shard.LAUNCHES.items()}
+    close_tiers = {k: (v - tiers.get(k, 0)) // reps for k, v in
+                   dict(getattr(cuda_shard, "CLOSE_TIERS", {})).items()}
+    split = {k.replace("_kernel", ""): v for k, v in
+             CS.kernel_split(walk, reps).items() if k.startswith("shard_")}
+    out["mesh"][label] = {"ms": sum(split.values()), "split_ms": split,
+                          "walk_ms": sorted(host)[len(host) // 2],
+                          "walk_ms_runs": host, "launches": launches,
+                          "close_tiers": close_tiers,
+                          "rounds": (PF.ROUNDS - r0) // reps}
 print(json.dumps(out))
 """
 
@@ -5719,8 +5843,59 @@ def kernels_record_instrument(out, saved) -> None:
             "plans": plans}
 
 
+def kernels_record_mesh(out, saved) -> None:
+    """K3's inputs: the walks of the two wide W 17 ``check_synth`` specs
+    (WIDE_ROWS rows each, valid and invalid) on the frontier route of the
+    card named MESH_DEVICES times, with each walk's mesh, this tree's
+    close plan for them and how many of its clusters the card keeps
+    resident at once, and the bound (K1's on the same rows, shared out
+    over the three kernels by ``k3_bound``)."""
+    from jepsen_torch import provision
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.ops import cuda_shard as CS
+    from jepsen_torch.ops import linearize as L
+    from jepsen_torch.ops import synth_device as S
+    dev = torch.device("cuda")
+    with provision.provisioned(MESH_DEVICES, dev):
+        L._PROD_MESHES.clear()
+        with ShardRecorder() as rec:
+            for inv in (False, True):
+                L.DISPATCH_LOG.clear()
+                L.check_synth(cas_register(), S.SynthSpec(
+                    family="wide", n=WIDE_ROWS, width=17, n_values=2,
+                    invalid=inv))
+                require([p for p, *_ in L.DISPATCH_LOG] == ["frontier"],
+                        f"wide spec: {list(L.DISPATCH_LOG)}")
+    L._PROD_MESHES.clear()
+    work = dict.fromkeys(("read", "written", "ors_local", "ors_top",
+                          "tests"), 0)
+    nbytes = nops = 0
+    walks, plans = [], []
+    for V, W, mesh, shared, _, args in rec.calls:
+        nd, D = mesh.shape["data"], mesh.shape["frontier"]
+        ev = [torch.as_tensor(a.cpu() if isinstance(a, torch.Tensor)
+                              else np.asarray(a)) for a in args]
+        walks.append({"V": V, "W": W, "mesh": (nd, D), "shared": shared,
+                      "args": ev})
+        WL = W - (D.bit_length() - 1)
+        plan = CS.close_plan(WL, (V + 31) // 32, ev[0].shape[0] // nd, V)
+        plans.append({"W": W, "W_local": WL, "V": V, "mesh": f"{nd}x{D}",
+                      "rows_per_launch": ev[0].shape[0] // nd, **plan,
+                      "resident_clusters": CS.close_residency(
+                          plan, (V + 31) // 32)})
+        b, o = k3_work(dev, L, V, W, mesh, args, work)
+        nbytes += b
+        nops += o
+    require(len(walks) == 2, f"{len(walks)} K3 walks on the wide specs")
+    k1 = launch_bound(nbytes, nops)
+    saved["mesh"]["wide_w17"] = walks
+    out["mesh"]["wide_w17"] = {"walks": len(walks), "plans": plans,
+                               "k1_bound": k1,
+                               "bounds": k3_bound(k1, work)}
+
+
 KERNEL_GROUPS = ("k1", "folds", "closures", "synth", "dc", "wide",
-                 "instrument")
+                 "instrument", "mesh")
 
 def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
     """K1 on the dc headline, K7a, K7b, K7c and K7d on the full-width
@@ -5729,7 +5904,8 @@ def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
     headline's dc runs, K8b on the wide path's batch, and K2 instrument
     with K1 on the north-star bucket and the keyed headline's dispatched
     buckets (split by W) and K2f on the headline's group launches,
-    beside the empty kernel on their grids
+    beside the empty kernel on their grids, and K3 on the wide W 17
+    specs' walks
     (``only`` names a subset of KERNEL_GROUPS): the same inputs timed in
     each checkout of ``trees`` in the order given (for example parent,
     change, change, parent).
@@ -5737,9 +5913,9 @@ def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
     the plain versions and the library routes (``kernels_record_*``)."""
     out = {"phase": "kernels_compare", "k1": {}, "k7a": {}, "scans": {},
            "closures": {}, "synth": {}, "dc": {}, "wide": {},
-           "instrument": {}, "runs": []}
+           "instrument": {}, "mesh": {}, "runs": []}
     saved = {"k1": {}, "k7a": {}, "scans": {}, "closures": {}, "synth": {},
-             "dc": {}, "wide": {}, "instrument": {},
+             "dc": {}, "wide": {}, "instrument": {}, "mesh": {},
              "floor": {"lib": floor_library()._name, "grids": {}}}
     if "k1" in only:
         kernels_record_k1(out, saved)
@@ -5756,6 +5932,8 @@ def kernels_compare(trees, reps: int = 5, only=KERNEL_GROUPS) -> None:
         kernels_record_wide(out, saved)
     if "instrument" in only:
         kernels_record_instrument(out, saved)
+    if "mesh" in only:
+        kernels_record_mesh(out, saved)
     kernels_time_trees(out, saved, trees, reps)
     emit(out)
 
@@ -5856,7 +6034,7 @@ def main() -> int:
     camp = phase_campaign(dev, L, S, cuda_synth)
     fz = phase_fuzz(dev, L, S, cuda_synth)
     # The multi-device routes (K3), on the card named MESH_DEVICES times.
-    mesh_err = phase_mesh_kernel_parity(dev, L)
+    mesh_err, mesh_tiers = phase_mesh_kernel_parity(dev, L)
     mesh = phase_mesh_path(dev, L, S, cas_register, synth_cas_batch,
                            wgl_check, sharded if one_card else {})
     emit({"phase": "done", "chip_smoke_s": time.perf_counter() - t_start})
@@ -5990,7 +6168,7 @@ def main() -> int:
         "plain_ms": inst["plain_ms"], "bound_ms": inst["bound_ms"],
         "bound_by": inst["bound_by"], "library_ms": None,
         "k1_ms": inst["k1_ms"], "headline": inst["headline"]},
-        la_entry(la, la_err)] + mesh_entries(mesh, mesh_err)})
+        la_entry(la, la_err)] + mesh_entries(mesh, mesh_err, mesh_tiers)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,18 @@ plain PyTorch versions.
 The counterpart of the reference's ``make_frontier_kernel``
 (``jepsen_tpu/parallel/frontier.py``), the single-history checker whose
 mask axis is split over D = 2^k devices. ``csrc/wgl_shard.cu`` holds one
-shard's part of an event in three entries, a block a row:
-``shard_close`` (merge the images received from partners, close under
-the local slots, flag what changed and whether a config survives the
-completion), ``shard_image`` (a top slot's image of a bit-clear shard's
-slice, the send buffer of the exchange) and ``shard_commit`` (the
-completion, the latch and the verdict). The host loop that drives them,
-with the copies between partners and the reductions over the frontier
-axis, is ``jepsen_torch.parallel.frontier``.
+shard's part of an event in three entries: ``shard_close`` (merge the
+images received from partners, close under the local slots, flag what
+changed and whether a config survives the completion), ``shard_image``
+(a top slot's image of a bit-clear shard's slice, the send buffer of the
+exchange) and ``shard_commit`` (the completion, the latch and the
+verdict), the last two a block a row. ``shard_close`` holds a row's slice
+on chip in the tier ``close_plan`` picks (a block, a cluster of 2, 4 or
+8 CTAs, or device memory), closes it in one sweep by layers of masks
+from its fresh slots and dirty masks, and counts its launches per tier
+in ``CLOSE_TIERS``. The host loop that drives them, with the copies between
+partners and the reductions over the frontier axis, is
+``jepsen_torch.parallel.frontier``.
 
 Each wrapper takes its tensors where they lie: on a CUDA tensor it checks
 device, dtype, shape and contiguity, raises on anything the kernel does
@@ -26,6 +30,7 @@ here runs when the module is imported.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from pathlib import Path
 from typing import Optional, Sequence
@@ -46,9 +51,27 @@ MAX_TOP = 8
 MAX_STATES = 64
 MAX_THREADS = 1024
 
+# shard_close's plan (kCloseMaxClusterLog and kCloseMaxWarps in the
+# source): at most 8 CTAs a row and 256 threads a CTA; the shared memory
+# a block may take on this card, less a reserve for the kernel's static
+# shared memory; the CTAs a launch should reach (four for each of the
+# card's SMs, which hold five of the timing batch's CTAs each, all
+# resident at once); and the fewest masks a CTA keeps when the plan
+# splits a slice further.
+CLOSE_MAX_CLUSTER_LOG = 3
+CLOSE_MAX_THREADS = 256
+SMEM_LIMIT_BYTES = 232448 - 1024
+CARD_SMS = 132
+CLOSE_FILL_CTAS = 4 * CARD_SMS
+CLOSE_SPLIT_MASKS = 1 << 13
+CLOSE_TIER_CODES = {"block": 0, "cluster": 1, "device": 2}
+
 # Launches of each entry in this process; callers reset them to 0 and
 # read them back to show that a path ran on the card.
 LAUNCHES = {"shard_close": 0, "shard_image": 0, "shard_commit": 0}
+# shard_close's launches by plan, "tier/CTAs a row" (for example
+# "cluster/4"); reset and read as LAUNCHES.
+CLOSE_TIERS: collections.Counter = collections.Counter()
 
 _LIB = None
 
@@ -59,7 +82,8 @@ class ShardArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in ("F", "Fbad", "send")]
                 + [("recv", ctypes.c_void_p * MAX_TOP)]
                 + [(n, ctypes.c_void_p) for n in (
-                    "ev_type", "ev_slot", "ev_slots", "target")]
+                    "ev_type", "ev_slot", "ev_slots", "target", "order",
+                    "flags")]
                 + [("target_row_stride", ctypes.c_longlong)]
                 + [(n, ctypes.c_void_p) for n in (
                     "valid", "bad", "nonempty", "changed", "kept")]
@@ -76,24 +100,26 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib = build_library(SRC, {
-            "wgl_shard_close_launch": ([p, i, p], i),
+            "wgl_shard_close_launch": ([p, i, i, i, i, p], i),
             "wgl_shard_image_launch": ([p, i, p], i),
             "wgl_shard_commit_launch": ([p, i, p], i),
+            "wgl_shard_close_residency": ([i, i, i, i, ip], i),
             "wgl_shard_args_bytes": ([], i),
-            "wgl_shard_limits": ([ip, ip, ip], i),
+            "wgl_shard_limits": ([ip] * 5, i),
             "wgl_shard_error": ([i], ctypes.c_char_p)})
         size = lib.wgl_shard_args_bytes()
         if size != ctypes.sizeof(ShardArgs):
             raise RuntimeError(f"wgl_shard: descriptor is {size} bytes in "
                                f"the library, {ctypes.sizeof(ShardArgs)} "
                                "here")
-        lim = [ctypes.c_int() for _ in range(3)]
+        lim = [ctypes.c_int() for _ in range(5)]
         lib.wgl_shard_limits(*(ctypes.byref(x) for x in lim))
-        if tuple(x.value for x in lim) != (MAX_W_LOCAL, MAX_TOP,
-                                           MAX_STATES):
+        mine = [MAX_W_LOCAL, MAX_TOP, MAX_STATES, CLOSE_MAX_CLUSTER_LOG,
+                CLOSE_MAX_THREADS]
+        if [x.value for x in lim] != mine:
             raise RuntimeError(f"wgl_shard: the library's limits are "
                                f"{[x.value for x in lim]}, this module's "
-                               f"{[MAX_W_LOCAL, MAX_TOP, MAX_STATES]}")
+                               f"{mine}")
         _LIB = lib
     return _LIB
 
@@ -104,9 +130,97 @@ def build() -> None:
     _library()
 
 
+def close_residency(plan: dict, NW: int) -> int:
+    """How many clusters (CTAs in the block and device tiers) of a
+    shard_close ``plan`` the card keeps resident at once
+    (cudaOccupancyMaxActiveClusters): a launch of more takes a second
+    wave."""
+    lib = _library()
+    n = ctypes.c_int()
+    err = lib.wgl_shard_close_residency(NW, plan["clog"], plan["threads"],
+                                        plan["smem_bytes"], ctypes.byref(n))
+    if err != 0:
+        raise CudaLaunchError("shard_close", err,
+                              lib.wgl_shard_error(err).decode())
+    return n.value
+
+
 def threads(WL: int) -> int:
-    """Threads of a row's block: one a local mask, 32 to MAX_THREADS."""
+    """Threads of a row's block in shard_image and shard_commit: one a
+    local mask, 32 to MAX_THREADS."""
     return min(MAX_THREADS, max(32, 1 << WL))
+
+
+def close_smem_words(WL: int, clog: int, NW: int, V: int,
+                     in_smem: bool) -> int:
+    """Words of dynamic shared memory a shard_close CTA takes (the
+    source's close_smem_words): on the block and cluster tiers its
+    2^(WL - clog) masks of the slice and a flag byte a mask (whole
+    32-mask groups), which the device tier keeps in device memory; and
+    the WL local slots' nibble tables (16 entries of NW words for each of
+    the ceil(V / 4) nibbles of a state set, padded to an odd count)."""
+    Ml = 1 << (WL - clog)
+    return ((NW * Ml + 8 * max(1, Ml >> 5) if in_smem else 0)
+            + WL * (16 * ((V + 3) // 4) * NW | 1))
+
+
+_ORDERS: dict = {}
+
+
+def close_order(bits: int, device) -> torch.Tensor:
+    """The 2^bits local masks of a CTA ordered by their bit count, then
+    value (int32 on ``device``, made once a process): shard_close's sweep
+    takes the masks one bit count at a time."""
+    key = (bits, str(device))
+    if key not in _ORDERS:
+        m = torch.arange(1 << bits, dtype=torch.int64)
+        pop = torch.zeros_like(m)
+        for b in range(bits):
+            pop += (m >> b) & 1
+        _ORDERS[key] = m[torch.argsort(pop * (1 << bits) + m)].to(
+            device=device, dtype=torch.int32)
+    return _ORDERS[key]
+
+
+def close_plan(WL: int, NW: int, rows: int, V: Optional[int] = None
+               ) -> dict:
+    """shard_close's static launch plan for ``rows`` rows of a
+    2^WL-mask slice of NW state words: ``tier`` "block" (the slice in one
+    CTA's shared memory), "cluster" (split by its top ``clog`` local
+    mask bits over ``ctas`` = 2^clog CTAs of a thread-block cluster) or
+    "device" (the slice and its flags in device memory, where no cluster
+    of 8 holds it), with ``threads`` and ``smem_bytes`` a CTA.
+
+    The tier is a pure function of (WL, NW, rows): the fewest CTAs whose
+    shared memory holds the slice (with the tables of 32 * NW states),
+    then twice as many while the launch has fewer than CLOSE_FILL_CTAS
+    CTAs and each keeps at least CLOSE_SPLIT_MASKS masks. ``smem_bytes``
+    counts the tables of ``V`` states when given (the launch's), so that
+    the most CTAs share an SM."""
+    Vt = 32 * NW
+
+    def plan(tier, clog):
+        Ml = 1 << (WL - clog)
+        groups = max(1, Ml >> 5)
+        return {"tier": tier, "clog": clog, "ctas": 1 << clog,
+                "masks_per_cta": Ml, "groups": groups,
+                "threads": 32 * min(CLOSE_MAX_THREADS // 32, groups),
+                "slice_in_smem": tier != "device",
+                "smem_bytes": 4 * close_smem_words(WL, clog, NW, V or Vt,
+                                                   tier != "device"),
+                "ctas_launched": rows << clog}
+
+    for clog in range(min(WL, CLOSE_MAX_CLUSTER_LOG) + 1):
+        if 4 * close_smem_words(WL, clog, NW, Vt, True) <= SMEM_LIMIT_BYTES:
+            while (clog < min(WL, CLOSE_MAX_CLUSTER_LOG)
+                   and rows << clog < CLOSE_FILL_CTAS
+                   and 1 << (WL - clog - 1) >= CLOSE_SPLIT_MASKS):
+                clog += 1
+            return plan("block" if clog == 0 else "cluster", clog)
+    p = plan("device", 0)
+    if p["smem_bytes"] > SMEM_LIMIT_BYTES:
+        raise ValueError(f"wgl_shard: WL={WL} at {NW} words fits no tier")
+    return p
 
 
 # ------------------------------------------------------ the plain versions
@@ -301,15 +415,24 @@ def _args(F, ev_type, ev_slot, ev_slots, target, valid, *, e, WL, W, V,
     return a
 
 
-def _launch(entry: str, a: ShardArgs, WL: int, dev) -> None:
+def _launch(entry: str, a: ShardArgs, WL: int, dev, plan=None) -> None:
+    """Launch one entry: shard_close by its ``plan``, the others a block
+    a row of ``threads(WL)``. A refused launch raises."""
     lib = _library()
     with torch.cuda.device(dev):
-        err = getattr(lib, f"wgl_{entry}_launch")(
-            ctypes.byref(a), threads(WL),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if plan is None:
+            err = getattr(lib, f"wgl_{entry}_launch")(
+                ctypes.byref(a), threads(WL), stream)
+        else:
+            err = lib.wgl_shard_close_launch(
+                ctypes.byref(a), CLOSE_TIER_CODES[plan["tier"]],
+                plan["clog"], plan["threads"], plan["smem_bytes"], stream)
     if err != 0:
         raise CudaLaunchError(entry, err, lib.wgl_shard_error(err).decode())
     LAUNCHES[entry] += 1
+    if plan is not None:
+        CLOSE_TIERS[f"{plan['tier']}/{plan['ctas']}"] += 1
 
 
 def _int32_rows(t, rows, name):
@@ -326,7 +449,16 @@ def shard_close(F: torch.Tensor, recv: Sequence[Optional[torch.Tensor]],
     event always, later only where something new arrived), and returns
     (changed, kept), int32 [rows]: whether the merge added a config, and
     whether a config of this shard survives the event's completion.
-    Padding and invalid rows are left as they are (both flags 0)."""
+    Padding and invalid rows are left as they are (both flags 0).
+
+    The kernel closes only from what can have changed: on the first
+    round the fresh local slots (all at the row's first live event, else
+    those whose kind changed since its previous live event and the slot
+    that event's completion freed) and the masks the merge changed, on a
+    later round those masks alone. So ``F`` must be as the walk
+    (``parallel.frontier``) leaves it, closed under every other live
+    local slot; on such a slice the result is the plain version's full
+    closure, bit for bit."""
     _check(len(recv) <= MAX_TOP, f"{len(recv)} top bits > {MAX_TOP}")
     if F.device.type == "cpu":
         return plain_shard_close(F, recv, ev_type, ev_slot, ev_slots,
@@ -342,7 +474,14 @@ def shard_close(F: torch.Tensor, recv: Sequence[Optional[torch.Tensor]],
         a.recv[b] = None if r is None else r.data_ptr()
     a.changed, a.kept = changed.data_ptr(), kept.data_ptr()
     a.d, a.first_round = int(d), int(bool(first_round))
-    _launch("shard_close", a, WL, F.device)
+    plan = close_plan(WL, n_state_words(V), rows, V)
+    order = close_order(WL - plan["clog"], F.device)
+    a.order = order.data_ptr()
+    if not plan["slice_in_smem"]:
+        flags = torch.empty((rows, 1 << WL), dtype=torch.uint8,
+                            device=F.device)
+        a.flags = flags.data_ptr()
+    _launch("shard_close", a, WL, F.device, plan)
     return changed, kept
 
 

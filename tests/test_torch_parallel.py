@@ -20,8 +20,10 @@ seed with numpy or the shared Op-list generators, go through both:
   * ``should_shard``, $JT_SHARD_MIN_ROWS and the scheduler's
     ``shard_min_rows``;
   * a numpy model of ``csrc/wgl_shard.cu``'s three kernels, their
-    layout, loops and thread strides, driven by the port's round loop
-    (``ops=``) and held to the reference at the local-window edges;
+    layout, loops and thread strides (shard_close's from
+    ``tests/_shard_model.py``, on the CTAs of its launch plan), driven by
+    the port's round loop (``ops=``) and held to the reference at the
+    local-window edges;
   * ``synth_wide_window_history`` against the reference's.
 
 Random slots stay in [-1, W - 1], as an encoder writes them: past W - 1
@@ -45,6 +47,8 @@ from jepsen_tpu.parallel.mesh import should_shard as r_should_shard
 from jepsen_tpu.workloads.synth import synth_cas_batch as r_synth
 from jepsen_tpu.workloads.synth import \
     synth_wide_window_history as r_wide
+
+from _shard_model import model_close
 
 from jepsen_torch import provision
 from jepsen_torch.history.columnar import ops_to_columnar
@@ -415,60 +419,6 @@ def _image_of(src, tab):
             if hit.any():
                 img |= hit.astype(bool)[None, :] * tab[32 * w + s][:, None]
     return img
-
-
-def model_close(F, recv, ev_type, ev_slot, ev_slots, target, valid, *, e,
-                d, WL, W, V, first_round):
-    F8 = _np(F).view(np.uint32)
-    rows, NW, M = F8.shape
-    typ, slot = _np(ev_type), _np(ev_slot)
-    slots, tgt, vl = _np(ev_slots), _np(target), _np(valid)
-    K1, T = tgt.shape[-2], cuda_shard.threads(WL)
-    changed = np.zeros(rows, np.int32)
-    kept = np.zeros(rows, np.int32)
-    for row in range(rows):
-        if not vl[row] or int(typ[row, e]) not in (EV_OK, EV_FUSED,
-                                                   EV_CLOSE):
-            continue
-        flat = F8[row].reshape(-1)
-        added = 0
-        for r in recv:
-            if r is None:
-                continue
-            R8 = _np(r).view(np.uint32)[row].reshape(-1)
-            j = _strided(NW * M, T)
-            gain = (R8[j] & ~flat[j]) != 0
-            flat[j[gain]] |= R8[j[gain]]
-            added |= int(gain.any())
-        if first_round or added:
-            tabs = [_tab(tgt, K1, V, NW, row, _kind(slots, K1, row, e, i))
-                    for i in range(WL)]
-            Fr = flat.reshape(NW, M)
-            while True:
-                ch = False
-                for i, (tab, live) in enumerate(tabs):
-                    if not live:
-                        continue
-                    bit = 1 << i
-                    p = _strided(M >> 1, T)
-                    m = ((p & ~(bit - 1)) << 1) | (p & (bit - 1))
-                    src = Fr[:, m]
-                    img = _image_of(src, tab)
-                    new = Fr[:, m | bit] | img
-                    ch |= bool((new != Fr[:, m | bit]).any())
-                    Fr[:, m | bit] = new
-                if not ch:
-                    break
-        k = 0
-        if int(typ[row, e]) != EV_CLOSE:
-            q = min(max(int(slot[row, e]), 0), W - 1)
-            j = _strided(NW * M, T)
-            if q < WL:
-                k = int(((((j & (M - 1)) >> q) & 1) * flat[j]).any())
-            elif (d >> (q - WL)) & 1:
-                k = int(flat[j].any())
-        changed[row], kept[row] = added, k
-    return torch.from_numpy(changed), torch.from_numpy(kept)
 
 
 def model_image(F, ev_type, ev_slot, ev_slots, target, valid, *, e, b, d,
