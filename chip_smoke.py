@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the six CUDA libraries from the checkout's sources (one nvcc
-each, in parallel) and holds each kernel bit for bit against its plain
+each, in parallel; the native host engines with g++ beside them) and
+holds each kernel bit for bit against its plain
 PyTorch version on the card (the list-append generator with its own
 phases, below): the WGL frontier kernel in each of its tiers (warp;
 block, cluster and device memory, the wide tiers, at every W 9-18 at one
@@ -24,7 +25,7 @@ paths, each with the launch counts set to 0 just before and read just
 after:
 
   * the Op-list path, ``check_batch(scheduler=False)`` on seeded
-    CAS-register histories of 1,000 invocations each (250 of them: cut
+    CAS-register histories of 1,000 invocations each (125 of them: cut
     in count, never in length, to keep the run short), with the host
     oracle on sampled rows;
   * the columnar exact path, ``check_synth(scheduler=False)`` on the
@@ -40,8 +41,19 @@ after:
     scheduler and its group launches, held against the exact path on
     every history, the host oracle on sampled sub-histories and
     ``details=True`` on a 256-row slice; then the scheduler over the
-    wide specs and over 250 Op-list histories against
+    wide specs and over 125 Op-list histories against
     ``scheduler=False``;
+  * the native host engines (``jepsen_torch/native``, built with g++ at
+    first use) and the legacy host stream (``native_path``): on the
+    north-star spec and the keyed headline (after its partition), the
+    encode with the C++ walk against the numpy walk, exact (and on the
+    headline fused and renumbered), bit for bit and each timed; then
+    ``check_synth(synth=
+    "host")`` on both specs with ``scheduler=False`` and ``True`` (K1
+    and K2f on the card): equal verdicts and bad ops, sampled rows
+    against the host oracle, and the rows that failed inside a fused
+    run, which the C++ batch engine re-derives, held to ``wgl_check``
+    and timed through both engines;
   * the dependency-graph closure kernel's two entries (``graph_closure``,
     ``txn_closure``) against their plain versions at every vertex bucket
     from 8 to 2048, in each tier (``graph_kernel_parity``: a warp a
@@ -95,7 +107,7 @@ after:
     straight to the outputs, a ring in device scratch, a row slice and
     explicit stream keys (``la_synth_parity``); then the la path on the
     card, ``synthesize`` -> ``decode_la`` -> ``check_graphs_batch(family=
-    "list-append")``, on a full-width batch (16 histories of 1,000 ops
+    "list-append")``, on a full-width batch (8 histories of 1,000 ops
     over 8 keys, half corrupted: V 1,024) and the reference bench's
     shape (2,000 of 30 ops), every corrupted row invalid with a G2
     cycle and every clean one valid, sampled rows against the host
@@ -223,11 +235,11 @@ HEADLINE_SPEC = dict(family="cas", n=10_000, seed=1, n_procs=5,
                      n_ops=1_000, n_values=5, corrupt=0.1, p_info=0.01,
                      n_keys=8)
 # The Op-list path's count, cut from 2,000 (to 1,000, then to 500 when
-# the la phases joined the script, and to 250 when the mesh phases did);
-# its length is uncut. Host-oracle rows of the WGL paths: 32 (64 until
+# the la phases joined the script, to 250 when the mesh phases did, and
+# to 125 when native_path did); its length is uncut. Host-oracle rows of the WGL paths: 32 (64 until
 # the mesh phases joined the script).
-OPLIST_HISTORIES = 250
-SCHED_OPLIST_HISTORIES = 250
+OPLIST_HISTORIES = 125
+SCHED_OPLIST_HISTORIES = 125
 ORACLE_ROWS = 32
 DETAIL_ROWS = 256
 WIDE_ROWS = 256
@@ -1768,6 +1780,233 @@ GRAPH_ORACLE_ROWS = 16
 ISO_BENCH = dict(n=512, seed=7, anomaly="mix")
 ISO_WIDE = dict(n=32, seed=7, anomaly="mix", n_txns=250)
 ISO_WIDE_CUT_FROM = 256
+
+
+# The native_path phase: the EncodedBatch fields two encodes must share,
+# and the fused-run rows (at most) held to wgl_check and timed through
+# both engines.
+ENCODE_FIELDS = ("ev_type", "ev_slot", "ev_slots", "ev_opidx", "target",
+                 "orig_n_events")
+REFINE_ORACLE_ROWS = 256
+
+
+def encodes_equal(a, b) -> bool:
+    """Two encode_columnar results, bucket for bucket, array for array."""
+    (ba, fa), (bb, fb) = a, b
+    if fa != fb or len(ba) != len(bb):
+        return False
+    for x, y in zip(ba, bb):
+        if (x.V, x.W, x.w_live, list(x.indices)) != \
+                (y.V, y.W, y.w_live, list(y.indices)):
+            return False
+        for f in ENCODE_FIELDS:
+            u, v = getattr(x, f), getattr(y, f)
+            if (u is None) != (v is None) or (
+                    u is not None and (u.dtype != v.dtype
+                                       or not np.array_equal(u, v))):
+                return False
+    return True
+
+
+def encode_pair(label, space, cols, **kw) -> dict:
+    """encode_columnar with the native walk and with the numpy walk on
+    one batch, each timed by the host clock, and held bit for bit; the
+    native walk alone (native.encode_walk) timed beside them."""
+    from jepsen_torch import native
+    from jepsen_torch.ops.encode import _round_up, encode_columnar
+    out, res = {}, {}
+    for walk in ("native", "numpy"):
+        t0 = time.perf_counter()
+        res[walk] = encode_columnar(space, cols, max_slots=18,
+                                    native=walk == "native", **kw)
+        out[f"{walk}_s"] = time.perf_counter() - t0
+    require(encodes_equal(res["native"], res["numpy"]),
+            f"native_path {label}: native encode != numpy encode")
+    t0 = time.perf_counter()
+    native.encode_walk(cols.type, cols.process, cols.kind,
+                       _round_up(cols.n_lines // 2 + 1, 8), 18,
+                       space.n_kinds)
+    out["native_walk_s"] = time.perf_counter() - t0
+    out["speedup"] = out["numpy_s"] / out["native_s"]
+    out["buckets"] = len(res["native"][0])
+    return out
+
+
+class NativeRecorder:
+    """Keeps the histories given to the C++ batch engine
+    (native.check_batch_native) while active, with the engine's host time
+    and calls."""
+
+    def __init__(self):
+        from jepsen_torch import native
+        self.mod = native
+        self.hists, self.s, self.calls = [], 0.0, 0
+
+    def __enter__(self):
+        real = self.mod.check_batch_native
+
+        def rec(model, hs, **kw):
+            t0 = time.perf_counter()
+            rs = real(model, hs, **kw)
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            self.hists.extend(hs)
+            return rs
+        self._orig = real
+        self.mod.check_batch_native = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.check_batch_native = self._orig
+        return False
+
+
+def host_stream_oracle(cas, wgl_check, cols, valid, bad, label):
+    """The legacy stream's verdicts against wgl_check on ORACLE_ROWS rows,
+    half of them invalid (keyed batches: the invalid rows' witness
+    sub-histories and as many valid sub-histories)."""
+    from jepsen_torch.history.columnar import columnar_to_ops
+    from jepsen_torch.ops.partition import partition_columnar
+    invalid = np.flatnonzero(~valid)[:ORACLE_ROWS // 2].tolist()
+    require(len(invalid) == ORACLE_ROWS // 2,
+            f"native_path {label}: too few invalid rows")
+    if cols.key is None:
+        for i in invalid + np.flatnonzero(valid)[:ORACLE_ROWS // 2].tolist():
+            want = wgl_check(cas(), columnar_to_ops(cols, i))
+            require(bool(valid[i]) == (want["valid"] is True)
+                    and (valid[i] or int(bad[i]) == want["op"]["index"]),
+                    f"native_path {label}: row {i} != wgl_check")
+        return
+    pb = partition_columnar(cols)
+    sub_of = {(int(h), k): s for s, (h, k) in
+              enumerate(zip(pb.sub_history.tolist(), pb.sub_key))}
+    for i in invalid:
+        key = int(cols.key[i, int(bad[i])])
+        want = wgl_check(cas(), columnar_to_ops(pb.cols, sub_of[(i, key)]))
+        require(want["valid"] is False
+                and want["op"]["index"] == int(bad[i]),
+                f"native_path {label}: history {i} != wgl_check")
+    subs = [s for s, h in enumerate(pb.sub_history.tolist())
+            if valid[h]][:ORACLE_ROWS // 2]
+    for s in subs:
+        require(wgl_check(cas(), columnar_to_ops(pb.cols, s))["valid"]
+                is True, f"native_path {label}: sub {s} != wgl_check")
+
+
+def refine_compare(cas, wgl_check, hists, label) -> dict:
+    """The fused-run rows' re-derivation, the C++ batch engine against
+    the Python engine on the same rows (at most REFINE_ORACLE_ROWS), each
+    timed by the host clock: equal verdicts and bad ops."""
+    from jepsen_torch import native
+    rows = hists[:REFINE_ORACLE_ROWS]
+    if not rows:
+        return {"rows": 0}
+    t0 = time.perf_counter()
+    nat = native.check_batch_native(cas(), rows)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = [wgl_check(cas(), h) for h in rows]
+    python_s = time.perf_counter() - t0
+    require([verdict(r) for r in nat] == [verdict(r) for r in py],
+            f"native_path {label}: check_batch_native != wgl_check on "
+            "the fused-run rows")
+    return {"rows": len(rows), "of": len(hists), "native_s": native_s,
+            "python_s": python_s, "speedup": python_s / native_s}
+
+
+def phase_native_path(dev, L, S, cas, wgl_check):
+    """The native host engines on the card's host, and the legacy host
+    stream through the card: on the north-star spec and the keyed
+    headline (after its partition), the encode with the native walk
+    against the numpy walk, exact, and on the headline also fused and
+    renumbered as the scheduler encodes, bit for bit and timed in turn
+    (the north-star's fused encode was cut for the script's time); then
+    check_synth(synth="host") with scheduler=False and True (K1 and K2f
+    on the card), verdicts and bad ops equal, sampled rows equal to
+    wgl_check, and the rows that failed inside a fused run, which the
+    C++ batch engine re-derives, held to wgl_check and timed through
+    both engines."""
+    from jepsen_torch.ops.partition import partition_columnar
+    from jepsen_torch.ops.statespace import enumerate_statespace
+    out = {"phase": "native_path", "encode": {}, "host_stream": {}}
+    for label, fields in (("north_star", NS_SPEC),
+                          ("headline", HEADLINE_SPEC)):
+        spec = S.SynthSpec(**fields)
+        keyed = spec.n_keys > 1
+        cols, _ = S.synthesize(spec, key_meta=False, device=dev)
+        if keyed:
+            t0 = time.perf_counter()
+            cols = partition_columnar(cols).cols
+            out["encode"][f"{label}_partition_s"] = time.perf_counter() - t0
+        space = enumerate_statespace(cas(), cols.kinds, 64)
+        enc = out["encode"][label] = {
+            "rows": cols.batch, "lines": cols.n_lines,
+            "exact": encode_pair(f"{label} exact", space, cols)}
+        if keyed:
+            # The scheduler's encode (fused, renumbered) on the batch the
+            # scheduler path checks: the keyed headline's sub-batch.
+            enc["scheduler"] = encode_pair(f"{label} scheduler", space,
+                                           cols, fuse=True, renumber=True)
+
+        runs, verdicts, batches = {}, {}, []
+        synthesize = S.synthesize
+
+        def kept(*a, **kw):
+            # The batch check_synth generates, kept for the oracle below.
+            out = synthesize(*a, **kw)
+            batches.append(out[0])
+            return out
+        for scheduler in (False, True):
+            split, stats = {}, {}
+            zero_counts(L)
+            torch.cuda.synchronize()
+            S.synthesize = kept
+            try:
+                with NativeRecorder() as nat:
+                    t0 = time.perf_counter()
+                    v, b = L.check_synth(cas(), spec, synth="host",
+                                         device=dev, scheduler=scheduler,
+                                         timings=split, stats_out=stats)
+                    e2e_s = time.perf_counter() - t0
+            finally:
+                S.synthesize = synthesize
+            launches = counts(L)
+            require(launches["wgl_frontier"]
+                    + launches["wgl_frontier_group"] > 0,
+                    f"native_path {label}: no frontier launch")
+            mode = "scheduler" if scheduler else "exact"
+            verdicts[mode] = (v, b)
+            runs[mode] = {"check_synth_s": e2e_s,
+                          "histories_per_s": spec.n / e2e_s,
+                          "invalid": int((~v).sum()),
+                          "launches": launches, "split_s": split,
+                          "rest_s": e2e_s - sum(split.values()),
+                          "native_calls": nat.calls,
+                          "native_rows": len(nat.hists),
+                          "native_s": nat.s}
+            if scheduler:
+                require(nat.calls > 0 and nat.hists,
+                        f"native_path {label}: no fused-run row reached "
+                        "the C++ batch engine")
+                runs[mode]["stats"] = {k: stats.get(k) for k in (
+                    "classes", "chunks", "dispatches", "fused_groups",
+                    "fusion_ratio")}
+                runs[mode]["refine"] = refine_compare(cas, wgl_check,
+                                                      nat.hists, label)
+            del nat
+        (ev, eb), (sv, sb) = verdicts["exact"], verdicts["scheduler"]
+        require(np.array_equal(ev, sv) and np.array_equal(eb, sb),
+                f"native_path {label}: scheduler verdicts != exact")
+        require(len(batches) == 2 and all(
+            np.array_equal(batches[0].type, x.type) for x in batches),
+            f"native_path {label}: the host stream differs between runs")
+        t0 = time.perf_counter()
+        host_stream_oracle(cas, wgl_check, batches[0], ev, eb, label)
+        runs["oracle_rows"] = ORACLE_ROWS
+        runs["oracle_s"] = time.perf_counter() - t0
+        out["host_stream"][label] = runs
+    emit(out)
+    return out
 
 
 def graph_planes(rng, V, l_in, rows):
@@ -3418,20 +3657,51 @@ def k1_launches_measure(L, singles) -> dict:
             **launch_bound(nbytes, ops)}
 
 
+class DecodeClock:
+    """Sums the host time spent in ops.linearize._decode_result (one
+    invalid row's result dict from its latched frontier) while active."""
+
+    def __init__(self, L):
+        self.L = L
+        self.s, self.calls = 0.0, 0
+
+    def __enter__(self):
+        real = self.L._decode_result
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+        self._orig = real
+        self.L._decode_result = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.L._decode_result = self._orig
+        return False
+
+
 def dc_run(L, cas, hists, backend, measure=False):
     """check_batch_columnar(details="invalid") of an unkeyed batch under
     one backend, as its two steps (the columnar conversion, then
     check_columnar) so that the host clock splits them: launch counts
     set to 0 just before and read just after, the scheduler's stats, the
-    peel plan's and pre-filter's host time, and the frontier launches
-    (K1, K2f) of the run replayed alone by CUDA events (``k1_ms``); with
+    peel plan's and pre-filter's host time, the host time of the invalid
+    rows' result dicts (``decode_result_s``, the rest of the residue
+    search's host time beside it as ``k1_rest_s``), and the frontier
+    launches (K1, K2f) of the run replayed alone by CUDA events
+    (``k1_ms``); with
     ``measure``, also each launch's plan and time and the run's K1 bound
     (``k1``, ``k1_launches_measure``). After the clock stops, every
     chunk's certified rows are held to the host twin."""
     from jepsen_torch.history.columnar import ops_to_columnar
     from jepsen_torch.ops.statespace import enumerate_statespace
     split, stats = {}, {}
-    with DcRecorder() as rec, LaunchRecorder(L.cuda_wgl) as k1:
+    with DcRecorder() as rec, LaunchRecorder(L.cuda_wgl) as k1, \
+            DecodeClock(L) as dec:
         zero_counts(L)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3456,9 +3726,14 @@ def dc_run(L, cas, hists, backend, measure=False):
     del k1
     host_checked, plans = rec.check_host(), rec.padded_plans()
     split["dc_plan_s"], split["dc_prefilter_s"] = rec.plan_s, rec.peel_s
-    # device_s holds the plan, the pre-filter, K1 and the decode.
+    # device_s holds the plan, the pre-filter, K1 and the decode; the
+    # decode of the invalid rows' result dicts (_decode_result) is split
+    # out of the rest (launches, waits, copies and the verdict scatter).
     split["k1_and_decode_s"] = (split["device_s"] - rec.plan_s
                                 - rec.peel_s)
+    split["decode_result_s"] = dec.s
+    split["decode_results"] = dec.calls
+    split["k1_rest_s"] = split["k1_and_decode_s"] - dec.s
     run = {"backend": backend, "check_s": e2e_s,
            "histories_per_s": len(hists) / e2e_s,
            "states": enumerate_statespace(cas(), cols.kinds, 64).n_states,
@@ -4481,9 +4756,10 @@ def phase_real_oom(dev, L):
 # (V 1,024, as GRAPH_WIDE) and the reference bench's shape (V 32).
 LA_BASE = dict(family="la", n=256, seed=4, n_procs=5, n_ops=300, n_keys=2,
                corrupt=0.6)
-# The full-width batch's count, cut from 32 for the script's time (its
-# host refinement takes seconds a history); its length is uncut.
-LA_WIDE = dict(family="la", n=16, n_ops=1_000, n_keys=8, corrupt=0.5)
+# The full-width batch's count, cut from 32, then from 16 when
+# native_path joined the script, for the script's time (its host
+# refinement takes seconds a history); its length is uncut.
+LA_WIDE = dict(family="la", n=8, n_ops=1_000, n_keys=8, corrupt=0.5)
 LA_BENCH = dict(family="la", n=2_000, n_ops=30, corrupt=0.15)
 # K8c is timed alone on 10,000 histories of 1,000 ops (the north-star
 # batch's size) at the full-width batch's keys and corruption.
@@ -5337,26 +5613,30 @@ def mesh_entries(mesh, parity_err, parity_tiers) -> list:
 
 def build_kernels(L, cuda_synth):
     """Build the six kernel libraries and the empty kernel's at once
-    (one nvcc each, in parallel)."""
+    (one nvcc each, in parallel), and the native host engines (g++)
+    beside them, so that no timed phase pays a build."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from jepsen_torch import native
     from jepsen_torch.ops import (_build, cuda_dc, cuda_folds, cuda_graph,
                                   cuda_shard)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(9) as pool:
         for f in [pool.submit(L.cuda_wgl.build),
                   pool.submit(cuda_synth.build),
                   pool.submit(cuda_graph.build),
                   pool.submit(cuda_folds.build),
                   pool.submit(cuda_dc.build),
                   pool.submit(cuda_shard.build),
-                  pool.submit(floor_library)]:
+                  pool.submit(floor_library),
+                  pool.submit(native.lib), pool.submit(native.ingest)]:
             f.result()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if any(w in ln for w in ("entry function", "spill",
                                              "registers"))]
-             for name, log in _build.BUILD_LOGS.items()}
+             for name, log in _build.BUILD_LOGS.items()
+             if name.endswith(".cu")}
     return build_s, ptxas
 
 
@@ -6000,6 +6280,7 @@ def main() -> int:
                                  wgl_check)
     sides = phase_scheduler_sides(dev, L, S, cuda_synth, synth_cas_batch,
                                   cas_register)
+    phase_native_path(dev, L, S, cas_register, wgl_check)
     # The closure's plain version is a float32 matmul chain: keep it in
     # full float32 (the default) so that the comparison is plainly exact.
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -157,13 +157,16 @@ def _sample_configs(configs, n: int = 10):
 
 class LinearizableChecker(Checker):
     """Validates linearizability. ``backend`` picks the engine: "host" is
-    the exact Python search above; "cuda" checks on the card through
+    the exact Python search above; "native" its C++ twin
+    (jepsen_torch.native.wgl_check_native: the same verdict and bad op,
+    no configuration sample; built at first use, and a library that
+    cannot be built raises); "cuda" checks on the card through
     ``ops.linearize.check_one`` (keyword arguments such as ``device``
     pass through), with histories past the kernel's static bounds
     decided by the host engine."""
 
     def __init__(self, backend: str = "host", **kw):
-        if backend not in ("host", "cuda"):
+        if backend not in ("host", "native", "cuda"):
             raise ValueError(f"unknown linearizability backend {backend!r}")
         self.backend = backend
         self.kw = kw
@@ -171,6 +174,9 @@ class LinearizableChecker(Checker):
     def check(self, test, model, history, opts=None) -> dict:
         if self.backend == "host":
             return wgl_check(model, history, **self.kw)
+        if self.backend == "native":
+            from ..native import wgl_check_native
+            return wgl_check_native(model, history, **self.kw)
         from ..ops.linearize import check_one
         return check_one(model, history, **self.kw)
 

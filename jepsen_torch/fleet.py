@@ -11,9 +11,9 @@ sends each backend group to its checker as one batch:
   * ``wgl-dc`` — the same pipeline with the peel pre-filter pinned on
     (``wgl_backend="dc"``, K4), W-flat, priced only for register-class
     units and only once its rate was measured;
-  * ``host-oracle`` — the exact host search, ``wgl_check``, near W-flat
-    per event (the reference tries its native engine first; the port has
-    none yet);
+  * ``host-oracle`` — the exact host search in C++,
+    ``native.check_batch_native`` (the twin of ``wgl_check``, as the
+    reference's group runs its native engine), near W-flat per event;
   * ``graph-device`` / ``graph-host`` — the closure kernel
     (``check_graphs_batch``) or the host DFS (``check_graph_host``);
   * ``txn-device`` / ``txn-host`` — the isolation ladder
@@ -455,9 +455,10 @@ def route_check(model, histories: Sequence, *,
         for i, r in zip(idx, rs):
             results[i] = r
     if groups.get("host-oracle"):
-        from .checkers.linearizable import wgl_check
-        for i in groups["host-oracle"]:
-            r = wgl_check(model, histories[i])
+        from .native import check_batch_native
+        idx = groups["host-oracle"]
+        rs = check_batch_native(model, [histories[i] for i in idx])
+        for i, r in zip(idx, rs):
             r.setdefault("provenance", "host-oracle")
             results[i] = r
     if groups.get("graph-device"):

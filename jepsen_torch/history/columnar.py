@@ -15,8 +15,9 @@ checkers.linearizable.prepare_history —
     dropped: PAD (the rule shared by every engine,
     ops.encode.dropped_invocations).
 
-Producers: the device generators (ops.synth_device) and
-``ops_to_columnar``; ``columnar_to_ops`` converts a row back to an Op
+Producers: the device generators (ops.synth_device), the legacy host
+stream (workloads.synth.synth_cas_columnar) and ``ops_to_columnar``;
+``columnar_to_ops`` converts a row back to an Op
 list (for tests and for routing single rows to the host engine). The
 same code as the reference package's, so one batch converts to the same
 arrays in both.
@@ -212,6 +213,18 @@ def _pack_walk(model, arrays, all_kinds: List[Tuple],
                        kinds=all_kinds, index=index)
 
 
+def _from_bufs(bufs):
+    """The native walk's byte buffers as typed arrays (an empty buffer
+    comes back as None)."""
+    return (np.frombuffer(bufs[0] or b"", np.int8),
+            np.frombuffer(bufs[1] or b"", np.int32),
+            np.frombuffer(bufs[2] or b"", np.int32).copy(),
+            np.frombuffer(bufs[3] or b"", np.int32),
+            np.frombuffer(bufs[4] or b"", np.int8),
+            np.frombuffer(bufs[5] or b"", np.int32),
+            np.frombuffer(bufs[6] or b"", np.int64))
+
+
 def _seed_vocab(kinds: Optional[List[Tuple]]):
     vocab: dict = {}
     all_kinds: List[Tuple] = []
@@ -224,7 +237,8 @@ def _seed_vocab(kinds: Optional[List[Tuple]]):
 
 def ops_to_columnar(model, histories: Sequence[Sequence[Op]], *,
                     kinds: Optional[List[Tuple]] = None,
-                    max_states: int = 64) -> ColumnarOps:
+                    max_states: int = 64,
+                    native: bool = True) -> ColumnarOps:
     """Convert recorded Op-list histories into one prepared ColumnarOps.
 
     One walk per history applies the full prepared-history contract
@@ -244,11 +258,20 @@ def ops_to_columnar(model, histories: Sequence[Sequence[Op]], *,
     are identity transitions; a state space past ``max_states`` raises
     StateSpaceExplosion. Per-line op indices land in ``.index`` so
     invalid verdicts map back to original ops. Process ids are densified
-    per row. The walk is Python; the identity-drop and padding pass is
-    vectorised numpy."""
+    per row. ``native=True`` (default) runs the walk in the C++ extension
+    (``native.ingest``, built at first use; a build or load failure
+    raises); ``native=False`` runs the Python walk, the oracle, which
+    gives the same arrays. The identity-drop and padding pass is
+    vectorised numpy either way."""
     vocab, all_kinds = _seed_vocab(kinds)
-    return _pack_walk(model, _walk_py(histories, vocab, all_kinds),
-                      all_kinds, max_states)
+    if native:
+        from ..native import ingest
+        histories = [h if isinstance(h, (list, tuple)) else list(h)
+                     for h in histories]
+        arrays = _from_bufs(ingest().walk(histories, vocab, all_kinds))
+    else:
+        arrays = _walk_py(histories, vocab, all_kinds)
+    return _pack_walk(model, arrays, all_kinds, max_states)
 
 
 def columnar_to_ops(cols: ColumnarOps, row: int,

@@ -640,16 +640,21 @@ def bucket_encode(model: Model, prepared_histories: Sequence[List[Op]], *,
 
 
 def encode_columnar(space: StateSpace, cols, *, max_slots: int = 16,
-                    min_v: int = 8, min_w: int = 4, fuse: bool = False,
-                    renumber: bool = False,
+                    min_v: int = 8, min_w: int = 4, native: bool = True,
+                    fuse: bool = False, renumber: bool = False,
                     fuse_registry: Optional[dict] = None
                     ) -> Tuple[List[EncodedBatch], List[Tuple[int, str]]]:
     """Vectorised twin of ``bucket_encode`` for a ColumnarOps batch: the
-    slot walk runs once over the line axis in numpy lockstep (every row
-    advances one line per step), then rows bucket by exact pending
-    window W. Returns (buckets, failures), failures being (row, reason)
-    pairs for histories overflowing ``max_slots``: callers route those
-    to a host engine via ``columnar_to_ops``.
+    slot walk runs once over the line axis, then rows bucket by exact
+    pending window W. Returns (buckets, failures), failures being (row,
+    reason) pairs for histories overflowing ``max_slots``: callers route
+    those to a host engine via ``columnar_to_ops``.
+
+    ``native=True`` (default) runs the walk in C++ with the rows spread
+    over threads (``native.encode_walk``, built at first use; a library
+    that cannot be built or loaded raises). ``native=False`` runs the
+    numpy lockstep walk (every row advances one line per step), the
+    oracle: both give the same arrays bit for bit.
 
     ``space`` must be enumerated over ``cols.kinds`` (index-aligned).
     The columnar contract (history.columnar) has already applied
@@ -672,6 +677,15 @@ def encode_columnar(space: StateSpace, cols, *, max_slots: int = 16,
         raise ValueError(f"max_slots={S} outside 1..32 (the slot mask is "
                          "32 bits)")
     K = space.n_kinds
+    # ok events + close, rounded up so the per-bucket event axis (also
+    # rounded to 8) can never exceed the buffer width
+    E = _round_up(N // 2 + 1, 8)
+    if native:
+        from ..native import encode_walk
+        walked = encode_walk(cols.type, cols.process, cols.kind, E, S, K)
+        return _bucket_encoded(space, *walked, min_v, min_w, max_slots,
+                               fuse=fuse, renumber=renumber,
+                               fuse_registry=fuse_registry)
     P = int(cols.process.max(initial=0)) + 1
 
     table = np.full((B, S), K,
@@ -683,9 +697,6 @@ def encode_columnar(space: StateSpace, cols, *, max_slots: int = 16,
     cnt = np.zeros(B, np.int32)
     overflow = np.zeros(B, bool)
 
-    # ok events + close, rounded up so the per-bucket event axis (also
-    # rounded to 8) can never exceed the buffer width
-    E = _round_up(N // 2 + 1, 8)
     slot_dtype = np.int8 if K < 127 else np.int32
     ev_slot = np.zeros((B, E), np.int8)
     ev_slots = np.full((B, E, S), K, slot_dtype)

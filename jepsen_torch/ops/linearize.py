@@ -31,7 +31,11 @@ The entry points (``check_batch``, ``check_one``, ``check_columnar``,
 ``check_batch_columnar``, ``check_synth``) stream through the bucket
 scheduler (ops.schedule) by default, after the per-key pre-partition
 (ops.partition); ``scheduler=False`` keeps the exact-W flow, the parity
-oracle.
+oracle. Rows the card does not decide go to the host engines: the C++
+batch engine (jepsen_torch.native) for small buckets
+(``min_device_batch``) and for the verdicts of rows that failed inside a
+fused run, ``wgl_check`` (or the caller's ``host_fallback``) for the
+rows that need a full result dict.
 
 Packed words are int32 bit patterns throughout (torch has no CPU shifts
 on uint32); they are viewed as uint32 only at the numpy boundary, which
@@ -39,6 +43,8 @@ keeps frontiers and the journal format identical to the reference's.
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
@@ -1110,9 +1116,9 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
     bound (state-space explosion, a pending window past the devices) are
     decided by ``host_fallback(model, history)`` (default: the exact host
     engine) and carry a ``fallback`` key naming why. Cost buckets
-    smaller than ``min_device_batch`` go to the host engine too (under
-    the scheduler only wide, W >= DATA_MAX_SLOTS, ones: narrow small
-    buckets merge into classes).
+    smaller than ``min_device_batch`` go to the C++ batch engine
+    (native.check_batch_native; under the scheduler only wide, W >=
+    DATA_MAX_SLOTS, ones: narrow small buckets merge into classes).
 
     ``scheduler=True`` (default) encodes with event fusion and streams
     through the bucket scheduler (ops.schedule: W-class consolidation,
@@ -1192,8 +1198,13 @@ def check_batch(model: Model, histories: Sequence[List[Op]], *,
                                       if i not in decided])
         if 0 < batch.batch < min_device_batch and \
                 (not scheduler or batch.W >= DATA_MAX_SLOTS):
-            for i in batch.indices:
-                on_host(i)
+            from ..native import check_batch_native
+            rs = check_batch_native(model,
+                                    [histories[i] for i in batch.indices])
+            for i, r in zip(batch.indices, rs):
+                results[i] = _decided_on_host(r, scheduler)
+                if scheduler:
+                    _journal_result(journal, i, r)
         elif batch.batch:
             device_batches.append(batch)
         for i, reason in batch.failures:
@@ -1248,6 +1259,7 @@ def check_one(model: Model, history: List[Op], **kw) -> dict:
 
 def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
                    host_fallback=None, details=False,
+                   min_device_batch: int = 1,
                    timings: Optional[dict] = None, scheduler: bool = True,
                    faults=None, journal=None,
                    scheduler_opts: Optional[dict] = None,
@@ -1270,10 +1282,18 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
     chunks pipeline against decode, and several chunks share one group
     launch. Detail dicts of device rows then carry ``provenance``. Rows
     whose first failure falls inside a fused run are re-derived on the
-    host after the stream drains. ``scheduler=False`` keeps the fully
-    encoded exact-W flow, the parity oracle. There is no
-    ``min_device_batch``: the reference uses it here only to send small
-    wide buckets to its native engine, which this package does not have.
+    host after the stream drains: with ``details=False`` their verdicts
+    and bad ops come from the C++ batch engine (native.
+    check_batch_native), with details from ``host_fallback``'s full
+    dicts. ``scheduler=False`` keeps the fully encoded exact-W flow, the
+    parity oracle.
+
+    ``min_device_batch`` (verdict-only and ``details="invalid"`` callers):
+    wide buckets (W >= DATA_MAX_SLOTS; under the scheduler, consolidated
+    ones) with fewer rows than this are decided by the C++ batch engine
+    on a daemon thread while the card runs the rest (an invalid row of a
+    ``details="invalid"`` call then takes ``host_fallback``'s full
+    dict).
 
     Fault tolerance (scheduler path): chunks run under the degradation
     ladder (watchdog and retry, row bisection on an out-of-memory,
@@ -1321,6 +1341,7 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
             inner = check_columnar(
                 model, pb.cols, device=device, max_slots=max_slots,
                 host_fallback=host_fallback, details=details,
+                min_device_batch=min_device_batch,
                 timings=timings, scheduler=scheduler, faults=faults,
                 journal=journal, scheduler_opts=opts, partition=False,
                 stats_out=stats_out)
@@ -1333,6 +1354,7 @@ def check_columnar(model: Model, cols, *, device=None, max_slots: int = 16,
             return v, b
     impl = dict(device=device, max_slots=max_slots,
                 host_fallback=host_fallback, details=details,
+                min_device_batch=min_device_batch,
                 timings=timings, faults=faults, opts=opts,
                 stats_out=stats_out)
     if journal is None or not scheduler:
@@ -1383,9 +1405,56 @@ def _cols_take(cols, rows):
         key=key[r] if key is not None else None)
 
 
+class _NativeTailWorker:
+    """Decides small wide buckets with the C++ batch engine
+    (native.check_batch_native) on a daemon thread while the card runs
+    the rest of the batch. ``add`` queues row indices as the stream
+    yields them; ``finish`` returns [(row, result)] and raises what the
+    engine raised. The thread runs host code only: numpy and ctypes,
+    no torch."""
+
+    def __init__(self, model: Model, cols):
+        self.model = model
+        self.cols = cols
+        self._q: "queue.Queue" = queue.Queue()
+        self._done: "queue.Queue" = queue.Queue(1)
+        self._thread: Optional[threading.Thread] = None
+
+    def add(self, indices) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="jepsen-native-tail", daemon=True)
+            self._thread.start()
+        self._q.put(list(indices))
+
+    def finish(self) -> list:
+        if self._thread is None:
+            return []
+        self._q.put(None)
+        out, err = self._done.get()
+        if err is not None:
+            raise err
+        return out
+
+    def _run(self) -> None:
+        from ..history.columnar import columnar_to_ops
+        from ..native import check_batch_native
+        out = []
+        try:
+            while (idxs := self._q.get()) is not None:
+                out.extend(zip(idxs, check_batch_native(
+                    self.model,
+                    [columnar_to_ops(self.cols, i) for i in idxs])))
+        except BaseException as e:   # noqa: BLE001 — re-raised by finish
+            self._done.put((None, e))
+            return
+        self._done.put((out, None))
+
+
 def _check_columnar_impl(model: Model, cols, *, device, max_slots,
-                         host_fallback, details, timings, scheduler,
-                         faults, opts, stats_out, sink):
+                         host_fallback, details, min_device_batch,
+                         timings, scheduler, faults, opts, stats_out,
+                         sink):
     from ..history.columnar import columnar_to_ops
     from .encode import encode_columnar
     from .statespace import enumerate_statespace
@@ -1400,24 +1469,45 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
     failures: List = []
     fused_refine: List[int] = []
     host_fallback = host_fallback or wgl_check
+    # Small wide buckets ride the C++ batch engine on a side thread,
+    # under the card's work (verdict-only and lazy-details callers:
+    # full-details rows keep device-derived config samples).
+    tail = None
+    if min_device_batch > 1 and details in (False, "invalid"):
+        tail = _NativeTailWorker(model, cols)
     sch = None
     if scheduler:
-        from .schedule import BucketScheduler, iter_columnar_groups
+        from .schedule import (DIVERTED, BucketScheduler,
+                               iter_columnar_groups)
         groups = iter_columnar_groups(space, cols, max_slots=eff_slots,
                                       failures=failures, fuse=True,
                                       renumber=True)
-        sch = BucketScheduler(return_frontier=details, device=device,
-                              faults=faults, **opts)
+        sch = BucketScheduler(
+            return_frontier=details, device=device, faults=faults,
+            min_device_rows=min_device_batch if tail is not None else 0,
+            **opts)
         if sink is not None:
             sch.on_chunk = _columnar_chunk_recorder(sch, cols, sink)
         stream = sch.run(groups)
     else:
+        DIVERTED = object()       # never yielded by the exact flow
         buckets, fails = encode_columnar(space, cols, max_slots=eff_slots)
         failures.extend(fails)
+        if tail is not None:
+            device_buckets = []
+            for b in buckets:
+                if b.W >= DATA_MAX_SLOTS and 0 < b.batch < min_device_batch:
+                    tail.add(b.indices)
+                else:
+                    device_buckets.append(b)
+            buckets = device_buckets
         stream = run_buckets(buckets, device=device,
                              return_frontier=bool(details))
     laps = [time.perf_counter()]
     for batch, out in stream:
+        if out is DIVERTED:
+            tail.add(batch.indices)
+            continue
         if isinstance(out, WindowOverflow):
             failures.extend((i, str(out)) for i in batch.indices)
             continue
@@ -1463,14 +1553,45 @@ def _check_columnar_impl(model: Model, cols, *, device, max_slots,
                 results[row]["provenance"] = sch.row_provenance.get(
                     row, "device")
     laps.append(time.perf_counter())
-    # The fused-run rows, the rows the encoder could not bound and the
-    # rows the ladder quarantined go to the host engine (the reference's
-    # branch for a missing native engine).
     if sch is not None:
+        # Rows the ladder quarantined carry inert placeholders: the host
+        # engine re-decides them with the rows the encoder could not
+        # bound.
         failures.extend((i, f"quarantined: {why}")
                         for i, why in sch.quarantined.items())
-    refine = [(i, None) for i in fused_refine] + list(failures)
-    for row, reason in refine:
+    if tail is not None:
+        for i, r in tail.finish():
+            valid[i] = r["valid"] is True
+            if r["valid"] is False:
+                bad[i] = r["op"].get("index", -1)
+            if details == "invalid":
+                # The engine's dicts carry no config sample: an invalid
+                # row re-derives its full counterexample on the host.
+                results[i] = ({"valid": True} if r["valid"] is True
+                              else host_fallback(
+                                  model, columnar_to_ops(cols, i)))
+                results[i].setdefault("provenance", "host-fallback")
+            if sink is not None:
+                _sink_verdict(sink, i, r)
+    if fused_refine:
+        # The exact bad op of rows that failed inside a fused run: the
+        # C++ batch engine for verdicts, the host engine's full dicts
+        # for details callers.
+        hs = [columnar_to_ops(cols, i) for i in fused_refine]
+        if details:
+            rs = [host_fallback(model, h) for h in hs]
+        else:
+            from ..native import check_batch_native
+            rs = check_batch_native(model, hs)
+        for i, r in zip(fused_refine, rs):
+            valid[i] = r["valid"] is True
+            if r["valid"] is False:
+                bad[i] = r["op"].get("index", -1)
+            if details:
+                results[i] = _decided_on_host(r, True)
+            if sink is not None:
+                _sink_verdict(sink, i, r)
+    for row, reason in failures:
         r = host_fallback(model, columnar_to_ops(cols, row))
         valid[row] = r["valid"] is True
         if r["valid"] is False:
@@ -1512,8 +1633,8 @@ def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
     pre-partition into per-key sub-histories before conversion
     (``partition``, as in check_batch). When the shared vocabulary's
     state space explodes, the batch goes through ``check_batch``
-    instead; ``min_device_batch`` applies only there. The scheduler
-    knobs are check_columnar's."""
+    instead. ``min_device_batch`` and the scheduler knobs are
+    check_columnar's (check_batch's on that route)."""
     from ..history.columnar import ops_to_columnar
     from .statespace import StateSpaceExplosion
 
@@ -1548,19 +1669,22 @@ def check_batch_columnar(model: Model, histories: Sequence[List[Op]], *,
         raise ValueError(f"details={details!r}: True or 'invalid'")
     return check_columnar(model, cols, device=device, max_slots=max_slots,
                           details=details, host_fallback=host_fallback,
+                          min_device_batch=min_device_batch,
                           scheduler=scheduler, faults=faults,
                           journal=journal, scheduler_opts=opts)
 
 
-def check_synth(model: Model, spec, *, device=None,
+def check_synth(model: Model, spec, *, synth: str = "device", device=None,
                 return_meta: bool = False, **kw):
     """Generate and check a deterministic synthetic batch
     (ops.synth_device.SynthSpec): the histories are born in the columnar
-    layout on the device (the generator kernel on the card, its plain
-    version on the CPU) and ride ``check_columnar`` — per-key partition
-    of keyed specs and the bucket scheduler by default. The cas and wide
-    families check here. Returns check_columnar's shapes, plus the
-    SynthMeta when ``return_meta=True``. ``faults`` and ``journal``
+    layout (``synth="device"`` or ``"numpy"``: the generator kernel on
+    the card, its plain version on the CPU; ``"host"``: the legacy
+    lockstep stream of workloads.synth, cas only) and ride
+    ``check_columnar`` — per-key partition of keyed specs and the bucket
+    scheduler by default. The cas and wide families check here. Returns
+    check_columnar's shapes, plus the SynthMeta (None for ``"host"``)
+    when ``return_meta=True``. ``faults`` and ``journal``
     among ``kw`` take check_columnar's fault ladder and resume (a
     synthesized batch's journal keys on ``store.spec_digest(spec)``: the
     spec names the batch). A ``timings`` dict among ``kw``
@@ -1569,9 +1693,13 @@ def check_synth(model: Model, spec, *, device=None,
     if spec.family not in ("cas", "wide"):
         raise ValueError(f"check_synth takes the cas and wide families, "
                          f"not {spec.family!r}")
+    if synth == "host" and spec.family != "cas":
+        # The legacy wide generator returns Op lists.
+        raise ValueError("check_synth takes the cas family under "
+                         "synth='host'")
     device = resolve_device(device)
     t0 = time.perf_counter()
-    cols, meta = synthesize(spec, key_meta=False, device=device)
+    cols, meta = synthesize(spec, synth, key_meta=False, device=device)
     if kw.get("timings") is not None:
         kw["timings"]["synth_s"] = time.perf_counter() - t0
     out = check_columnar(model, cols, device=device, **kw)

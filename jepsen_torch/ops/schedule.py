@@ -48,7 +48,9 @@ the reference's ``ops/schedule.py`` trimmed to its happy path:
 
 Contract for callers: ``run(source)`` yields ``(batch, out)`` pairs
 where ``batch`` is a *consolidated* EncodedBatch (NOT an element of the
-input list) and ``out`` is (valid, bad, frontier) or a WindowOverflow.
+input list) and ``out`` is (valid, bad, frontier), a WindowOverflow, or
+the DIVERTED sentinel for a small wide bucket the caller asked to keep
+off the card (``min_device_rows``: the caller's C++ tail engine).
 Callers scatter through ``batch.indices`` / ``batch.ev_opidx``. The
 source is a Sequence[EncodedBatch] or an iterator of bucket *groups*
 (iter_columnar_groups, iter_synth_groups): classes freeze on the first
@@ -60,9 +62,8 @@ the persistent XLA compilation cache, AOT executable shipping and
 kernel pre-warm (the port has no compile step: each CUDA library builds
 once, at first use, into ``build/jepsen_torch/``); the Pallas-versus-
 scan backend choice (one CUDA kernel serves both TPU forms); resident
-frontiers (the online slice); the native-CPU tail
-diversion (the port has no native engine); and donated buffers, which
-have no meaning for torch tensors.
+frontiers (the online slice); and donated buffers, which have no
+meaning for torch tensors.
 
 The degradation ladder is the reference's. Every chunk is copied back
 on a daemon retire thread (on the stream it was launched on) under a
@@ -188,6 +189,10 @@ def knob(name: str):
 # In-flight dispatch-group budget: 2 = double buffering (host pads k+1,
 # card runs k, host decodes k-1).
 PIPELINE_DEPTH = 2
+
+# Small wide buckets the caller asked to divert (min_device_rows) are
+# yielded with this sentinel instead of a device result.
+DIVERTED = object()
 
 # Shape quanta: event axes round up to EVENT_QUANTUM and sub-chunk row
 # counts to the power-of-two ladder (>= ROW_QUANTUM), as in the
@@ -430,6 +435,11 @@ class BucketScheduler:
     docstring), $JT_WGL_BACKEND when None. ``shard_min_rows`` is the
     rows from which a narrow bucket takes the batch-sharded route when
     there is a production mesh (None: parallel.mesh.should_shard).
+    ``min_device_rows``: a consolidated wide bucket (W >= DATA_MAX_SLOTS)
+    with fewer rows than this is yielded with DIVERTED instead of
+    launched, for the caller's C++ tail engine. The check comes after
+    consolidation, so a merged class stays on the card where the exact
+    flow would send its fragments to the host one by one.
 
     The degradation ladder: ``faults`` is a FaultInjector (else the
     ambient $JT_FAULT_PLAN, else none); ``max_retries`` and
@@ -454,8 +464,10 @@ class BucketScheduler:
                  backoff_s: Optional[float] = None,
                  resident: Optional[ResidentState] = None,
                  shard_min_rows: Optional[int] = None,
+                 min_device_rows: int = 0,
                  device=None):
         self.return_frontier = return_frontier
+        self.min_device_rows = min_device_rows
         self.device = resolve_device(device)
         if wgl_backend is None:
             wgl_backend = os.environ.get("JT_WGL_BACKEND", "auto")
@@ -1165,6 +1177,10 @@ class BucketScheduler:
 
         def feed(mb: EncodedBatch):
             self._inc("rows", mb.batch)
+            if (mb.W >= DATA_MAX_SLOTS
+                    and 0 < mb.batch < self.min_device_rows):
+                yield mb, DIVERTED
+                return
             ev = int((mb.ev_type != 0).sum())        # != EV_PAD
             self._inc("events", ev)
             self._inc("orig_events",

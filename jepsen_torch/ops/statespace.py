@@ -11,8 +11,10 @@ This works whenever the reachable state space is small — which covers the
 reference's practical linearizability workloads (CAS registers with small
 value domains: etcd/consul/zookeeper/logcabin/aerospike; mutexes:
 hazelcast locks — model semantics at jepsen/src/jepsen/model.clj:21-105).
-Histories whose state space explodes past ``max_states`` fall back to the
-host/native engine.
+The C++ search (jepsen_torch.native) walks the same tables. Histories
+whose state space explodes past ``max_states`` are decided by the Python
+host engine, ``checkers.linearizable.wgl_check``, whose configuration
+states are model objects.
 """
 from __future__ import annotations
 

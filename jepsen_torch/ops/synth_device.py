@@ -711,12 +711,26 @@ def decode_la(batch: LaBatch, row: int) -> List[Op]:
     return index_history(out)
 
 
-def synthesize(spec: SynthSpec, *, rows=None, key_meta: bool = True,
-               device=None):
-    """The batch source the check, campaign and fuzz paths share:
-    ``(ColumnarOps, SynthMeta)`` for the cas and wide families,
+SYNTH_LABELS = ("device", "numpy", "host")
+
+
+def synthesize(spec: SynthSpec, synth: str = "device", *, rows=None,
+               key_meta: bool = True, device=None):
+    """The batch source the check, campaign and fuzz paths share.
+
+    ``synth="device"`` or ``"numpy"`` (the reference's two labels of its
+    generator family, bit-identical): the generator kernel on the card,
+    its plain version on the CPU (``device``). They return
+    ``(ColumnarOps, SynthMeta)`` for the cas and wide families and
     ``(LaBatch, None)`` for list-append, whose rows lower to dependency
-    graphs (``decode_la``, then ``checkers.cycle``)."""
+    graphs (``decode_la``, then ``checkers.cycle``). ``synth="host"``:
+    the legacy lockstep generators of workloads.synth, on the host, the
+    reference's historical stream byte for byte; cas returns
+    ``(ColumnarOps, None)``, la and wide return Op lists with None."""
+    if synth not in SYNTH_LABELS:
+        raise ValueError(f"unknown synth {synth!r}: one of {SYNTH_LABELS}")
+    if synth == "host":
+        return _synthesize_host(spec, rows)
     if spec.family == "cas":
         return synth_cas_device(spec, rows=rows, key_meta=key_meta,
                                 device=device)
@@ -724,6 +738,35 @@ def synthesize(spec: SynthSpec, *, rows=None, key_meta: bool = True,
         return synth_wide_device(spec, rows=rows, device=device)
     if spec.family == "la":
         return synth_la_device(spec, rows=rows, device=device), None
+    raise ValueError(f"unknown synth family {spec.family!r}")
+
+
+def _synthesize_host(spec: SynthSpec, rows):
+    from ..workloads import synth as hsynth
+    lo, hi = rows if rows is not None else (0, spec.n)
+    if spec.family == "cas":
+        # The stream depends only on (seed, n): a rows slice generates
+        # the batch of its end row and slices it.
+        cols = hsynth.synth_cas_columnar(
+            hi, seed=spec.seed, n_procs=spec.n_procs, n_ops=spec.n_ops,
+            n_values=spec.n_values, corrupt=spec.corrupt,
+            p_info=spec.p_info, n_keys=spec.n_keys)
+        if lo:
+            cols = ColumnarOps(
+                type=cols.type[lo:], process=cols.process[lo:],
+                kind=cols.kind[lo:], kinds=cols.kinds,
+                key=cols.key[lo:] if cols.key is not None else None)
+        return cols, None
+    if spec.family == "la":
+        return [hsynth.synth_la_history(
+            s, n_procs=spec.n_procs, n_ops=spec.n_ops,
+            n_keys=spec.n_keys, corrupt=spec.corrupt)
+            for s in hsynth.seed_stream(spec.seed, hi)[lo:]], None
+    if spec.family == "wide":
+        return [hsynth.synth_wide_window_history(
+            width=spec.width, n_values=spec.n_values,
+            invalid=spec.invalid, seed=s)
+            for s in hsynth.seed_stream(spec.seed, hi)[lo:]], None
     raise ValueError(f"unknown synth family {spec.family!r}")
 
 

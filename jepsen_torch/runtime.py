@@ -2,9 +2,10 @@
 and ``runtime.run_synth_seeds``, trimmed to them.
 
 A campaign checks one generated batch per seed (``spec`` with the seed
-folded in) through ``ops.linearize.check_synth``: the generator kernel,
-the per-key partition, the encode walk and the frontier kernel on the
-card, or their plain versions with ``device="cpu"``. Durability is the
+folded in) through ``ops.linearize.check_synth``: the generator kernel
+(or, with ``synth="host"``, the legacy host stream), the per-key
+partition, the encode walk and the frontier kernel on the card, or the
+plain versions with ``device="cpu"``. Durability is the
 reference's: a ``store.CampaignCheckpoint`` over the seed list and one
 ``store.ChunkJournal`` per seed batch, both keyed by ``store.spec_digest``
 and in the reference's file formats, so a campaign killed under one
@@ -21,25 +22,19 @@ from typing import Optional
 
 import numpy as np
 
-log = logging.getLogger("jepsen.runtime")
+from .ops.synth_device import SYNTH_LABELS
 
-# The reference's synth labels: "device" and "numpy" name its generator
-# family (jitted and host twin, bit-identical), "host" its legacy
-# lockstep stream. The label is part of every journal and checkpoint key.
-SYNTH_LABELS = ("device", "numpy", "host")
+log = logging.getLogger("jepsen.runtime")
 
 
 def _generator_family(synth: str) -> None:
-    """Refuse a synth label this package does not generate: both of the
-    reference's generator-family labels run the generator here (the
-    kernel on the card, its plain version on the CPU); the legacy
-    lockstep stream is not ported."""
+    """Refuse a synth label neither package generates: "device" and
+    "numpy" name the generator family (the kernel on the card, its plain
+    version on the CPU), "host" the legacy lockstep stream
+    (workloads.synth). The label is part of every journal and
+    checkpoint key."""
     if synth not in SYNTH_LABELS:
         raise ValueError(f"unknown synth {synth!r}")
-    if synth == "host":
-        raise NotImplementedError(
-            "the legacy lockstep stream (synth='host') is not part of "
-            "jepsen_torch; use synth='device' or 'numpy'")
 
 
 def synth_seed_summary(model, sspec, *, synth: str = "device",
@@ -51,8 +46,8 @@ def synth_seed_summary(model, sspec, *, synth: str = "device",
     from .ops.linearize import check_synth
 
     _generator_family(synth)
-    valid, bad = check_synth(model, sspec, device=device, journal=journal,
-                             **(check_kwargs or {}))
+    valid, bad = check_synth(model, sspec, synth=synth, device=device,
+                             journal=journal, **(check_kwargs or {}))
     inv = np.flatnonzero(~np.asarray(valid))
     return {"checked": int(len(valid)),
             "invalid": int(inv.size),

@@ -5,14 +5,18 @@ Simulates a *real* linearizable system executing a register workload —
 operations linearize at their completion point against a true register —
 then optionally corrupts reads to produce invalid histories. One seed ↦
 one history, so a seed range yields the deterministic batch the checker
-consumes (one workload × N nemesis seeds). The generator is the same
-code as the reference package's, so one seed gives the same history in
-both packages.
+consumes (one workload × N nemesis seeds). ``synth_cas_columnar`` is
+the batch form of the CAS generator, lockstep over a whole batch in
+numpy: the legacy host stream. The generators are the same code as the
+reference package's, so one seed gives the same history in both
+packages.
 """
 from __future__ import annotations
 
 import random
 from typing import List, Optional
+
+import numpy as np
 
 from ..history.core import index
 from ..history.ops import Op, invoke_op, ok_op, fail_op, info_op
@@ -240,6 +244,12 @@ def synth_la_history(seed: int, *, n_procs: int = 4, n_ops: int = 24,
     return index(h)
 
 
+def synth_la_batch(n: int, seed0: int = 0, **kw) -> List[List[Op]]:
+    """n seeded list-append histories down the shared ``seed_stream``."""
+    return [synth_la_history(s, rng=rng, **kw)
+            for s, rng in seeded_rngs(seed0, n)]
+
+
 def synth_wide_window_history(*, width: int = 17, n_values: int = 2,
                               invalid: bool = False,
                               seed: Optional[int] = None) -> List[Op]:
@@ -260,3 +270,152 @@ def synth_wide_window_history(*, width: int = 17, n_values: int = 2,
     h.append(invoke_op(width - 1, "read", None))
     h.append(ok_op(width - 1, "read", n_values + 5 if invalid else None))
     return index(h)
+
+
+def synth_cas_columnar(n: int, seed: int = 0, *, n_procs: int = 5,
+                       n_ops: int = 40, n_values: int = 5,
+                       corrupt: float = 0.0, p_info: float = 0.0,
+                       n_keys: int = 1):
+    """Vectorized batch twin of ``synth_cas_history``: simulate ``n``
+    register histories in lockstep with one numpy step loop (every
+    iteration advances every unfinished history by one line). Returns a
+    prepared ColumnarOps (history.columnar contract: failed ops and
+    never-ok identity reads are PAD; invoke lines carry final op kinds).
+
+    One (n, seed, params) tuple ↦ one deterministic batch: the legacy
+    host stream (``synth="host"`` in ops.synth_device.synthesize), draw
+    for draw the reference package's, so one tuple gives the same bytes
+    in both packages.
+
+    ``n_keys > 1`` simulates ``n_keys`` independent registers per
+    history (the jepsen ``independent`` workload shape): each op picks
+    a key, both its lines carry the key id in the batch's ``key``
+    column, and linearizability decomposes per key (Herlihy–Wing
+    locality — the P-compositional pre-partition in ops.partition
+    strains the batch before encoding). ``n_keys=1`` is draw-for-draw
+    identical to the historical single-register generator (no key
+    column, same rng sequence)."""
+    from ..history.columnar import (ColumnarOps, C_INVOKE, C_OK, C_INFO,
+                                    PAD)
+    rng = np.random.default_rng(seed)
+    B, P, N = n, n_procs, 2 * n_ops
+    keyed = n_keys > 1
+    READ0 = 0                     # kind ids: read(None)=0, read(v)=1+v
+    WRITE0 = 1 + n_values         # write(v)
+    CAS0 = 1 + 2 * n_values      # cas(a,b) = CAS0 + a*n_values + b
+
+    typ = np.full((B, N), PAD, np.int8)
+    proc = np.zeros((B, N), np.int16)
+    kind = np.full((B, N), -1, np.int32)
+
+    # Per-key register state; column 0 is the whole register when
+    # unkeyed (reg[i, 0] reads/writes reproduce the historical arrays).
+    reg = np.full((B, max(n_keys, 1)), -1, np.int32)   # -1 = None
+    busy_f = np.full((B, P), -1, np.int8)   # 0=read 1=write 2=cas
+    busy_a = np.zeros((B, P), np.int32)
+    busy_b = np.zeros((B, P), np.int32)
+    busy_k = np.zeros((B, P), np.int32)     # key per live op (0 unkeyed)
+    key_col = np.full((B, N), -1, np.int32) if keyed else None
+    inv_pos = np.zeros((B, P), np.int32)
+    started = np.zeros(B, np.int32)
+    n_live = np.zeros(B, np.int32)
+    pos = np.zeros(B, np.int32)
+    rows = np.arange(B)
+
+    for _ in range(N):
+        active = (started < n_ops) | (n_live > 0)
+        if not active.any():
+            break
+        can_start = active & (n_live < P) & (started < n_ops)
+        do_start = can_start & ((n_live == 0) | (rng.random(B) < 0.6))
+        do_complete = active & ~do_start & (n_live > 0)
+
+        i = rows[do_start]
+        if len(i):
+            # random free process: max random score over free slots
+            score = rng.random((len(i), P))
+            score[busy_f[i] != -1] = -1.0
+            p = score.argmax(1).astype(np.int16)
+            f = rng.integers(0, 3, len(i)).astype(np.int8)
+            a = rng.integers(0, n_values, len(i)).astype(np.int32)
+            b = rng.integers(0, n_values, len(i)).astype(np.int32)
+            typ[i, pos[i]] = C_INVOKE
+            proc[i, pos[i]] = p
+            busy_f[i, p] = f
+            busy_a[i, p] = a
+            busy_b[i, p] = b
+            if keyed:
+                # Key draw gated on keyed so n_keys=1 keeps the
+                # historical rng sequence draw-for-draw.
+                k = rng.integers(0, n_keys, len(i)).astype(np.int32)
+                busy_k[i, p] = k
+                key_col[i, pos[i]] = k
+            inv_pos[i, p] = pos[i]
+            started[i] += 1
+            n_live[i] += 1
+            pos[i] += 1
+
+        i = rows[do_complete]
+        if len(i):
+            score = rng.random((len(i), P))
+            score[busy_f[i] == -1] = -1.0
+            p = score.argmax(1).astype(np.int16)
+            f = busy_f[i, p]
+            a, b = busy_a[i, p], busy_b[i, p]
+            k = busy_k[i, p]
+            is_info = rng.random(len(i)) < p_info
+            applies = rng.random(len(i)) < 0.5     # info ops: took effect?
+            ip = inv_pos[i, p]
+            j = pos[i]
+            typ[i, j] = C_OK
+            proc[i, j] = p
+            if keyed:
+                key_col[i, j] = k
+
+            rd, wr, cs = f == 0, f == 1, f == 2
+            # read: observes reg; info-read observed nothing -> identity
+            # -> drop both lines (the shared never-ok identity rule)
+            obs = reg[i, k]
+            kind[i, ip] = np.where(obs < 0, READ0, READ0 + 1 + obs)
+            drop = rd & is_info
+            typ[i[drop], j[drop]] = PAD
+            typ[i[drop], ip[drop]] = PAD
+            kind[i[drop], ip[drop]] = -1
+            # write: reg = v on ok; on info, half apply
+            kind[i[wr], ip[wr]] = WRITE0 + a[wr]
+            w_apply = wr & (~is_info | applies)
+            reg[i[w_apply], k[w_apply]] = a[w_apply]
+            # cas: ok iff reg == a (else FAIL: both lines PAD);
+            # info: half apply when it would have matched
+            kind[i[cs], ip[cs]] = CAS0 + a[cs] * n_values + b[cs]
+            match = reg[i, k] == a
+            c_apply = cs & match & (~is_info | applies)
+            reg[i[c_apply], k[c_apply]] = b[c_apply]
+            fail = cs & ~match & ~is_info
+            typ[i[fail], j[fail]] = PAD
+            typ[i[fail], ip[fail]] = PAD
+            kind[i[fail], ip[fail]] = -1
+            info = is_info & ~rd
+            typ[i[info], j[info]] = C_INFO
+
+            busy_f[i, p] = -1
+            n_live[i] -= 1
+            pos[i] += 1
+
+    if corrupt > 0:
+        # perturb one observed read per selected row -> likely invalid
+        hit = rng.random(B) < corrupt
+        is_read_inv = (typ == C_INVOKE) & (kind >= READ0) & \
+                      (kind < READ0 + 1 + n_values)
+        score = rng.random((B, N))
+        score[~is_read_inv] = -1.0
+        col = score.argmax(1)
+        hit &= score[rows, col] > 0          # row actually has a read
+        i, c = rows[hit], col[hit]
+        old = kind[i, c] - (READ0 + 1)       # -1 when read(None)
+        delta = rng.integers(1, n_values, len(i))
+        kind[i, c] = READ0 + 1 + (old + delta) % n_values
+
+    return ColumnarOps(type=typ, process=proc, kind=kind,
+                       kinds=cas_kind_vocabulary(n_values),
+                       key=key_col)

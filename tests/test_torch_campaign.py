@@ -235,10 +235,15 @@ def test_checkpoint_crosses_packages(ref_campaign, tmp_path, killed,
 
 
 def test_synth_labels(tmp_path):
-    spec = S.SynthSpec(**CAMPAIGN)
-    with pytest.raises(NotImplementedError, match="lockstep"):
-        runtime.run_synth_seeds(spec, [0], synth="host", checkpoint=False,
-                                device=CPU)
+    """"host" (the legacy lockstep stream) runs in both packages with
+    the same summaries; an unknown label raises, and fuzz keeps its
+    refusal of the legacy stream, as the reference's does."""
+    rspec, spec = both(CAMPAIGN)
+    want = RRUN.run_synth_seeds(rspec, [0], synth="host", checkpoint=False,
+                                check_kwargs=R_OPTS)
+    got = runtime.run_synth_seeds(spec, [0], synth="host", checkpoint=False,
+                                  device=CPU, check_kwargs=P_OPTS)
+    assert got == want
     with pytest.raises(ValueError):
         runtime.run_synth_seeds(spec, [0], synth="jax", checkpoint=False,
                                 device=CPU)

@@ -8,10 +8,9 @@ results and routing on mixed corpora against the reference's, the port
 on the CPU. Mirrored from the reference's tests/test_fleet.py: the W and
 graph crossovers, the post-partition W estimate, router-choice parity on
 a mixed corpus, and the dc backend's rates, selection and group
-dispatch. The reference's host-oracle group runs its native engine,
-whose dicts carry the verdict only, and the port's runs ``wgl_check``
-(the port has no native engine yet): those rows are held by verdict and
-bad op. Tolerance: none.
+dispatch. Both packages' host-oracle groups run their native engines
+(whose dicts carry the verdict and bad op), so every row is held field
+for field. Tolerance: none.
 """
 import socket
 from types import SimpleNamespace
@@ -280,18 +279,6 @@ def test_router_and_route_check_need_the_card_unless_told(monkeypatch):
 
 # -------------------------------------------------------- route_check
 
-def same_result(got, want, backend):
-    """Field for field, but the host-oracle group by verdict and bad op
-    (the reference's native engine returns the verdict alone)."""
-    if backend != "host-oracle":
-        return got == want
-    return (got["valid"] == want["valid"]
-            and got.get("op", {}).get("index")
-            == want.get("op", {}).get("index")
-            and got["backend"] == want["backend"]
-            and got["provenance"] == want["provenance"])
-
-
 def wide_window(width, invalid=False):
     """The port's copy of the reference's synth_wide_window_history
     (seed None): width - 1 crashed writes pin their slots, then one read
@@ -344,7 +331,7 @@ def test_route_check_matches_reference(rates):
     assert len(got) == len(want) == len(corpus)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g["backend"] == w["backend"], i
-        assert same_result(g, w, g["backend"]), (i, g, w)
+        assert g == w, (i, g, w)
     for h, g in zip(corpus[:20], got):
         oracle = (check_graph_host(extract_graph(h))["valid"]
                   if F.classify_history(h) == "graph"

@@ -12,9 +12,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "jepsen_torch"
+# Every module and package of the port (a package by its __init__.py).
 MODULES = sorted(
-    ".".join(p.relative_to(ROOT).with_suffix("").parts)
-    for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    ".".join((p.parent if p.name == "__init__.py" else p.with_suffix(""))
+             .relative_to(ROOT).parts)
+    for p in PKG.rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "jepsen_tpu")
 
 
@@ -48,7 +50,8 @@ def test_importing_the_port_loads_no_jax():
             "jepsen_torch.store", "jepsen_torch.runtime",
             "jepsen_torch.fuzz", "jepsen_torch.provision",
             "jepsen_torch.parallel.mesh", "jepsen_torch.parallel.frontier",
-            "jepsen_torch.ops.cuda_shard"} <= set(MODULES)
+            "jepsen_torch.ops.cuda_shard", "jepsen_torch.native"
+            } <= set(MODULES)
 
 
 def _imports(path: Path):
