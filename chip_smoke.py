@@ -48,9 +48,10 @@ after:
     north-star spec and the keyed headline (after its partition), the
     encode with the C++ walk against the numpy walk, exact (and on the
     headline fused and renumbered), bit for bit and each timed; then
-    ``check_synth(synth=
-    "host")`` on both specs with ``scheduler=False`` and ``True`` (K1
-    and K2f on the card): equal verdicts and bad ops, sampled rows
+    ``check_synth(synth="host")`` on both specs (the headline's cut to
+    5,000 rows for the script's time) with ``scheduler=False`` and
+    ``True`` (K1 and K2f on the card): equal verdicts and bad ops,
+    sampled rows
     against the host oracle, and the rows that failed inside a fused
     run, which the C++ batch engine re-derives, held to ``wgl_check``
     and timed through both engines;
@@ -76,7 +77,7 @@ after:
     side of a tile and a warp's chunk edge, and of two values that one
     thread of the fold takes (``fold_kernel_parity``), then each of the seven fold
     checkers' ``check_*_batch`` on the reference bench's total-queue
-    batch and on a full-width batch per family, 16 histories of 10,000
+    batch and on a full-width batch per family, 8 histories of 10,000
     elements with seeded violations, every history held against its host
     oracle in ``checkers.simple`` and the kernel against its plain
     version on the batch (``fold_path``);
@@ -107,7 +108,7 @@ after:
     straight to the outputs, a ring in device scratch, a row slice and
     explicit stream keys (``la_synth_parity``); then the la path on the
     card, ``synthesize`` -> ``decode_la`` -> ``check_graphs_batch(family=
-    "list-append")``, on a full-width batch (8 histories of 1,000 ops
+    "list-append")``, on a full-width batch (4 histories of 1,000 ops
     over 8 keys, half corrupted: V 1,024) and the reference bench's
     shape (2,000 of 30 ops), every corrupted row invalid with a G2
     cycle and every clean one valid, sampled rows against the host
@@ -143,7 +144,24 @@ Then the fault ladder's phases, after every kernel is built:
     dispatched (``campaign``);
   * the fuzz loop, ``fuzz.fuzz_campaign``, two rounds over the same spec
     with every eighth neighbour re-checked by the host engine: no
-    disagreement and at least one invalid neighbourhood (``fuzz``).
+    disagreement and at least one invalid neighbourhood (``fuzz``);
+  * the online checker, ``online.OnlineDaemon``, over a live store of 16
+    tenants (14 CAS runs of the north-star shape, 2,000 ops by 5
+    processes, one over 40 values whose state space crosses 32 states,
+    one wide run whose mask axis lies in K1's wide tiers), each WAL
+    written by ``HistoryWAL`` in flushes of 64 ops with the daemon
+    ticking between flushes and dropped for a new one half way: the
+    delta path's launches of the frontier kernel's resume entry counted
+    and replayed alone (by shape, beside the empty kernel on their
+    grids), every launch held to the plain version from the same carry,
+    every fourth delta verdict of each tenant held to
+    ``check_batch_columnar`` of its prefix, every final verdict to the
+    post-mortem recheck, no frontier invalidated but where a new kind
+    renumbered the state space, the new daemon restoring each tenant's
+    frontier checkpoint and dispatching only the suffix, five of the
+    tenants rerun with ``JT_ONLINE_DC=1`` to the same verdicts, and a
+    carry widened from one state word to two in place; with the host
+    split of a tick read from the span tracer (``online_path``).
 
 Then the multi-device routes, on a mesh of the card named 8 times
 (``provision.provisioned``; until then nothing is provisioned, the
@@ -1914,13 +1932,20 @@ def refine_compare(cas, wgl_check, hists, label) -> dict:
             "python_s": python_s, "speedup": python_s / native_s}
 
 
+# The keyed headline's host-stream pair runs its spec at n 5,000 rather
+# than 10,000 (the full pair took about 39 s), a count cut for the
+# script's time when online_path joined it.
+NATIVE_HEADLINE_N = 5_000
+
+
 def phase_native_path(dev, L, S, cas, wgl_check):
     """The native host engines on the card's host, and the legacy host
     stream through the card: on the north-star spec and the keyed
     headline (after its partition), the encode with the native walk
     against the numpy walk, exact, and on the headline also fused and
     renumbered as the scheduler encodes, bit for bit and timed in turn
-    (the north-star's fused encode was cut for the script's time); then
+    (the north-star's fused encode was cut for the script's time); then,
+    on both specs (the headline's at NATIVE_HEADLINE_N rows),
     check_synth(synth="host") with scheduler=False and True (K1 and K2f
     on the card), verdicts and bad ops equal, sampled rows equal to
     wgl_check, and the rows that failed inside a fused run, which the
@@ -1947,6 +1972,7 @@ def phase_native_path(dev, L, S, cas, wgl_check):
             # scheduler path checks: the keyed headline's sub-batch.
             enc["scheduler"] = encode_pair(f"{label} scheduler", space,
                                            cols, fuse=True, renumber=True)
+            spec = S.SynthSpec(**dict(fields, n=NATIVE_HEADLINE_N))
 
         runs, verdicts, batches = {}, {}, []
         synthesize = S.synthesize
@@ -2004,6 +2030,7 @@ def phase_native_path(dev, L, S, cas, wgl_check):
         host_stream_oracle(cas, wgl_check, batches[0], ev, eb, label)
         runs["oracle_rows"] = ORACLE_ROWS
         runs["oracle_s"] = time.perf_counter() - t0
+        runs["rows"] = spec.n
         out["host_stream"][label] = runs
     emit(out)
     return out
@@ -2371,15 +2398,16 @@ def count_edge_cases(family: str) -> tuple:
 
 # The fold path's batches: the reference bench's total-queue batch
 # (bench.py:805-826: 2,000 histories of 100 elements) and, per family, a
-# full-width batch of 16 histories (cut from 64 when the la phases
-# joined the script, and from 32 when the mesh phases did) of 10,000
+# full-width batch of 8 histories (cut from 64 when the la phases
+# joined the script, from 32 when the mesh phases did and from 16 when
+# online_path did) of 10,000
 # elements over 10 processes, what a Jepsen set, queue, unique-id or
 # counter run records over its time limit. Seeded violations by seed % 8
 # (see fold_history). ``--kernels`` times the folds on 32 such histories
 # (FOLD_KERNELS_WIDE), the batch its earlier timings used.
 FOLD_BENCH_HISTORIES = 2_000
 FOLD_BENCH_ELEMENTS = 100
-FOLD_WIDE = dict(n=16, elements=10_000, procs=10)
+FOLD_WIDE = dict(n=8, elements=10_000, procs=10)
 FOLD_KERNELS_WIDE = dict(FOLD_WIDE, n=32)
 FOLD_CHECKS = {"set": "check_sets_batch", "crdb": "check_crdb_sets_batch",
                "tq": "check_total_queues_batch",
@@ -4757,9 +4785,10 @@ def phase_real_oom(dev, L):
 LA_BASE = dict(family="la", n=256, seed=4, n_procs=5, n_ops=300, n_keys=2,
                corrupt=0.6)
 # The full-width batch's count, cut from 32, then from 16 when
-# native_path joined the script, for the script's time (its host
-# refinement takes seconds a history); its length is uncut.
-LA_WIDE = dict(family="la", n=8, n_ops=1_000, n_keys=8, corrupt=0.5)
+# native_path joined the script and from 8 when online_path did, for the
+# script's time (its host refinement takes seconds a history); its
+# length is uncut.
+LA_WIDE = dict(family="la", n=4, n_ops=1_000, n_keys=8, corrupt=0.5)
 LA_BENCH = dict(family="la", n=2_000, n_ops=30, corrupt=0.15)
 # K8c is timed alone on 10,000 histories of 1,000 ops (the north-star
 # batch's size) at the full-width batch's keys and corruption.
@@ -5100,6 +5129,536 @@ def phase_fuzz(dev, L, S, cuda_synth):
            "launches": launches, "fuzz_s": fuzz_s,
            "histories_per_s": histories / fuzz_s,
            "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# The online path (jepsen_torch.online): a live store the size of a Jepsen
+# campaign's, checked by the daemon while its WALs are written. 16 live
+# tenants (of the daemon's default max_tenants 64): ONLINE_TENANTS CAS
+# runs of the north-star shape (2,000 ops by 5 processes over 5 values,
+# a quarter corrupted), one more from the same generator over 40 values
+# (its state space crosses 32 states while it runs: V 64), and one wide
+# run whose process count puts its mask axis (peak window + 1) inside
+# K1's wide tiers and under the daemon's max_w 14. Each WAL is written by
+# the port's HistoryWAL in flushes of ONLINE_FLUSH_OPS ops, the daemon
+# ticking between flushes (check_interval_ops the same, poll_s 0); the
+# first daemon is dropped after ONLINE_RESTART_ROUND rounds and a new
+# one takes the store over. Every ONLINE_FULL_EVERY-th delta check of
+# each tenant is held to the full-prefix check on the card, after the
+# run.
+ONLINE_TENANTS = 14
+ONLINE_CAS = dict(n_procs=5, n_ops=2_000, n_values=5, corrupt=0.25)
+ONLINE_WIDE_PROCS = 12
+ONLINE_FLUSH_OPS = 64
+ONLINE_FULL_EVERY = 4
+ONLINE_RESTART_ROUND = 32
+# The 40-value tenant, whose state space crosses 32 states while it runs.
+ONLINE_WIDE_VOCAB = "cas40v"
+# The one reason a carried frontier may be rebuilt in the fault-free run,
+# by the reference's rule: a new kind (a value or cas pair first seen)
+# re-enumerated the state space and renumbered its states, which the
+# carry cannot follow. Each such rebuild must come with a vocabulary
+# larger than at the tenant's previous one. (A window that outgrows the
+# mask axis would rebuild too; with no :info op it must not happen.)
+ONLINE_RENUMBERED = "vocabulary growth renumbered"
+# The JT_ONLINE_DC rerun's tenants, cut for the script's time: the first
+# ONLINE_DC_INVALID tenants the first run found invalid, the first
+# ONLINE_DC_VALID valid CAS runs, and the wide run. The 40-value tenant
+# is left out: its vocabulary re-enumeration is most of a run's host
+# time, and its peel monitor latches at its first cas as on every CAS
+# tenant.
+ONLINE_DC_INVALID = 2
+ONLINE_DC_VALID = 2
+ONLINE_DELTA_PROVS = ("online-delta", "online-rebuild")
+
+
+def online_store():
+    """The live store's histories: {tenant: ops}, and the wide run's
+    peak pending window."""
+    from jepsen_torch.workloads.synth import (synth_cas_batch,
+                                              synth_cas_history)
+    hists = {f"cas{i:02d}": h for i, h in enumerate(
+        synth_cas_batch(ONLINE_TENANTS, 0, **ONLINE_CAS))}
+    hists[ONLINE_WIDE_VOCAB] = synth_cas_batch(
+        1, ONLINE_TENANTS, **dict(ONLINE_CAS, n_values=40))[0]
+    hists["wide"] = synth_cas_history(
+        ONLINE_TENANTS + 1, **dict(ONLINE_CAS, n_procs=ONLINE_WIDE_PROCS))
+    open_, peak = set(), 0
+    for op in hists["wide"]:
+        if op.type == "invoke":
+            open_.add(op.process)
+            peak = max(peak, len(open_))
+        elif op.type in ("ok", "fail"):
+            open_.discard(op.process)
+    require(9 <= peak + 1 <= 14, f"the wide tenant's mask axis {peak + 1} "
+            "is outside K1's wide tiers under max_w 14")
+    return hists, peak
+
+
+class OnlineRecorder:
+    """While active: every ``run_carried_events`` call with its tenant
+    (the correlation id the daemon's check opens), inputs and output, and
+    every ``ResidentFrontier.advance`` with its host time and, where it
+    raised FrontierInvalid, the tenant, the reason and the frontier's
+    vocabulary size. The rest of a tick's split is read from the span
+    tracer."""
+
+    def __init__(self):
+        self.calls, self.invalid = [], []
+        self.advance_s = 0.0
+        self.epoch = 0
+
+    def __enter__(self):
+        from jepsen_torch import telemetry
+        from jepsen_torch.ops import linearize as L
+        from jepsen_torch.ops.schedule import (FrontierInvalid,
+                                               ResidentFrontier)
+        rec = self
+        run, advance = L.run_carried_events, ResidentFrontier.advance
+        self._orig = [(L, "run_carried_events", run),
+                      (ResidentFrontier, "advance", advance)]
+
+        def tenant():
+            return (telemetry.correlation() or "").split("/")[0]
+
+        def recorded_run(V, W, target, ev_type, ev_slot, ev_slots, idx0,
+                         carry, **kw):
+            out = run(V, W, target, ev_type, ev_slot, ev_slots, idx0,
+                      carry, **kw)
+            if ev_type.shape[0]:
+                rec.calls.append({
+                    "tenant": tenant(), "epoch": rec.epoch, "V": V, "W": W,
+                    "args": (target, ev_type, ev_slot, ev_slots, idx0,
+                             carry), "out": out,
+                    "close": int(ev_type[-1]) == 3})
+            return out
+
+        def timed_advance(fr, ops):
+            t0 = time.perf_counter()
+            try:
+                return advance(fr, ops)
+            except FrontierInvalid as e:
+                rec.invalid.append((tenant(), str(e), len(fr.kinds)))
+                raise
+            finally:
+                rec.advance_s += time.perf_counter() - t0
+        L.run_carried_events = recorded_run
+        ResidentFrontier.advance = timed_advance
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, real in self._orig:
+            setattr(obj, name, real)
+        return False
+
+
+def online_feed(L, dev, cas, base, hists, *, recorder=None, restart=None):
+    """Writes every tenant's WAL with the port's HistoryWAL in flushes of
+    ONLINE_FLUSH_OPS ops, ticking the daemon between flushes (a new
+    daemon after ``restart`` rounds), then the stored history and the
+    analyzed stamp; ticks until every tenant is finalized. Returns (the
+    daemons, rounds, the ticks' host seconds)."""
+    from jepsen_torch.history.codec import write_jsonl
+    from jepsen_torch.history.core import index
+    from jepsen_torch.history.wal import WAL_FILE, HistoryWAL
+    from jepsen_torch.online import OnlineConfig, OnlineDaemon
+    from jepsen_torch.store import Store
+
+    def daemon():
+        return OnlineDaemon(store=Store(base), config=OnlineConfig(
+            model=cas(), device=dev, poll_s=0,
+            check_interval_ops=ONLINE_FLUSH_OPS, crash_quiet_s=3600))
+
+    def tick():
+        t0 = time.perf_counter()
+        daemons[-1].tick()
+        return time.perf_counter() - t0
+    wals = {}
+    for i, name in enumerate(hists):
+        d = os.path.join(base, name, "r1")
+        wals[name] = HistoryWAL(os.path.join(d, WAL_FILE),
+                                {"test": {"name": name}, "seed": i},
+                                flush_ms=1e12)
+        wals[name].stamp_phase("run")
+    daemons = [daemon()]
+    tick_s = 0.0
+    rounds = -(-max(len(h) for h in hists.values()) // ONLINE_FLUSH_OPS)
+    for r in range(rounds):
+        for name, h in hists.items():
+            for op in h[r * ONLINE_FLUSH_OPS:(r + 1) * ONLINE_FLUSH_OPS]:
+                wals[name].append_op(op)
+            wals[name].sync()
+        if restart is not None and r == restart:
+            daemons.append(daemon())      # the first is dropped, not closed
+            if recorder is not None:
+                recorder.epoch = 1
+        tick_s += tick()
+    for name, h in hists.items():
+        write_jsonl(os.path.join(base, name, "r1", "history.jsonl"),
+                    index([op.with_() for op in h]))
+        wals[name].stamp_phase("analyzed")
+        wals[name].close()
+    for _ in range(4):
+        tick_s += tick()
+        if daemons[-1].idle():
+            break
+    require(daemons[-1].idle() and len(daemons[-1].tenants) == len(hists),
+            "online_path: a tenant was not finalized")
+    return daemons, rounds, tick_s
+
+
+def online_plain_replay(L, calls, dev) -> dict:
+    """Check (a): every recorded resume launch held to the plain version
+    from the same carry, field for field (valid, bad, F and Fb), with the
+    operations its data needs (``plain_wgl(ops=)``). The launches of one
+    (V, W, table rows) are the rows of one ``plain_wgl`` call, each with
+    its own table, events padded with EV_PAD (whose closure is dropped).
+    Every recorded launch starts from a valid carry (a latched frontier
+    launches no more), so ``bad`` comes back as the row's first failing
+    event and is shifted by the row's own ``idx0``, the global ordinal
+    the kernel was given."""
+    groups = {}
+    for c in calls:
+        groups.setdefault((c["V"], c["W"], c["args"][0].shape),
+                          []).append(c)
+    out = {"launches": 0, "plain_ms": 0.0, "err": 0, "groups": len(groups),
+           "ops": 0, "by_tenant": collections.Counter()}
+    for (V, W, _), rows in groups.items():
+        B = len(rows)
+        N = max(int(c["args"][1].shape[0]) for c in rows)
+        ev_type = np.zeros((B, N), np.int8)
+        ev_slot = np.zeros((B, N), np.int8)
+        ev_slots = np.zeros((B, N, W), np.int32)
+        for b, c in enumerate(rows):
+            n = int(c["args"][1].shape[0])
+            ev_type[b, :n], ev_slot[b, :n] = c["args"][1], c["args"][2]
+            ev_slots[b, :n] = c["args"][3]
+        carry = [np.concatenate([c["args"][5][k] for c in rows])
+                 for k in ("F", "Fb", "valid", "bad")]
+        require(carry[2].all(), "online_path: a resume launch started "
+                "from an invalid carry")
+        target = np.stack([c["args"][0] for c in rows])
+        a = [on(ev_type, dev), on(ev_slot, dev), on(ev_slots, dev),
+             on(target, dev), 0, on(carry[0].view(np.int32), dev),
+             on(carry[1].view(np.int32), dev), on(carry[2], dev),
+             on(carry[3], dev)]
+        ops = torch.zeros(B, dtype=torch.int64, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        valid, bad, F, Fb = L.plain_wgl(*a, V=V, W=W, w_live=W, ops=ops)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["plain_ms"] += (time.perf_counter() - t0) * 1e3
+        bad = bad.cpu().numpy().astype(np.int64)
+        idx0 = np.array([c["args"][4] for c in rows], np.int64)
+        bad = np.where(bad == 2**31 - 1, bad, bad + idx0)
+        got = (valid.cpu().numpy(), bad, F.cpu().numpy(), Fb.cpu().numpy())
+        for b, c in enumerate(rows):
+            o = c["out"]
+            want = (o["valid"][0], o["bad"][0], o["F"][0].view(np.int32),
+                    o["Fb"][0].view(np.int32))
+            for g, w in zip(got, want):
+                out["err"] = max(out["err"], int(np.abs(
+                    np.asarray(g[b], np.int64)
+                    - np.asarray(w, np.int64)).max()))
+            out["by_tenant"][c["tenant"]] += 1
+        out["launches"] += B
+        out["ops"] += int(ops.sum())
+    require(out["launches"] == len(calls) and out["err"] == 0,
+            f"online_path: a resume launch differs from the plain version "
+            f"(max abs err {out['err']})")
+    out["by_tenant"] = dict(out["by_tenant"])
+    return out
+
+
+def online_calls_measure(L, calls, dev) -> dict:
+    """Every recorded resume launch replayed on the card, the kernel alone
+    (``time_launches``) beside the empty kernel on its grid, by shape;
+    every launch held to the plain version (``online_plain_replay``); and
+    the bytes the launches must move (the events, the table, the carry in
+    and out) with the operations their data needs, for the bound."""
+    by_shape, kernel_ms, floor_ms, grids, nbytes = {}, 0.0, 0.0, {}, 0
+    for c in calls:
+        target, ev_type, ev_slot, ev_slots, idx0, carry = c["args"]
+        V, W = c["V"], c["W"]
+        a = [on(np.asarray(ev_type, np.int8)[None], dev),
+             on(np.asarray(ev_slot, np.int8)[None], dev),
+             on(np.asarray(ev_slots, np.int32)[None], dev),
+             on(target, dev), idx0,
+             on(carry["F"].view(np.int32), dev),
+             on(carry["Fb"].view(np.int32), dev),
+             on(carry["valid"], dev), on(carry["bad"], dev)]
+        kw = {"V": V, "W": W, "w_live": W}
+        plan = L.cuda_wgl.smem_plan(V, W, W, K1=target.shape[0],
+                                    shared_target=True)
+        grid = ((1, plan["threads"]) if plan["tier"] == "warp"
+                else (plan["cluster_ctas"], plan["threads"]))
+        ms = time_launches([prepared_single(L, *a, **kw)], reps=1)
+        if grid not in grids:
+            grids[grid] = time_launches(floor_launches([grid]), reps=3)
+        fl = grids[grid]
+        kernel_ms += ms
+        floor_ms += fl
+        key = f"V{V}_W{W}_{plan['tier']}"
+        s = by_shape.setdefault(key, {"launches": 0, "events": 0,
+                                      "ms": 0.0, "floor_ms": 0.0})
+        s["launches"] += 1
+        s["events"] += int(ev_type.shape[0])
+        s["ms"] += ms
+        s["floor_ms"] += fl
+        carry_bytes = 2 * carry["F"].nbytes + 1 + 4
+        nbytes += (int(ev_type.shape[0]) * (2 + 4 * W) + target.nbytes
+                   + 2 * carry_bytes)
+    for s in by_shape.values():
+        s["mean_ms"] = s["ms"] / s["launches"]
+        s["floor_mean_ms"] = s["floor_ms"] / s["launches"]
+    plain = online_plain_replay(L, calls, dev)
+    plain.update(launch_bound(nbytes, plain.pop("ops")))
+    plain["ms"] = kernel_ms
+    return {"by_shape": by_shape, "launches": len(calls),
+            "kernel_ms": kernel_ms, "floor_ms": floor_ms, "plain": plain}
+
+
+def online_hold_full(L, dev, cas, base, tenants) -> dict:
+    """Check (b): every ONLINE_FULL_EVERY-th delta verdict of each tenant
+    (valid, bad op index), as the daemon decided and journaled it,
+    against ``check_batch_columnar(details="invalid")`` of the same
+    prefix of the tenant's WAL on the card, all the prefixes as rows of
+    one call."""
+    from jepsen_torch.history.wal import WAL_FILE, read_wal
+    from jepsen_torch.online import _bad_index, checkable_prefix
+    rows, want = [], []
+    for (name, _), t in tenants.items():
+        ops = read_wal(os.path.join(base, name, "r1", WAL_FILE))["ops"]
+        ks = sorted(k for k, (_, _, p) in t._decided.items()
+                    if p in ONLINE_DELTA_PROVS)
+        for k in ks[ONLINE_FULL_EVERY - 1::ONLINE_FULL_EVERY]:
+            rows.append(checkable_prefix(ops[:k]))
+            want.append((name, k) + t._decided[k][:2])
+    t0 = time.perf_counter()
+    full = L.check_batch_columnar(cas(), rows, device=dev,
+                                  details="invalid")
+    s = time.perf_counter() - t0
+    for (name, k, valid, bad), r in zip(want, full):
+        require((valid, bad) == (r.get("valid"), _bad_index(r)),
+                f"online_path {name} at {k} ops: delta verdict "
+                f"{valid, bad} != full check {r.get('valid')} "
+                f"{_bad_index(r)}")
+    return {"held": len(rows), "s": s}
+
+
+def online_grow_carry(L, dev, cas) -> dict:
+    """The carry's state axis widened in place on the card: one process
+    writes 40 fresh values and reads each back (an append-stable state
+    space), the last read corrupt; a frontier resumed every 16 ops widens
+    from one state word to two without a rebuild, each tick's verdict
+    equal to check_batch_columnar of the prefix on the card."""
+    from jepsen_torch.history.ops import invoke_op, ok_op
+    from jepsen_torch.online import _bad_index, checkable_prefix
+    from jepsen_torch.ops.schedule import ResidentFrontier
+    ops = []
+    for v in range(1, 41):
+        ops += [invoke_op(0, "write", v), ok_op(0, "write", v),
+                invoke_op(0, "read", None),
+                ok_op(0, "read", 999 if v == 40 else v)]
+    for i, op in enumerate(ops):
+        op.index = i
+    fr = ResidentFrontier(cas(), device=dev)
+    words = []
+    for k in range(16, len(ops) + 1, 16):
+        valid, bad = fr.advance(ops[:k])
+        full = L.check_batch_columnar(cas(), [checkable_prefix(ops[:k])],
+                                      device=dev, details="invalid")[0]
+        require((valid, bad) == (full["valid"], _bad_index(full)),
+                f"grow_carry at {k} ops: {valid, bad} != full check")
+        words.append(int(fr.carry["F"].shape[1]))
+    require(sorted(set(words)) == [1, 2] and (valid, bad)
+            == (False, len(ops) - 1), "grow_carry: the carry did not "
+            "widen in place, or the corrupt read was missed")
+    return {"ticks": len(words), "words": words, "V": fr.v_pad,
+            "states": fr.space.n_states}
+
+
+def online_tick_split(spans, tick_s, advance_s) -> dict:
+    """The host split of the daemon's ticks from the span tracer: the
+    interim checks (``online.check``), the final checks
+    (``online.finalize``) and the frontier's launches with their copies
+    (``dispatch``, family frontier), with ``ResidentFrontier.advance``'s
+    host time between the two."""
+    def total(name, family=None):
+        return sum(s["dur"] for s in spans if s["name"] == name and (
+            family is None
+            or s.get("args", {}).get("family") == family)) / 1e6
+    checks = total("online.check")
+    finalize = total("online.finalize")
+    dispatch = total("dispatch", "frontier")
+    return {"ticks": tick_s,
+            "tail_and_discovery": tick_s - checks - finalize,
+            "checks": checks, "ingest_walk": advance_s - dispatch,
+            "launch_copies": dispatch,
+            "verdict_bookkeeping": checks - advance_s,
+            "finalize": finalize}
+
+
+def phase_online_path(dev, L, cas):
+    """The online daemon over a live store on the card: the checks
+    (a)-(e) of its docstring in ``online_feed``'s run and its rerun."""
+    import tempfile
+
+    from jepsen_torch import telemetry
+    from jepsen_torch.history.codec import read_jsonl
+    from jepsen_torch.online import _bad_index
+    t_phase = time.perf_counter()
+    hists, peak = online_store()
+    out = {"phase": "online_path", "tenants": len(hists),
+           "ops": {k: len(h) for k, h in hists.items()}, "wide_peak": peak}
+    telemetry.REGISTRY.reset()
+    telemetry.configure(True)
+    with tempfile.TemporaryDirectory(prefix="online_path") as base:
+        zero_counts(L)
+        torch.cuda.synchronize()
+        try:
+            with OnlineRecorder() as rec:
+                t0 = time.perf_counter()
+                daemons, rounds, tick_s = online_feed(
+                    L, dev, cas, base, hists, recorder=rec,
+                    restart=ONLINE_RESTART_ROUND)
+                run_s = time.perf_counter() - t0
+            spans = telemetry.spans()
+        finally:
+            telemetry.configure("env")
+        launches = counts(L)
+        require(len(spans) < telemetry.RING_SIZE,
+                "online_path: the span ring overflowed")
+        final_launches = launches["wgl_frontier"] - len(rec.calls)
+        require(len(rec.calls) > 0, "online_path: no resume launch")
+        require(0 <= final_launches <= len(hists),
+                f"online_path: {launches['wgl_frontier']} launches counted, "
+                f"{len(rec.calls)} of them resume launches")
+        # Each resume launch's check: the dispatch span around it (the
+        # same order: one thread) and that span's parent, online.check.
+        disp = [s for s in spans if s["name"] == "dispatch"
+                and s["args"].get("family") == "frontier"
+                and s["args"].get("events")]
+        require(len(disp) == len(rec.calls),
+                f"online_path: {len(disp)} dispatch spans for "
+                f"{len(rec.calls)} resume launches")
+        by_id = {s["id"]: s for s in spans}
+        for c, s in zip(rec.calls, disp):
+            c["check"] = s["parent"]
+        first, second = daemons
+        stats = {k: first.stats[k] + second.stats[k] for k in first.stats}
+        for k in ("check_errors", "stage_faults", "unknown_verdicts"):
+            require(stats[k] == 0, f"online_path: {k} = {stats[k]}")
+        # Every invalidation a renumbering, each at a larger vocabulary
+        # than the tenant's previous one.
+        invalid = {}
+        for n, r, kinds in rec.invalid:
+            require(r.startswith(ONLINE_RENUMBERED),
+                    f"online_path {n}: a frontier was invalidated: {r}")
+            seen = invalid.setdefault(n, [])
+            require(not seen or kinds > seen[-1], f"online_path {n}: "
+                    f"renumbered twice at a vocabulary of {kinds} kinds")
+            seen.append(kinds)
+        require(stats["frontier_invalidations"] == len(rec.invalid),
+                f"online_path: {stats['frontier_invalidations']} "
+                f"invalidations counted, {len(rec.invalid)} raised")
+        provs = collections.Counter()
+        verdicts = {}
+        for (name, _), t in second.tenants.items():
+            mine = {p for _, _, p in t._decided.values()}
+            provs.update(p for _, _, p in t._decided.values())
+            require(t.peak_w > 14 or mine <= set(ONLINE_DELTA_PROVS),
+                    f"online_path {name}: provenances {sorted(mine)}")
+            # (c) the final verdict against the post-mortem recheck.
+            hist = read_jsonl(os.path.join(base, name, "r1",
+                                           "history.jsonl"))
+            post = L.check_batch_columnar(cas(), [hist], device=dev,
+                                          details="invalid",
+                                          min_device_batch=64)[0]
+            require(json.loads(json.dumps(t.result, default=repr))
+                    == json.loads(json.dumps(post, default=repr)),
+                    f"online_path {name}: final verdict != recheck")
+            verdicts[name] = (t.result["valid"], _bad_index(t.result),
+                              (t.first_violation or {}).get("op_index"))
+            # (d) the second daemon restored this tenant's checkpoint once.
+            require(t.stats.get("frontier_restored") == 1,
+                    f"online_path {name}: frontier_restored "
+                    f"{t.stats.get('frontier_restored')}")
+        # (d) the restart's first check of each tenant dispatched only the
+        # suffix: its first launch resumes at the event ordinal where the
+        # first daemon's last checkpoint stopped (unless that check
+        # rebuilt the frontier).
+        suffix = {}
+        for (name, _), t in second.tenants.items():
+            mine = [c for c in rec.calls if c["tenant"] == name]
+            before = [c for c in mine if c["epoch"] == 0 and c["close"]]
+            after = [c for c in mine if c["epoch"] == 1]
+            if not after:
+                continue                  # latched invalid: no launch
+            head = [c for c in after if c["check"] == after[0]["check"]]
+            k = by_id[head[0]["check"]]["args"]["ops"]
+            rebuilt = t._decided[k][2] == "online-rebuild"
+            resumed_at = before[-1]["args"][4]
+            suffix[name] = sum(int(c["args"][1].shape[0]) for c in head)
+            require(rebuilt or head[0]["args"][4] == resumed_at,
+                    f"online_path {name}: the restart re-dispatched from "
+                    f"event {head[0]['args'][4]}, not {resumed_at}")
+        full = online_hold_full(L, dev, cas, base, second.tenants)
+        delta_ev = sum(int(c["args"][1].shape[0]) for c in rec.calls)
+        full_ev = sum(c["args"][4] + int(c["args"][1].shape[0])
+                      for c in rec.calls if c["close"])
+        ttfv = telemetry.metrics_prefixed("online.ttfv_s")[
+            "online.ttfv_s"]
+        meas = online_calls_measure(L, rec.calls, dev)
+        out.update({
+            "rounds": rounds, "run_s": run_s, "ticks": stats["ticks"],
+            "checks": stats["checks"],
+            "delta_checks": sum(provs[p] for p in ONLINE_DELTA_PROVS),
+            "full_checks_held": full["held"], "full_checks_s": full["s"],
+            "restart_after_ops": (ONLINE_RESTART_ROUND + 1)
+            * ONLINE_FLUSH_OPS, "restart_suffix_events": suffix,
+            "stats": stats, "provenances": dict(provs),
+            "renumbered_at_kinds": invalid, "spans": len(spans),
+            "delta_events": delta_ev, "full_rewalk_events": full_ev,
+            "launches": len(rec.calls),
+            "final_check_launches": final_launches,
+            "device_ms": meas["kernel_ms"], "floor_ms": meas["floor_ms"],
+            "by_shape": meas["by_shape"],
+            "tick_split_s": online_tick_split(spans, tick_s, rec.advance_s),
+            "device_share_of_ticks": meas["kernel_ms"] / 1e3 / tick_s,
+            "ttfv_s": ttfv, "plain": meas["plain"]})
+    # (e) the same store again with the peel monitor on, on a subset of
+    # its tenants.
+    bad = [k for k, v in verdicts.items() if v[0] is not True]
+    good = [k for k, v in verdicts.items() if v[0] is True
+            and k not in (ONLINE_WIDE_VOCAB, "wide")]
+    rerun = {k: hists[k] for k in bad[:ONLINE_DC_INVALID]
+             + good[:ONLINE_DC_VALID] + ["wide"] if k != ONLINE_WIDE_VOCAB}
+    require(bad, "online_path: no tenant was found invalid")
+    os.environ["JT_ONLINE_DC"] = "1"
+    try:
+        with tempfile.TemporaryDirectory(prefix="online_dc") as base:
+            t0 = time.perf_counter()
+            (dc_daemon,), _, _ = online_feed(L, dev, cas, base, rerun)
+            out["dc_run_s"] = time.perf_counter() - t0
+            verdicts_dc = {name: (t.result["valid"], _bad_index(t.result),
+                                  (t.first_violation or {}).get("op_index"))
+                           for (name, _), t in dc_daemon.tenants.items()}
+            out["dc_stats"] = {k: dc_daemon.stats[k] for k in (
+                "checks", "check_errors", "first_violations")}
+    finally:
+        del os.environ["JT_ONLINE_DC"]
+    want = {k: v for k, v in verdicts.items() if k in rerun}
+    require(verdicts_dc == want,
+            f"online_path: JT_ONLINE_DC=1 changed a verdict: "
+            f"{verdicts_dc} != {want}")
+    out["dc_tenants"] = sorted(rerun)
+    out["verdicts"] = verdicts
+    out["grow_carry"] = online_grow_carry(L, dev, cas)
+    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -6314,6 +6873,9 @@ def main() -> int:
     phase_real_oom(dev, L)
     camp = phase_campaign(dev, L, S, cuda_synth)
     fz = phase_fuzz(dev, L, S, cuda_synth)
+    # The online daemon over a live store (K1's resume entry), before the
+    # mesh is provisioned.
+    onl = phase_online_path(dev, L, cas_register)
     # The multi-device routes (K3), on the card named MESH_DEVICES times.
     mesh_err, mesh_tiers = phase_mesh_kernel_parity(dev, L)
     mesh = phase_mesh_path(dev, L, S, cas_register, synth_cas_batch,
@@ -6355,6 +6917,7 @@ def main() -> int:
                              "check_synth_scheduler": sl["wgl_frontier"],
                              "check_batch_scheduler":
                                  sides["wgl_frontier"],
+                             "online_path": onl["launches"],
                              **dc_launches("wgl_frontier")},
         "parity": True,
         "max_abs_err": max(wgl_err, oplist["max_abs_err"],
@@ -6448,7 +7011,21 @@ def main() -> int:
         "ms": inst["ms"], "wrapper_ms": inst["wrapper_ms"],
         "plain_ms": inst["plain_ms"], "bound_ms": inst["bound_ms"],
         "bound_by": inst["bound_by"], "library_ms": None,
-        "k1_ms": inst["k1_ms"], "headline": inst["headline"]},
+        "k1_ms": inst["k1_ms"], "headline": inst["headline"]}, {
+        "name": "wgl_frontier_resume", "route": "cuda",
+        "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
+        "replaces": "jepsen_tpu/ops/linearize.py:158",
+        "launches": onl["launches"],
+        "launches_by_path": {"online_path": onl["launches"]},
+        "parity": True, "max_abs_err": onl["plain"]["err"],
+        "ms": onl["plain"]["ms"], "plain_ms": onl["plain"]["plain_ms"],
+        "plain_on": "cuda", "bound_ms": onl["plain"]["bound_ms"],
+        "bound_by": onl["plain"]["bound_by"], "library_ms": None,
+        "timing_batch": f"every resume launch of the online path "
+                        f"({onl['plain']['launches']}), the plain version "
+                        f"batched in {onl['plain']['groups']} calls",
+        "all_launches_ms": onl["device_ms"], "floor_ms": onl["floor_ms"],
+        "by_shape": onl["by_shape"]},
         la_entry(la, la_err)] + mesh_entries(mesh, mesh_err, mesh_tiers)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,24 +10,34 @@ restore switch: every history certifies on the host oracle
 ``check_txn_host`` and nothing is launched. The checker nemesis
 (``faults=``) and the chunk journal (``journal=``, ``bad`` holding
 ``LADDER.index(level)``) ride the scheduler's degradation ladder as in
-checkers.cycle; quarantined rows are re-decided by the host oracle. The
-live monitor (IncrementalIsolation) comes with the online slice.
+checkers.cycle; quarantined rows are re-decided by the host oracle.
+
+``IncrementalIsolation`` is the online daemon's live monitor, a copy of
+the reference's: as ops stream in it re-extracts the typed graph, feeds
+only the NEW edges into per-plane incremental closures
+(ops.graph.IncrementalClosure with the ladder masks, host numpy) plus a
+derived-SI closure fed composed RW·N edges, and reports the strongest
+level still holding. The verdict is monotone non-increasing: closures
+only gain edges, and a retraction (an append chain reordering, a txn
+changing status) rebuilds the closures with the reported level floored
+at the worst already seen.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from .checkers.core import Checker
-from .ops.graph import DepGraph
-from .ops.txn_graph import (LADDER, N_CYC_PLANES, check_txn_host,
+from .ops.graph import DepGraph, IncrementalClosure
+from .ops.txn_graph import (LADDER, N_CYC_PLANES, TXN_EDGE_TYPES,
+                            TXN_LEVEL_TYPES, TXN_PLANES, check_txn_host,
                             close_txn_planes, encode_txn_graphs,
                             extract_txn_graph, iso_abbrev, ladder_verdict,
                             refine_txn_witness, txn_op_model, txn_result)
 
 __all__ = ["certify_batch", "certify_host", "IsolationChecker",
-           "HostIsolationChecker", "iso_abbrev"]
+           "HostIsolationChecker", "IncrementalIsolation", "iso_abbrev"]
 
 
 def device_enabled() -> bool:
@@ -174,3 +184,104 @@ class HostIsolationChecker(IsolationChecker):
 
     def check(self, test, model, history, opts=None) -> dict:
         return check_txn_host(extract_txn_graph(list(history)))
+
+
+# ----------------------------------------------------- live monitoring
+
+class IncrementalIsolation:
+    """Monotone live isolation verdict over a growing txn history.
+
+    Each ``observe(new_ops)`` call appends to the buffered history,
+    re-extracts the typed dependency graph (a linear host pass — the
+    expensive O(V^3) closure is what stays incremental), diffs the
+    edge set against what the closures already hold, and feeds ONLY
+    the new edges: the 4 packed ladder planes ride one parameterized
+    IncrementalClosure and the derived SI plane a second single-plane
+    closure fed N edges plus composed RW·N edges (bookkeeping below).
+    A retraction — an edge that disappeared because an append chain
+    reordered or a txn changed status under info-visibility — resets
+    and refeeds both closures (counted in ``stats["rebuilds"]``).
+
+    ``level()`` is the strongest ladder level still holding. It is
+    monotone non-increasing by construction: closures only gain
+    edges between rebuilds, the G1 flags latch, and the reported
+    level is floored at the worst level already reported (so even a
+    rebuild can never raise it)."""
+
+    def __init__(self):
+        self._ops: List = []
+        self._fed: Set[Tuple[str, int, int]] = set()
+        self._planes = IncrementalClosure(level_types=TXN_LEVEL_TYPES,
+                                          names=TXN_PLANES)
+        self._si = IncrementalClosure(level_types=(("e",),),
+                                      names=("G-SI",))
+        self._rw_in: Dict[int, Set[int]] = {}
+        self._n_out: Dict[int, Set[int]] = {}
+        self._g1a = False
+        self._g1b = False
+        self._floor = len(LADDER) - 1          # best = serializability
+        self._malformed = False
+        self.stats = {"ops": 0, "ticks": 0, "edges": 0, "rebuilds": 0}
+
+    # ------------------------------------------------------- plumbing
+    def _feed(self, t: str, u: int, v: int) -> None:
+        self.stats["edges"] += 1
+        self._planes.add_edge(t, u, v)
+        if t in ("rwi", "rwp"):
+            self._rw_in.setdefault(v, set()).add(u)
+            for w in sorted(self._n_out.get(v, ())):
+                self._si.add_edge("e", u, w)
+        else:
+            self._n_out.setdefault(u, set()).add(v)
+            self._si.add_edge("e", u, v)
+            for p in sorted(self._rw_in.get(u, ())):
+                self._si.add_edge("e", p, v)
+
+    def _rebuild(self, edges: Set[Tuple[str, int, int]]) -> None:
+        self.stats["rebuilds"] += 1
+        self._planes = IncrementalClosure(level_types=TXN_LEVEL_TYPES,
+                                          names=TXN_PLANES)
+        self._si = IncrementalClosure(level_types=(("e",),),
+                                      names=("G-SI",))
+        self._rw_in, self._n_out = {}, {}
+        for t, u, v in sorted(edges):
+            self._feed(t, u, v)
+
+    # -------------------------------------------------------- updates
+    def observe(self, new_ops: Sequence) -> Optional[str]:
+        """Fold newly-streamed ops in; returns level() (None when the
+        buffered history is malformed → verdict unknown)."""
+        self._ops.extend(new_ops)
+        self.stats["ops"] += len(new_ops)
+        self.stats["ticks"] += 1
+        try:
+            g = extract_txn_graph(self._ops)
+        except ValueError:
+            self._malformed = True
+            return self.level()
+        self._malformed = False
+        edges = {(t, int(u), int(v)) for t in TXN_EDGE_TYPES
+                 for u, v in g.edges.get(t, ())}
+        if self._fed <= edges:
+            for t, u, v in sorted(edges - self._fed):
+                self._feed(t, u, v)
+        else:
+            self._rebuild(edges)
+        self._fed = edges
+        self._g1a = self._g1a or bool(g.meta.get("g1a_reads"))
+        self._g1b = self._g1b or bool(g.meta.get("g1b_reads"))
+        cyc = self._planes.cyclic_levels() + self._si.cyclic_levels()
+        level, _, _ = ladder_verdict(self._g1a, self._g1b, cyc)
+        self._floor = min(self._floor, LADDER.index(level))
+        return self.level()
+
+    # -------------------------------------------------------- verdict
+    def level(self) -> Optional[str]:
+        """The strongest ladder level still holding, or None while the
+        buffered history is malformed (verdict unknown)."""
+        if self._malformed:
+            return None
+        return LADDER[self._floor]
+
+    def abbrev(self) -> str:
+        return iso_abbrev(self.level())

@@ -11,8 +11,7 @@ exhaustion. Cost is near-linear in events and flat in W, exactly the
 unkeyed wide-window tail (W 11+) where the frontier search is dearest.
 
 A copy of the reference's ``ops/dc_monitor.py``, trimmed to what the
-batch path and the router run (the online ``IncrementalDC`` comes with
-the online slice):
+batch path, the router and the online daemon run:
 
   * ``dc_plan(batch)`` derives, from the ``EncodedBatch`` alone and on
     the host, each op's invocation event (the first snapshot holding
@@ -43,6 +42,11 @@ above I. Conversely a valid history always has a peelable cluster: the
 one holding the first-linearized write. So "peeled to exhaustion" is
 "valid" for capable rows; stuck rows are left to the scan, which owns
 the counterexample.
+
+``IncrementalDC`` is the peel loop at the online daemon's delta tick
+($JT_ONLINE_DC=1, default off): host numpy over the ops since the last
+quiescent cut, certify-only; a tick it cannot serve falls through to
+the resident frontier with verdicts unchanged.
 
 ``JT_ROUTER_DC=0`` removes the backend from pricing, routing and forced
 dispatch; with no probed or pinned ``dc_events_per_s`` rate the router
@@ -98,6 +102,13 @@ def dc_residue_max_frac() -> float:
             os.environ.get("JT_DC_RESIDUE_MAX_FRAC", "0.5"))))
     except ValueError:
         return 0.5
+
+
+def online_dc_enabled() -> bool:
+    """$JT_ONLINE_DC=1 wires the incremental peel monitor into the
+    online daemon's delta tick (default off: the daemon's default
+    behaviour stays bit-identical)."""
+    return os.environ.get("JT_ONLINE_DC", "0") != "0"
 
 
 # ------------------------------------------------- history-level sniff
@@ -528,3 +539,159 @@ def dc_check_batch(model, histories: Sequence, *,
     for r in rs:
         r.setdefault("provenance", "wgl-dc")
     return rs
+
+
+# --------------------------------------------- incremental (online) DC
+
+class IncrementalDC:
+    """The peel loop's decrement structure at the online daemon's
+    ResidentFrontier seam ($JT_ONLINE_DC): each tick peels only the
+    carried segment — the ops since the last *quiescent cut* — plus
+    whatever arrived since the last tick, never the whole prefix.
+
+    The cut rule is the soundness anchor: when a tick certifies the
+    carry AND no invocation is open, the entire carry seals (drops)
+    and its OVERWRITTEN values are remembered; the current epoch's
+    write — when real time makes it the unique final — re-carries as
+    a cut-pinned pseudo-write so live-value reads stay served. Everything after the cut
+    is invoked in real time after everything before it responded, so
+    a witness for the suffix composes with the sealed prefix's
+    witness by pure concatenation — writes are valid from every
+    state, suffix reads must observe suffix writes, and any late op
+    touching a sealed value latches the carry undecided (the full
+    engine owns that verdict; this monitor only ever *certifies*).
+
+    ``advance`` returns True only for a certified-valid prefix and
+    None whenever it cannot serve the tick — the caller falls through
+    to the resident frontier, verdicts unchanged. Callers must drop
+    the carry on ANY mid-advance fault (the engine's soundness guard
+    does), exactly like the frontier itself."""
+
+    def __init__(self):
+        self.pos = 0                   # consumed history lines
+        self.dead = False
+        self.sealed_values: set = set()
+        self._open: Dict[object, Tuple[str, object, int]] = {}
+        # carried completed client ops since the cut: (inv, resp, f, v)
+        self.ops: List[Tuple[int, int, str, object]] = []
+        self.last_delta_ops = 0
+        self.seals = 0
+
+    def _latch(self) -> None:
+        self.dead = True
+        self.ops = []
+
+    def advance(self, history: Sequence) -> Optional[bool]:
+        if self.dead:
+            return None
+        new = history[self.pos:]
+        self.last_delta_ops = len(new)
+        t = self.pos
+        for op in new:
+            if getattr(op, "is_client", True):
+                if op.type == "invoke":
+                    if op.f not in ("read", "write"):
+                        self._latch()
+                        return None
+                    self._open[op.process] = (op.f, op.value, t)
+                elif op.type == "ok":
+                    ent = self._open.pop(op.process, None)
+                    if ent is None:
+                        self._latch()
+                        return None
+                    f, _, inv_t = ent
+                    if op.value in self.sealed_values:
+                        # A late op on a sealed epoch: either invalid
+                        # or beyond this monitor — never certified.
+                        self._latch()
+                        return None
+                    if f == "read" and op.value is None:
+                        # A read of the initial state: once any write
+                        # sealed the initial value is history, and
+                        # before that the peel order would need a
+                        # virtual epoch — outside this monitor's
+                        # class either way (the full engine decides).
+                        self._latch()
+                        return None
+                    # Times are doubled so a cut-pinned pseudo-write
+                    # can sit STRICTLY between two history lines.
+                    self.ops.append((2 * inv_t, 2 * t, f, op.value))
+                else:                   # fail / info: pending forever
+                    self._latch()
+                    return None
+            t += 1
+        self.pos = len(history)
+        writes = [v for (_, _, f, v) in self.ops if f == "write"]
+        if len(set(writes)) != len(writes):
+            self._latch()
+            return None
+        vals = set(writes)
+        # Reads must observe carried (completed) writes: a read of a
+        # still-pending write means the completed part alone is not
+        # the whole story — not servable this tick, maybe the next.
+        for (_, _, f, v) in self.ops:
+            if f == "read" and v is not None and v not in vals:
+                return None
+        if not self._run_peel():
+            return None
+        if not self._open:
+            # Quiescent cut: the certified carry seals wholesale —
+            # except the CURRENT epoch. When one carried write strictly
+            # follows every other carried write in real time, EVERY
+            # valid linearization ends with it, so its value is the
+            # register's unique state at the cut: it re-carries as a
+            # zero-width pseudo-write pinned just before the cut and
+            # later reads of the live value keep being served. An
+            # ambiguous final (overlapping tail writes) seals
+            # everything — conservative, still sound.
+            ws = [(i_, r_, v) for (i_, r_, f, v) in self.ops
+                  if f == "write"]
+            cur = None
+            if ws:
+                cand = max(ws, key=lambda e: e[0])
+                if all(cand[0] > r_ for (i_, r_, _) in ws
+                       if (i_, r_) != (cand[0], cand[1])):
+                    cur = cand[2]
+            self.sealed_values |= {v for v in vals if v != cur}
+            cut = 2 * self.pos - 1
+            self.ops = ([] if cur is None
+                        else [(cut, cut, "write", cur)])
+            self.seals += 1
+        return True
+
+    def _run_peel(self) -> bool:
+        """Host peel over the carry. Open invocations are simply not
+        linearized — a valid completed part IS a valid prefix (the
+        pending set stays pending), so excluding them is sound for a
+        monitor that only certifies."""
+        if not self.ops:
+            return True
+        n = len(self.ops)
+        inv = np.fromiter((o[0] for o in self.ops), np.int64, n)
+        resp = np.fromiter((o[1] for o in self.ops), np.int64, n)
+        wid = {v: k for k, (_, _, f, v) in enumerate(self.ops)
+               if f == "write"}
+        cl = np.fromiter((wid[o[3]] for o in self.ops), np.int64, n)
+        alive = np.ones(n, bool)
+        # Within-cluster feasibility, aggregated PER CLUSTER: the
+        # write must be invoked before every member read responds
+        # (inv_w < resp_r), or no linearization point exists and the
+        # cluster can never peel — the carry stays undecided and the
+        # tick answers None (the full engine owns the verdict).
+        bad = np.zeros(n, bool)
+        np.logical_or.at(bad, cl, inv[cl] > resp)
+        while alive.any():
+            m_resp = np.full(n, _BIG, np.int64)
+            np.minimum.at(m_resp, cl[alive], resp[alive])
+            m_inv = np.full(n, -1, np.int64)
+            np.maximum.at(m_inv, cl[alive], inv[alive])
+            a1 = int(np.argmin(m_resp))
+            m2 = m_resp.copy()
+            m2[a1] = _BIG
+            t_out = np.where(np.arange(n) == a1, m2.min(), m_resp[a1])
+            peel = (m_resp < _BIG) & (m_inv <= t_out) & ~bad
+            new_alive = alive & ~peel[cl]
+            if (new_alive == alive).all():
+                return False
+            alive = new_alive
+        return True

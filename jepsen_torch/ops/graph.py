@@ -34,8 +34,10 @@ Checking Practical", PAPERS.md).
 
 The host DFS oracle twin (``check_graph_host``) shares no machinery with
 the closure. Scheduling lives in ops.schedule.GraphScheduler, the
-Checker-protocol surface in checkers.cycle. The reference's
-IncrementalClosure (live monitoring) comes with the online slice.
+Checker-protocol surface in checkers.cycle. ``IncrementalClosure`` keeps
+the closure on the host as edges stream in, for the online daemon's live
+isolation monitor (jepsen_torch.isolation.IncrementalIsolation), in the
+packed layout of the kernel's planes.
 """
 from __future__ import annotations
 
@@ -610,3 +612,145 @@ def check_graph_host(g: DepGraph, provenance: str = "host") -> dict:
             return graph_result(g, LEVELS[li], refine_witness(g, li),
                                 provenance)
     return graph_result(g, None, None, provenance)
+
+
+# --------------------------------------------- incremental closure
+
+class IncrementalClosure:
+    """Transitive-closure bitset maintained incrementally as edges
+    arrive, the graph family's O(new edges) move: a live-monitored
+    dependency graph must not re-close the whole [V, V] relation from
+    scratch each tick. A copy of the reference's, host numpy.
+
+    The closure lives as a packed uint32 bitset ``C`` ([V, V/32]; bit
+    c of word w on row r = r reaches w*32+c), one plane per cumulative
+    anomaly level (the LEVEL_TYPES masks, exactly the device kernel's
+    layout — pack_graph's word order). Adding edge u → v touches only
+    the AFFECTED rows: every vertex that reaches u (plus u itself)
+    gains v's whole reach (plus v) in one vectorized OR over the
+    existing closure, O(|pred(u)| * V/32) words, not a V^3 re-close.
+    An edge already implied by the closure is a no-op.
+
+    ``grow(n)`` widens the vertex space: within the padded bucket
+    (power-of-two columns, GRAPH_MIN_V floor) new vertices are free —
+    their bits were always zero — while crossing the bucket falls back
+    to ONE full re-closure at the wider shape (counted in ``stats``),
+    after which deltas are incremental again. The same invalidation
+    discipline as the WGL resident frontier.
+
+    ``anomaly()`` is the running verdict: the first cumulative level
+    whose closure holds a diagonal bit (levels only ever gain edges,
+    so the verdict is monotone — once cyclic at a level, forever
+    cyclic there). Parity: tests pin it against check_graph_host and
+    the from-scratch closure on every prefix of an edge stream.
+
+    ``level_types``/``names`` parameterize the cumulative masks so
+    other graph families (the txn isolation ladder) reuse the same
+    incremental machinery; defaults are this family's LEVEL_TYPES."""
+
+    def __init__(self, n: int = 0,
+                 level_types: Optional[Sequence[Sequence[str]]] = None,
+                 names: Optional[Sequence[str]] = None):
+        self.level_types = tuple(tuple(ts) for ts in (
+            LEVEL_TYPES if level_types is None else level_types))
+        self.names = tuple(LEVELS if names is None else names)
+        self.n_levels = len(self.level_types)
+        self.n = 0
+        self.cols = 0                  # padded column bucket
+        self.edges: List[List[Tuple[int, int]]] = \
+            [[] for _ in range(self.n_levels)]
+        self.stats = {"edges": 0, "implied": 0, "row_updates": 0,
+                      "recloses": 0}
+        self._C: Optional[np.ndarray] = None   # [L, V, V/32] uint32
+        if n:
+            self.grow(n)
+
+    # ------------------------------------------------------- plumbing
+    def _alloc(self, n: int) -> None:
+        # Rows index the full padded bucket so vectorized row updates
+        # never bounds-check; pad rows/cols are edgeless and can never
+        # join a cycle (the pack_graph invariant).
+        self.cols = max(GRAPH_MIN_V, _pow2(n))
+        self._C = np.zeros(
+            (self.n_levels, self.cols, max(1, self.cols // 32)),
+            np.uint32)
+
+    def grow(self, n: int) -> None:
+        """Widen the vertex space to ``n``. Free within the padded
+        bucket; crossing it re-closes once at the wider shape."""
+        if n <= self.n:
+            return
+        self.n = n
+        if self._C is None:
+            self._alloc(n)
+            return
+        if n <= self.cols:
+            return                      # pad columns were always zero
+        self._alloc(n)
+        self.stats["recloses"] += 1
+        for li in range(self.n_levels):
+            for u, v in self.edges[li]:
+                self._apply(li, u, v)
+
+    def _apply(self, li: int, u: int, v: int) -> bool:
+        """Close levels >= li under the new edge u → v against the
+        existing closure. Returns False when the edge was already
+        implied at every affected level."""
+        C = self._C
+        touched = False
+        wv, bv = v // 32, np.uint32(1 << (v % 32))
+        for l in range(li, self.n_levels):
+            if C[l, u, wv] & bv:
+                continue                # already implied at this level
+            # rows that reach u (plus u itself) gain v's reach plus v.
+            pred = (C[l, :, u // 32]
+                    & np.uint32(1 << (u % 32))).astype(bool)
+            pred[u] = True
+            reach = C[l, v].copy()
+            reach[wv] |= bv
+            C[l, pred] |= reach
+            self.stats["row_updates"] += int(pred.sum())
+            touched = True
+        return touched
+
+    # --------------------------------------------------------- updates
+    def add_edge(self, etype: str, u: int, v: int) -> None:
+        """One dependency edge of EDGE_TYPES kind ``etype`` (levels it
+        belongs to follow the cumulative LEVEL_TYPES masks)."""
+        hi = max(int(u), int(v)) + 1
+        if hi > self.n:
+            self.grow(hi)
+        li = next(i for i, types in enumerate(self.level_types)
+                  if etype in types)
+        self.edges[li].append((int(u), int(v)))
+        self.stats["edges"] += 1
+        if not self._apply(li, int(u), int(v)):
+            self.stats["implied"] += 1
+
+    def add_edges(self, etype: str, pairs) -> None:
+        for u, v in pairs:
+            self.add_edge(etype, u, v)
+
+    # --------------------------------------------------------- verdict
+    def reaches(self, li: int, u: int, v: int) -> bool:
+        return bool(self._C is not None
+                    and self._C[li, u, v // 32]
+                    & np.uint32(1 << (v % 32)))
+
+    def cyclic_levels(self) -> List[bool]:
+        """Per cumulative level: does the closure hold a diagonal bit?
+        (The device kernel's ``cyc`` output, derived incrementally.)"""
+        if self._C is None:
+            return [False] * self.n_levels
+        idx = np.arange(self.n)
+        return [bool((self._C[l, idx, idx // 32]
+                      >> (idx % 32).astype(np.uint32) & 1).any())
+                for l in range(self.n_levels)]
+
+    def anomaly(self) -> Optional[str]:
+        """The running verdict: the FIRST cumulative level whose mask
+        closed into a cycle, or None. Monotone in the edge stream."""
+        for li, cyc in enumerate(self.cyclic_levels()):
+            if cyc:
+                return self.names[li]
+        return None

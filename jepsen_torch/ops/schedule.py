@@ -61,8 +61,8 @@ What the reference's scheduler has and this one does not, by decision:
 the persistent XLA compilation cache, AOT executable shipping and
 kernel pre-warm (the port has no compile step: each CUDA library builds
 once, at first use, into ``build/jepsen_torch/``); the Pallas-versus-
-scan backend choice (one CUDA kernel serves both TPU forms); resident
-frontiers (the online slice); and donated buffers, which have no
+scan backend choice (one CUDA kernel serves both TPU forms); and donated
+buffers, which have no
 meaning for torch tensors.
 
 The degradation ladder is the reference's. Every chunk is copied back
@@ -96,9 +96,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from .cuda_wgl import MAX_GROUP_MEMBERS, n_state_words, smem_plan
 from .device import resolve_device
-from .encode import EncodedBatch, merge_batches
+from .encode import EMPTY, EV_CLOSE, EV_OK, EncodedBatch, merge_batches
 from .faults import (INT32_MAX, CorruptOutput, FaultInjector,
                      WatchdogExpired, classify_failure, corrupt_arrays,
                      validate_decoded)
@@ -352,14 +353,16 @@ class ResidentState:
         learned, so the next batch plans under them;
       * ``awaited`` — the kernel shapes already awaited once, so the
         watchdog's first-wait grace is paid once per process;
-      * ``batches`` — schedulers adopted.
-
-    The reference's carried frontiers (``frontiers``) come with the
-    online slice."""
+      * ``frontiers`` — per-tenant ResidentFrontier objects (the online
+        daemon's carried WGL search state), keyed by (tenant key,
+        writer incarnation): a delta tick resumes the frontier the
+        previous tick left instead of re-walking from op 0;
+      * ``batches`` — schedulers adopted."""
 
     def __init__(self):
         self.safe_bp: Dict = {}
         self.awaited: set = set()
+        self.frontiers: Dict = {}
         self.batches = 0
 
     def adopt(self, sch) -> None:
@@ -367,6 +370,432 @@ class ResidentState:
         sch._safe_bp = self.safe_bp
         sch._awaited_shapes = self.awaited
         self.batches += 1
+
+
+# ------------------------------------------------- resident device frontier
+
+class FrontierInvalid(Exception):
+    """The carried frontier cannot soundly extend to the new prefix: the
+    vocabulary outgrew the enumerated space non-monotonically, the
+    pending window outgrew the mask axis, or the buffer no longer holds
+    the frontier's consumed prefix. Callers rebuild from op 0 (one
+    full-cost tick, still exact); the online engine counts each as a
+    frontier invalidation."""
+
+
+class ResidentFrontier:
+    """Per-tenant resident WGL search state: the online daemon's
+    O(new ops) seam, a copy of the reference's.
+
+    Holds, across rolling prefix checks of ONE live history:
+
+      * the packed frontier carry (F / Fb / valid / bad, the resume
+        kernel's contract, linearize.run_carried_events), advanced
+        permanently over the *stable* prefix;
+      * the pending-invocation window at the stable point (slot table,
+        free mask, live invocations awaiting completion), so the next
+        tick's events continue the same slot numbering;
+      * the kind-vocabulary watermark (grow-only; growth re-enumerates
+        the state space and keeps the carry only when the existing
+        states survive as a prefix, else the frontier invalidates; a
+        state count crossing a 32-state word widens the carry,
+        linearize.grow_frontier_states).
+
+    The stable point is the earliest still-open invocation: every op
+    before it has its completion in the buffer, so its encoding can
+    never change. Events at or past it (the volatile tail, dangling
+    invocations held open) are re-encoded each tick from a snapshot of
+    the walk state and checked from a copy of the carry, so the interim
+    verdict is exactly the full-prefix verdict while a tick's device
+    work is O(new ops + open window): one resume launch for the frozen
+    events and one for the tail, a single row at V padded to 32 x
+    words and W = peak window + 1.
+
+    The launches run on ``device`` (None: the CUDA card, which must
+    exist; "cpu" runs the plain version). ``export``/``restore`` carry
+    the state through the tenant's ChunkJournal frontier-checkpoint row
+    in the reference's JSON, so a checkpoint either package wrote
+    restores in the other."""
+
+    #: Mask-axis headroom over the observed peak window at build time:
+    #: absorbs the next invocation burst without a rebuild.
+    W_HEADROOM = 1
+
+    def __init__(self, model, *, max_states: Optional[int] = None,
+                 w: Optional[int] = None, device=None):
+        from .linearize import MAX_PACKED_STATES
+        self.model = model
+        self.device = resolve_device(device)
+        self.max_states = max_states or MAX_PACKED_STATES
+        self.kinds: List[tuple] = []
+        self.kind_index: Dict[tuple, int] = {}
+        self.space = None
+        self.W = w
+        self.pos = 0          # raw ops consumed into the frozen walk
+        self.seen = 0         # raw ops ingested into bookkeeping
+        self.n_events = 0     # frozen (permanently dispatched) events
+        self.table: List[int] = []
+        self.free = 0
+        self.live = 0
+        self.slot_of: Dict = {}       # process -> slot awaiting its OK
+        self.peak_live = 0
+        self.carry: Optional[dict] = None
+        self.latched_bad: Optional[int] = None
+        self.open_inv: Dict = {}      # process -> invoke position
+        self.completion: Dict[int, tuple] = {}  # invoke pos -> (t, val)
+        self._target_space = self._target_key = None
+        self.target = None
+        self.stats = {"advances": 0, "events": 0, "delta_ops": 0}
+        self.last_events = 0
+        self.last_delta_ops = 0
+
+    # ------------------------------------------------------- vocabulary
+    @property
+    def v_pad(self) -> int:
+        return 32 * max(1, -(-self.space.n_states // 32))
+
+    @property
+    def _k_rows(self) -> int:
+        return max(16, _pow2_ceil(len(self.kinds) + 1))
+
+    def _need_kind(self, kind: tuple) -> None:
+        from .linearize import grow_frontier_states
+        from .statespace import enumerate_statespace
+        if kind in self.kind_index:
+            return
+        kinds2 = self.kinds + [kind]
+        space2 = enumerate_statespace(self.model, kinds2,
+                                      self.max_states)
+        carried = self.carry is not None or self.n_events or self.pos
+        if self.space is not None and carried:
+            # The packed carry's state bits must stay aligned: growth is
+            # admissible only when the existing states survive as a
+            # PREFIX of the re-enumerated space. Before anything is
+            # carried, renumbering is harmless.
+            old_v = self.space.n_states
+            if (list(space2.kinds[:len(self.kinds)]) != self.kinds
+                    or space2.states[:old_v] != self.space.states):
+                raise FrontierInvalid(
+                    f"vocabulary growth renumbered the state space "
+                    f"({old_v} -> {space2.n_states} states)")
+            old_words = n_state_words(self.v_pad)
+            self.space = space2
+            new_words = n_state_words(self.v_pad)
+            if self.carry is not None and new_words != old_words:
+                self.carry = grow_frontier_states(self.carry, old_words,
+                                                  new_words)
+        else:
+            self.space = space2
+        self.kind_index[kind] = len(self.kinds)
+        self.kinds.append(kind)
+
+    def _refresh_target(self) -> None:
+        # The space the table was padded from is held and compared by
+        # identity: an id() key goes stale when enumerate_statespace's
+        # memo is cleared, the old space is freed and a newer one takes
+        # its address.
+        key = (self.v_pad, self._k_rows)
+        if self._target_space is not self.space or key != self._target_key:
+            self.target = self.space.padded_target(self.v_pad,
+                                                   self._k_rows - 1)
+            self._target_space, self._target_key = self.space, key
+
+    # ---------------------------------------------------------- ingest
+    def _ingest(self, ops) -> int:
+        """Fold newly arrived ops into the bookkeeping maps (open
+        invocations, completion knowledge, vocabulary). Returns the
+        count of new ops consumed."""
+        from ..history.ops import INVOKE, OK
+        from .statespace import canonical_value
+        n = len(ops)
+        new = n - self.seen
+        for p in range(self.seen, n):
+            o = ops[p]
+            if not o.is_client:
+                continue
+            if o.type == INVOKE:
+                self._need_kind((o.f, canonical_value(o.value)))
+                self.open_inv[o.process] = p
+            elif o.is_completion:
+                ip = self.open_inv.pop(o.process, None)
+                if ip is None:
+                    continue
+                self.completion[ip] = (o.type, o.value)
+                if o.type == OK:
+                    inv = ops[ip]
+                    v = inv.value if inv.value is not None else o.value
+                    self._need_kind((inv.f, canonical_value(v)))
+        self.seen = n
+        return max(0, new)
+
+    def _kind_of(self, inv, comp) -> int:
+        from ..history.ops import OK
+        from .statespace import canonical_value
+        v = inv.value
+        if v is None and comp is not None and comp[0] == OK:
+            v = comp[1]
+        return self.kind_index[(inv.f, canonical_value(v))]
+
+    # ------------------------------------------------------------ walks
+    def _walk(self, ops, lo: int, hi: int, state: dict,
+              events: List[tuple], *, volatile: bool) -> None:
+        """The encode walk over positions [lo, hi), with the per-history
+        semantics of ops.encode.encode_history: value-propagated
+        invocations allocate lowest-free-first, failed pairs drop,
+        never-ok identity invocations drop, :info (and, in the volatile
+        tail, dangling) invocations pin their slot forever, ok
+        completions emit one event snapshotting the pending table.
+        Mutates ``state`` and appends (slot, table-copy, op-position) to
+        ``events``."""
+        from ..history.ops import FAIL, INFO, INVOKE, OK
+        identity = self.space.identity_kinds if self.space else ()
+        table, slot_of = state["table"], state["slot_of"]
+        for p in range(lo, hi):
+            o = ops[p]
+            if not o.is_client:
+                continue
+            if o.type == INVOKE:
+                comp = self.completion.get(p)
+                if comp is not None and comp[0] == FAIL:
+                    continue                  # failed pair: both drop
+                kidx = self._kind_of(o, comp)
+                dangles = comp is None or comp[0] == INFO
+                if dangles and kidx in identity:
+                    continue                  # the identity-drop rule
+                if not volatile and comp is None:
+                    raise FrontierInvalid(
+                        "open invocation inside the frozen walk")
+                if not state["free"]:
+                    raise FrontierInvalid(
+                        f"pending window outgrew the W={self.W} "
+                        f"mask axis")
+                slot = (state["free"] & -state["free"]).bit_length() - 1
+                state["free"] &= state["free"] - 1
+                table[slot] = kidx
+                state["live"] += 1
+                self.peak_live = max(self.peak_live, state["live"])
+                if dangles:
+                    continue                  # pinned: never freed
+                slot_of[o.process] = slot
+            elif o.type == OK:
+                slot = slot_of.pop(o.process, None)
+                if slot is None:
+                    continue
+                events.append((slot, table.copy(), p))
+                table[slot] = EMPTY
+                state["free"] |= 1 << slot
+                state["live"] -= 1
+
+    def _state(self) -> dict:
+        return {"table": self.table, "free": self.free,
+                "live": self.live, "slot_of": self.slot_of}
+
+    def _dispatch(self, events: List[tuple], idx0: int, carry: dict,
+                  close_table: Optional[List[int]] = None) -> dict:
+        """Encode one event list (optionally + EV_CLOSE) and advance
+        ``carry`` through the resume kernel in one launch."""
+        from .linearize import run_carried_events
+        n = len(events) + (1 if close_table is not None else 0)
+        sent = self._k_rows - 1
+        ev_type = np.zeros(n, np.int8)
+        ev_slot = np.zeros(n, np.int8)
+        ev_slots = np.full((n, self.W), sent, np.int32)
+        for i, (slot, tab, _p) in enumerate(events):
+            ev_type[i] = EV_OK
+            ev_slot[i] = slot
+            for s, k in enumerate(tab):
+                if k != EMPTY:
+                    ev_slots[i, s] = k
+        if close_table is not None:
+            ev_type[n - 1] = EV_CLOSE
+            for s, k in enumerate(close_table):
+                if k != EMPTY:
+                    ev_slots[n - 1, s] = k
+        self._refresh_target()
+        with telemetry.span("dispatch", cat="device", family="frontier",
+                            V=self.v_pad, W=self.W, events=n,
+                            idx0=idx0):
+            out = run_carried_events(self.v_pad, self.W, self.target,
+                                     ev_type, ev_slot, ev_slots, idx0,
+                                     carry, device=self.device)
+        self.stats["events"] += n
+        self.last_events += n
+        return out
+
+    # ---------------------------------------------------------- advance
+    def advance(self, ops) -> Tuple[bool, Optional[int]]:
+        """Fold the buffer's new ops into the carried frontier and
+        decide the current full prefix: (valid, first-bad-op-position).
+        Raises FrontierInvalid when the carry cannot soundly extend
+        (callers rebuild); any other exception leaves the frontier
+        poisoned, and callers must drop it."""
+        from .linearize import frontier_carry_init
+        self.last_events = 0
+        self.last_delta_ops = 0
+        if self.latched_bad is not None:
+            # Linearizability is prefix-closed: once invalid, every
+            # longer prefix is invalid with the same first bad op.
+            return False, self.latched_bad
+        if self.pos > len(ops):
+            raise FrontierInvalid(
+                f"buffer ({len(ops)} ops) no longer contains the "
+                f"frontier's consumed prefix ({self.pos} ops)")
+        seen0 = self.seen
+        if self.W is None:
+            self._bootstrap(ops)
+        self._ingest(ops)
+        new = max(0, len(ops) - seen0)
+        self.stats["delta_ops"] += new
+        self.last_delta_ops = new
+        self.stats["advances"] += 1
+        if self.space is None:
+            return True, None             # no client ops yet
+        if self.carry is None:
+            self.carry = frontier_carry_init(self.v_pad, self.W)
+        stable = max(self.pos,
+                     min(self.open_inv.values(), default=len(ops)))
+        if stable > self.pos:
+            frozen: List[tuple] = []
+            st = self._state()
+            self._walk(ops, self.pos, stable, st, frozen,
+                       volatile=False)
+            self.free, self.live = st["free"], st["live"]
+            if frozen:
+                self.carry = self._dispatch(frozen, self.n_events,
+                                            self.carry)
+                if not bool(self.carry["valid"][0]):
+                    off = int(self.carry["bad"][0]) - self.n_events
+                    self.latched_bad = frozen[off][2]
+                    self.n_events += len(frozen)
+                    self.pos = stable
+                    return False, self.latched_bad
+                self.n_events += len(frozen)
+            self.pos = stable
+            for p in [p for p in self.completion if p < self.pos]:
+                del self.completion[p]
+        # Volatile tail: re-encoded each tick from a snapshot, checked
+        # from the carry (the resume kernel never mutates its inputs),
+        # dangling invocations held open, then the EV_CLOSE flush.
+        vstate = {"table": self.table.copy(), "free": self.free,
+                  "live": self.live, "slot_of": dict(self.slot_of)}
+        tail: List[tuple] = []
+        self._walk(ops, self.pos, len(ops), vstate, tail, volatile=True)
+        out = self._dispatch(tail, self.n_events, self.carry,
+                             close_table=vstate["table"])
+        if bool(out["valid"][0]):
+            return True, None
+        off = int(out["bad"][0]) - self.n_events
+        if not 0 <= off < len(tail):
+            raise FrontierInvalid(
+                f"bad-event ordinal {int(out['bad'][0])} outside the "
+                f"volatile tail")
+        return False, tail[off][2]
+
+    def _bootstrap(self, ops) -> None:
+        """First advance: size the mask axis from the buffer's true
+        peak window (one host scan) with headroom for the next burst."""
+        from .linearize import DATA_MAX_SLOTS
+        self._ingest(ops)
+        state = {"table": [EMPTY] * DATA_MAX_SLOTS,
+                 "free": (1 << DATA_MAX_SLOTS) - 1, "live": 0,
+                 "slot_of": {}}
+        self.W = DATA_MAX_SLOTS          # probe walk at the full width
+        if self.space is None:
+            # No client ops at all yet: enumerate the empty vocabulary.
+            self._need_kind(("__frontier_probe__", None))
+            self.kinds.pop()
+            del self.kind_index[("__frontier_probe__", None)]
+        probe: List[tuple] = []
+        self.peak_live = 0
+        self._walk(ops, 0, len(ops), state, probe, volatile=True)
+        w = max(2, self.peak_live + self.W_HEADROOM)
+        if w > DATA_MAX_SLOTS:
+            if self.peak_live <= DATA_MAX_SLOTS:
+                w = DATA_MAX_SLOTS
+            else:
+                raise FrontierInvalid(
+                    f"peak window {self.peak_live} beyond the "
+                    f"single-device mask axis")
+        self.W = w
+        self.table = [EMPTY] * w
+        self.free = (1 << w) - 1
+        self.live = 0
+        self.slot_of = {}
+        self.peak_live = 0
+
+    # ---------------------------------------------- checkpoint contract
+    def export(self) -> dict:
+        """The journal frontier-checkpoint row's payload: vocabulary
+        watermark, pending window and carried bitsets."""
+        from .linearize import export_frontier
+        return {"v": 1, "W": self.W, "pos": self.pos,
+                "n_events": self.n_events,
+                "kinds": [[f, _json_value(v)] for f, v in self.kinds],
+                "table": list(self.table), "free": self.free,
+                "live": self.live,
+                "slot_of": [[p, s] for p, s in self.slot_of.items()],
+                "peak_live": self.peak_live,
+                "latched_bad": self.latched_bad,
+                "carry": (export_frontier(self.carry)
+                          if self.carry is not None else None)}
+
+    @classmethod
+    def restore(cls, model, payload: dict, *,
+                max_states: Optional[int] = None, device=None
+                ) -> Optional["ResidentFrontier"]:
+        """Rehydrate a checkpointed frontier; None on any mismatch (the
+        caller rebuilds from op 0, the cache-miss path)."""
+        from .linearize import import_frontier
+        from .statespace import (StateSpaceExplosion, canonical_value,
+                                 enumerate_statespace)
+        device = resolve_device(device)
+        try:
+            if payload.get("v") != 1 or payload.get("W") is None:
+                return None
+            fr = cls(model, max_states=max_states, w=int(payload["W"]),
+                     device=device)
+            kinds = [(f, canonical_value(v))
+                     for f, v in payload["kinds"]]
+            if kinds:
+                fr.space = enumerate_statespace(model, kinds,
+                                                fr.max_states)
+                if list(fr.space.kinds) != kinds:
+                    return None
+            fr.kinds = kinds
+            fr.kind_index = {k: i for i, k in enumerate(kinds)}
+            fr.pos = fr.seen = int(payload["pos"])
+            fr.n_events = int(payload["n_events"])
+            fr.table = [int(x) for x in payload["table"]]
+            fr.free = int(payload["free"])
+            fr.live = int(payload["live"])
+            fr.slot_of = {p: int(s) for p, s in payload["slot_of"]}
+            fr.peak_live = int(payload["peak_live"])
+            lb = payload.get("latched_bad")
+            fr.latched_bad = None if lb is None else int(lb)
+            if len(fr.table) != fr.W:
+                return None
+            if payload.get("carry") is not None:
+                if fr.space is None:
+                    return None
+                fr.carry = import_frontier(payload["carry"], fr.v_pad,
+                                           fr.W)
+                if fr.carry is None:
+                    return None
+            return fr
+        except StateSpaceExplosion:
+            return None
+        except Exception:
+            return None
+
+
+def _json_value(v):
+    """Kind values round-trip through JSON: canonical tuples become
+    lists on disk and canonical_value() re-tuples them on restore."""
+    if isinstance(v, tuple):
+        return [_json_value(x) for x in v]
+    if isinstance(v, frozenset):
+        return sorted(_json_value(x) for x in v)
+    return v
 
 
 def _watched(sch, fn, deadline: float, what: str):

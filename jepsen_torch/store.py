@@ -1,18 +1,23 @@
 """The checker's write-ahead logs: copies of the reference's
 ``store.ChunkJournal`` and ``store.CampaignCheckpoint``, the digests that
-key them, and the store root campaigns write under.
+key them, and the part of the run store the online daemon reads.
 
 The file format is the reference's, so a journal written by either
 package resumes in the other: a header line ``{"journal": "JTJRNL1",
 "key": {...}}`` binding the journal to one exact batch, then one
 fsynced JSON line per retired chunk, ``{"rows": [...], "valid": [...],
 "bad": [...], "prov": [...]}``. The online daemon's frontier-checkpoint
-rows (``{"frontier": {...}}``) load, latest wins; writing them comes
-with the online slice. A campaign checkpoint has the reference's format
-too (``{"campaign": "JTCAMP1", "key": {...}}``, then ``started`` and
-``done`` lines per seed), so a campaign killed under one package resumes
-under the other. Of the run store only its root (``Store.base``) is
-ported.
+rows (``{"frontier": {...}}``, ``record_frontier``) load latest-wins and
+compact the file every ``FRONTIER_COMPACT_EVERY`` rows. A campaign
+checkpoint has the reference's format too (``{"campaign": "JTCAMP1",
+"key": {...}}``, then ``started`` and ``done`` lines per seed), so a
+campaign killed under one package resumes under the other.
+
+Of the run store (``Store``) the port keeps the root and what the online
+daemon (jepsen_torch.online) calls: the run listing (``tests``,
+``incomplete``, ``run_dir``), the persisted tenant registry and the
+per-run online artifacts beside each WAL (the names below). Creating,
+salvaging and re-checking runs stay with the reference.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import json
 import logging
 import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -29,6 +34,24 @@ JOURNAL_MAGIC = "JTJRNL1"
 # Campaign-checkpoint header magic (CampaignCheckpoint).
 CAMPAIGN_MAGIC = "JTCAMP1"
 BASE = Path("store")
+
+# The online daemon's per-run artifacts beside the WAL: the decided-
+# prefix journal, the durable final verdict, the overload-deferred
+# mark, the first-violation record and the live isolation monitor's
+# downgrade record; and the store-level tenant registry it persists
+# each tick.
+ONLINE_JOURNAL = "online.journal.jsonl"
+ONLINE_VERDICT = "online-verdict.json"
+ONLINE_DEFERRED = "online-deferred.json"
+FIRST_VIOLATION = "first-violation.json"
+ONLINE_ISO = "online-iso.json"
+ONLINE_REGISTRY = "online-registry.json"
+
+# Directories under the store that hold coordination or diagnostics
+# state, never runs: Store.tests() skips them.
+FLEET_DIR = "fleet"
+SERVICE_DIR = "service"
+TELEMETRY_DIR = "telemetry"
 
 log = logging.getLogger("jepsen.store")
 
@@ -40,12 +63,87 @@ class CampaignMismatch(ValueError):
 
 
 class Store:
-    """The store root campaigns keep their state under (``base/<name>``).
-    The reference's Store also creates and loads runs; the port keeps
-    only the root."""
+    """The store root (``base/<test-name>/<timestamp>/`` a run): what
+    campaigns and the online daemon read and write under it."""
 
     def __init__(self, base=BASE):
         self.base = Path(base)
+
+    def tests(self) -> Dict[str, List[str]]:
+        """{test-name: [timestamps]} of stored runs. Symlinks (latest,
+        latest-incomplete) and the coordination directories are never
+        runs."""
+        out: Dict[str, List[str]] = {}
+        if not self.base.exists():
+            return out
+        for name_dir in sorted(self.base.iterdir()):
+            if (not name_dir.is_dir() or name_dir.is_symlink()
+                    or name_dir.name in ("latest", SERVICE_DIR,
+                                         TELEMETRY_DIR)):
+                continue
+            runs = [d.name for d in sorted(name_dir.iterdir())
+                    if d.is_dir() and not d.is_symlink()
+                    and d.name not in ("latest", FLEET_DIR)]
+            if runs:
+                out[name_dir.name] = runs
+        return out
+
+    def incomplete(self, include_salvaged: bool = False) -> List[tuple]:
+        """(test_name, ts) of runs with a live-WAL segment and no
+        results.json: still running, or crashed. Runs already salvaged
+        (salvage.json at least as new as the WAL) are skipped unless
+        ``include_salvaged``."""
+        from .history.wal import WAL_FILE
+        out = []
+        for name, runs in self.tests().items():
+            for ts in runs:
+                d = self.base / name / ts
+                if not (d / WAL_FILE).exists() or \
+                        (d / "results.json").exists():
+                    continue
+                if not include_salvaged:
+                    try:
+                        sj = d / "salvage.json"
+                        if sj.exists() and sj.stat().st_mtime >= \
+                                (d / WAL_FILE).stat().st_mtime:
+                            continue
+                    except OSError:
+                        pass
+                out.append((name, ts))
+        return out
+
+    def run_dir(self, test_name: str, ts: str = "latest") -> Path:
+        return self.base / test_name / ts
+
+    def save_online_registry(self, reg: dict) -> None:
+        """Persist the online daemon's tenant registry (display and
+        resume state, never a correctness gate)."""
+        self.base.mkdir(parents=True, exist_ok=True)
+        atomic_write_json(self.base / ONLINE_REGISTRY, reg)
+
+    def _run_json(self, test_name: str, ts: str, name: str
+                  ) -> Optional[dict]:
+        try:
+            f = self.run_dir(test_name, ts) / name
+            return json.loads(f.read_text()) if f.exists() else None
+        except Exception:
+            return None
+
+    def online_verdict(self, test_name: str, ts: str) -> Optional[dict]:
+        """The daemon's durable final verdict for a run, or None while
+        the run is still being tailed or was never watched."""
+        return self._run_json(test_name, ts, ONLINE_VERDICT)
+
+    def first_violation(self, test_name: str, ts: str) -> Optional[dict]:
+        """Which op first made the run invalid, and at what prefix the
+        daemon caught it."""
+        return self._run_json(test_name, ts, FIRST_VIOLATION)
+
+    def online_iso(self, test_name: str, ts: str) -> Optional[dict]:
+        """The live isolation monitor's durable downgrade record, or
+        None while the run holds serializability (or is not
+        transactional)."""
+        return self._run_json(test_name, ts, ONLINE_ISO)
 
 
 DEFAULT = Store()
@@ -75,6 +173,7 @@ class ChunkJournal:
         self.resume_hits = 0
         self._decided: Dict[int, tuple] = {}
         self._frontier: Optional[dict] = None
+        self._stale_frontier_rows = 0
         self._good_end = 0     # byte offset past the last clean line
         if resume and self.path.exists():
             self._load()
@@ -157,6 +256,49 @@ class ChunkJournal:
         """The latest frontier-checkpoint payload recovered on resume,
         or None."""
         return self._frontier
+
+    #: Superseded frontier rows tolerated before the journal compacts in
+    #: place: only the latest checkpoint is ever used.
+    FRONTIER_COMPACT_EVERY = 64
+
+    def record_frontier(self, payload: dict) -> None:
+        """Append one frontier-checkpoint row, fsynced like every chunk
+        verdict. Every FRONTIER_COMPACT_EVERY rows the journal rewrites
+        itself (atomic tmp and rename) down to the header, the decided
+        rows and this one checkpoint."""
+        self._frontier = payload
+        self._stale_frontier_rows += 1
+        if self._stale_frontier_rows >= self.FRONTIER_COMPACT_EVERY:
+            self._compact()
+        else:
+            self._f.write(json.dumps({"frontier": payload}) + "\n")
+            self._flush()
+
+    def _compact(self) -> None:
+        """Rewrite the journal as header, one consolidated decided-rows
+        record and the latest frontier row, atomically: a kill
+        mid-compact leaves the old file or the new one."""
+        tmp = self.path.parent / (self.path.name + f".tmp{os.getpid()}")
+        with open(tmp, "w") as f:
+            f.write(json.dumps(
+                {"journal": JOURNAL_MAGIC, "key": self.key}) + "\n")
+            if self._decided:
+                rows = sorted(self._decided)
+                f.write(json.dumps({
+                    "rows": rows,
+                    "valid": [self._decided[r][0] for r in rows],
+                    "bad": [self._decided[r][1] for r in rows],
+                    "prov": [self._decided[r][2] for r in rows],
+                }) + "\n")
+            if self._frontier is not None:
+                f.write(json.dumps({"frontier": self._frontier}) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        self.close()
+        os.replace(tmp, self.path)
+        self._f = open(self.path, "a")
+        self._flush()
+        self._stale_frontier_rows = 0
 
     def close(self) -> None:
         try:

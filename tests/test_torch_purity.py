@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
             "jepsen_torch.store", "jepsen_torch.runtime",
             "jepsen_torch.fuzz", "jepsen_torch.provision",
             "jepsen_torch.parallel.mesh", "jepsen_torch.parallel.frontier",
-            "jepsen_torch.ops.cuda_shard", "jepsen_torch.native"
+            "jepsen_torch.ops.cuda_shard", "jepsen_torch.native",
+            "jepsen_torch.online", "jepsen_torch.history.wal",
+            "jepsen_torch.history.codec", "jepsen_torch.telemetry"
             } <= set(MODULES)
 
 
