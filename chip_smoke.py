@@ -156,12 +156,31 @@ Then the fault ladder's phases, after every kernel is built:
     grids), every launch held to the plain version from the same carry,
     every fourth delta verdict of each tenant held to
     ``check_batch_columnar`` of its prefix, every final verdict to the
-    post-mortem recheck, no frontier invalidated but where a new kind
-    renumbered the state space, the new daemon restoring each tenant's
-    frontier checkpoint and dispatching only the suffix, five of the
-    tenants rerun with ``JT_ONLINE_DC=1`` to the same verdicts, and a
-    carry widened from one state word to two in place; with the host
-    split of a tick read from the span tracer (``online_path``).
+    post-mortem check and to ``Store.recheck`` of the stored run, no
+    frontier invalidated but where a new kind renumbered the state
+    space, the new daemon restoring each tenant's frontier checkpoint
+    and dispatching only the suffix, five of the tenants rerun with
+    ``JT_ONLINE_DC=1`` to the same verdicts, and a carry widened from
+    one state word to two in place; with the host
+    split of a tick read from the span tracer (``online_path``);
+  * the store's recheck path and the checker surface (``recheck_path``)
+    over stores the port's ``StoreHandle`` writes in a temporary
+    directory: 256 stored CAS runs of 1,000 ops rechecked from their
+    sidecars, through the native jsonl walk and through the Python walk
+    (the same ColumnarOps and result dicts), every run held to
+    ``check_batch_native`` and 8 to ``wgl_check``; the same recheck
+    killed mid-stream and resumed (no decided row dispatched again); 32
+    keyed runs of the headline's shape strained per key from test.json,
+    held to ``BatchLinearizableChecker`` (a ``linear.svg`` for every
+    invalid key) and to the native oracle; each fold family's good and
+    bad runs, total-queue at the bench's width, and bank, held to the
+    host checkers; 64 transactional runs through ``recheck_isolation``
+    held to ``check_txn_host``; a torn WAL salvaged and rechecked; the
+    ``recheck`` command in a child process; the ``competition`` backend
+    on 16 histories against both engines, and a child that exits right
+    after a race its card racer lost. Each recheck call prints its host
+    split (load, ingest, check, decode), its launches and the card's
+    device time by the profiler.
 
 Then the multi-device routes, on a mesh of the card named 8 times
 (``provision.provisioned``; until then nothing is provisioned, the
@@ -189,6 +208,8 @@ one-card host has no production mesh, and no sharded dispatch may run):
     data1wide time on them, with K1's bound on those rows shared out
     over its three kernels.
 
+``python3 chip_smoke.py --recheck`` builds the kernels and runs
+``recheck_path`` alone.
 ``python3 chip_smoke.py --headline TREE [TREE ...]`` instead times the
 default ``check_synth`` on the keyed headline spec in each checkout
 given, in that order (for example parent, change, change, parent).
@@ -232,6 +253,7 @@ import multiprocessing
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -5510,6 +5532,7 @@ def phase_online_path(dev, L, cas):
     from jepsen_torch import telemetry
     from jepsen_torch.history.codec import read_jsonl
     from jepsen_torch.online import _bad_index
+    from jepsen_torch.store import Store
     t_phase = time.perf_counter()
     hists, peak = online_store()
     out = {"phase": "online_path", "tenants": len(hists),
@@ -5581,6 +5604,14 @@ def phase_online_path(dev, L, cas):
             require(json.loads(json.dumps(t.result, default=repr))
                     == json.loads(json.dumps(post, default=repr)),
                     f"online_path {name}: final verdict != recheck")
+            # ... and against Store.recheck of the stored run, the
+            # daemon's parity contract, field for field.
+            stored = Store(base).recheck(
+                name, cas(), timestamps=["r1"],
+                device=dev)["runs"]["r1"]["results"]["history"]
+            require(json.loads(json.dumps(t.result, default=repr))
+                    == json.loads(json.dumps(stored, default=repr)),
+                    f"online_path {name}: final verdict != Store.recheck")
             verdicts[name] = (t.result["valid"], _bad_index(t.result),
                               (t.first_violation or {}).get("op_index"))
             # (d) the second daemon restored this tenant's checkpoint once.
@@ -5659,6 +5690,655 @@ def phase_online_path(dev, L, cas):
     out["verdicts"] = verdicts
     out["grow_carry"] = online_grow_carry(L, dev, cas)
     out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+# The store's recheck path (Store.recheck, recheck_family,
+# recheck_isolation, salvage, the recheck command) and the checker
+# surface (BatchLinearizableChecker, the competition backend) over stores
+# written by the port's StoreHandle in a temporary directory, at the
+# north star's widths; only counts are cut. cas-recheck: 256 runs (the
+# north star's 10,000 cut to 256) of 1,000 ops, each with its sidecar,
+# rechecked from the sidecars, through the native jsonl walk and through
+# the Python walk. cas-keyed: 32 runs (of 10,000) of the keyed headline's
+# shape. The fold families: a good and a seeded-bad run each, and
+# total-queue at the bench's width (64 runs of the bench's 2,000). 64
+# transactional runs (of the bench's 512). Competition: 16 of the
+# cas-recheck histories.
+RECHECK_RUNS = 256
+RECHECK_CAS = dict(n_procs=5, n_ops=1_000, n_values=5, corrupt=0.25)
+RECHECK_WGL_ORACLE = 8
+# The interrupted recheck's chunks (the scheduler's JT_SCHED_CHUNK_ROWS)
+# and the dispatch the kill plan stops at.
+RECHECK_KILL_CHUNK_ROWS = 32
+RECHECK_KILL_AT = 3
+RECHECK_KEYED_RUNS = 32
+RECHECK_TQ_RUNS = 64
+RECHECK_ISO = dict(n=64, seed=7, anomaly="mix")
+RECHECK_COMPETITION = 16
+# The fold families' stored runs: a good and a seeded-bad history each
+# (tests/test_store_cli_web.py:300-360's).
+RECHECK_FOLD_RUNS = {
+    "set": ([("invoke", 0, "add", 1), ("ok", 0, "add", 1),
+             ("invoke", 0, "add", 2), ("ok", 0, "add", 2),
+             ("invoke", 1, "read", None), ("ok", 1, "read", [1, 2])],
+            [("invoke", 0, "add", 1), ("ok", 0, "add", 1),
+             ("invoke", 0, "add", 2), ("ok", 0, "add", 2),
+             ("invoke", 1, "read", None), ("ok", 1, "read", [1])]),
+    "crdb-set": ([("invoke", 0, "add", 1), ("ok", 0, "add", 1),
+                  ("invoke", 1, "read", None), ("ok", 1, "read", [1])],
+                 [("invoke", 0, "add", 1), ("ok", 0, "add", 1),
+                  ("invoke", 0, "add", 2), ("ok", 0, "add", 2),
+                  ("invoke", 1, "read", None), ("ok", 1, "read", [2])]),
+    "queue": ([("invoke", 0, "enqueue", 7), ("ok", 0, "enqueue", 7),
+               ("invoke", 1, "dequeue", None), ("ok", 1, "dequeue", 7)],
+              [("invoke", 1, "dequeue", None), ("ok", 1, "dequeue", 9)]),
+    "total-queue": ([("invoke", 0, "enqueue", 7), ("ok", 0, "enqueue", 7),
+                     ("invoke", 1, "drain", None), ("ok", 1, "drain", [7])],
+                    [("invoke", 0, "enqueue", 7), ("ok", 0, "enqueue", 7),
+                     ("invoke", 0, "enqueue", 8), ("ok", 0, "enqueue", 8),
+                     ("invoke", 1, "drain", None), ("ok", 1, "drain", [7])]),
+    "ids": ([("invoke", 0, "generate", None), ("ok", 0, "generate", 1),
+             ("invoke", 1, "generate", None), ("ok", 1, "generate", 2)],
+            [("invoke", 0, "generate", None), ("ok", 0, "generate", 1),
+             ("invoke", 1, "generate", None), ("ok", 1, "generate", 1)]),
+    "counter": ([("invoke", 0, "add", 5), ("ok", 0, "add", 5),
+                 ("invoke", 1, "read", None), ("ok", 1, "read", 5)],
+                [("invoke", 0, "add", 5), ("ok", 0, "add", 5),
+                 ("invoke", 1, "read", None), ("ok", 1, "read", 99)]),
+    "bank": ([("invoke", 0, "read", None),
+              ("ok", 0, "read", {a: 10 for a in range(5)})],
+             [("invoke", 0, "read", None),
+              ("ok", 0, "read", {a: 7 for a in range(5)})]),
+}
+# Which kernel each fold family's recheck launches.
+RECHECK_FOLD_KERNEL = {"set": "fold_counts", "crdb-set": "fold_counts",
+                       "total-queue": "fold_counts", "ids": "fold_counts",
+                       "counter": "counter_scan", "queue": "queue_scan"}
+RECHECK_KERNELS = ("wgl_frontier", "wgl_frontier_group", "fold_counts",
+                   "counter_scan", "queue_scan", "txn_closure")
+
+# A child that races the competition backend once, on a fresh card
+# context (so the card's racer is still starting when the C++ engine
+# wins), and exits at once: the exit waits for the lost racer at most
+# RACER_EXIT_WAIT_S and must be clean.
+COMPETITION_CHILD = r"""
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from jepsen_torch.checkers.linearizable import linearizable
+from jepsen_torch.models.core import cas_register
+from jepsen_torch.workloads.synth import synth_cas_batch
+h = synth_cas_batch(1, 0, n_procs=5, n_ops=1000, n_values=5)[0]
+chk = linearizable("competition", device="cuda")
+t0 = time.perf_counter()
+r = chk.check({}, cas_register(), h)
+alive = [t.name for t in threading.enumerate() if t.name.startswith("compete")]
+print(json.dumps({"valid": r["valid"], "wins": chk.wins,
+                  "race_s": time.perf_counter() - t0, "racers_alive": alive}),
+      flush=True)
+sys.exit(0)
+"""
+
+
+def recheck_counts(L) -> dict:
+    from jepsen_torch.ops import cuda_folds, cuda_graph
+    return {"wgl_frontier": L.cuda_wgl.LAUNCHES,
+            "wgl_frontier_wide": L.cuda_wgl.WIDE_LAUNCHES,
+            "wgl_frontier_group": L.cuda_wgl.GROUP_LAUNCHES,
+            **cuda_folds.LAUNCHES, "txn_closure": cuda_graph.TXN_LAUNCHES,
+            "graph_closure": cuda_graph.LAUNCHES}
+
+
+def zero_recheck_counts(L) -> None:
+    from jepsen_torch.ops import cuda_folds, cuda_graph
+    zero_counts(L)
+    for e in cuda_folds.LAUNCHES:
+        cuda_folds.LAUNCHES[e] = 0
+    cuda_graph.TXN_LAUNCHES = cuda_graph.LAUNCHES = 0
+
+
+class RecheckClock:
+    """The host split of one recheck call, from clocks around the layers
+    it calls while active: ``load`` (stored runs read: the sidecars read
+    and assembled, Store._load_machine_forms, or histories parsed,
+    Store.load), ``ingest`` (jsonl_to_columnar, the text routes' walk),
+    ``check`` (check_columnar, check_batch_columnar, the fold batch
+    functions, certify_batch; less the decode) and ``decode`` (the
+    invalid rows' result dicts, ops.linearize._decode_result); the rest
+    of the call's wall (file reads, grouping) is ``other``. A layer
+    called inside itself is timed once. The ColumnarOps each outermost
+    check_columnar call received are kept."""
+
+    def __init__(self, L):
+        from jepsen_torch import isolation, store
+        from jepsen_torch.history import columnar
+        from jepsen_torch.ops import folds
+        self.L, self.store, self.columnar = L, store, columnar
+        self.folds, self.isolation = folds, isolation
+        self.s = collections.Counter()
+        self.cols = []
+        self._active = set()
+
+    def _wrap(self, obj, name, key, keep=None):
+        real = getattr(obj, name)
+
+        def timed(*a, **kw):
+            if key in self._active:
+                return real(*a, **kw)
+            if keep is not None:
+                keep(a, kw)
+            self._active.add(key)
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.s[key] += time.perf_counter() - t0
+                self._active.discard(key)
+        self._orig.append((obj, name, real))
+        setattr(obj, name, timed)
+
+    def __enter__(self):
+        self._orig = []
+        self._wrap(self.store.Store, "_load_machine_forms", "load")
+        self._wrap(self.store.Store, "load", "load")
+        self._wrap(self.columnar, "jsonl_to_columnar", "ingest")
+        self._wrap(self.L, "check_columnar", "check",
+                   lambda a, kw: self.cols.append(a[1]))
+        self._wrap(self.L, "check_batch_columnar", "check")
+        for name in FOLD_CHECKS.values():
+            self._wrap(self.folds, name, "check")
+        self._wrap(self.isolation, "certify_batch", "check")
+        self._wrap(self.L, "_decode_result", "decode")
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.wall = time.perf_counter() - self._t0
+        for obj, name, real in reversed(self._orig):
+            setattr(obj, name, real)
+        return False
+
+    def split(self) -> dict:
+        s = dict(self.s)
+        check = s.get("check", 0.0) - s.get("decode", 0.0)
+        out = {"load_s": s.get("load", 0.0), "ingest_s": s.get("ingest", 0.0),
+               "check_s": check, "decode_s": s.get("decode", 0.0)}
+        out["other_s"] = self.wall - sum(out.values())
+        out["wall_s"] = self.wall
+        return out
+
+
+def recheck_call(L, fn, label, totals):
+    """fn() under the recheck route's launch counts (set to 0 just
+    before, read just after, added to ``totals``), the host split
+    (RecheckClock) and the profiler's device time of every kernel and
+    copy it ran: (result, {"split_s", "launches", "device_ms",
+    "device_by_name", ...})."""
+    from torch.profiler import ProfilerActivity, profile
+    zero_recheck_counts(L)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with RecheckClock(L) as clock:
+            res = fn()
+            torch.cuda.synchronize()
+    counts = {k: v for k, v in recheck_counts(L).items() if v}
+    totals.update(counts)
+    by_name = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0))
+        if us:
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + us / 1e3
+    dev_ms = sum(by_name.values())
+    info = {"call": label, "split_s": clock.split(), "launches": counts,
+            "device_ms": dev_ms,
+            "device_share": dev_ms / 1e3 / clock.wall,
+            "device_by_name": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:8])}
+    return res, info, clock
+
+
+def cols_equal(a, b) -> bool:
+    return (list(a.kinds) == list(b.kinds) and all(
+        getattr(a, f).dtype == getattr(b, f).dtype
+        and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("type", "process", "kind", "index")))
+
+
+def jsonable(x):
+    return json.loads(json.dumps(x, default=repr))
+
+
+def verdict_of(r: dict) -> tuple:
+    return (r["valid"], (r.get("op") or {}).get("index"))
+
+
+def keyed_runs(S, n, **spec):
+    """``n`` histories of the keyed headline's shape (``spec`` overrides
+    its fields), generated on the card (K8a) and turned into Op lists
+    whose values are KV(key, value) (independent.KV), as an independent
+    test records them."""
+    from jepsen_torch.history.columnar import PAD, columnar_to_ops
+    from jepsen_torch.independent import KV
+    cols, _ = S.synthesize(S.SynthSpec(**dict(HEADLINE_SPEC, n=n, **spec)),
+                           "device")
+    out = []
+    for r in range(n):
+        ops = columnar_to_ops(cols, r)
+        keys = cols.key[r][cols.type[r] != PAD]
+        require(len(keys) == len(ops), "keyed_runs: lines and keys differ")
+        out.append([op.with_(value=KV(int(k), op.value))
+                    for op, k in zip(ops, keys)])
+    return out
+
+
+def fold_host(family, h):
+    """A fold family's host checker (checkers.simple) on one history, in
+    the batch fold's result shape; crdb-set against the port's CPU
+    path, bank against its own checker."""
+    from jepsen_torch.checkers import simple
+    from jepsen_torch.models.core import unordered_queue
+    from jepsen_torch.ops import folds as F
+    from jepsen_torch.recheck import BankChecker
+    if family == "crdb-set":
+        return F.check_crdb_sets_batch([h], device="cpu")[0]
+    if family == "bank":
+        return BankChecker().check({}, None, h)
+    checker, model = {
+        "set": (simple.SetChecker(), None),
+        "total-queue": (simple.TotalQueueChecker(), None),
+        "ids": (simple.UniqueIdsChecker(), None),
+        "counter": (simple.CounterChecker(), None),
+        "queue": (simple.QueueChecker(), unordered_queue())}[family]
+    r = checker.check(None, model, h)
+    if family == "queue" and r["valid"] is True:
+        r = {**r, "final-queue": dict(r["final-queue"].pending)}
+    return r
+
+
+class Children(dict):
+    """Child processes by name; those still running at exit are
+    killed."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.values():
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        return False
+
+
+def phase_recheck_path(dev, L, S, cas):
+    """The recheck path and the checker surface over stored runs on the
+    card (the stores and checks of the section above RECHECK_RUNS)."""
+    import tempfile
+
+    from jepsen_torch import native, recheck
+    from jepsen_torch.checkers.linearizable import linearizable, wgl_check
+    from jepsen_torch.history import columnar
+    from jepsen_torch.history.core import index
+    from jepsen_torch.history.ops import Op
+    from jepsen_torch.history.wal import WAL_FILE, HistoryWAL
+    from jepsen_torch.independent import (BatchLinearizableChecker,
+                                          history_keys, subhistory)
+    from jepsen_torch.isolation import certify_host
+    from jepsen_torch.native import wgl_check_native
+    from jepsen_torch.ops.faults import FaultInjector, FaultPlan, InjectedKill
+    from jepsen_torch.ops.synth_txn import TxnSpec, synth_txn_batch
+    from jepsen_torch.store import Store, StoreHandle
+    from jepsen_torch.workloads.synth import synth_cas_batch
+    t_phase = time.perf_counter()
+    out = {"phase": "recheck_path"}
+    totals = collections.Counter()
+    calls = []
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def call(fn, label):
+        res, info, clock = recheck_call(L, fn, label, totals)
+        calls.append(info)
+        emit({"recheck_call": label, **info})
+        return res, clock
+
+    # The two child processes run beside the phase's own work: the
+    # competition child from the start, the recheck command once the
+    # cas-recheck store is final. Each is waited for before the end.
+    with Children() as children, \
+            tempfile.TemporaryDirectory(prefix="recheck_path") as tmp:
+        children["competition_exit"] = subprocess.Popen(
+            [sys.executable, "-c", COMPETITION_CHILD, root],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        store = Store(os.path.join(tmp, "store"))
+        # cas-recheck: written with the sidecars.
+        t0 = time.perf_counter()
+        hists = [index(list(h)) for h in
+                 synth_cas_batch(RECHECK_RUNS, 0, **RECHECK_CAS)]
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, h in enumerate(hists):
+            store.create("cas-recheck", ts=f"r{i:03d}").save_history(
+                h, model=cas(), txt=False)
+        out["cas_store"] = {"runs": RECHECK_RUNS, **RECHECK_CAS,
+                            "generate_s": gen_s,
+                            "write_s": time.perf_counter() - t0}
+        ts_all = store.tests()["cas-recheck"]
+        # (1) the three ingest routes.
+        side, c_side = call(lambda: recheck.recheck_family(
+            store, "cas-recheck", "cas", device=dev), "cas_sidecar")
+        require(c_side.s["load"] > 0 and c_side.s["ingest"] == 0,
+                "recheck_path: the sidecar route did not run")
+        for t in ts_all:
+            os.unlink(store.run_dir("cas-recheck", t) / "history.cols.bin")
+        text, c_text = call(lambda: recheck.recheck_family(
+            store, "cas-recheck", "cas", device=dev), "cas_native_walk")
+        real_ingest = columnar.jsonl_to_columnar
+
+        def python_walk(model, texts, **kw):
+            return real_ingest(model, texts, native=False, **kw)
+        columnar.jsonl_to_columnar = python_walk
+        try:
+            py, c_py = call(lambda: recheck.recheck_family(
+                store, "cas-recheck", "cas", device=dev), "cas_python_walk")
+        finally:
+            columnar.jsonl_to_columnar = real_ingest
+        require(len(c_side.cols) == len(c_text.cols) == len(c_py.cols) == 1,
+                "recheck_path: one check_columnar call a route")
+        require(cols_equal(c_side.cols[0], c_text.cols[0])
+                and cols_equal(c_side.cols[0], c_py.cols[0]),
+                "recheck_path: the three ingest routes gave different "
+                "ColumnarOps")
+        require(json.dumps(side, default=repr) == json.dumps(text, default=repr)
+                == json.dumps(py, default=repr),
+                "recheck_path: the three routes gave different results")
+        runs = side["runs"]
+        require(sorted(runs) == ts_all, "recheck_path: runs missing")
+        # Every run against the native oracle; 8 to wgl_check, configs too.
+        t0 = time.perf_counter()
+        want = native.check_batch_native(cas(), hists)
+        diffs = [t for t, w in zip(ts_all, want)
+                 if verdict_of(runs[t]["results"]["history"])
+                 != verdict_of(w)]
+        require(not diffs, f"recheck_path: {len(diffs)} runs differ from "
+                           f"check_batch_native: {diffs[:5]}")
+        bad_runs = [i for i, w in enumerate(want) if w["valid"] is not True]
+        good_runs = [i for i, w in enumerate(want) if w["valid"] is True]
+        held = (bad_runs[:RECHECK_WGL_ORACLE // 2]
+                + good_runs[:RECHECK_WGL_ORACLE - len(
+                    bad_runs[:RECHECK_WGL_ORACLE // 2])])
+        # The columnar path's op dicts carry the row's dense process ids:
+        # the bad op by its index, and the configuration sample.
+        for i in held:
+            got = runs[ts_all[i]]["results"]["history"]
+            w = wgl_check(cas(), hists[i])
+            require(verdict_of(got) == verdict_of(w) and jsonable(
+                got.get("configs")) == jsonable(w.get("configs")
+                                                if w["valid"] is False
+                                                else None),
+                    f"recheck_path: run {ts_all[i]} differs from wgl_check")
+        out["cas_recheck"] = {"invalid": len(bad_runs),
+                              "oracle_native_diffs": 0,
+                              "wgl_check_held": len(held),
+                              "oracle_s": time.perf_counter() - t0,
+                              "routes_identical": True}
+
+        # (2) killed mid-stream, then resumed: no decided row dispatched
+        # again. The same chunking uninterrupted first.
+        os.environ["JT_SCHED_CHUNK_ROWS"] = str(RECHECK_KILL_CHUNK_ROWS)
+        try:
+            L.DISPATCH_LOG.clear()
+            full, _ = call(lambda: store.recheck(
+                "cas-recheck", cas(), device=dev), "cas_chunked")
+            full_rows = sum(n for *_, n in L.DISPATCH_LOG)
+            full_launches = dict(calls[-1]["launches"])
+            try:
+                store.recheck("cas-recheck", cas(), device=dev,
+                              faults=FaultInjector(FaultPlan.single(
+                                  "dispatch", "kill", chunk=RECHECK_KILL_AT)))
+                killed = False
+            except InjectedKill:
+                killed = True
+            require(killed, "recheck_path: the kill plan did not fire")
+            journal = store.base / "cas-recheck" / "recheck.journal.jsonl"
+            lines = journal.read_text().splitlines()[1:]
+            decided = sum(len(json.loads(x)["rows"]) for x in lines)
+            L.DISPATCH_LOG.clear()
+            resumed, _ = call(lambda: store.recheck(
+                "cas-recheck", cas(), device=dev, resume=True),
+                "cas_resumed")
+            resume_rows = sum(n for *_, n in L.DISPATCH_LOG)
+        finally:
+            del os.environ["JT_SCHED_CHUNK_ROWS"]
+        require(0 < decided < RECHECK_RUNS and
+                resumed["resume_hits"] == decided,
+                f"recheck_path: resume_hits {resumed.get('resume_hits')}, "
+                f"{decided} rows journaled")
+        require(resume_rows <= full_rows - decided,
+                f"recheck_path: the resumed run dispatched {resume_rows} "
+                f"rows, {full_rows} - {decided} were left")
+        require(not journal.exists(), "recheck_path: journal left behind")
+        for t in ts_all:
+            a, b = (x["runs"][t]["results"]["history"] for x in
+                    (resumed, side))
+            require(verdict_of(a) == verdict_of(b)
+                    and (a.get("resumed") or a == b),
+                    f"recheck_path: resumed run {t} differs")
+        for t in ts_all:
+            require(verdict_of(full["runs"][t]["results"]["history"])
+                    == verdict_of(side["runs"][t]["results"]["history"]),
+                    f"recheck_path: chunked recheck of {t} differs")
+        out["resume"] = {"chunk_rows": RECHECK_KILL_CHUNK_ROWS,
+                         "killed_at_dispatch": RECHECK_KILL_AT,
+                         "journaled_rows": decided,
+                         "resume_hits": resumed["resume_hits"],
+                         "rows_dispatched_full": full_rows,
+                         "rows_dispatched_resumed": resume_rows,
+                         "launches_full": full_launches,
+                         "launches_resumed": calls[-1]["launches"]}
+
+        # The recheck command over the cas-recheck store, in a child.
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root
+        children["cli"] = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_torch.cli", "recheck", "--test",
+             "cas-recheck", "--model", "cas"], cwd=tmp, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # (3) cas-keyed: per-key straining from test.json.
+        keyed = keyed_runs(S, RECHECK_KEYED_RUNS)
+        t0 = time.perf_counter()
+        for i, h in enumerate(keyed):
+            hd = store.create("cas-keyed", ts=f"k{i:03d}")
+            hd.save_test({"name": "cas-keyed",
+                          "invariants": {"independent": True}})
+            hd.save_history(index(h), txt=False)
+        keyed_write_s = time.perf_counter() - t0
+        kres, _ = call(lambda: recheck.recheck_family(
+            store, "cas-keyed", "cas", device=dev), "cas_keyed")
+        kts = store.tests()["cas-keyed"]
+        units = [(t, k, subhistory(k, h)) for t, h in zip(kts, keyed)
+                 for k in history_keys(h)]
+        t0 = time.perf_counter()
+        kwant = native.check_batch_native(cas(), [u for *_, u in units])
+        for (t, k, _), w in zip(units, kwant):
+            require(verdict_of(kres["runs"][t]["results"][k])
+                    == verdict_of(w),
+                    f"recheck_path: keyed {t} key {k} differs from the "
+                    f"native oracle")
+        keyed_oracle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chk = BatchLinearizableChecker(device=dev)
+        svgs = 0
+        for t, h in zip(kts, keyed):
+            art = StoreHandle(os.path.join(tmp, "artifacts", t))
+            r = chk.check({"store_handle": art}, cas(), h)
+            for k, rk in r["results"].items():
+                require(verdict_of(rk) == verdict_of(
+                    kres["runs"][t]["results"][k]),
+                    f"recheck_path: BatchLinearizableChecker {t} key {k}")
+            for k in r["failures"]:
+                require((art.dir / "independent" / str(k)
+                         / "linear.svg").exists(),
+                        f"recheck_path: no linear.svg for {t} key {k}")
+                svgs += 1
+        batch_checker_s = time.perf_counter() - t0
+        # The oracle spot check, on a keyed run short enough for it: the
+        # headline's shape at 64 ops over its 8 keys.
+        small = keyed_runs(S, 1, n_ops=64)[0]
+        spot = BatchLinearizableChecker(device=dev, oracle_spot=2).check(
+            {}, cas(), small)
+        require(spot.get("oracle-spot", {}).get("agree") is True
+                and len(spot["oracle-spot"]["keys"]) == 2,
+                f"recheck_path: oracle spot check {spot.get('oracle-spot')}")
+        out["cas_keyed"] = {
+            "runs": RECHECK_KEYED_RUNS, "units": len(units),
+            "invalid_keys": sum(w["valid"] is not True for w in kwant),
+            "linear_svg": svgs, "write_s": keyed_write_s,
+            "oracle_s": keyed_oracle_s,
+            "batch_checker_s": batch_checker_s,
+            "oracle_spot": spot["oracle-spot"]}
+
+        # (4) the fold families, total-queue at the bench's width, bank.
+        folds_out = {}
+        for family, (good, bad) in RECHECK_FOLD_RUNS.items():
+            name = f"fold-{family}"
+            runs_ = [[Op(process=p, type=ty, f=f, value=v)
+                      for ty, p, f, v in h] for h in (good, bad)]
+            if family == "total-queue":
+                runs_ += [fold_bench_history(s)
+                          for s in range(RECHECK_TQ_RUNS)]
+            for i, h in enumerate(runs_):
+                store.create(name, ts=f"f{i:03d}").save_history(
+                    index(h), txt=False)
+            res, _ = call(lambda: recheck.recheck_family(
+                store, name, family, device=dev), name)
+            loaded = store.load_histories(name)
+            fts = store.tests()[name]
+            for t, h in zip(fts, loaded):
+                require(res["runs"][t]["results"]["history"]
+                        == fold_host(family, h),
+                        f"recheck_path: {name} {t} differs from its host "
+                        f"checker")
+            require(res["runs"][fts[0]]["valid"] is True
+                    and res["runs"][fts[1]]["valid"] is False,
+                    f"recheck_path: {name}: good and bad runs")
+            if family in RECHECK_FOLD_KERNEL:
+                k = RECHECK_FOLD_KERNEL[family]
+                require(calls[-1]["launches"].get(k) == 1,
+                        f"recheck_path: {name} launches "
+                        f"{calls[-1]['launches']}")
+            folds_out[family] = {"runs": len(fts),
+                                 "invalid": sum(r["valid"] is not True
+                                                for r in res["runs"].values())}
+        out["folds"] = folds_out
+
+        # (5) isolation: held to check_txn_host.
+        pairs = synth_txn_batch(TxnSpec(**RECHECK_ISO))
+        for i, (h, _) in enumerate(pairs):
+            store.create("txn-recheck", ts=f"t{i:03d}").save_history(
+                h, txt=False)
+        ires, _ = call(lambda: store.recheck_isolation(
+            "txn-recheck", device=dev), "txn_isolation")
+        its = store.tests()["txn-recheck"]
+        iwant = certify_host(store.load_histories("txn-recheck"))
+        for t, w in zip(its, iwant):
+            require({**ires["runs"][t], "provenance": "host"} == w,
+                    f"recheck_path: txn {t} differs from check_txn_host")
+        out["isolation"] = {"runs": len(its), "levels": dict(
+            collections.Counter(r["level"] for r in ires["runs"].values()))}
+
+        # (6) salvage: a CAS run's WAL torn mid-line.
+        wal_dir = store.base / "salvage-cas" / "s000"
+        wal_dir.mkdir(parents=True)
+        wal = HistoryWAL(wal_dir / WAL_FILE, {"test": {"name": "salvage-cas"},
+                                              "seed": 9}, flush_ms=1e9)
+        wal.stamp_phase("run")
+        crashed = hists[bad_runs[0]]
+        cut = 3 * len(crashed) // 4 + 1
+        for op in crashed[:cut]:
+            wal.append_op(op)
+        wal.sync()
+        wal.close()
+        with open(wal_dir / WAL_FILE, "a") as f:
+            f.write('{"process": 3, "type": "invo')
+        st = store.salvage("salvage-cas", "s000", model=cas())
+        require(st["torn_tail"] and st["wal_ops"] == cut,
+                f"recheck_path: salvage stats {st}")
+        sres, _ = call(lambda: recheck.recheck_family(
+            store, "salvage-cas", "cas", timestamps=["s000"], device=dev),
+            "salvaged")
+        salvaged = store.load("salvage-cas", "s000")["history"]
+        sw = native.check_batch_native(cas(), [salvaged])[0]
+        require(verdict_of(sres["runs"]["s000"]["results"]["history"])
+                == verdict_of(sw), "recheck_path: salvaged run differs")
+        require(sres["telemetry"] == {"source": "recheck",
+                                      "salvaged_runs": ["s000"]},
+                f"recheck_path: salvage stamp {sres['telemetry']}")
+        out["salvage"] = {**st, "valid": sw["valid"]}
+
+        # (7) the recheck command: exit code 1 (corrupt runs are
+        # present), its runs those of recheck_family.
+        stdout, stderr = children["cli"].communicate(timeout=300)
+        require(children["cli"].returncode == 1,
+                f"recheck_path: the recheck command exited "
+                f"{children['cli'].returncode}: {stderr[-2000:]}")
+        line = json.loads(stdout.strip().splitlines()[-1])
+        require(line["runs"] == {t: r["valid"] for t, r in runs.items()},
+                "recheck_path: the command's runs differ")
+        out["cli"] = {"rc": 1, "invalid": sum(v is not True
+                                              for v in line["runs"].values())}
+
+        # (8) competition: each race against both engines, and a later
+        # launch on the default stream right after each race, while the
+        # lost racer may still run on its own stream.
+        comp = linearizable("competition", device=dev)
+        t0 = time.perf_counter()
+        for i, h in enumerate(hists[:RECHECK_COMPETITION]):
+            r = comp.check({}, cas(), h)
+            later = hists[-1 - i]
+            got_later = L.check_one(cas(), later, device=dev)
+            require(verdict_of(got_later) == verdict_of(
+                wgl_check_native(cas(), later)),
+                "recheck_path: a launch after a race differs")
+            for w in (wgl_check_native(cas(), h),
+                      L.check_one(cas(), h, device=dev)):
+                require(verdict_of(r) == verdict_of(w),
+                        f"recheck_path: competition row {i} differs")
+        comp_s = time.perf_counter() - t0
+        # The lost racers run out before the phase returns, so none of
+        # them launches under a later phase's timings.
+        t0 = time.perf_counter()
+        for t in threading.enumerate():
+            if t.name.startswith("compete-"):
+                t.join(60)
+                require(not t.is_alive(),
+                        f"recheck_path: racer {t.name} still runs after 60 s")
+        racers_join_s = time.perf_counter() - t0
+        child = children["competition_exit"]
+        stdout, stderr = child.communicate(timeout=120)
+        require(child.returncode == 0,
+                f"recheck_path: the competition child exited "
+                f"{child.returncode}: {stderr[-2000:]}")
+        out["competition"] = {"histories": RECHECK_COMPETITION,
+                              "wins": dict(comp.wins), "s": comp_s,
+                              "racers_join_s": racers_join_s,
+                              "exit_child": json.loads(
+                                  stdout.strip().splitlines()[-1])}
+    for k in RECHECK_KERNELS:
+        require(totals.get(k, 0) > 0,
+                f"recheck_path: {k} was not launched on the recheck route")
+    out["launches"] = dict(totals)
+    out["device_ms"] = sum(c["device_ms"] for c in calls)
+    out["calls_s"] = sum(c["split_s"]["wall_s"] for c in calls)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["device_share_of_phase"] = out["device_ms"] / 1e3 / out["phase_s"]
+    out["device_share_of_calls"] = out["device_ms"] / 1e3 / out["calls_s"]
+    emit({"recheck_launches": out["launches"]})
+    emit({"recheck_device_share": out["device_share_of_phase"],
+          "of_calls": out["device_share_of_calls"],
+          "device_ms": out["device_ms"], "phase_s": out["phase_s"]})
     emit(out)
     return out
 
@@ -6802,6 +7482,12 @@ def main() -> int:
     from jepsen_torch.ops.encode import bucket_encode
     from jepsen_torch.workloads.synth import synth_cas_batch
 
+    if sys.argv[1:] == ["--recheck"]:
+        smi = nvidia_smi()
+        build_kernels(L, cuda_synth)
+        phase_recheck_path(torch.device("cuda"), L, S, cas_register)
+        print(smi, flush=True)
+        return 0
     t_start = time.perf_counter()
     smi = nvidia_smi()
     dev = torch.device("cuda")
@@ -6876,6 +7562,8 @@ def main() -> int:
     # The online daemon over a live store (K1's resume entry), before the
     # mesh is provisioned.
     onl = phase_online_path(dev, L, cas_register)
+    # The store's recheck path and the checker surface over stored runs.
+    rch = phase_recheck_path(dev, L, S, cas_register)
     # The multi-device routes (K3), on the card named MESH_DEVICES times.
     mesh_err, mesh_tiers = phase_mesh_kernel_parity(dev, L)
     mesh = phase_mesh_path(dev, L, S, cas_register, synth_cas_batch,
@@ -6907,7 +7595,7 @@ def main() -> int:
         "check_synth_wide_w17": sum(w["launches"]["wgl_frontier_wide"]
                                     for w in main_k["wide"]),
         **dc_launches("wgl_frontier_wide")}
-    emit({"kernels": [{
+    kernels = [{
         "name": "wgl_frontier", "route": "cuda",
         "source": "jepsen_torch/ops/csrc/wgl_frontier.cu",
         "replaces": "jepsen_tpu/ops/pallas_wgl.py:190",
@@ -7026,7 +7714,12 @@ def main() -> int:
                         f"batched in {onl['plain']['groups']} calls",
         "all_launches_ms": onl["device_ms"], "floor_ms": onl["floor_ms"],
         "by_shape": onl["by_shape"]},
-        la_entry(la, la_err)] + mesh_entries(mesh, mesh_err, mesh_tiers)})
+        la_entry(la, la_err)] + mesh_entries(mesh, mesh_err, mesh_tiers)
+    for entry in kernels:
+        if entry["name"] in RECHECK_KERNELS:
+            entry["launches_by_path"]["recheck"] = \
+                rch["launches"][entry["name"]]
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-from .core import Checker
+from .brute import BruteChecker, brute, brute_check
+from .core import (AlwaysValid, Checker, Compose, FnChecker, always_valid,
+                   check, check_safe, compose, merge_valid)
 from .cycle import (CycleChecker, HostCycleChecker, check_graphs_batch,
                     cycle_checker, host_cycle_checker)
 from .linearizable import (LinearizableChecker, linearizable,
@@ -17,7 +19,10 @@ from ..ops.folds import (BatchFoldChecker, check_counters_batch,
                          unique_ids_checker_cuda)
 
 __all__ = [
-    "Checker", "LinearizableChecker", "linearizable", "prepare_history",
+    "Checker", "FnChecker", "AlwaysValid", "always_valid", "Compose",
+    "compose", "check", "check_safe", "merge_valid",
+    "BruteChecker", "brute", "brute_check",
+    "LinearizableChecker", "linearizable", "prepare_history",
     "wgl_check",
     "CycleChecker", "HostCycleChecker", "check_graphs_batch",
     "cycle_checker", "host_cycle_checker",

@@ -18,13 +18,16 @@ every completion. This exact formulation is also the spec for the CUDA
 path (jepsen_torch.ops.linearize), which represents the same
 configuration set densely as a bitset tensor ``[states, 2^pending]``.
 
-Backends:
-  host — this module's pure-Python engine (reference oracle).
-  cuda — the batched device path (jepsen_torch.ops.linearize.check_one);
-         histories beyond the kernel's static bounds go to the host engine.
+Backends (``LinearizableChecker``): host, this module's pure-Python
+engine (the reference oracle); native, its C++ twin; cuda, the batched
+device path (jepsen_torch.ops.linearize.check_one); competition, native
+and cuda raced; brute, the permutation-search oracle.
 """
 from __future__ import annotations
 
+import atexit
+import threading
+import time
 from typing import List, Optional
 
 from ..history.core import complete, without_failures
@@ -155,30 +158,186 @@ def _sample_configs(configs, n: int = 10):
     return out[:n]
 
 
+# Seconds the interpreter's exit waits, in all, for "competition" racers
+# that lost and still run: a racer left inside a launch, a copy or a
+# thread pool while the interpreter tears torch down can abort the exit.
+# Past this the exit goes on without them.
+RACER_EXIT_WAIT_S = 5.0
+
+_racers: set = set()
+_racers_lock = threading.Lock()
+_racers_drain_armed = False
+
+
+def _track_racer(t: threading.Thread) -> None:
+    global _racers_drain_armed
+    with _racers_lock:
+        _racers.add(t)
+        if not _racers_drain_armed:
+            atexit.register(_drain_racers)
+            _racers_drain_armed = True
+
+
+def _drain_racers() -> None:
+    deadline = time.monotonic() + RACER_EXIT_WAIT_S
+    with _racers_lock:
+        live = list(_racers)
+    for t in live:
+        t.join(max(0.0, deadline - time.monotonic()))
+
+
 class LinearizableChecker(Checker):
-    """Validates linearizability. ``backend`` picks the engine: "host" is
-    the exact Python search above; "native" its C++ twin
-    (jepsen_torch.native.wgl_check_native: the same verdict and bad op,
-    no configuration sample; built at first use, and a library that
-    cannot be built raises); "cuda" checks on the card through
-    ``ops.linearize.check_one`` (keyword arguments such as ``device``
-    pass through), with histories past the kernel's static bounds
-    decided by the host engine."""
+    """Validates linearizability. ``backend`` picks the engine:
+
+    - "host": the exact Python search above;
+    - "native": its C++ twin (jepsen_torch.native.wgl_check_native: the
+      same verdict and bad op, no configuration sample; built at first
+      use, and a library that cannot be built raises);
+    - "cuda": the card, through ``ops.linearize.check_one`` (keyword
+      arguments such as ``device`` pass through), with histories past
+      the kernel's static bounds decided by the host engine;
+    - "competition": races "native" against "cuda" and returns whichever
+      finishes first, the knossos :competition analog (the reference
+      exposes competition/linear/wgl at checker.clj:90-94; every WGL
+      engine here runs the same algorithm, so the race is across
+      hardware, not algorithms). Each racer receives only the keyword
+      arguments its engine accepts;
+    - "brute": the independent permutation-search oracle
+      (checkers/brute.py), a different algorithm, for small histories.
+
+    "cuda" and "competition" resolve their device when the checker is
+    made: with no ``device`` keyword and no CUDA device they raise."""
 
     def __init__(self, backend: str = "host", **kw):
-        if backend not in ("host", "native", "cuda"):
+        if backend not in ("host", "native", "cuda", "competition",
+                           "brute"):
             raise ValueError(f"unknown linearizability backend {backend!r}")
+        if backend in ("cuda", "competition"):
+            from ..ops.device import resolve_device
+            resolve_device(kw.get("device"))
         self.backend = backend
         self.kw = kw
+        # Engine wins of the "competition" backend, by engine name.
+        self.wins: dict = {}
+
+    def _compete(self, model, history) -> dict:
+        """First engine to finish wins (knossos.competition semantics).
+        The loser runs out on a daemon thread: neither engine can be
+        interrupted mid-search. At exit the interpreter waits for lost
+        racers still running, at most RACER_EXIT_WAIT_S in all, so a
+        wedged loser delays the exit by that much and no more. The
+        card's racer launches on a stream of its own, so a lost racer
+        still inside a launch or a copy neither holds up nor shares a
+        stream with the caller's later launches. A racer that raises
+        falls through to the other."""
+        import inspect
+        import queue
+
+        from ..native import wgl_check_native
+        from ..ops.linearize import check_one
+
+        def accepted(fn):
+            params = inspect.signature(fn).parameters
+            if any(p.kind is inspect.Parameter.VAR_KEYWORD
+                   for p in params.values()):
+                return dict(self.kw)     # **kw: everything passes through
+            return {k: v for k, v in self.kw.items() if k in params}
+
+        def on_side_stream(fn):
+            import torch
+
+            from ..ops.device import resolve_device
+            dev = resolve_device(self.kw.get("device"))
+            if dev.type != "cuda":
+                return fn
+
+            def run(*a, **kw):
+                with torch.cuda.device(dev), \
+                        torch.cuda.stream(torch.cuda.Stream(dev)):
+                    out = fn(*a, **kw)
+                    torch.cuda.current_stream(dev).synchronize()
+                return out
+            return run
+
+        results: "queue.Queue" = queue.Queue()
+
+        def race(name, fn, kw):
+            try:
+                results.put((name, fn(model, list(history), **kw), None))
+            except BaseException as e:   # noqa: BLE001 — relayed below
+                results.put((name, None, e))
+            finally:
+                with _racers_lock:
+                    _racers.discard(threading.current_thread())
+
+        for name, fn in (("native", wgl_check_native),
+                         ("cuda", check_one)):
+            t = threading.Thread(target=race,
+                                 args=(name, on_side_stream(fn)
+                                       if name == "cuda" else fn,
+                                       accepted(fn)),
+                                 name=f"compete-{fn.__name__}",
+                                 daemon=True)
+            _track_racer(t)
+            t.start()
+        name, r, err = results.get()
+        if err is None:
+            self.wins[name] = self.wins.get(name, 0) + 1
+            return r
+        # The first finisher crashed: fall through to the other.
+        name2, r2, err2 = results.get()
+        if err2 is None:
+            self.wins[name2] = self.wins.get(name2, 0) + 1
+            return r2
+        raise err
 
     def check(self, test, model, history, opts=None) -> dict:
-        if self.backend == "host":
-            return wgl_check(model, history, **self.kw)
-        if self.backend == "native":
+        # Seeded batch mode: the runner may have pooled this unit's
+        # verdict into one cross-run device dispatch (runtime.LinearPool);
+        # a pool miss computes normally. The brute backend never consults
+        # the pool: its purpose is an independently derived verdict, and
+        # the pool holds WGL results.
+        pooled = (None if self.backend == "brute"
+                  else _pooled_result(test, opts))
+        if pooled is not None:
+            r = pooled
+        elif self.backend == "host":
+            r = wgl_check(model, history, **self.kw)
+        elif self.backend == "native":
             from ..native import wgl_check_native
-            return wgl_check_native(model, history, **self.kw)
-        from ..ops.linearize import check_one
-        return check_one(model, history, **self.kw)
+            r = wgl_check_native(model, history, **self.kw)
+        elif self.backend == "cuda":
+            from ..ops.linearize import check_one
+            r = check_one(model, history, **self.kw)
+        elif self.backend == "competition":
+            r = self._compete(model, history)
+        else:
+            from .brute import brute_check
+            r = brute_check(model, history, **self.kw)
+        # Invalid analyses render to linear.svg in the run dir when a
+        # store is attached (checker.clj:98-103's knossos render). A
+        # render failure never alters the verdict: check_safe would
+        # otherwise downgrade a found violation to "unknown".
+        try:
+            from .linear_report import write_analysis
+            write_analysis(test, model, history, r, opts)
+        except Exception:
+            import logging
+            logging.getLogger("jepsen.checker").warning(
+                "linear.svg render failed", exc_info=True)
+        return r
+
+
+def _pooled_result(test, opts) -> Optional[dict]:
+    """This check's unit in the seeded-batch LinearPool, if one is armed
+    on the test map. The unit key is the independent key when this
+    checker runs lifted under independent.checker (threaded via opts),
+    else None for the whole history. Returns a copy (LinearPool.take)
+    so consumers never alias the pool."""
+    pool = test.get("_linear_pool") if isinstance(test, dict) else None
+    if pool is None:
+        return None
+    return pool.take(test, (opts or {}).get("independent_key"))
 
 
 def linearizable(backend: str = "host", **kw) -> Checker:

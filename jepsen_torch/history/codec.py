@@ -1,7 +1,7 @@
 """History serialization: one op a JSON line.
 
-A copy of the reference's ``history/codec.py`` (its text log,
-``write_txt``, is not ported): the same line format, so a history or a
+A copy of the reference's ``history/codec.py``, with its text log
+(``write_txt``, the human-readable ``history.txt``): the same line format, so a history or a
 WAL that either package writes reads back in the other. Tuples
 round-trip as lists; independent-key values (``independent.KV``), sets
 and bytes carry a tag so they come back as what they were.
@@ -116,3 +116,17 @@ def read_jsonl(path, tolerant: bool = False) -> List[Op]:
                     break
                 raise CorruptHistoryLine(path, lineno, e) from e
     return out
+
+
+def write_txt(path, history: Iterable[Op]) -> None:
+    """Human-readable log, one op a line (the reference's history.txt),
+    written as write_jsonl writes: the two forms of one history never
+    diverge by a torn write."""
+    path_s = str(path)
+    tmp = f"{path_s}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        for op in history:
+            f.write(str(op) + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path_s)

@@ -16,7 +16,8 @@ checkers.linearizable.prepare_history —
     ops.encode.dropped_invocations).
 
 Producers: the device generators (ops.synth_device), the legacy host
-stream (workloads.synth.synth_cas_columnar) and ``ops_to_columnar``;
+stream (workloads.synth.synth_cas_columnar), ``ops_to_columnar`` and
+``jsonl_to_columnar`` (stored histories);
 ``columnar_to_ops`` converts a row back to an Op
 list (for tests and for routing single rows to the host engine). The
 same code as the reference package's, so one batch converts to the same
@@ -233,6 +234,45 @@ def _seed_vocab(kinds: Optional[List[Tuple]]):
             vocab[k] = len(all_kinds)
             all_kinds.append(k)
     return vocab, all_kinds
+
+
+def jsonl_to_columnar(model, texts: Sequence, *,
+                      kinds: Optional[List[Tuple]] = None,
+                      max_states: int = 64,
+                      native: bool = True) -> ColumnarOps:
+    """Serialized histories (one history.jsonl content per entry, str or
+    bytes) straight onto the columnar path: the replay loader of the
+    store (store.clj:165-171 is the seam). ``native=True`` (default)
+    runs the pairing walk off the raw bytes in the C++ extension
+    (``native.ingest().walk_jsonl``, built at first use; a build or load
+    failure raises), with no per-op Python objects; a line its scanner
+    cannot place sends the whole batch to the codec parse and the Op
+    walk (``ops_to_columnar``), from the original seed vocabulary, since
+    the scanner may have extended its own before it stopped.
+    ``native=False`` parses with the codec and runs the Python walk, the
+    oracle. Both give the arrays ``ops_to_columnar`` gives on the parsed
+    histories."""
+    import json as _json
+
+    from .codec import loads_op, _revive
+
+    if native:
+        from ..native import ingest
+        vocab, all_kinds = _seed_vocab(kinds)
+
+        def parse(text):
+            return _revive(_json.loads(text))
+
+        bufs = ingest().walk_jsonl(list(texts), vocab, all_kinds, parse)
+        if bufs is not None:
+            return _pack_walk(model, _from_bufs(bufs), all_kinds,
+                              max_states)
+    hists = [[loads_op(line) for line in
+              (t.decode() if isinstance(t, bytes) else t).splitlines()
+              if line.strip()]
+             for t in texts]
+    return ops_to_columnar(model, hists, kinds=kinds,
+                           max_states=max_states, native=native)
 
 
 def ops_to_columnar(model, histories: Sequence[Sequence[Op]], *,

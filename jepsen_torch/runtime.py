@@ -1,5 +1,6 @@
-"""The synthesis seed campaign: the reference's ``runtime.synth_seed_summary``
-and ``runtime.run_synth_seeds``, trimmed to them.
+"""The synthesis seed campaign (the reference's ``runtime.synth_seed_summary``
+and ``runtime.run_synth_seeds``) and the seeded-batch verdict pool the
+linearizable checkers consult (``LinearPool``, ``_linear_unit_kinds``).
 
 A campaign checks one generated batch per seed (``spec`` with the seed
 folded in) through ``ops.linearize.check_synth``: the generator kernel
@@ -9,8 +10,14 @@ plain versions with ``device="cpu"``. Durability is the
 reference's: a ``store.CampaignCheckpoint`` over the seed list and one
 ``store.ChunkJournal`` per seed batch, both keyed by ``store.spec_digest``
 and in the reference's file formats, so a campaign killed under one
-package resumes under the other. The run store, the cluster runner and
-the telemetry spans of the reference's module are not ported.
+package resumes under the other.
+
+Of the pool only the class and the checker-tree walk are here: the
+checkers read a pool that a runner armed on the test map. The runner
+that arms it (the reference's ``run_seeds``, one pooled dispatch across
+seeded cluster runs) belongs to the cluster runner, which is not ported
+yet; nor are the run store lifecycle and the telemetry spans of the
+reference's module.
 """
 from __future__ import annotations
 
@@ -133,3 +140,54 @@ def run_synth_seeds(spec, seeds, *, synth: str = "device", model=None,
             ckpt.close()
     out["valid"] = out["invalid"] == 0
     return out
+
+
+class LinearPool:
+    """Precomputed linearizability verdicts for a batch of seeded runs.
+
+    ``results`` maps (run_index, independent_key_or_None) -> result
+    dict. The linearizable checkers consult the pool (via the
+    ``_linear_pool`` / ``_pool_run`` test keys) before dispatching an
+    engine; a miss falls back to normal computation, so the pool is an
+    accelerator, never a correctness gate."""
+
+    def __init__(self):
+        self.results: dict = {}
+
+    def take(self, test: dict, key) -> Optional[dict]:
+        """Pooled result for this test's (run, key) unit, copied so a
+        consumer's later mutation (render fields, fallback notes) cannot
+        alias the pool or another consumer's view."""
+        r = self.results.get((test.get("_pool_run"), key))
+        return dict(r) if r is not None else None
+
+
+def _linear_unit_kinds(checker) -> tuple:
+    """(per_key, whole): which unit shapes the checker tree will ask
+    the pool for: per-key subhistories (independent linearizable
+    lifts) and/or the whole history (plain linearizable)."""
+    from .checkers.core import Compose
+    from .checkers.linearizable import LinearizableChecker
+    from .independent import BatchLinearizableChecker, IndependentChecker
+
+    per_key = whole = False
+
+    def walk(c, lifted):
+        nonlocal per_key, whole
+        if isinstance(c, Compose):
+            for sub in c.checker_map.values():
+                walk(sub, lifted)
+        elif isinstance(c, BatchLinearizableChecker):
+            per_key = True
+        elif isinstance(c, IndependentChecker):
+            walk(c.checker, True)
+        elif isinstance(c, LinearizableChecker):
+            if c.backend == "brute":
+                return       # independent oracle: never pooled
+            if lifted:
+                per_key = True
+            else:
+                whole = True
+
+    walk(checker, False)
+    return per_key, whole

@@ -1,5 +1,5 @@
 """Span tracing and the metrics registry, trimmed to what the online
-daemon and the WAL report through.
+daemon, the WAL and a stored run's results report through.
 
 A copy of the reference's ``telemetry.py`` core:
 
@@ -334,4 +334,24 @@ def metrics_prefixed(prefix: str) -> dict:
         for k, v in (snap.get(kind) or {}).items():
             if k.startswith(prefix):
                 out[k] = v
+    return out
+
+
+def counters_delta(base: Optional[dict], now: dict) -> dict:
+    """``now`` with its counters re-expressed as deltas over ``base``
+    (zero deltas dropped). The registry is process-cumulative; a per-run
+    results.json block must not re-report earlier runs' traffic as this
+    run's: ``store.StoreHandle`` captures ``base`` when it is made and
+    ``save_results`` diffs against it. Gauges stay current-value;
+    histograms stay process-cumulative distributions. Returns {} when
+    nothing beyond stale counters remains."""
+    out = dict(now)
+    b = (base or {}).get("counters") or {}
+    if "counters" in out:
+        c = {k: v - b.get(k, 0) for k, v in out["counters"].items()
+             if v - b.get(k, 0)}
+        if c:
+            out["counters"] = c
+        else:
+            del out["counters"]
     return out

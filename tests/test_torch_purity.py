@@ -52,7 +52,11 @@ def test_importing_the_port_loads_no_jax():
             "jepsen_torch.parallel.mesh", "jepsen_torch.parallel.frontier",
             "jepsen_torch.ops.cuda_shard", "jepsen_torch.native",
             "jepsen_torch.online", "jepsen_torch.history.wal",
-            "jepsen_torch.history.codec", "jepsen_torch.telemetry"
+            "jepsen_torch.history.codec", "jepsen_torch.telemetry",
+            "jepsen_torch.recheck", "jepsen_torch.cli",
+            "jepsen_torch.checkers.brute",
+            "jepsen_torch.checkers.linear_report",
+            "jepsen_torch.checkers.core", "jepsen_torch.independent"
             } <= set(MODULES)
 
 
@@ -100,6 +104,53 @@ def test_fold_checks_need_a_card_unless_told(monkeypatch, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fold([h])
     assert len(fold([h], device="cpu")) == 1
+
+
+def test_recheck_entry_points_need_a_card_unless_told(monkeypatch,
+                                                    tmp_path, capsys):
+    from jepsen_torch import cli, recheck
+    from jepsen_torch.checkers.linearizable import linearizable
+    from jepsen_torch.history.core import index
+    from jepsen_torch.independent import BatchLinearizableChecker
+    from jepsen_torch.models.core import cas_register
+    from jepsen_torch.store import Store
+    from jepsen_torch.workloads.synth import synth_cas_batch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    s = Store("store")
+    s.create("t", ts="r0").save_history(index(synth_cas_batch(1, n_ops=6)[0]))
+    calls = [
+        lambda: s.recheck("t", cas_register()),
+        lambda: s.recheck("t", cas_register(), independent=True),
+        lambda: s.recheck_isolation("t"),
+        lambda: recheck.recheck_family(s, "t", "cas"),
+        lambda: recheck.recheck_family(s, "t", "bank"),
+        lambda: BatchLinearizableChecker(),
+        lambda: linearizable("cuda"),
+        lambda: linearizable("competition"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(SystemExit) as e:
+        cli.main(["recheck", "--test", "t", "--model", "cas"])
+    assert e.value.code == 255
+    assert s.recheck("t", cas_register(), device="cpu")["valid"] is True
+    with pytest.raises(SystemExit) as e:
+        cli.main(["recheck", "--test", "t", "--model", "cas",
+                  "--device", "cpu"])
+    assert e.value.code == 0
+
+
+def test_cli_without_a_card_says_so(tmp_path):
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "-m", "jepsen_torch.cli",
+                          "recheck", "--test", "t", "--model", "cas"],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 255
+    assert "no CUDA device" in out.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
